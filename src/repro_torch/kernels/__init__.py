@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/*.cu``, built by
+:mod:`repro_torch.kernels.build`), each beside its plain PyTorch version:
+
+* ``ssca_update`` — the fused Algorithm-1 server update.
+* ``secure_agg``  — streaming secure aggregation: quantize + counter-mode
+                    pair masks + Z_{2^32} sum in one pass.
+
+``ops`` holds the wrappers for parameter and message dicts.  No module
+here builds or loads a kernel at import: the build runs on a wrapper's
+first launch.
+"""

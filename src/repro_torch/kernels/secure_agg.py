@@ -1,0 +1,165 @@
+"""Streaming secure aggregation: the kernel wrapper and its plain version.
+
+The port of ``repro/kernels/secure_agg.py``.  One pass over the clients'
+messages fuses
+
+1. fixed-point quantization q_i = round(m_i · 2^scale_bits) → int32
+   (round half to even),
+2. counter-mode pair masks: the directed stream of client i against peer
+   j is ``mask_bits(pair_seed(k0, k1, min(i, j), max(i, j)), e)`` at flat
+   element index e, added for i < j and subtracted for i > j, and
+3. the Z_{2^32} sum of the masked uploads,
+
+and returns Σ_i q_i bit for bit: the masks cancel exactly in the ring.
+``alive`` (0/1 over the global client positions) drops clients: a dropped
+row uploads nothing and every survivor's stream against it is cancelled.
+
+On a CUDA tensor :func:`masked_sum_2d` launches the hand-written kernel
+``csrc/secure_agg.cu``; on a CPU tensor it runs :func:`masked_sum_plain`.
+
+torch has no ``>>`` or ``+`` on ``uint32`` on the CPU, so the plain PRF
+holds each uint32 word in an int64 and masks it to 32 bits after every
+operation.  An int64 product of two words can pass 2^63 and wrap, but its
+low 32 bits, the only ones kept, stay right.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import Device, on_cuda
+from repro_torch.kernels import build
+
+LANES = 128
+
+_MASK = 0xFFFFFFFF
+_M1 = 0x7FEB352D
+_M2 = 0x846CA68B
+_GOLD = 0x9E3779B9
+
+
+def _mix32(x):
+    """murmur3 fmix32 on uint32 words held in int64 (or Python ints)."""
+    x = x ^ (x >> 16)
+    x = (x * _M1) & _MASK
+    x = x ^ (x >> 15)
+    x = (x * _M2) & _MASK
+    return x ^ (x >> 16)
+
+
+def pair_seed(key0, key1, lo, hi):
+    """Shared mask-stream seed s_{lo,hi} of the ordered pair lo < hi."""
+    s = _mix32(key0 ^ ((lo * _GOLD) & _MASK))
+    s = _mix32(s ^ ((hi * _M1) & _MASK))
+    return _mix32(s ^ key1)
+
+
+def mask_bits(seed, counters):
+    """Counter-mode mask words: one uint32 (in int64) per position."""
+    h = _mix32(counters ^ seed)
+    return _mix32(h ^ ((seed + _GOLD) & _MASK))
+
+
+def quantize(m: torch.Tensor, scale_bits: int) -> torch.Tensor:
+    """Fixed-point grid 2^-scale_bits → int32 (round half to even)."""
+    return torch.round(m.float() * float(2.0 ** scale_bits)).to(torch.int32)
+
+
+def dequantize(q: torch.Tensor, scale_bits: int) -> torch.Tensor:
+    return q.float() / float(2.0 ** scale_bits)
+
+
+def _to_int32(words: torch.Tensor) -> torch.Tensor:
+    """uint32 words in int64 → the int32 with the same bits."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words) \
+        .to(torch.int32)
+
+
+def masked_sum_plain(msgs, key0: int, key1: int, *, scale_bits: int,
+                     num_clients: int, client_offset: int = 0,
+                     alive: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`masked_sum_2d`: each local
+    client's masked upload is formed in full, then the uploads are summed
+    mod 2^32."""
+    i_loc = msgs.shape[0]
+    out_shape = msgs.shape[1:]
+    flat = msgs.reshape(i_loc, -1)
+    counters = torch.arange(flat.shape[1], dtype=torch.int64,
+                            device=msgs.device)
+    alive_i = None if alive is None else [int(a) for a in alive.tolist()]
+    acc = torch.zeros_like(counters)
+    for li in range(i_loc):
+        i = client_offset + li
+        up = quantize(flat[li], scale_bits).to(torch.int64) & _MASK
+        for j in range(num_clients):
+            if j == i:
+                continue
+            coef = 1 if i < j else _MASK                  # −1 mod 2^32
+            if alive_i is not None:
+                coef *= alive_i[j]
+            if coef:
+                bits = mask_bits(pair_seed(key0, key1, min(i, j), max(i, j)),
+                                 counters)
+                up = (up + coef * bits) & _MASK
+        if alive_i is not None:
+            up = up * alive_i[i]
+        acc = (acc + up) & _MASK
+    return _to_int32(acc).reshape(out_shape)
+
+
+def masked_sum_2d(msgs: torch.Tensor, key0: int, key1: int, *,
+                  scale_bits: int, num_clients: int, client_offset: int = 0,
+                  alive: Optional[torch.Tensor] = None,
+                  device: Device = None) -> torch.Tensor:
+    """The streaming masked sum: (I_loc, R, 128) f32 → (R, 128) int32.
+
+    ``key0``/``key1`` are the round key words (ints < 2^32).  The local
+    rows are global clients [client_offset, client_offset + I_loc) of
+    ``num_clients``; ``alive`` is an optional (num_clients,) 0/1 tensor on
+    the messages' device.  A CPU tensor goes to :func:`masked_sum_plain`
+    (only with ``device="cpu"``); a CUDA tensor launches the kernel and
+    adds one to ``masked_sum_2d.launches``.
+    """
+    if msgs.dim() != 3 or msgs.shape[2] != LANES:
+        raise ValueError(f"masked_sum_2d takes (I_loc, R, {LANES}), got "
+                         f"{tuple(msgs.shape)}")
+    if not 1 <= int(scale_bits) <= 30:
+        raise ValueError(f"scale_bits={scale_bits} outside [1, 30]")
+    words = np.asarray([key0, key1, client_offset], np.int64)
+    if ((words < 0) | (words > _MASK)).any():
+        raise ValueError("key words and client_offset must be uint32")
+    if client_offset + msgs.shape[0] > num_clients:
+        raise ValueError(
+            f"rows [{client_offset}, {client_offset + msgs.shape[0]}) do not "
+            f"fit among num_clients={num_clients}")
+    if alive is not None and alive.shape != (num_clients,):
+        raise ValueError(f"alive must be ({num_clients},), got "
+                         f"{tuple(alive.shape)}")
+    if not on_cuda(msgs, device):
+        return masked_sum_plain(msgs, key0, key1, scale_bits=scale_bits,
+                                num_clients=num_clients,
+                                client_offset=client_offset, alive=alive)
+    if msgs.dtype != torch.float32 or not msgs.is_contiguous():
+        raise ValueError("masked_sum_2d takes contiguous f32 messages")
+    alive_ptr = None
+    if alive is not None:
+        if alive.device != msgs.device:
+            raise ValueError("alive must lie beside the messages")
+        alive = alive.to(torch.int32).contiguous()
+        alive_ptr = alive.data_ptr()
+    lib = build.load()
+    i_loc = msgs.shape[0]
+    out = torch.empty(msgs.shape[1:], dtype=torch.int32, device=msgs.device)
+    stream = torch.cuda.current_stream(msgs.device).cuda_stream
+    status = lib.masked_sum_launch(
+        msgs.data_ptr(), i_loc, out.numel(), int(scale_bits), int(key0),
+        int(key1), int(client_offset), int(num_clients), alive_ptr,
+        out.data_ptr(), stream)
+    build.check(status, "masked_sum")
+    masked_sum_2d.launches += 1
+    return out
+
+
+masked_sum_2d.launches = 0

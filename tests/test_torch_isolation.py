@@ -1,0 +1,119 @@
+"""The port stands alone, and its entry points never drop to the CPU.
+
+* Importing every ``repro_torch`` module loads neither ``jax`` nor any
+  ``repro`` module, and no source file of the port (nor
+  ``chip_smoke.py``) imports them.
+* Without a GPU, ``run_alg1`` and the kernel wrappers raise unless the
+  caller passes ``device="cpu"``.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.data import partition, synthetic
+from repro_torch.fed import runtime
+from repro_torch.kernels import ops, secure_agg, ssca_update
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_importing_the_port_loads_no_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _CHECK], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 20      # every module was imported
+
+
+_IMPORT = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_)|from\s+(jax|jaxlib|repro)\b(?!_))",
+    re.MULTILINE)
+
+
+def test_sources_import_no_jax_or_reference():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        hits = _IMPORT.findall(f.read_text())
+        assert not hits, (f, hits)
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_run_alg1_refuses_the_cpu_by_default(no_gpu):
+    data = synthetic.classification_dataset(40, 10, k=16, l=3)
+    part = partition.iid(40, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.run_alg1(data, part, batch_size=5, rounds=1)
+    # the same call runs when the CPU is asked for
+    _, hist = runtime.run_alg1(data, part, batch_size=5, rounds=1,
+                               hidden=4, device="cpu")
+    assert hist.rounds == [1]
+
+
+def test_kernel_wrappers_refuse_the_cpu_by_default(no_gpu):
+    x = torch.zeros(2, 128)
+    sc = torch.tensor([0.5, 0.5, 0.1, 0.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssca_update.ssca_update_2d(x, x, x, x, sc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        secure_agg.masked_sum_2d(x[None], 1, 2, scale_bits=20, num_clients=1)
+    tree = {"w": torch.zeros(3, 5)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.ssca_update(tree, tree, tree, tree, rho=0.5, gamma=0.5, tau=0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.secure_quant_sum({"w": torch.zeros(2, 5)},
+                             np.zeros(2, np.uint32), scale_bits=20)
+    before = (ssca_update.ssca_update_2d.launches,
+              secure_agg.masked_sum_2d.launches)
+    ssca_update.ssca_update_2d(x, x, x, x, sc, device="cpu")
+    secure_agg.masked_sum_2d(x[None], 1, 2, scale_bits=20, num_clients=1,
+                             device="cpu")
+    # the plain versions launch nothing
+    assert (ssca_update.ssca_update_2d.launches,
+            secure_agg.masked_sum_2d.launches) == before
+
+
+@pytest.mark.parametrize("num,offset,clients", [(3, 0, 2), (1, 10, 10),
+                                                (4, 7, 10)])
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_masked_sum_rows_must_fit_among_clients(no_gpu, num, offset,
+                                                clients, device):
+    # checked before the wrapper picks the kernel or the plain version, so
+    # the kernel never reads alive[] past num_clients
+    msgs = torch.zeros(num, 2, 128)
+    alive = torch.ones(clients, dtype=torch.int32)
+    with pytest.raises(ValueError, match="do not fit"):
+        secure_agg.masked_sum_2d(msgs, 1, 2, scale_bits=20,
+                                 num_clients=clients, client_offset=offset,
+                                 alive=alive, device=device)
+
+
+def test_cpu_tensor_with_cuda_device_raises():
+    x = torch.zeros(1, 128)
+    with pytest.raises(ValueError, match="asked for"):
+        ssca_update.ssca_update_2d(x, x, x, x, torch.zeros(4),
+                                   device="cuda")
