@@ -7,11 +7,13 @@ Phases (any failure raises; the script then exits non-zero without its
 last line):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` and print the build time;
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
+   parallel) and print the build time;
 2. hold every kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at edge shapes: ``ssca_update`` bit for bit
-   (both round every f32 operation separately), ``masked_sum`` bit for
-   bit, including one client's masked upload at ``client_offset = i``;
+   the paths' shapes and at edge shapes, all bit for bit:
+   ``ssca_update`` and ``compress`` (both round every f32 operation
+   separately), ``masked_sum`` (including one client's masked upload at
+   ``client_offset = i``) and ``sketch_encode`` (ring arithmetic);
 3. drive the main path once — ``run_alg1(secure=True, fused=True)`` on
    the paper's MLP (784 → 128 → 10) at full width: 60,000 samples over
    10 iid clients, B = 100, 20 rounds — with every launch counter set to
@@ -19,11 +21,19 @@ last line):
    once per round, that the costs are finite and falling, the ledger's
    uplink bytes, and that the run tracks the port's own CPU run of the
    same configuration;
-4. run the main path once more under ``torch.profiler`` and print the
+4. drive the compressed paths the same way, each at the main path's
+   data, partition and weights, 20 rounds, counters set to 0 just before
+   each run and read just after: ``topk(0.1, bits=8)`` + ``secure()``,
+   ``qsgd(8)`` plain, ``sketch(4, 1024, 0.02, keep=256)`` + ``secure()``;
+   check the launch counts, the ledger, finite costs (falling for qsgd
+   and top-k), and that a 5-round run on the card tracks the port's
+   5-round CPU run; print each path's round time and its device time by
+   kind under ``torch.profiler``;
+5. run the main path once more under ``torch.profiler`` and print the
    device time by kind and the device's busy share of the round loop;
-5. time each kernel and its plain version on the main path's shapes
-   (CUDA events around the replay of a CUDA graph of 50 calls, so the
-   host's launch overhead does not gate the device) and print one
+6. time each kernel and its plain version on the paths' shapes (CUDA
+   events around the replay of a CUDA graph of 50 calls, so the host's
+   launch overhead does not gate the device) and print one
    ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -59,6 +69,19 @@ OPS_PER_STREAM = 2 * 8 + 2 + 1
 OPS_PER_ROW = 3
 # f32 operations per element of the fused SSCA update
 FLOPS_SSCA = 14
+# one PRF word at a counter: the counter add, the xors with the two seed
+# words and two murmur3 finalizers of 8, then the word's conversion to f32
+OPS_PRF_WORD = 1 + 2 + 2 * 8 + 1
+# compress, per element: the PRF word (integer) and, in f32, the divide,
+# floor, subtract, scale of u, compare, add, two clip compares, the
+# multiply by the step, |x|, the threshold compare and the residual
+FLOPS_COMPRESS = 12
+# sketch_encode: per element, the rounding draw (integer) and 5 f32
+# operations (scale, floor, subtract, compare, add) and the int convert;
+# per nonzero level and sketch row, the row seed (1 + 1 + 8), the hash
+# word (19), the bucket mask, the sign select and the atomic add
+FLOPS_SKETCH = 5
+OPS_SKETCH_ROW = 10 + 19 + 3
 
 SCALE_BITS = 20
 ROUNDS = 20
@@ -158,7 +181,130 @@ def phase_kernel_parity(torch, su, sa):
         same = float((up == sa.quantize(main[i], SCALE_BITS)).float().mean())
         if same > 0.01:
             raise AssertionError(f"client {i}'s upload is not masked")
+    errs["compress"] = phase_compress_parity(torch, randn)
+    errs["sketch_encode"] = phase_sketch_parity(torch, randn)
     return errs
+
+
+def same_bits(torch, a, b):
+    """Bit for bit, with every NaN mapped to one pattern."""
+    nan = torch.tensor(float("nan"), device=a.device)
+    return torch.equal(torch.where(torch.isnan(a), nan, a).view(torch.int32),
+                       torch.where(torch.isnan(b), nan, b).view(torch.int32))
+
+
+def stream_scalars(torch, clients, base, sketch_seed=None):
+    """(I, 2) or (I, 3) int64 kernel scalars for clients 0..I-1."""
+    from repro_torch.kernels.compress import client_stream_seed
+    rows = [[client_stream_seed(0x8BADF00D, 0x1234567, c), base]
+            + ([] if sketch_seed is None else [sketch_seed])
+            for c in range(clients)]
+    return torch.tensor(rows, dtype=torch.int64, device="cuda")
+
+
+def compress_inputs(torch, x, *, topk_frac=None, bits=8, base=0):
+    """The scalars the compressed paths hand the kernel: θ from the top-k
+    of each client's message (or none) and Δ from its max."""
+    from repro_torch.fed.compression import _pow2_step
+    flat = x.reshape(x.shape[0], -1)
+    lbound = 2 ** (bits - 1) - 1
+    thr = torch.zeros(x.shape[0], device=x.device)
+    if topk_frac is not None:
+        k = math.ceil(topk_frac * flat.shape[1])
+        thr = torch.topk(flat.abs(), k, dim=1).values[:, k - 1]
+    delta = _pow2_step(flat.abs().amax(dim=1), lbound)
+    return (stream_scalars(torch, x.shape[0], base),
+            torch.stack([thr, delta], dim=1), lbound)
+
+
+def phase_compress_parity(torch, randn):
+    from repro_torch.kernels import compress as kc
+    errs = []
+
+    def check(x, su, sf, name, **kw):
+        got = kc.compress_2d(x, su, sf, **kw)
+        want = kc.compress_2d_plain(x, su, sf, **kw)
+        torch.cuda.synchronize()
+        if not all(same_bits(torch, a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"compress differs from plain: {name}")
+        log(f"compress: kernel == plain bit for bit: {name}")
+        ok = [torch.isfinite(a) & torch.isfinite(b) for a, b in zip(got, want)]
+        return max(float((a - b)[m].abs().max()) if m.any() else 0.0
+                   for a, b, m in zip(got, want, ok))
+
+    # the paths' shapes: top-k over the flattened message, qsgd per leaf
+    x = randn(CLIENTS, 794, 128, scale=1e-3)
+    su, sf, lb = compress_inputs(torch, x, topk_frac=0.1)
+    errs.append(check(x, su, sf, "topk(0.1, bits=8) at (10, 794, 128)",
+                      lbound=lb, quantize=True, masked=True))
+    for rows, base in ((784, 0), (10, 784 * 128)):
+        x = randn(CLIENTS, rows, 128, scale=1e-3)
+        su, sf, lb = compress_inputs(torch, x, base=base)
+        errs.append(check(x, su, sf, f"qsgd(8) leaf at (10, {rows}, 128), "
+                          f"counter base {base}", lbound=lb, quantize=True,
+                          masked=False))
+    # edges: a ragged leaf, NaN/inf/subnormal inputs, counters that wrap,
+    # every (quantize, masked) case
+    x = torch.nn.functional.pad(randn(3, 1000, scale=1e-3), (0, 24))
+    x = x.reshape(3, 8, 128)
+    x.view(-1)[:6] = torch.tensor([float("nan"), float("inf"),
+                                   -float("inf"), -0.0, 3e38, 1e-45])
+    su, sf, lb = compress_inputs(torch, torch.nan_to_num(x), topk_frac=0.1,
+                                 base=2 ** 32 - 300)
+    for quantize in (False, True):
+        for masked in (False, True):
+            check(x, su, sf, f"ragged n=1000, NaN/inf, counters wrapping, "
+                  f"quantize={quantize}, masked={masked}", lbound=lb,
+                  quantize=quantize, masked=masked)
+    return max(errs)
+
+
+def phase_sketch_parity(torch, randn):
+    from repro_torch.kernels import sketch as ks
+    errs = []
+
+    def check(x, su, name, **kw):
+        got = ks.sketch_encode(x, su, **kw)
+        want = ks.sketch_encode_plain(x, su, **kw)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"sketch_encode differs from plain: {name}, "
+                                 f"max abs difference {err}")
+        log(f"sketch_encode: kernel == plain bit for bit: {name}")
+        return got, err
+
+    # the path's shape: each client's top-256 pre-sparsified message
+    x = presparsified(torch, randn(CLIENTS, 794, 128, scale=1e-3), 256)
+    su = stream_scalars(torch, CLIENTS, 0, 0x5EEDC0DE)
+    sk, err = check(x, su, "(10, 794, 128) top-256, rows 4, cols 1024",
+                    rows=4, cols=1024, scale_bits=SCALE_BITS)
+    errs.append(err)
+    if not sk.any():
+        raise AssertionError("the sketch of a nonzero message is all zero")
+    dense = randn(3, 7, 128, scale=1e-3)
+    su3 = stream_scalars(torch, 3, 2 ** 32 - 200, 0x5EEDC0DE)
+    check(dense, su3, "dense ragged (3, 7, 128), counters wrapping, cols 1",
+          rows=3, cols=1, scale_bits=SCALE_BITS)
+    check(dense, su3, "dense (3, 7, 128), rows 8, cols 64", rows=8, cols=64,
+          scale_bits=SCALE_BITS)
+    zero, _ = check(torch.zeros_like(dense), su3, "all-zero message",
+                    rows=4, cols=1024, scale_bits=SCALE_BITS)
+    if zero.any():
+        raise AssertionError("the sketch of a zero message is not zero")
+    dense.view(-1)[:4] = torch.tensor([float("nan"), float("inf"),
+                                       -float("inf"), 3e9])
+    check(dense, su3, "NaN/inf inputs (saturating)", rows=4, cols=64,
+          scale_bits=SCALE_BITS)
+    return max(errs)
+
+
+def presparsified(torch, x, keep):
+    """Each client's top-``keep`` entries, the rest zero: what the
+    count-sketch hands its encode kernel."""
+    flat = x.reshape(x.shape[0], -1)
+    thr = torch.topk(flat.abs(), keep, dim=1).values[:, keep - 1:]
+    return torch.where(flat.abs() >= thr, flat, 0.0).reshape(x.shape)
 
 
 def phase_main_path(torch, su, sa, data, part, params, runtime):
@@ -217,6 +363,126 @@ def phase_main_path(torch, su, sa, data, part, params, runtime):
     return launches, h_gpu
 
 
+# the compressed paths: (name, compressor, secure, launches over ROUNDS
+# rounds, uplink bytes per round, downlink bytes per round)
+def compressed_paths():
+    from repro_torch.fed import compression, sketch
+    per = ROUNDS
+    return [
+        ("topk8_secure", compression.topk(0.1, bits=8), True,
+         {"compress": per, "sketch_encode": 0, "masked_sum": per,
+          "ssca_update": per}, 4_065_640, 4_065_280),
+        ("qsgd8_plain", compression.qsgd(8), False,
+         {"compress": 2 * per, "sketch_encode": 0, "masked_sum": 0,
+          "ssca_update": per}, 1_016_400, 4_065_280),
+        ("sketch_secure", sketch.sketch(4, 1024, 0.02, keep=256), True,
+         {"compress": 0, "sketch_encode": per, "masked_sum": 2 * per,
+          "ssca_update": per}, 245_520, 4_146_600),
+    ]
+
+
+CARD_CPU_ROUNDS = 5
+
+
+def device_us_by_kind(torch, prof):
+    """Device time (µs) of one profiled run, summed by kernel kind, and
+    the five largest names among the "other" kind."""
+    us = {"masked_sum": 0.0, "ssca_update": 0.0, "compress": 0.0,
+          "sketch_encode": 0.0, "staging_htod": 0.0, "other": 0.0}
+    other = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for k in ("masked_sum", "ssca_update", "compress",
+                                 "sketch_encode") if f"{k}_kernel" in e.name),
+                    "staging_htod" if "HtoD" in e.name else "other")
+        us[kind] += e.time_range.elapsed_us()
+        if kind == "other":
+            other[e.name[:80]] = other.get(e.name[:80], 0.0) \
+                + e.time_range.elapsed_us()
+    return us, sorted(other.items(), key=lambda kv: -kv[1])[:5]
+
+
+def phase_compressed_paths(torch, kernels, data, part, params, runtime,
+                           card):
+    """The compressed and sketched uploads at full width on the card, with
+    counted launches; returns the launches of each path."""
+    from torch.profiler import ProfilerActivity, profile
+    by_path = {}
+    for name, comp, secure, want, up, down in compressed_paths():
+        kw = dict(batch_size=100, eval_every=10, seed=0, secure=secure,
+                  fused=True, params=params, compressor=comp)
+        for fn in kernels.values():
+            fn.launches = 0
+        p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda",
+                                        rounds=ROUNDS, **kw)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        log(f"{name}: launches over {ROUNDS} rounds: {launches}")
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        by_path[name] = launches
+        if (h_gpu.uplink_bytes_per_round, h_gpu.downlink_bytes_per_round) \
+                != (up, down):
+            raise AssertionError(
+                f"{name}: ledger {h_gpu.uplink_bytes_per_round} up, "
+                f"{h_gpu.downlink_bytes_per_round} down; want {up}, {down}")
+        cost = h_gpu.train_cost
+        if not all(math.isfinite(c) for c in cost):
+            raise AssertionError(f"{name}: train cost not finite: {cost}")
+        if not name.startswith("sketch") and not cost[-1] < cost[0]:
+            raise AssertionError(f"{name}: train cost not falling: {cost}")
+        log(f"{name}: ledger {up} uplink / {down} downlink bytes per round; "
+            f"train cost {cost}, test accuracy {h_gpu.test_accuracy}")
+        log(f"{name}: round time {h_gpu.wall_seconds / ROUNDS * 1e3:.3f} ms "
+            f"(I={CLIENTS}, B=100, eval every 10 rounds included) on {card}")
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, h_prof = runtime.run_alg1(data, part, device="cuda",
+                                         rounds=ROUNDS, **kw)
+        us, top_other = device_us_by_kind(torch, prof)
+        busy = sum(v for k, v in us.items() if k != "staging_htod")
+        log(f"{name}: profile:", json.dumps({
+            "rounds": ROUNDS, "profiled_wall_ms": h_prof.wall_seconds * 1e3,
+            "device_us": us, "device_busy_share_of_round_loop":
+                busy / (h_prof.wall_seconds * 1e6),
+            "largest_other_us": top_other}))
+
+        # the card against the port's CPU run, over fewer rounds
+        short = dict(kw, rounds=CARD_CPU_ROUNDS, eval_every=1)
+        p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda", **short)
+        t0 = time.perf_counter()
+        p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **short)
+        cpu_s = time.perf_counter() - t0
+        diffs = {k: max(abs(a - b) / abs(b) for a, b in
+                        zip(h_gpu.metrics[k], h_cpu.metrics[k]))
+                 for k in ("train_cost", "sparsity")}
+        diffs["test_accuracy_abs"] = max(
+            abs(a - b) for a, b in zip(h_gpu.test_accuracy,
+                                       h_cpu.test_accuracy))
+        diffs["params_abs"] = max(
+            float((p_gpu[k].cpu() - p_cpu[k]).abs().max()) for k in p_cpu)
+        log(f"{name}: card vs CPU over {CARD_CPU_ROUNDS} rounds:",
+            json.dumps(diffs), f"(CPU run {cpu_s:.1f} s)")
+        # tolerance: the card's and the CPU's gradients differ in their
+        # last bits, and stochastic rounding (qsgd, the top-k levels, the
+        # sketch's grid) can then round a level the other way, a
+        # difference of one lattice step in one weight, which later
+        # rounds carry; the top-k threshold can likewise keep another
+        # entry.  The costs move far less.  Measured on an H100: cost
+        # and sparsity 1.5e-7 relative, accuracy 3e-8, weights 1.8e-4
+        # (topk8_secure), 7.9e-6 (qsgd8_plain), 4.0e-6 (sketch_secure).
+        limits = {"train_cost": 1e-4, "sparsity": 1e-4,
+                  "test_accuracy_abs": 2e-3, "params_abs": 2e-3}
+        if h_gpu.comm != h_cpu.comm:
+            raise AssertionError(f"{name}: card and CPU ledgers differ")
+        for k, lim in limits.items():
+            if not diffs[k] <= lim:
+                raise AssertionError(f"{name}: card run drifts from CPU run: "
+                                     f"{k} {diffs[k]} > {lim}")
+    return by_path
+
+
 def phase_profile(torch, data, part, params, runtime):
     """Where the main path's round time goes: the same run once more
     under ``torch.profiler``, device activity summed by kind.  The
@@ -245,7 +511,7 @@ def phase_profile(torch, data, part, params, runtime):
     log("profile (round loop under torch.profiler):", json.dumps(out))
 
 
-def phase_timing(torch, su, sa, launches, errs):
+def phase_timing(torch, su, sa, kc, ks, launches, by_path, errs):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     n = 794 * 128
@@ -257,23 +523,58 @@ def phase_timing(torch, su, sa, launches, errs):
     ssca_bytes = (7 * n + 4) * 4
     ms_bytes = (CLIENTS * n + n) * 4
     ms_ops = n * CLIENTS * ((CLIENTS - 1) * OPS_PER_STREAM + OPS_PER_ROW)
+    # compress at the top-k path's shape and scalars; each input read
+    # once (x, 2 int64 and 2 f32 scalars a client), each output written
+    # once (out, residual)
+    csu, csf, clb = compress_inputs(torch, msgs, topk_frac=0.1)
+    ckw = dict(lbound=clb, quantize=True, masked=True)
+    c_bytes = 3 * CLIENTS * n * 4 + CLIENTS * (2 * 8 + 2 * 4)
+    c_int, c_f32 = CLIENTS * n * OPS_PRF_WORD, CLIENTS * n * FLOPS_COMPRESS
+    # sketch_encode at the sketched path's shape: a top-256 message; the
+    # hash work runs only for the levels this data rounds to nonzero
+    sx = presparsified(torch, msgs, 256)
+    ssu = stream_scalars(torch, CLIENTS, 0, 0x5EEDC0DE)
+    skw = dict(rows=4, cols=1024, scale_bits=SCALE_BITS)
+    nonzero = int((ks.round_to_grid(
+        sx.reshape(CLIENTS, -1), ks.counters(ssu, n), ssu[:, 0:1],
+        SCALE_BITS) != 0).sum())
+    s_bytes = CLIENTS * n * 4 + CLIENTS * 3 * 8 + CLIENTS * 4 * 1024 * 4
+    s_int = CLIENTS * n * OPS_PRF_WORD + nonzero * 4 * OPS_SKETCH_ROW
+    s_f32 = CLIENTS * n * FLOPS_SKETCH
+    log(f"sketch_encode timing input: {nonzero} nonzero levels of "
+        f"{CLIENTS * n}")
     rows = []
-    for name, src, replaces, kern, plain, nbytes, ops, rate in (
+    for name, src, replaces, kern, plain, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
              "src/repro/kernels/ssca_update.py:54",
              lambda: su.ssca_update_2d(w, lin, grad, beta, sc),
              lambda: su.ssca_update_plain(w, lin, grad, beta, sc),
-             ssca_bytes, FLOPS_SSCA * n, FP32_FLOPS_PER_S),
+             ssca_bytes, {"f32": FLOPS_SSCA * n}),
             ("masked_sum", "src/repro_torch/kernels/csrc/secure_agg.cu",
              "src/repro/kernels/secure_agg.py:346",
              lambda: sa.masked_sum_2d(msgs, 1, 2, **kw),
              lambda: sa.masked_sum_plain(msgs, 1, 2, **kw),
-             ms_bytes, ms_ops, INT32_OPS_PER_S)):
+             ms_bytes, {"int32": ms_ops}),
+            ("compress", "src/repro_torch/kernels/csrc/compress.cu",
+             "src/repro/kernels/compress.py:142",
+             lambda: kc.compress_2d(msgs, csu, csf, **ckw),
+             lambda: kc.compress_2d_plain(msgs, csu, csf, **ckw),
+             c_bytes, {"int32": c_int, "f32": c_f32}),
+            ("sketch_encode", "src/repro_torch/kernels/csrc/sketch.cu",
+             "src/repro/kernels/sketch.py:166",
+             lambda: ks.sketch_encode(sx, ssu, **skw),
+             lambda: ks.sketch_encode_plain(sx, ssu, **skw),
+             s_bytes, {"int32": s_int, "f32": s_f32})):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / rate * 1e3
+        # integer and f32 work run on separate pipes: the least time is
+        # the larger of the two
+        ops_ms = max(v / {"int32": INT32_OPS_PER_S,
+                          "f32": FP32_FLOPS_PER_S}[k] for k, v in ops.items()
+                     ) * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": {p: v[name] for p, v in by_path.items()},
             "max_abs_err": errs[name], "ms": time_ms(kern),
             "plain_ms": time_ms(plain, iters=5, repeats=3),
             "bound_ms": max(bytes_ms, ops_ms),
@@ -297,7 +598,9 @@ def main() -> int:
     from repro_torch.data import partition, synthetic
     from repro_torch.fed import runtime
     from repro_torch.kernels import build
+    from repro_torch.kernels import compress as kc
     from repro_torch.kernels import secure_agg as sa
+    from repro_torch.kernels import sketch as ks
     from repro_torch.kernels import ssca_update as su
     from repro_torch.mlpapp import model
 
@@ -321,15 +624,29 @@ def main() -> int:
     params = model.init_params(torch.Generator().manual_seed(0), 784, 128, 10)
     log(f"data: {data.x_train.shape} train, {data.x_test.shape} test "
         f"({time.perf_counter() - t0:.1f} s)")
-    launches, hist = phase_main_path(torch, su, sa, data, part, params,
-                                     runtime)
+    kernels = {"ssca_update": su.ssca_update_2d,
+               "masked_sum": sa.masked_sum_2d, "compress": kc.compress_2d,
+               "sketch_encode": ks.sketch_encode}
+    for fn in kernels.values():
+        fn.launches = 0
+    _, hist = phase_main_path(torch, su, sa, data, part, params, runtime)
     log(f"round time {hist.wall_seconds / ROUNDS * 1e3:.3f} ms "
         f"(secure fused, I={CLIENTS}, B=100, eval every 10 rounds "
         f"included) on {card}")
+    by_path = {"secure_dense": {k: fn.launches
+                                for k, fn in kernels.items()}}
+    if by_path["secure_dense"]["compress"] \
+            or by_path["secure_dense"]["sketch_encode"]:
+        raise AssertionError(f"main path launched a compressor kernel: "
+                             f"{by_path['secure_dense']}")
+    by_path.update(phase_compressed_paths(torch, kernels, data, part, params,
+                                          runtime, card))
+    total = {k: sum(p[k] for p in by_path.values()) for k in kernels}
+    log(f"launches over all paths: {total}")
 
     phase_profile(torch, data, part, params, runtime)
-    kernels = phase_timing(torch, su, sa, launches, errs)
-    print(json.dumps({"kernels": kernels}))
+    rows = phase_timing(torch, su, sa, kc, ks, total, by_path, errs)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,8 @@ The port of ``repro/fed/aggregation.py``'s ``PlainAggregation`` and
   A linear strategy does not: the engine evaluates the aggregate on the
   weighted super-batch, one gradient, no per-client messages;
 * ``combine_messages(wmsgs, key_words)`` — the reduction over explicit
-  pre-weighted messages with a leading client axis;
+  pre-weighted messages with a leading client axis: a dict of (I, …)
+  leaves, or one bare (I, …) tensor (the sketch's phases);
 * the ledger hooks ``participants`` and ``uplink_wire_bytes``.
 
 Secure aggregation is Bonawitz-style pairwise additive masking in
@@ -22,6 +23,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import Device
 from repro_torch.kernels import ops as _kops
@@ -35,6 +37,13 @@ class PlainAggregation:
 
     def participants(self, num_clients: int) -> int:
         return num_clients
+
+    def combine_messages(self, wmsgs, key_words, *, device: Device = None):
+        """Σ_i m_i over the leading client axis."""
+        del key_words, device
+        if isinstance(wmsgs, torch.Tensor):
+            return wmsgs.sum(dim=0)
+        return {k: v.sum(dim=0) for k, v in wmsgs.items()}
 
     def uplink_wire_bytes(self, payload_bytes: int, dense_elements: int,
                           num_clients: int) -> int:
@@ -91,6 +100,9 @@ class SecureAggregation:
         return 4 * dense_elements + 4 * (num_clients - 1)
 
     def combine_messages(self, wmsgs, key_words, *, device: Device = None):
+        if isinstance(wmsgs, torch.Tensor):
+            return self.combine_messages({"m": wmsgs}, key_words,
+                                         device=device)["m"]
         n = next(iter(wmsgs.values())).shape[0]
         agg_q = _kops.secure_quant_sum(
             wmsgs, key_words, scale_bits=self.scale_bits, client_offset=0,

@@ -1,7 +1,7 @@
 """The synchronous single-device federated driver.
 
 The port of ``repro/fed/engine.py``'s round body for one device, without
-scan, mesh, async rounds, compressors or pipelining.  Per run:
+scan, mesh, async rounds or pipelining.  Per run:
 
 1. the mini-batch schedule (T, I, B) is drawn up front on the host
    (:func:`build_schedule`, the reference's draw) and staged on the
@@ -9,12 +9,15 @@ scan, mesh, async rounds, compressors or pipelining.  Per run:
 2. each round, a Python loop step, gathers the clients' batches on the
    device and forms the aggregate:
 
-   * linear aggregation (plain): one gradient on the weighted
-     super-batch — the upload is additive in the batch, so no per-client
-     message is materialized;
-   * secure aggregation: per-client gradients under ``torch.func.vmap``
-     (each client's λ_i folded into its per-sample weights), then the
-     strategy's combine — quantize, mask and sum in one kernel launch;
+   * linear aggregation (plain), no compressor: one gradient on the
+     weighted super-batch — the upload is additive in the batch, so no
+     per-client message is materialized;
+   * otherwise per-client gradients under ``torch.func.vmap`` (each
+     client's λ_i folded into its per-sample weights), compressed when a
+     compressor is set (:func:`_compressed_round`, :func:`_sketched_round`,
+     with the error-feedback residuals of a population-resident (I, …)
+     arena), then the strategy's combine — for secure aggregation
+     quantize, mask and sum in one kernel launch;
 
    then ``server_step`` (the fused SSCA kernel when ``fused=True``);
 3. eval probes at every ``eval_every``-th round return device scalars
@@ -37,7 +40,8 @@ from repro_torch import Device, resolve_device
 from repro_torch.data.partition import Partition, sample_schedule
 from repro_torch.fed import compression as compression_mod
 from repro_torch.fed.aggregation import PlainAggregation
-from repro_torch.fed.keys import round_keys
+from repro_torch.fed.keys import phase2_key, round_keys
+from repro_torch.kernels.compress import client_stream_seed
 
 
 @dataclasses.dataclass
@@ -101,17 +105,74 @@ def build_schedule(part: Partition, batch_size: int, rounds: int,
     return sample_schedule(part, batch_size, ids, seed)
 
 
+def _check_compressor(compressor, aggregation):
+    """``None`` for no compressor or the identity (the same trajectory as
+    none); refuses what is not a compressor, and a grid-emitting
+    compressor whose fixed-point grid differs from the aggregation's (the
+    masked sum of its values would no longer be exact)."""
+    if compressor is None:
+        return None
+    if not hasattr(compressor, "is_identity") \
+            or not hasattr(compressor, "payload_bytes"):
+        raise TypeError(f"compressor={compressor!r} is not a compressor "
+                        "(see repro_torch.fed.compression and .sketch)")
+    if compressor.is_identity:
+        return None
+    comp_grid = getattr(compressor, "scale_bits", None)
+    agg_grid = getattr(aggregation, "scale_bits", None)
+    if comp_grid is not None and agg_grid is not None \
+            and int(comp_grid) != int(agg_grid):
+        raise ValueError(
+            f"compressor scale_bits={int(comp_grid)} != aggregation "
+            f"scale_bits={int(agg_grid)}: the compressor emits values on "
+            "the 2^-scale_bits fixed-point grid and the secure masked sum "
+            "is only exact when the grids match")
+    return compressor
+
+
+def _compressed_round(compressor, aggregation, msgs, resid, seeds,
+                      key_words, dev):
+    """qsgd / top-k: compress every client's message (one kernel launch
+    per call), then combine.  Returns (aggregate, new residuals)."""
+    comp, new_resid = compressor.compress(msgs, resid, seeds, device=dev)
+    return aggregation.combine_messages(comp, key_words, device=dev), \
+        new_resid
+
+
+def _sketched_round(compressor, aggregation, msgs, resid, seeds,
+                    key_words, dev):
+    """The count-sketch's two phases (the reference's sketched branch):
+    sketch every client's message plus residual, combine the sketches
+    under the round key, take the support from the aggregate, combine the
+    clients' on-grid values at the support under ``fold_in(round key,
+    0x5EED)``, and debit each client's residual by its own values.
+    Returns (the k-sparse update, new residuals)."""
+    inp = {k: msgs[k].float() + resid[k] for k in msgs}
+    like = {k: v[0] for k, v in inp.items()}
+    sk = compressor.encode(inp, seeds, device=dev)
+    support = compressor.support(
+        aggregation.combine_messages(sk, key_words, device=dev), like)
+    vals = compressor.values(inp, support, seeds)
+    agg_v = aggregation.combine_messages(vals, phase2_key(key_words),
+                                         device=dev)
+    return compressor.reassemble(agg_v, support, like), \
+        compressor.update_residual(inp, support, vals)
+
+
 def run(algorithm, data, part: Partition, *, task, batch_size: int,
         rounds: int, params=None, seed: int = 0, eval_every: int = 1,
-        eval_samples: int = 10000, aggregation=None,
+        eval_samples: int = 10000, aggregation=None, compressor=None,
         device: Device = None) -> tuple:
     """Run ``algorithm`` on ``task`` for ``rounds`` rounds on ``device``
     (``cuda`` unless the caller asks for the CPU).
 
     ``params=None`` initializes from ``task.init_params`` with a CPU
     generator seeded by ``seed``.  ``seed`` also keys the batch schedule
-    and the per-round aggregation key words.  Returns the
-    final parameters (on ``device``) and the :class:`History`.
+    and the per-round aggregation key words.  ``compressor`` (qsgd, top-k
+    or the count-sketch) compresses every client's upload; a stateful one
+    keeps its error-feedback residuals in an (I, …) arena on ``device``.
+    Returns the final parameters (on ``device``) and the
+    :class:`History`.
     """
     dev = resolve_device(device)
     # the MLP's matrix products run in full f32, as the reference's do;
@@ -122,6 +183,7 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     if algorithm.combine != "sum":
         raise NotImplementedError(
             "only sum-combine algorithms are ported to repro_torch yet")
+    compressor = _check_compressor(compressor, aggregation)
     num_clients = part.num_clients
     if params is None:
         params = task.init_params(torch.Generator().manual_seed(seed))
@@ -136,8 +198,22 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     keyw = round_keys(seed, rounds)
     state = algorithm.init_state(params)
     measure = evaluator(task, data, eval_samples, dev)
-    ledger = compression_mod.round_bytes(algorithm, aggregation, params,
-                                         num_clients)
+    ledger = compression_mod.round_bytes(algorithm, aggregation, compressor,
+                                         params, num_clients)
+    arena = None
+    if compressor is not None:
+        if compressor.stateful:
+            arena = compressor.init_client_state(params, num_clients)
+        # full participation: every client, by its global id, every round
+        cids = torch.arange(num_clients, device=dev)
+        # the per-(round, client) stream seeds, from the round key's
+        # first and last words, staged once
+        seeds = torch.as_tensor(np.asarray(
+            [[client_stream_seed(int(kw[0]), int(kw[-1]), c)
+              for c in range(num_clients)] for kw in keyw], np.int64),
+            device=dev).reshape(rounds, num_clients)
+        round_fn = _sketched_round if getattr(compressor, "sketched", False) \
+            else _compressed_round
     hist = History(uplink_bytes_per_round=ledger.uplink_total,
                    downlink_bytes_per_round=ledger.downlink_total,
                    comm=ledger.as_dict())
@@ -149,7 +225,7 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     t0 = time.perf_counter()
     for t in range(rounds):
         idx_t = schedule[t]                                  # (I, B)
-        if not aggregation.needs_messages:
+        if compressor is None and not aggregation.needs_messages:
             # linear fast path: one upload on the weighted super-batch
             flat = idx_t.reshape(-1)
             agg = upload((x_train[flat], y_train[flat],
@@ -157,7 +233,16 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         else:
             ws = weights[:, None].expand(idx_t.shape)        # λ_i per sample
             msgs = vmap(upload)((x_train[idx_t], y_train[idx_t], ws))
-            agg = aggregation.combine_messages(msgs, keyw[t], device=dev)
+            if compressor is None:
+                agg = aggregation.combine_messages(msgs, keyw[t], device=dev)
+            else:
+                resid = None if arena is None else \
+                    {k: a[cids] for k, a in arena.items()}
+                agg, new_resid = round_fn(compressor, aggregation, msgs,
+                                          resid, seeds[t], keyw[t], dev)
+                if arena is not None:
+                    for k, a in arena.items():
+                        a[cids] = new_resid[k]
         params, state = algorithm.server_step(params, state, agg,
                                               device=dev)
         if (t + 1) % eval_every == 0 or t + 1 == rounds:

@@ -54,3 +54,11 @@ def round_keys(seed: int, rounds: int) -> np.ndarray:
     ``fold_in(key(seed + 10_000), t)``."""
     return fold_in(key_words(seed + 10_000),
                    np.arange(1, rounds + 1, dtype=np.uint32))
+
+
+def phase2_key(words) -> np.ndarray:
+    """(2,) uint32 words of ``fold_in(round_key, 0x5EED)``: the key of the
+    sketch's phase-2 mask stream, derived from the round's key by domain
+    separation, so the one pair-seed exchange of a round covers both
+    masked uploads."""
+    return fold_in(np.asarray(words, np.uint32), 0x5EED)[0]

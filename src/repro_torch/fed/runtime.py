@@ -2,7 +2,8 @@
 
 The port of ``repro/fed/runtime.py::run_alg1``: Algorithm 1 (mini-batch
 SSCA, unconstrained) on the paper's MLP task by default, with plain or
-secure aggregation, on one device.
+secure aggregation and optionally compressed or sketched uploads, on one
+device.
 """
 from __future__ import annotations
 
@@ -51,16 +52,19 @@ def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
     ``secure=True`` is shorthand for ``aggregation=aggregation.secure()``
     (pairwise masking in Z_{2^32}: the server only sees Σ_i q_i).
     ``fused=True`` runs the server update through the fused kernel.
+    ``compressor`` is one of :func:`repro_torch.fed.compression.qsgd`,
+    :func:`~repro_torch.fed.compression.topk` or
+    :func:`repro_torch.fed.sketch.sketch` (or the identity).
     ``params`` is an optional ``{"w1", "w2"}`` tensor dict (see
     :func:`repro_torch.mlpapp.model.params_from_numpy`).  Runs on ``cuda``
     unless ``device="cpu"`` is passed.
 
-    ``compressor``, ``mesh``, ``staleness``, ``staleness_trace``,
-    ``arena``, ``pipeline`` and ``profile_dir`` keep the reference's
-    signature but are not ported yet: setting one raises.
+    ``mesh``, ``staleness``, ``staleness_trace``, ``arena``, ``pipeline``
+    and ``profile_dir`` keep the reference's signature but are not ported
+    yet: setting one raises.
     """
     dev = resolve_device(device)
-    unported = {"compressor": compressor, "mesh": mesh,
+    unported = {"mesh": mesh,
                 "staleness": staleness, "staleness_trace": staleness_trace,
                 "arena": arena, "pipeline": pipeline or None,
                 "profile_dir": profile_dir}
@@ -77,4 +81,5 @@ def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
     return engine.run(alg, data, part, task=task, batch_size=batch_size,
                       rounds=rounds, params=params, seed=seed,
                       eval_every=eval_every, eval_samples=eval_samples,
-                      aggregation=aggregation, device=dev)
+                      aggregation=aggregation, compressor=compressor,
+                      device=dev)

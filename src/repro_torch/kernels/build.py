@@ -1,13 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The
-build happens on first use, into ``kernels/_build/`` (listed in
-``.gitignore``); the library's name carries a hash of the sources and
-flags, so an edited source is rebuilt.  Each builder writes its own
-temporary file and renames it into place, so concurrent builders never
-load a half-written library.  ``--use_fast_math`` is never passed: the
-kernels' divisions and roundings stay IEEE.
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc -c``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The build happens on
+first use, into ``kernels/_build/`` (listed in ``.gitignore``); the
+library's name carries a hash of every source the build reads (the
+``*.cu`` files and the ``*.cuh`` headers they include) and of the flags,
+so an edited source or header is rebuilt.  Each build process compiles
+into a directory of its own and renames the library into place, so
+concurrent builds never load a half-written library.
+``--use_fast_math`` is never passed: the kernels' divisions and
+roundings stay IEEE.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -39,26 +43,40 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path = CSRC) -> list[Path]:
+    """The translation units: one object each."""
+    return sorted(csrc.glob("*.cu"))
 
 
-def _tag(sources: list[Path]) -> str:
+def _tag(csrc: Path = CSRC) -> str:
+    """Hash of the flags and of every file the build reads: the sources
+    and the headers they include."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def _compile(nvcc: str, sources: list[Path], lib: Path) -> None:
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *FLAGS, "-shared", *map(str, sources),
-                           "-o", str(tmp)], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed\n{proc.stdout}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", str(src), "-o",
+                                   str(obj)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{src.name}:\n{log}" for src, p, log in
+                  zip(sources, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        tmp_lib = Path(tmp) / lib.name
+        proc = subprocess.run([nvcc, *FLAGS, "-shared", *map(str, objs),
+                               "-o", str(tmp_lib)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc link failed\n{proc.stdout}")
+        os.replace(tmp_lib, lib)
 
 
 def load() -> ctypes.CDLL:
@@ -66,12 +84,11 @@ def load() -> ctypes.CDLL:
     global _LIB, build_seconds
     if _LIB is not None:
         return _LIB
-    sources = _sources()
-    lib = BUILD_DIR / f"librepro_torch_kernels.{_tag(sources)}.so"
+    lib = BUILD_DIR / f"librepro_torch_kernels.{_tag()}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        _compile(_nvcc(), sources, lib)
+        _compile(_nvcc(), _sources(), lib)
         build_seconds = time.perf_counter() - t0
     cdll = ctypes.CDLL(str(lib))
     p, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -81,6 +98,12 @@ def load() -> ctypes.CDLL:
     cdll.masked_sum_launch.argtypes = [p, i32, i64, i32, u32, u32, u32, i32,
                                        p, p, p]
     cdll.masked_sum_launch.restype = i32
+    cdll.compress_launch.argtypes = [p, p, p, i32, i64, i32, i32, i32, p, p,
+                                     p]
+    cdll.compress_launch.restype = i32
+    cdll.sketch_encode_launch.argtypes = [p, p, i32, i64, i32, i64, i32, p,
+                                          p]
+    cdll.sketch_encode_launch.restype = i32
     cdll.kernel_error_string.argtypes = [i32]
     cdll.kernel_error_string.restype = ctypes.c_char_p
     _LIB = cdll

@@ -32,34 +32,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "prf.cuh"
+
 namespace {
+
+using prf::kGold;
+using prf::kM1;
+using prf::mask_bits;
+using prf::mix32;
 
 constexpr int kThreads = 256;
 constexpr int kPeerTile = 512;
-constexpr uint32_t kM1 = 0x7FEB352Du;
-constexpr uint32_t kM2 = 0x846CA68Bu;
-constexpr uint32_t kGold = 0x9E3779B9u;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= kM1;
-  x ^= x >> 15;
-  x *= kM2;
-  x ^= x >> 16;
-  return x;
-}
 
 __device__ __forceinline__ uint32_t pair_seed(uint32_t k0, uint32_t k1,
                                               uint32_t lo, uint32_t hi) {
   uint32_t s = mix32(k0 ^ (lo * kGold));
   s = mix32(s ^ (hi * kM1));
   return mix32(s ^ k1);
-}
-
-// mask_bits(seed, ctr) of the reference, given seed2 = seed + kGold
-__device__ __forceinline__ uint32_t mask_bits(uint32_t seed, uint32_t seed2,
-                                              uint32_t ctr) {
-  return mix32(mix32(ctr ^ seed) ^ seed2);
 }
 
 __global__ void masked_sum_kernel(const float* __restrict__ msgs, int i_loc,

@@ -37,14 +37,17 @@ def pad_lanes(flat: torch.Tensor) -> torch.Tensor:
     return flat.reshape(*flat.shape[:-1], -1, LANES)
 
 
-def unflatten(flat: torch.Tensor, like: Params) -> Params:
-    """Inverse of :func:`flatten` (lead = 0) onto ``like``'s leaf shapes;
-    ``flat`` may carry padding at its end and keeps its dtype."""
-    flat = flat.reshape(-1)
+def unflatten(flat: torch.Tensor, like: Params, lead: int = 0) -> Params:
+    """Inverse of :func:`flatten` onto ``like``'s leaf shapes, keeping the
+    first ``lead`` dims of ``flat``; ``flat`` may carry padding at its end
+    and keeps its dtype."""
+    lead_shape = flat.shape[:lead]
+    flat = flat.reshape(*lead_shape, -1)
     out, off = {}, 0
     for k in sorted(like):
         size = like[k].numel()
-        out[k] = flat[off:off + size].reshape(like[k].shape)
+        out[k] = flat[..., off:off + size].reshape(*lead_shape,
+                                                   *like[k].shape)
         off += size
     return out
 

@@ -6,18 +6,22 @@ that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
 
-Tolerances: none.  The SSCA kernel rounds every f32 operation separately,
-in the plain version's order (no FMA contraction), and the masked sum is
-ring arithmetic: both must equal their plain versions bit for bit.
+Tolerances: none.  The SSCA and compress kernels round every f32
+operation separately, in the plain version's order (no FMA contraction),
+and the masked sum and the sketch encode are ring arithmetic: all must
+equal their plain versions bit for bit (NaN compared as NaN).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.data import partition, synthetic
-from repro_torch.fed import runtime
+from repro_torch.fed import compression, runtime
+from repro_torch.fed import sketch as fed_sketch
+from repro_torch.kernels import compress as kc
 from repro_torch.kernels import ops
 from repro_torch.kernels import secure_agg as sa
+from repro_torch.kernels import sketch as ks
 from repro_torch.kernels import ssca_update as su
 
 pytestmark = pytest.mark.cuda
@@ -106,3 +110,118 @@ def test_run_alg1_on_card_tracks_cpu(dev):
     for k in p_cpu:
         np.testing.assert_allclose(p_gpu[k].cpu().numpy(), p_cpu[k].numpy(),
                                    rtol=1e-4, atol=2e-5)
+
+
+def _same_bits(a, b):
+    """Bit for bit, with every NaN mapped to one pattern."""
+    nan = torch.tensor(float("nan"), device=a.device)
+    return torch.equal(torch.where(torch.isnan(a), nan, a).view(torch.int32),
+                       torch.where(torch.isnan(b), nan, b).view(torch.int32))
+
+
+def _scalars(dev, clients, base, *, sketch=False):
+    seeds = [kc.client_stream_seed(0xDEADBEEF, 77, c) for c in range(clients)]
+    rows = [[s, base, 0x5EEDC0DE] if sketch else [s, base] for s in seeds]
+    return torch.tensor(rows, dtype=torch.int64, device=dev)
+
+
+@pytest.mark.parametrize("clients,rows", [(10, 794), (10, 784), (10, 10),
+                                          (3, 1), (1, 4099)])
+@pytest.mark.parametrize("quantize,masked", [(True, False), (False, True),
+                                             (True, True), (False, False)])
+@pytest.mark.parametrize("special", [False, True])
+def test_compress_kernel_equals_plain(dev, clients, rows, quantize, masked,
+                                      special):
+    x = _randn(dev, clients, rows, 128, scale=1e-3)
+    if special:
+        x.view(-1)[:6] = torch.tensor([float("nan"), float("inf"),
+                                       -float("inf"), -0.0, 3e38, 1e-45])
+    sui = _scalars(dev, clients, 2 ** 32 - 300)
+    exps = torch.arange(clients, device=dev) % 3 - 14
+    delta = ((exps + 127) << 23).int().view(torch.float32)     # 2^exps
+    sf = torch.stack([torch.full((clients,), 1e-3, device=dev), delta], dim=1)
+    kw = dict(lbound=127, quantize=quantize, masked=masked)
+    before = kc.compress_2d.launches
+    got = kc.compress_2d(x, sui, sf, **kw)
+    assert kc.compress_2d.launches == before + 1
+    for a, b in zip(got, kc.compress_2d_plain(x, sui, sf, **kw)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("clients,rows,sk_rows,cols", [
+    (10, 794, 4, 1024), (10, 794, 4, 512), (3, 7, 3, 1), (1, 4099, 8, 64)])
+@pytest.mark.parametrize("keep", [None, 256])
+def test_sketch_encode_kernel_equals_plain(dev, clients, rows, sk_rows, cols,
+                                           keep):
+    x = _randn(dev, clients, rows, 128, scale=1e-3)
+    if keep is not None:                  # pre-sparsified, as on the path
+        flat = x.reshape(clients, -1)
+        thr = torch.topk(flat.abs(), keep, dim=1).values[:, -1:]
+        x = torch.where(flat.abs() >= thr, flat, 0.0).reshape(x.shape)
+    sui = _scalars(dev, clients, 0, sketch=True)
+    kw = dict(rows=sk_rows, cols=cols, scale_bits=20)
+    before = ks.sketch_encode.launches
+    got = ks.sketch_encode(x, sui, **kw)
+    assert ks.sketch_encode.launches == before + 1
+    assert torch.equal(got, ks.sketch_encode_plain(x, sui, **kw))
+
+
+def test_sketch_encode_kernel_all_zero_and_special(dev):
+    x = torch.zeros(2, 3, 128, device=dev)
+    sui = _scalars(dev, 2, 5, sketch=True)
+    assert not ks.sketch_encode(x, sui, rows=4, cols=64, scale_bits=20).any()
+    x.view(-1)[:4] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                   3e9])
+    assert torch.equal(ks.sketch_encode(x, sui, rows=4, cols=64,
+                                        scale_bits=20),
+                       ks.sketch_encode_plain(x, sui, rows=4, cols=64,
+                                              scale_bits=20))
+
+
+def test_new_wrappers_refuse_bad_arguments(dev):
+    x = torch.zeros(2, 1, 128)
+    su2 = torch.zeros(2, 2, dtype=torch.int64)
+    su3 = torch.zeros(2, 3, dtype=torch.int64)
+    sf = torch.ones(2, 2)
+    # a CPU tensor with device="cuda"
+    with pytest.raises(ValueError, match="asked for"):
+        kc.compress_2d(x, su2, sf, lbound=127, quantize=True, masked=True,
+                       device="cuda")
+    with pytest.raises(ValueError, match="asked for"):
+        ks.sketch_encode(x, su3, rows=4, cols=64, scale_bits=20,
+                         device="cuda")
+    xc = x.to(dev)
+    counts = (kc.compress_2d.launches, ks.sketch_encode.launches)
+    with pytest.raises(ValueError, match="f32"):
+        kc.compress_2d(xc.double(), su2.to(dev), sf.to(dev), lbound=127,
+                       quantize=True, masked=True)
+    with pytest.raises(ValueError, match="f32"):
+        ks.sketch_encode(xc.half(), su3.to(dev), rows=4, cols=64,
+                         scale_bits=20)
+    with pytest.raises(ValueError, match="power of two"):
+        ks.sketch_encode(xc, su3.to(dev), rows=4, cols=96, scale_bits=20)
+    assert (kc.compress_2d.launches, ks.sketch_encode.launches) == counts
+
+
+@pytest.mark.parametrize("name", ["qsgd8", "topk8_secure", "sketch_secure"])
+def test_compressed_run_alg1_on_card_tracks_cpu(dev, name):
+    data = synthetic.classification_dataset(2000, 500, seed=0)
+    part = partition.iid(2000, 10, seed=0)
+    comp, secure, want = {
+        "qsgd8": (compression.qsgd(8), False, (12, 0, 0)),
+        "topk8_secure": (compression.topk(0.1, bits=8), True, (6, 0, 6)),
+        "sketch_secure": (fed_sketch.sketch(4, 512, 0.015, keep=64), True,
+                          (0, 6, 12))}[name]
+    kw = dict(batch_size=10, rounds=6, eval_every=2, eval_samples=300,
+              seed=3, secure=secure, fused=True, compressor=comp)
+    counts = lambda: (kc.compress_2d.launches,  # noqa: E731
+                      ks.sketch_encode.launches, sa.masked_sum_2d.launches)
+    before = counts()
+    p_gpu, h_gpu = runtime.run_alg1(data, part, **kw)
+    assert tuple(a - b for a, b in zip(counts(), before)) == want
+    p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
+    assert h_gpu.comm == h_cpu.comm
+    np.testing.assert_allclose(h_gpu.train_cost, h_cpu.train_cost, rtol=1e-4)
+    for k in p_cpu:
+        np.testing.assert_allclose(p_gpu[k].cpu().numpy(), p_cpu[k].numpy(),
+                                   rtol=0, atol=1e-3)

@@ -17,8 +17,10 @@ import pytest
 import torch
 
 from repro_torch.data import partition, synthetic
-from repro_torch.fed import runtime
-from repro_torch.kernels import ops, secure_agg, ssca_update
+from repro_torch.fed import compression, runtime
+from repro_torch.fed import sketch as fed_sketch
+from repro_torch.kernels import build, compress, ops, secure_agg, sketch, \
+    ssca_update
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -74,6 +76,22 @@ def test_run_alg1_refuses_the_cpu_by_default(no_gpu):
     assert hist.rounds == [1]
 
 
+@pytest.mark.parametrize("comp", [compression.qsgd(8), compression.topk(0.1),
+                                  fed_sketch.sketch(4, 64, keep=4)],
+                         ids=["qsgd", "topk", "sketch"])
+def test_compressed_run_alg1_refuses_the_cpu_by_default(no_gpu, comp):
+    data = synthetic.classification_dataset(40, 10, k=16, l=3)
+    part = partition.iid(40, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.run_alg1(data, part, batch_size=5, rounds=1, compressor=comp)
+    before = (compress.compress_2d.launches, sketch.sketch_encode.launches)
+    _, hist = runtime.run_alg1(data, part, batch_size=5, rounds=1, hidden=4,
+                               compressor=comp, secure=True, device="cpu")
+    assert hist.rounds == [1]
+    assert (compress.compress_2d.launches,
+            sketch.sketch_encode.launches) == before
+
+
 def test_kernel_wrappers_refuse_the_cpu_by_default(no_gpu):
     x = torch.zeros(2, 128)
     sc = torch.tensor([0.5, 0.5, 0.1, 0.0])
@@ -87,14 +105,27 @@ def test_kernel_wrappers_refuse_the_cpu_by_default(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.secure_quant_sum({"w": torch.zeros(2, 5)},
                              np.zeros(2, np.uint32), scale_bits=20)
-    before = (ssca_update.ssca_update_2d.launches,
-              secure_agg.masked_sum_2d.launches)
+    su = torch.zeros(1, 3, dtype=torch.int64)
+    sf = torch.ones(1, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compress.compress_2d(x[None], su[:, :2], sf, lbound=127,
+                             quantize=True, masked=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sketch.sketch_encode(x[None], su, rows=4, cols=64, scale_bits=20)
+    counts = lambda: (ssca_update.ssca_update_2d.launches,  # noqa: E731
+                      secure_agg.masked_sum_2d.launches,
+                      compress.compress_2d.launches,
+                      sketch.sketch_encode.launches)
+    before = counts()
     ssca_update.ssca_update_2d(x, x, x, x, sc, device="cpu")
     secure_agg.masked_sum_2d(x[None], 1, 2, scale_bits=20, num_clients=1,
                              device="cpu")
+    compress.compress_2d(x[None], su[:, :2], sf, lbound=127, quantize=True,
+                         masked=True, device="cpu")
+    sketch.sketch_encode(x[None], su, rows=4, cols=64, scale_bits=20,
+                         device="cpu")
     # the plain versions launch nothing
-    assert (ssca_update.ssca_update_2d.launches,
-            secure_agg.masked_sum_2d.launches) == before
+    assert counts() == before
 
 
 @pytest.mark.parametrize("num,offset,clients", [(3, 0, 2), (1, 10, 10),
@@ -117,3 +148,28 @@ def test_cpu_tensor_with_cuda_device_raises():
     with pytest.raises(ValueError, match="asked for"):
         ssca_update.ssca_update_2d(x, x, x, x, torch.zeros(4),
                                    device="cuda")
+    su = torch.zeros(1, 3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="asked for"):
+        compress.compress_2d(x[None], su[:, :2], torch.ones(1, 2), lbound=1,
+                             quantize=True, masked=False, device="cuda")
+    with pytest.raises(ValueError, match="asked for"):
+        sketch.sketch_encode(x[None], su, rows=1, cols=1, scale_bits=20,
+                             device="cuda")
+
+
+def test_build_tag_hashes_headers_and_sources(tmp_path):
+    # an edited header must rebuild the library, as an edited source does
+    (tmp_path / "a.cu").write_text('#include "prf.cuh"\n')
+    (tmp_path / "prf.cuh").write_text("// v1\n")
+    tag = build._tag(tmp_path)
+    assert build._tag(tmp_path) == tag
+    (tmp_path / "prf.cuh").write_text("// v2\n")
+    tag2 = build._tag(tmp_path)
+    assert tag2 != tag
+    (tmp_path / "a.cu").write_text('#include "prf.cuh"\n// edit\n')
+    assert build._tag(tmp_path) not in (tag, tag2)
+    assert build._sources(tmp_path) == [tmp_path / "a.cu"]
+    # the package's own build reads every kernel source and the header
+    names = {p.name for p in build.CSRC.iterdir()}
+    assert {"ssca_update.cu", "secure_agg.cu", "compress.cu", "sketch.cu",
+            "prf.cuh"} <= names
