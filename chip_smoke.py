@@ -7,13 +7,16 @@ Phases (any failure raises; the script then exits non-zero without its
 last line):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, five in
    parallel) and print the build time;
 2. hold every kernel against its plain PyTorch version on the card, at
-   the paths' shapes and at edge shapes, all bit for bit:
-   ``ssca_update`` and ``compress`` (both round every f32 operation
-   separately), ``masked_sum`` (including one client's masked upload at
-   ``client_offset = i``) and ``sketch_encode`` (ring arithmetic);
+   the paths' shapes and at edge shapes: ``ssca_update`` and ``compress``
+   (both round every f32 operation separately), ``masked_sum``
+   (including one client's masked upload at ``client_offset = i``) and
+   ``sketch_encode`` (ring arithmetic) bit for bit; ``flash_attention``
+   to a stated tolerance (its sums run in another order), at the LM
+   path's shape (B·I = 8, S = 1024, H = 32, Hkv = 8, Dh = 128, bf16) and
+   at edge shapes (S = 1 and 77, Dh = 64 and 16, f32, G = 1 and 8);
 3. drive the main path once — ``run_alg1(secure=True, fused=True)`` on
    the paper's MLP (784 → 128 → 10) at full width: 60,000 samples over
    10 iid clients, B = 100, 20 rounds — with every launch counter set to
@@ -29,18 +32,34 @@ last line):
    and top-k), and that a 5-round run on the card tracks the port's
    5-round CPU run; print each path's round time and its device time by
    kind under ``torch.profiler``;
-5. run the main path once more under ``torch.profiler`` and print the
+5. drive the decoder-only LM (``transformer_task()``: llama3-8b cut to
+   2 layers of width 64) secure and fused on the card for 5 rounds,
+   counters set to 0 just before and read just after, and hold it to
+   the port's CPU run of the same configuration;
+6. drive the LM path at the full width of llama3-8b (2 of its 32
+   layers): ``run_alg1(secure=True, fused=True, tau=2, lam=0)`` on 256
+   Zipf token documents of 1,024 tokens over 4 iid clients, B = 2, 4
+   rounds, eval every 2 rounds on 8 documents and the 8 test documents;
+   check the launch counts (flash attention once per layer per upload
+   forward for all clients and per eval forward), finite costs, the
+   first cost within [ln V − 1, ln V + 3], the ledger against
+   ``round_bytes`` computed from the parameter shapes; print the round
+   time, the peak device memory and the device time by kind and busy
+   share of one more round under ``torch.profiler``;
+7. run the main path once more under ``torch.profiler`` and print the
    device time by kind and the device's busy share of the round loop;
-6. time each kernel and its plain version on the paths' shapes (CUDA
+8. time each kernel and its plain version on the paths' shapes (CUDA
    events around the replay of a CUDA graph of 50 calls, so the host's
-   launch overhead does not gate the device) and print one
-   ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}``.
+   launch overhead does not gate the device), and, for flash attention,
+   ``scaled_dot_product_attention`` as the library yardstick (the port
+   never calls it); print one ``{"kernels": [...]}`` line, then the
+   result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -59,6 +78,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 FP32_FLOPS_PER_S = 67e12
+# dense bf16 tensor-core peak (data sheet, SXM, without sparsity)
+BF16_FLOPS_PER_S = 989e12
 
 # integer operations per element of one directed mask stream: two murmur3
 # finalizers (3 shifts, 3 xors, 2 multiplies each), the xors with the two
@@ -86,6 +107,18 @@ OPS_SKETCH_ROW = 10 + 19 + 3
 SCALE_BITS = 20
 ROUNDS = 20
 CLIENTS = 10
+
+# the LM path at full width: llama3-8b cut to 2 of its 32 layers
+LM_LAYERS = 2
+LM_SEQ = 1024
+LM_CLIENTS = 4
+LM_BATCH = 2
+LM_ROUNDS = 4
+LM_EVAL_EVERY = 2
+LM_PARAMS = 961_564_672
+# flash attention's shape on that path: the 4 clients' 2 sequences
+# folded into the batch
+FLASH_PATH = (LM_CLIENTS * LM_BATCH, LM_SEQ, 32, 8, 128)
 
 
 def log(*args):
@@ -307,6 +340,242 @@ def presparsified(torch, x, keep):
     return torch.where(flat.abs() >= thr, flat, 0.0).reshape(x.shape)
 
 
+def flash_inputs(torch, b, s, h, hkv, dh, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(*shape, generator=g).to("cuda", dtype)
+                 for shape in ((b, s, h, dh), (b, s, hkv, dh),
+                               (b, s, hkv, dh)))
+
+
+def phase_flash_parity(torch):
+    """flash_attention against its plain version on the card; returns the
+    max abs error at the LM path's shape.  Tolerance: f32 outputs within
+    2e-5 absolute, bf16 outputs within one bf16 ulp (plus 2e-5 near
+    zero): the kernel's online softmax and FMA chains sum in another
+    order than the plain version's einsums, and both round to the
+    output's dtype once."""
+    from repro_torch.kernels import flash_attention as fa
+    path_err = None
+    for shape, dt in ((FLASH_PATH, torch.bfloat16),
+                      ((2, 1, 4, 1, 64), torch.float32),
+                      ((2, 77, 8, 8, 16), torch.float32),
+                      ((3, 77, 8, 1, 64), torch.float32),
+                      ((1, 77, 16, 2, 16), torch.bfloat16),
+                      ((2, 300, 8, 1, 128), torch.float32)):
+        q, k, v = flash_inputs(torch, *shape, dt)
+        got = fa.flash_attention_bhsd(q, k, v)
+        want = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if dt == torch.float32:
+            ok = float(err.max()) <= 2e-5
+        else:
+            mag = torch.maximum(got.float().abs(), want.float().abs())
+            ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30)))
+                             - 7)
+            ok = bool((err <= ulp + 2e-5).all())
+        name = (f"(B, S, H, Hkv, Dh) = {shape}, "
+                f"{str(dt).replace('torch.', '')}")
+        if not ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention differs from plain at "
+                                 f"{name}: max abs {float(err.max())}")
+        log(f"flash_attention: kernel == plain within tolerance at {name}: "
+            f"max abs {float(err.max()):.3e}")
+        if path_err is None:
+            path_err = float(err.max())
+        del q, k, v, got, want, err
+    return path_err
+
+
+def card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu):
+    """Largest differences of a card run from the CPU run of the same
+    configuration: costs relative, accuracy and weights absolute."""
+    from repro_torch import tree
+    diffs = {"train_cost": max(abs(a - b) / abs(b) for a, b in
+                               zip(h_gpu.train_cost, h_cpu.train_cost)),
+             "test_accuracy_abs": max(abs(a - b) for a, b in
+                                      zip(h_gpu.test_accuracy,
+                                          h_cpu.test_accuracy)),
+             "params_abs": max(float((a.cpu() - b).abs().max())
+                               for a, b in zip(tree.leaves(p_gpu),
+                                               tree.leaves(p_cpu)))}
+    return diffs
+
+
+def lm_bf16_forward(torch):
+    """The full-width path's attention configuration at a small width —
+    bf16 activations, head_dim 128, four query heads on one kv head —
+    forward on the card against the same forward on the CPU.  Tolerance
+    5e-2 absolute on logits below 4 in size: the card's and the CPU's
+    bf16 GEMMs round their outputs differently, and bf16 keeps 8 bits
+    (the same forward with f32 activations moves these logits by up to
+    1.8e-2 on the CPU)."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(
+        reduced(get_config("llama3-8b"), d_model=512, d_ff=1024, vocab=512),
+        num_kv_heads=1, activ_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, 512, (2, 300),
+                           generator=torch.Generator().manual_seed(1))
+    want = model.forward(params, {"tokens": tokens})
+    got = model.forward(tree.map(lambda w: w.cuda(), params),
+                        {"tokens": tokens.cuda()}).cpu()
+    err = float((got - want).abs().max())
+    log(f"lm bf16 forward (Dh 128, G 4, S 300): card vs CPU logits max abs "
+        f"{err:.3e} (logits up to {float(want.abs().max()):.3e})")
+    if not err <= 5e-2 or not float(want.abs().max()) < 4:
+        raise AssertionError(f"lm bf16 forward: card vs CPU {err}")
+
+
+def phase_lm_small(torch, kernels, runtime):
+    """The small LM on the card against the port's CPU run, 5 rounds,
+    with counted launches."""
+    from repro_torch.data import partition
+    from repro_torch.fed.tasks import transformer_task
+    lm_bf16_forward(torch)
+    task = transformer_task()
+    data = task.default_data(n_train=96, n_test=24, seed=0)
+    part = partition.iid(96, 4, seed=0)
+    rounds = 5
+    kw = dict(task=task, batch_size=4, rounds=rounds, eval_every=1,
+              eval_samples=48, seed=1, tau=2.0, lam=0.0, secure=True,
+              fused=True)
+    for fn in kernels.values():
+        fn.launches = 0
+    p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda", **kw)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    want = {k: 0 for k in kernels}
+    # 2 layers x (one upload forward for all clients + 2 eval forwards)
+    want.update(flash_attention=2 * 3 * rounds, ssca_update=rounds,
+                masked_sum=rounds)
+    log(f"lm_small: launches over {rounds} rounds: {launches}")
+    if launches != want:
+        raise AssertionError(f"lm_small: launches {launches}, want {want}")
+    p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
+    diffs = card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu)
+    log(f"lm_small: card vs CPU over {rounds} rounds:", json.dumps(diffs),
+        f"train cost {h_gpu.train_cost}")
+    # tolerance: as the MLP paths', a last-bit gradient difference can
+    # move an entry across a 2^-20 grid point of the secure quantizer
+    limits = {"train_cost": 1e-4, "test_accuracy_abs": 1 / 744 + 1e-6,
+              "params_abs": 1e-4}
+    if h_gpu.comm != h_cpu.comm:
+        raise AssertionError("lm_small: card and CPU ledgers differ")
+    for k, lim in limits.items():
+        if not diffs[k] <= lim:
+            raise AssertionError(f"lm_small: card run drifts from CPU run: "
+                                 f"{k} {diffs[k]} > {lim}")
+    return launches
+
+
+def lm_full_width():
+    """The LM task at llama3-8b's full width, 2 layers, and its data."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.fed.tasks import LMTask
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=LM_LAYERS)
+    task = LMTask(cfg=cfg, seq_len=LM_SEQ)
+    data = task.default_data(n_train=256, n_test=8, seed=0)
+    return task, data
+
+
+def phase_lm_full(torch, kernels, runtime, card):
+    """The LM path at full width on the card, with counted launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree
+    from repro_torch.core import protocol, ssca
+    from repro_torch.data import partition
+    from repro_torch.fed import aggregation, compression
+    from repro_torch.fed.tasks import SumLoss
+    t0 = time.perf_counter()
+    task, data = lm_full_width()
+    part = partition.iid(len(data.x_train), LM_CLIENTS, seed=0)
+    log(f"lm_full: data {data.x_train.shape} train, {data.x_test.shape} "
+        f"test, vocab {task.cfg.vocab_size} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    def init():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return task.init_params(gen)
+
+    kw = dict(task=task, batch_size=LM_BATCH, eval_every=LM_EVAL_EVERY,
+              eval_samples=8, seed=0, secure=True, fused=True, tau=2.0,
+              lam=0.0, device="cuda")
+    # warm-up: the first round at these shapes picks the GEMM kernels
+    t0 = time.perf_counter()
+    runtime.run_alg1(data, part, params=init(), rounds=1, **kw)
+    torch.cuda.synchronize()
+    log(f"lm_full: warm-up round in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    params, hist = runtime.run_alg1(data, part, params=init(),
+                                    rounds=LM_ROUNDS, **kw)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in kernels}
+    n_evals = LM_ROUNDS // LM_EVAL_EVERY
+    want.update(flash_attention=LM_LAYERS * (LM_ROUNDS + 2 * n_evals),
+                ssca_update=LM_ROUNDS, masked_sum=LM_ROUNDS)
+    log(f"lm_full: launches over {LM_ROUNDS} rounds: {launches}")
+    if launches != want:
+        raise AssertionError(f"lm_full: launches {launches}, want {want}")
+    n = tree.numel(params)
+    cost = hist.train_cost
+    ln_v = math.log(task.cfg.vocab_size)
+    log(f"lm_full: {n} parameters; train cost {cost}, test accuracy "
+        f"{hist.test_accuracy} (ln V = {ln_v:.4f})")
+    if n != LM_PARAMS:
+        raise AssertionError(f"lm_full: {n} parameters, want {LM_PARAMS}")
+    if not all(math.isfinite(c) for c in cost + hist.test_accuracy):
+        raise AssertionError(f"lm_full: metrics not finite: {hist.metrics}")
+    if not ln_v - 1 <= cost[0] <= ln_v + 3:
+        raise AssertionError(f"lm_full: first cost {cost[0]} outside "
+                             f"[ln V - 1, ln V + 3]")
+    # the ledger, from the parameter shapes alone (meta tensors, no data)
+    shapes = tree.map(lambda w: torch.empty(w.shape, dtype=w.dtype,
+                                            device="meta"), params)
+    alg = protocol.SSCAUnconstrained(
+        loss_fn=SumLoss(task), hp=ssca.SSCAHyperParams(tau=2.0, lam=0.0))
+    ledger = compression.round_bytes(alg, aggregation.secure(), None, shapes,
+                                     LM_CLIENTS)
+    want_up = LM_CLIENTS * (4 * LM_PARAMS + 4 * (LM_CLIENTS - 1))
+    if not hist.uplink_bytes_per_round == ledger.uplink_total == want_up:
+        raise AssertionError(f"lm_full: ledger {hist.uplink_bytes_per_round}"
+                             f" B uplink, round_bytes {ledger.uplink_total},"
+                             f" want {want_up}")
+    log(f"lm_full: ledger {hist.uplink_bytes_per_round} uplink bytes per "
+        f"round = {LM_CLIENTS} x (4 x {LM_PARAMS} + 4 x {LM_CLIENTS - 1})")
+    round_s = hist.wall_seconds / LM_ROUNDS
+    log(f"lm_full: round time {round_s * 1e3:.1f} ms (I={LM_CLIENTS}, "
+        f"B={LM_BATCH}, S={LM_SEQ}, eval every {LM_EVAL_EVERY} rounds "
+        f"included), peak device memory {peak / 2 ** 30:.2f} GiB "
+        f"({peak} B) on {card}")
+    del params
+    torch.cuda.empty_cache()
+
+    # one more round under the profiler (its eval point included)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, h_prof = runtime.run_alg1(data, part, params=init(), rounds=1,
+                                     **kw)
+    us, top_other = device_us_by_kind(torch, prof)
+    busy = sum(v for k, v in us.items() if k != "staging_htod")
+    log("lm_full: profile of one round:", json.dumps({
+        "profiled_wall_ms": h_prof.wall_seconds * 1e3, "device_us": us,
+        "device_busy_share_of_round_loop":
+            busy / (h_prof.wall_seconds * 1e6),
+        "largest_other_us": top_other}))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_main_path(torch, su, sa, data, part, params, runtime):
     """The secure fused main path on the card, with counted launches."""
     kw = dict(batch_size=100, rounds=ROUNDS, eval_every=10, seed=0,
@@ -371,13 +640,13 @@ def compressed_paths():
     return [
         ("topk8_secure", compression.topk(0.1, bits=8), True,
          {"compress": per, "sketch_encode": 0, "masked_sum": per,
-          "ssca_update": per}, 4_065_640, 4_065_280),
+          "ssca_update": per, "flash_attention": 0}, 4_065_640, 4_065_280),
         ("qsgd8_plain", compression.qsgd(8), False,
          {"compress": 2 * per, "sketch_encode": 0, "masked_sum": 0,
-          "ssca_update": per}, 1_016_400, 4_065_280),
+          "ssca_update": per, "flash_attention": 0}, 1_016_400, 4_065_280),
         ("sketch_secure", sketch.sketch(4, 1024, 0.02, keep=256), True,
          {"compress": 0, "sketch_encode": per, "masked_sum": 2 * per,
-          "ssca_update": per}, 245_520, 4_146_600),
+          "ssca_update": per, "flash_attention": 0}, 245_520, 4_146_600),
     ]
 
 
@@ -385,17 +654,25 @@ CARD_CPU_ROUNDS = 5
 
 
 def device_us_by_kind(torch, prof):
-    """Device time (µs) of one profiled run, summed by kernel kind, and
+    """Device time (µs) of one profiled run, summed by kind: each port
+    kernel, the GEMMs (cuBLAS), host-to-device staging and the rest; and
     the five largest names among the "other" kind."""
-    us = {"masked_sum": 0.0, "ssca_update": 0.0, "compress": 0.0,
-          "sketch_encode": 0.0, "staging_htod": 0.0, "other": 0.0}
+    kinds = ("masked_sum", "ssca_update", "compress", "sketch_encode",
+             "flash_attention")
+    us = {k: 0.0 for k in kinds}
+    us.update(gemm=0.0, staging_htod=0.0, other=0.0)
     other = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        kind = next((k for k in ("masked_sum", "ssca_update", "compress",
-                                 "sketch_encode") if f"{k}_kernel" in e.name),
-                    "staging_htod" if "HtoD" in e.name else "other")
+        name = e.name.lower()
+        kind = next((k for k in kinds if f"{k}_kernel" in name), None)
+        if kind is None:
+            kind = ("staging_htod" if "htod" in name else
+                    "gemm" if any(t in name for t in ("gemm", "cutlass",
+                                                      "xmma", "cublas",
+                                                      "nvjet"))
+                    else "other")
         us[kind] += e.time_range.elapsed_us()
         if kind == "other":
             other[e.name[:80]] = other.get(e.name[:80], 0.0) \
@@ -511,7 +788,23 @@ def phase_profile(torch, data, part, params, runtime):
     log("profile (round loop under torch.profiler):", json.dumps(out))
 
 
-def phase_timing(torch, su, sa, kc, ks, launches, by_path, errs):
+def rwkv6_bound():
+    """The least time of TPU kernel 6, ``rwkv6_wkv_bh`` (not ported yet),
+    counted from its code at rwkv6-7b's shape: 64 heads of 64, B·I = 8
+    sequences of 1,024 tokens (BH = 512), chunk 16, f32 r/k/v/lw in and
+    o out.  Per chunk: the four matmuls (r·S_in, the T×T scores, their
+    product with v, the state update) and about 15·T·D + 2·D² + T²
+    elementwise operations (cumsum, exps, decays, bonus, state decay).
+    Returns (bytes_ms, ops_ms)."""
+    bh, s, d, t = 8 * 64, LM_SEQ, 64, 16
+    flops = bh * (s // t) * (2 * t * d * d + 2 * t * t * d + 2 * t * t * d
+                             + 2 * d * t * d + 15 * t * d + 2 * d * d
+                             + t * t)
+    nbytes = 4 * (4 * bh * s * d + bh * d + bh * s * d)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+
+
+def phase_timing(torch, su, sa, kc, ks, fa, launches, by_path, errs):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     n = 794 * 128
@@ -543,34 +836,53 @@ def phase_timing(torch, su, sa, kc, ks, launches, by_path, errs):
     s_f32 = CLIENTS * n * FLOPS_SKETCH
     log(f"sketch_encode timing input: {nonzero} nonzero levels of "
         f"{CLIENTS * n}")
+    # flash attention at the LM path's shape: each input read once and
+    # the output written once; the causal half of Q.K^T and P.V, 2·Dh
+    # FLOPs per (query, visible key) pair for each, at the bf16
+    # tensor-core peak (the inputs' type)
+    fb, fs, fh, fkv, fd = FLASH_PATH
+    fq, fk, fv = flash_inputs(torch, *FLASH_PATH, torch.bfloat16, seed=2)
+    f_bytes = 2 * (2 * fq.numel() + fk.numel() + fv.numel())
+    f_flops = 2 * 2 * fd * fb * fh * fs * (fs + 1) // 2
+    # the library's layout is (B, H, S, Dh): transposed once, outside the
+    # timed call
+    lq, lk, lv = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for name, src, replaces, kern, plain, nbytes, ops in (
+    for name, src, replaces, kern, plain, library, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
              "src/repro/kernels/ssca_update.py:54",
              lambda: su.ssca_update_2d(w, lin, grad, beta, sc),
-             lambda: su.ssca_update_plain(w, lin, grad, beta, sc),
+             lambda: su.ssca_update_plain(w, lin, grad, beta, sc), None,
              ssca_bytes, {"f32": FLOPS_SSCA * n}),
             ("masked_sum", "src/repro_torch/kernels/csrc/secure_agg.cu",
              "src/repro/kernels/secure_agg.py:346",
              lambda: sa.masked_sum_2d(msgs, 1, 2, **kw),
-             lambda: sa.masked_sum_plain(msgs, 1, 2, **kw),
+             lambda: sa.masked_sum_plain(msgs, 1, 2, **kw), None,
              ms_bytes, {"int32": ms_ops}),
             ("compress", "src/repro_torch/kernels/csrc/compress.cu",
              "src/repro/kernels/compress.py:142",
              lambda: kc.compress_2d(msgs, csu, csf, **ckw),
-             lambda: kc.compress_2d_plain(msgs, csu, csf, **ckw),
+             lambda: kc.compress_2d_plain(msgs, csu, csf, **ckw), None,
              c_bytes, {"int32": c_int, "f32": c_f32}),
             ("sketch_encode", "src/repro_torch/kernels/csrc/sketch.cu",
              "src/repro/kernels/sketch.py:166",
              lambda: ks.sketch_encode(sx, ssu, **skw),
-             lambda: ks.sketch_encode_plain(sx, ssu, **skw),
-             s_bytes, {"int32": s_int, "f32": s_f32})):
+             lambda: ks.sketch_encode_plain(sx, ssu, **skw), None,
+             s_bytes, {"int32": s_int, "f32": s_f32}),
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:78",
+             lambda: fa.flash_attention_bhsd(fq, fk, fv),
+             lambda: fa.flash_attention_plain(fq, fk, fv),
+             lambda: sdpa(lq, lk, lv, is_causal=True, enable_gqa=True),
+             f_bytes, {"bf16": f_flops})):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         # integer and f32 work run on separate pipes: the least time is
         # the larger of the two
-        ops_ms = max(v / {"int32": INT32_OPS_PER_S,
-                          "f32": FP32_FLOPS_PER_S}[k] for k, v in ops.items()
-                     ) * 1e3
+        ops_ms = max(v / {"int32": INT32_OPS_PER_S, "f32": FP32_FLOPS_PER_S,
+                          "bf16": BF16_FLOPS_PER_S}[k]
+                     for k, v in ops.items()) * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
@@ -579,13 +891,22 @@ def phase_timing(torch, su, sa, kc, ks, launches, by_path, errs):
             "plain_ms": time_ms(plain, iters=5, repeats=3),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None})
+            "library_ms": None if library is None else time_ms(library)})
         log(f"{name}: {time_ms(kern, graph=False):.4f} ms a call when "
             "launched eagerly from Python (wrapper overhead included)")
+    bytes_ms, ops_ms = rwkv6_bound()
+    log(f"rwkv6_wkv_bh (TPU kernel 6, not ported): bound at (BH, S, D) = "
+        f"(512, {LM_SEQ}, 64), chunk 16: {bytes_ms:.4f} ms by bytes, "
+        f"{ops_ms:.4f} ms by f32 operations")
     return rows
 
 
 def main() -> int:
+    # the full-width LM path allocates and frees many tensors of 4-8 GB;
+    # growable segments keep the freed ones reusable (set before CUDA
+    # starts)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -599,6 +920,7 @@ def main() -> int:
     from repro_torch.fed import runtime
     from repro_torch.kernels import build
     from repro_torch.kernels import compress as kc
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import secure_agg as sa
     from repro_torch.kernels import sketch as ks
     from repro_torch.kernels import ssca_update as su
@@ -617,6 +939,7 @@ def main() -> int:
         f"(nvcc {build.build_seconds:.2f} s)")
 
     errs = phase_kernel_parity(torch, su, sa)
+    errs["flash_attention"] = phase_flash_parity(torch)
 
     t0 = time.perf_counter()
     data = synthetic.classification_dataset(60000, 10000, seed=0)
@@ -626,7 +949,8 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     kernels = {"ssca_update": su.ssca_update_2d,
                "masked_sum": sa.masked_sum_2d, "compress": kc.compress_2d,
-               "sketch_encode": ks.sketch_encode}
+               "sketch_encode": ks.sketch_encode,
+               "flash_attention": fa.flash_attention_bhsd}
     for fn in kernels.values():
         fn.launches = 0
     _, hist = phase_main_path(torch, su, sa, data, part, params, runtime)
@@ -636,16 +960,19 @@ def main() -> int:
     by_path = {"secure_dense": {k: fn.launches
                                 for k, fn in kernels.items()}}
     if by_path["secure_dense"]["compress"] \
-            or by_path["secure_dense"]["sketch_encode"]:
-        raise AssertionError(f"main path launched a compressor kernel: "
-                             f"{by_path['secure_dense']}")
+            or by_path["secure_dense"]["sketch_encode"] \
+            or by_path["secure_dense"]["flash_attention"]:
+        raise AssertionError(f"main path launched a compressor or "
+                             f"attention kernel: {by_path['secure_dense']}")
     by_path.update(phase_compressed_paths(torch, kernels, data, part, params,
                                           runtime, card))
+    by_path["lm_small"] = phase_lm_small(torch, kernels, runtime)
+    by_path["lm_full_width"] = phase_lm_full(torch, kernels, runtime, card)
     total = {k: sum(p[k] for p in by_path.values()) for k in kernels}
     log(f"launches over all paths: {total}")
 
     phase_profile(torch, data, part, params, runtime)
-    rows = phase_timing(torch, su, sa, kc, ks, total, by_path, errs)
+    rows = phase_timing(torch, su, sa, kc, ks, fa, total, by_path, errs)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,10 @@
+"""llama3-8b [dense] — Meta Llama 3 8B (GQA kv=8, 128k vocab).
+Source: arXiv:2407.21783 (The Llama 3 Herd of Models)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-8b", family="dense",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8,
+    head_dim=128, d_ff=14336, vocab_size=128256,
+    source="arXiv:2407.21783",
+)

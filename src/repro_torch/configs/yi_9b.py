@@ -1,0 +1,10 @@
+"""yi-9b [dense] — 01.AI Yi-9B (llama-arch, GQA kv=4).
+Source: arXiv:2403.04652 (Yi: Open Foundation Models)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-9b", family="dense",
+    num_layers=48, d_model=4096, num_heads=32, num_kv_heads=4,
+    head_dim=128, d_ff=11008, vocab_size=64000,
+    source="arXiv:2403.04652",
+)

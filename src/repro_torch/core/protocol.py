@@ -18,9 +18,9 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.func import grad
+from torch.func import vjp
 
-from repro_torch import Device
+from repro_torch import Device, tree
 from repro_torch.core import ssca
 
 
@@ -44,8 +44,8 @@ class _Base:
 
     def upload_spec(self, params) -> UploadSpec:
         return UploadSpec(
-            elements=sum(v.numel() for v in params.values()),
-            leaves=len(params),
+            elements=tree.numel(params),
+            leaves=len(tree.leaves(params)),
             elem_bytes=self.upload_dtype.itemsize)
 
 
@@ -66,8 +66,16 @@ class SSCAUnconstrained(_Base):
         return ssca.init(params)
 
     def client_upload(self, params, state, batch):
+        """∇ loss_fn at ``params``: ``grad``'s value, through ``vjp`` with
+        ``create_graph=False``.  ``torch.func.grad`` always builds the
+        graph of its backward (``create_graph=True``), which keeps every
+        saved activation and every backward intermediate alive to the
+        end of the backward: at the LM's full width, under the engine's
+        ``vmap`` over clients, tens of GB."""
         del state
-        return grad(self.loss_fn)(params, batch)
+        loss, pullback = vjp(lambda p: self.loss_fn(p, batch), params)
+        return pullback(torch.ones_like(loss), retain_graph=False,
+                        create_graph=False)[0]
 
     def server_step(self, params, state, agg, *, device: Device = None):
         return ssca.server_update(state, params, agg, self.hp,

@@ -9,19 +9,20 @@ the recursively averaged surrogate is the quadratic
 
 closed-form minimizer (16)/(17)  ω̄^t = −(lin^t + 2λ β^t) / (2τ), and
 iterate move (4)  ω^{t+1} = (1 − γ^t) ω^t + γ^t ω̄^t.  Parameters and
-state are dicts of tensors keyed like the params.
+state are trees of tensors (:mod:`repro_torch.tree`) shaped like the
+params.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import NamedTuple
 
 import torch
 
-from repro_torch import Device
+from repro_torch import Device, tree
 from repro_torch.core.schedules import PowerLaw
 from repro_torch.kernels import ops
 
-Params = Dict[str, torch.Tensor]
+Params = tree.Tree
 
 
 class SSCAHyperParams(NamedTuple):
@@ -41,21 +42,21 @@ class SSCAState(NamedTuple):
 
 def init(params: Params) -> SSCAState:
     return SSCAState(step=1,
-                     lin={k: torch.zeros_like(v) for k, v in params.items()},
-                     beta={k: torch.zeros_like(v) for k, v in params.items()})
+                     lin=tree.map(torch.zeros_like, params),
+                     beta=tree.map(torch.zeros_like, params))
 
 
 def ema(old: Params, new: Params, rho) -> Params:
-    return {k: (1.0 - rho) * old[k] + rho * new[k] for k in old}
+    return tree.map(lambda o, n: (1.0 - rho) * o + rho * n, old, new)
 
 
 def solve_surrogate(state: SSCAState, hp: SSCAHyperParams) -> Params:
     """Closed-form minimizer of Problem 2 under surrogate (6): (16)/(17)."""
     two_tau = 2.0 * hp.tau
     if hp.lam:
-        return {k: -(b + 2.0 * hp.lam * state.beta[k]) / two_tau
-                for k, b in state.lin.items()}
-    return {k: -b / two_tau for k, b in state.lin.items()}
+        return tree.map(lambda b, be: -(b + 2.0 * hp.lam * be) / two_tau,
+                        state.lin, state.beta)
+    return tree.map(lambda b: -b / two_tau, state.lin)
 
 
 def server_update(state: SSCAState, params: Params, grad_agg: Params,
@@ -80,12 +81,12 @@ def server_update(state: SSCAState, params: Params, grad_agg: Params,
         return new_params, new_state
 
     lin = ema(state.lin,
-              {k: g - 2.0 * hp.tau * params[k] for k, g in grad_agg.items()},
+              tree.map(lambda g, w: g - 2.0 * hp.tau * w, grad_agg, params),
               rho)
     beta = ema(state.beta, params, rho) if hp.lam else state.beta
     new_state = SSCAState(step=state.step + 1, lin=lin, beta=beta)
 
     omega_bar = solve_surrogate(new_state, hp)
-    new_params = {k: (1.0 - gamma) * w + gamma * omega_bar[k]
-                  for k, w in params.items()}
+    new_params = tree.map(lambda w, wb: (1.0 - gamma) * w + gamma * wb,
+                          params, omega_bar)
     return new_params, new_state

@@ -1,11 +1,12 @@
 """Synthetic MNIST stand-in (the container is offline; MNIST is unavailable).
 
-A copy of ``repro/data/synthetic.py::classification_dataset`` (numpy
-only), so the port trains on exactly the reference's data.  It mirrors the
-paper's MNIST setup in all shape respects (N=60000 train / 10000 test,
-K=784 features in [0,1], L=10 classes) and is learnable: each class is a
-smooth random prototype image plus structured low-rank variation plus
-pixel noise.
+Copies of ``repro/data/synthetic.py::classification_dataset`` and
+``token_dataset`` (numpy only), so the port trains on exactly the
+reference's data.  The classification set mirrors the paper's MNIST
+setup in all shape respects (N=60000 train / 10000 test, K=784 features
+in [0,1], L=10 classes) and is learnable: each class is a smooth random
+prototype image plus structured low-rank variation plus pixel noise.
+The token set feeds the LM tasks.
 """
 from __future__ import annotations
 
@@ -64,3 +65,14 @@ def classification_dataset(n_train: int = 60000, n_test: int = 10000,
         x_tr = np.clip((x_tr - thr) / scale, 0.0, 1.0).astype(np.float32)
         x_te = np.clip((x_te - thr) / scale, 0.0, 1.0).astype(np.float32)
     return Classification(x_tr, y_tr, x_te, y_te)
+
+
+def token_dataset(n_docs: int, seq_len: int, vocab: int, seed: int = 0):
+    """Zipf-distributed token ids, (n_docs, seq_len) int32 (a power-law
+    unigram distribution, so embedding gradients are realistically
+    skewed)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    return rng.choice(vocab, size=(n_docs, seq_len), p=probs).astype(np.int32)

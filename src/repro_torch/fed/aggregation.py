@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import Device
+from repro_torch import Device, tree
 from repro_torch.kernels import ops as _kops
 
 
@@ -43,7 +43,7 @@ class PlainAggregation:
         del key_words, device
         if isinstance(wmsgs, torch.Tensor):
             return wmsgs.sum(dim=0)
-        return {k: v.sum(dim=0) for k, v in wmsgs.items()}
+        return tree.map(lambda v: v.sum(dim=0), wmsgs)
 
     def uplink_wire_bytes(self, payload_bytes: int, dense_elements: int,
                           num_clients: int) -> int:
@@ -103,7 +103,7 @@ class SecureAggregation:
         if isinstance(wmsgs, torch.Tensor):
             return self.combine_messages({"m": wmsgs}, key_words,
                                          device=device)["m"]
-        n = next(iter(wmsgs.values())).shape[0]
+        n = tree.leaves(wmsgs)[0].shape[0]
         agg_q = _kops.secure_quant_sum(
             wmsgs, key_words, scale_bits=self.scale_bits, client_offset=0,
             num_clients=n, device=device)

@@ -17,11 +17,12 @@ message, the server aggregates the compressed messages, and the ledger
   optionally quantizing the kept values (``bits``).
 
 The reference's compressors take one client's pytree and the engine
-vmaps them; the port's take the whole (I, …) message dict of a round and
+vmaps them; the port's take the whole (I, …) message tree of a round and
 the (I,) int64 per-(round, client) stream seeds
 (:func:`repro_torch.kernels.compress.client_stream_seed`), and launch one
 kernel (:func:`repro_torch.kernels.compress.compress_2d`) for all
-clients: two a round for qsgd on the MLP (one per leaf), one for top-k.
+clients: one a round per leaf for qsgd (two on the MLP), one for top-k.
+Trees are walked in ``jax.tree`` leaf order (:mod:`repro_torch.tree`).
 """
 from __future__ import annotations
 
@@ -32,11 +33,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import Device
+from repro_torch import Device, tree
 from repro_torch.kernels import compress as _kc
 from repro_torch.kernels import ops as _kops
 
-Params = Dict[str, torch.Tensor]
+Params = tree.Tree
 
 _F32_BYTES = 4          # wire width of scales / indices / dense floats
 
@@ -61,9 +62,9 @@ def _pow2_step(maxabs: torch.Tensor, lbound: int) -> torch.Tensor:
 
 def _zeros_arena(like: Params, num_clients: int) -> Params:
     """The population-resident (I, …) f32 residual arena, zero at birth."""
-    return {k: torch.zeros((num_clients,) + tuple(v.shape),
-                           dtype=torch.float32, device=v.device)
-            for k, v in like.items()}
+    return tree.map(lambda v: torch.zeros(
+        (num_clients,) + tuple(v.shape), dtype=torch.float32,
+        device=v.device), like)
 
 
 def _scalars(seeds: torch.Tensor, base: int, thr, delta):
@@ -122,12 +123,11 @@ class StochasticQuantizer:
 
     def compress(self, msgs: Params, resid, seeds: torch.Tensor, *,
                  device: Device = None):
-        """(I, …) message dict → the quantized dict, one kernel launch per
-        leaf; the leaves' counter ranges are disjoint (each starts where
-        the previous padded leaf ended)."""
-        out, base = {}, 0
-        for k in sorted(msgs):
-            x = msgs[k]
+        """(I, …) message tree → the quantized tree, one kernel launch per
+        leaf in leaf order; the leaves' counter ranges are disjoint (each
+        starts where the previous padded leaf ended)."""
+        out, base = [], 0
+        for x in tree.leaves(msgs):
             flat = x.float().reshape(x.shape[0], -1)
             buf = _kops.pad_lanes(flat).contiguous()
             delta = _pow2_step(buf.abs().amax(dim=(1, 2)), self._lbound)
@@ -135,10 +135,10 @@ class StochasticQuantizer:
             q, _ = _kc.compress_2d(buf, su, sf, lbound=self._lbound,
                                    quantize=True, masked=False,
                                    device=device)
-            out[k] = q.reshape(x.shape[0], -1)[:, :flat.shape[1]] \
-                .reshape(x.shape)
+            out.append(q.reshape(x.shape[0], -1)[:, :flat.shape[1]]
+                       .reshape(x.shape))
             base += buf.shape[1] * buf.shape[2]
-        return out, resid
+        return tree.unflatten(msgs, out), resid
 
     def payload_bytes(self, elements, leaves, elem_bytes):
         del elem_bytes
@@ -184,9 +184,11 @@ class TopKCompressor:
                  device: Device = None):
         """(I, …) messages and residuals → (compressed, new residuals), one
         kernel launch over the flattened messages of all clients."""
-        inp = {k: msgs[k].float() + resid[k] for k in msgs}
-        flat = _kops.flatten(inp, lead=1)                    # (I, n)
-        k = self._k(flat.shape[1])
+        inp = tree.map(lambda m, r: m.float() + r, msgs, resid)
+        buf = _kops.flatten_padded(inp, lead=1)              # (I, R, 128)
+        n = tree.numel(inp) // buf.shape[0]
+        flat = buf.reshape(buf.shape[0], -1)[:, :n]          # (I, n) view
+        k = self._k(n)
         thr = torch.topk(flat.abs(), k, dim=1).values[:, k - 1]
         quantize = self.bits is not None
         if quantize:
@@ -195,10 +197,10 @@ class TopKCompressor:
         else:
             lbound, delta = 1, 1.0
         su, sf = _scalars(seeds, 0, thr, delta)
-        out, res = _kc.compress_2d(_kops.pad_lanes(flat).contiguous(), su,
-                                   sf, lbound=lbound, quantize=quantize,
-                                   masked=True, device=device)
-        like = {key: v[0] for key, v in inp.items()}
+        out, res = _kc.compress_2d(buf, su, sf, lbound=lbound,
+                                   quantize=quantize, masked=True,
+                                   device=device)
+        like = tree.map(lambda v: v[0], inp)
         return (_kops.unflatten(out, like, lead=1),
                 _kops.unflatten(res, like, lead=1))
 
@@ -242,7 +244,7 @@ class RoundBytes:
 
 
 def _param_bytes(params) -> int:
-    return sum(w.numel() * w.element_size() for w in params.values())
+    return sum(w.numel() * w.element_size() for w in tree.leaves(params))
 
 
 def round_bytes(algorithm, aggregation, compressor, params,

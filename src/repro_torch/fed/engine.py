@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from repro_torch import Device, resolve_device
+from repro_torch import Device, resolve_device, tree
 from repro_torch.data.partition import Partition, sample_schedule
 from repro_torch.fed import compression as compression_mod
 from repro_torch.fed.aggregation import PlainAggregation
@@ -147,8 +147,8 @@ def _sketched_round(compressor, aggregation, msgs, resid, seeds,
     clients' on-grid values at the support under ``fold_in(round key,
     0x5EED)``, and debit each client's residual by its own values.
     Returns (the k-sparse update, new residuals)."""
-    inp = {k: msgs[k].float() + resid[k] for k in msgs}
-    like = {k: v[0] for k, v in inp.items()}
+    inp = tree.map(lambda m, r: m.float() + r, msgs, resid)
+    like = tree.map(lambda v: v[0], inp)
     sk = compressor.encode(inp, seeds, device=dev)
     support = compressor.support(
         aggregation.combine_messages(sk, key_words, device=dev), like)
@@ -187,8 +187,8 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     num_clients = part.num_clients
     if params is None:
         params = task.init_params(torch.Generator().manual_seed(seed))
-    params = {k: v.detach().to(dev, torch.float32, copy=True)
-              for k, v in params.items()}
+    params = tree.map(lambda v: v.detach().to(dev, torch.float32, copy=True),
+                      params)
     schedule = torch.as_tensor(build_schedule(part, batch_size, rounds, seed),
                                device=dev)
     x_train = torch.as_tensor(data.x_train, device=dev)
@@ -221,29 +221,31 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     def upload(batch):
         return algorithm.client_upload(params, state, batch)
 
-    evals = []
-    t0 = time.perf_counter()
-    for t in range(rounds):
+    def aggregate(t):
+        """Round t's aggregate.  The (I, …) per-client uploads are locals
+        here, so they are freed before the server step."""
         idx_t = schedule[t]                                  # (I, B)
         if compressor is None and not aggregation.needs_messages:
             # linear fast path: one upload on the weighted super-batch
             flat = idx_t.reshape(-1)
-            agg = upload((x_train[flat], y_train[flat],
-                          weights.repeat_interleave(idx_t.shape[1])))
-        else:
-            ws = weights[:, None].expand(idx_t.shape)        # λ_i per sample
-            msgs = vmap(upload)((x_train[idx_t], y_train[idx_t], ws))
-            if compressor is None:
-                agg = aggregation.combine_messages(msgs, keyw[t], device=dev)
-            else:
-                resid = None if arena is None else \
-                    {k: a[cids] for k, a in arena.items()}
-                agg, new_resid = round_fn(compressor, aggregation, msgs,
-                                          resid, seeds[t], keyw[t], dev)
-                if arena is not None:
-                    for k, a in arena.items():
-                        a[cids] = new_resid[k]
-        params, state = algorithm.server_step(params, state, agg,
+            return upload((x_train[flat], y_train[flat],
+                           weights.repeat_interleave(idx_t.shape[1])))
+        ws = weights[:, None].expand(idx_t.shape)            # λ_i per sample
+        msgs = vmap(upload)((x_train[idx_t], y_train[idx_t], ws))
+        if compressor is None:
+            return aggregation.combine_messages(msgs, keyw[t], device=dev)
+        resid = None if arena is None else tree.map(lambda a: a[cids], arena)
+        agg, new_resid = round_fn(compressor, aggregation, msgs, resid,
+                                  seeds[t], keyw[t], dev)
+        if arena is not None:
+            for a, r in zip(tree.leaves(arena), tree.leaves(new_resid)):
+                a[cids] = r
+        return agg
+
+    evals = []
+    t0 = time.perf_counter()
+    for t in range(rounds):
+        params, state = algorithm.server_step(params, state, aggregate(t),
                                               device=dev)
         if (t + 1) % eval_every == 0 or t + 1 == rounds:
             evals.append((t + 1, measure(params)))

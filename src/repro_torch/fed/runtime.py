@@ -1,13 +1,14 @@
 """Single-host federated simulation runtime (the paper's experimental rig).
 
 The port of ``repro/fed/runtime.py::run_alg1``: Algorithm 1 (mini-batch
-SSCA, unconstrained) on the paper's MLP task by default, with plain or
-secure aggregation and optionally compressed or sketched uploads, on one
-device.
+SSCA, unconstrained) on the paper's MLP task by default, or on a
+decoder-only LM task (:func:`repro_torch.fed.tasks.transformer_task`),
+with plain or secure aggregation and optionally compressed or sketched
+uploads, on one device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Union
 
 from repro_torch import Device, resolve_device
 from repro_torch.core import protocol, ssca
@@ -18,6 +19,7 @@ from repro_torch.fed import engine
 from repro_torch.fed.engine import History  # noqa: F401  (public re-export)
 from repro_torch.fed.tasks.base import SumLoss
 from repro_torch.fed.tasks.mlp import MLPTask
+from repro_torch.fed.tasks.transformer import LMTask
 
 
 def _resolve_task(task, data, hidden: int):
@@ -40,7 +42,7 @@ def _resolve_aggregation(aggregation, secure: bool):
 
 def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
              lam: float = 1e-5, tau: float = 0.1, seed: int = 0,
-             params=None, task: Optional[MLPTask] = None,
+             params=None, task: Union[MLPTask, LMTask, None] = None,
              hidden: int = 128, eval_every: int = 1,
              eval_samples: int = 10000, secure: bool = False,
              fused: bool = False, aggregation=None, compressor=None,
@@ -55,8 +57,12 @@ def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
     ``compressor`` is one of :func:`repro_torch.fed.compression.qsgd`,
     :func:`~repro_torch.fed.compression.topk` or
     :func:`repro_torch.fed.sketch.sketch` (or the identity).
-    ``params`` is an optional ``{"w1", "w2"}`` tensor dict (see
-    :func:`repro_torch.mlpapp.model.params_from_numpy`).  Runs on ``cuda``
+    ``task`` is the paper's MLP by default (widths from the data and
+    ``hidden``) or an :class:`~repro_torch.fed.tasks.transformer.LMTask`.
+    ``params`` is an optional parameter tree of the task: ``{"w1", "w2"}``
+    for the MLP (see :func:`repro_torch.mlpapp.model.params_from_numpy`),
+    the layer-stacked tree for an LM (see
+    :func:`repro_torch.models.transformer.params_from_numpy`).  Runs on ``cuda``
     unless ``device="cpu"`` is passed.
 
     ``mesh``, ``staleness``, ``staleness_trace``, ``arena``, ``pipeline``

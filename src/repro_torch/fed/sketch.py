@@ -29,26 +29,22 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch import Device
+from repro_torch import Device, tree
 from repro_torch.fed.compression import _F32_BYTES, _zeros_arena
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels import sketch as _ksk
 from repro_torch.kernels.secure_agg import _mix32
 
-Params = Dict[str, torch.Tensor]
+Params = tree.Tree
 
 # Domain-separation tag of the phase-2 rounding stream: phase 1 already
 # drew at the same counters on the client's per-round stream.
 _PHASE2_TAG = 0x9D2C5680
-
-
-def _numel(like: Params) -> int:
-    return sum(v.numel() for v in like.values())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +141,7 @@ class CountSketchCompressor:
         model coordinate.  Ties go to the lower index, as ``lax.top_k``
         orders them (``torch.topk`` promises no order for ties, and zero
         estimates tie often)."""
-        n = _numel(like)
+        n = tree.numel(like)
         ctrs = torch.arange(n, dtype=torch.int64, device=agg_sketch.device)
         est = _ksk.sketch_estimate_median(agg_sketch, ctrs, self._seed_u32)
         order = torch.sort(est.abs(), descending=True, stable=True).indices
@@ -167,7 +163,7 @@ class CountSketchCompressor:
                    like: Params) -> Params:
         """Server, phase 2: the aggregated (k,) values at the (k,) support
         → the k-sparse model-shaped update."""
-        dense = torch.zeros(_numel(like), dtype=torch.float32,
+        dense = torch.zeros(tree.numel(like), dtype=torch.float32,
                             device=agg_values.device)
         dense[support] = agg_values.to(torch.float32)
         return _kops.unflatten(dense, like)
@@ -177,8 +173,7 @@ class CountSketchCompressor:
         """Each client: r' = inp − its own phase-2 upload at the support,
         exactly what the server applied on its behalf."""
         flat = _kops.flatten(inp, lead=1).index_add(1, support, -vals)
-        return _kops.unflatten(flat, {k: v[0] for k, v in inp.items()},
-                               lead=1)
+        return _kops.unflatten(flat, tree.map(lambda v: v[0], inp), lead=1)
 
     # -- communication-ledger hooks --------------------------------------
 

@@ -4,6 +4,11 @@
 * ``ssca_update`` — the fused Algorithm-1 server update.
 * ``secure_agg``  — streaming secure aggregation: quantize + counter-mode
                     pair masks + Z_{2^32} sum in one pass.
+* ``compress``    — threshold, stochastic lattice rounding and residual
+                    of the qsgd / top-k uploads.
+* ``sketch``      — the count-sketch encode of the sketched uploads.
+* ``flash_attention`` — causal GQA attention of the LM's training forward,
+                    with a plain backward and a vmap rule.
 
 ``ops`` holds the wrappers for parameter and message dicts.  No module
 here builds or loads a kernel at import: the build runs on a wrapper's

@@ -104,6 +104,9 @@ def load() -> ctypes.CDLL:
     cdll.sketch_encode_launch.argtypes = [p, p, i32, i64, i32, i64, i32, p,
                                           p]
     cdll.sketch_encode_launch.restype = i32
+    cdll.flash_attention_launch.argtypes = [p, p, p, p, i32, i32, i32, i32,
+                                            i32, i32, ctypes.c_float, p]
+    cdll.flash_attention_launch.restype = i32
     cdll.kernel_error_string.argtypes = [i32]
     cdll.kernel_error_string.restype = ctypes.c_char_p
     _LIB = cdll

@@ -6,19 +6,27 @@ that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
 
-Tolerances: none.  The SSCA and compress kernels round every f32
-operation separately, in the plain version's order (no FMA contraction),
-and the masked sum and the sketch encode are ring arithmetic: all must
-equal their plain versions bit for bit (NaN compared as NaN).
+Tolerances: none for the four integer and update kernels.  The SSCA
+and compress kernels round every f32 operation separately, in the plain
+version's order (no FMA contraction), and the masked sum and the sketch
+encode are ring arithmetic: all must equal their plain versions bit for
+bit (NaN compared as NaN).  The flash-attention kernel sums its scores
+and its P·V in another order than the plain version's einsums, and keeps
+an online softmax: f32 outputs within 2e-5 absolute of the plain
+version, bf16 outputs within one bf16 ulp (plus 2e-5 near zero).  The LM
+run on the card is held to its CPU run as the MLP runs are.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.data import partition, synthetic
 from repro_torch.fed import compression, runtime
 from repro_torch.fed import sketch as fed_sketch
+from repro_torch.fed.tasks import transformer_task
 from repro_torch.kernels import compress as kc
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import secure_agg as sa
 from repro_torch.kernels import sketch as ks
@@ -225,3 +233,70 @@ def test_compressed_run_alg1_on_card_tracks_cpu(dev, name):
     for k in p_cpu:
         np.testing.assert_allclose(p_gpu[k].cpu().numpy(), p_cpu[k].numpy(),
                                    rtol=0, atol=1e-3)
+
+
+FLASH_SHAPES = [(1, 1, 4, 1, 16, "f32"), (2, 77, 4, 2, 64, "f32"),
+                (2, 130, 4, 4, 32, "f32"), (1, 200, 8, 1, 128, "f32"),
+                (3, 77, 8, 8, 16, "bf16"), (1, 1024, 32, 8, 128, "bf16"),
+                (2, 65, 4, 1, 128, "bf16")]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=[str(s) for s in FLASH_SHAPES])
+def test_flash_attention_kernel_matches_plain(dev, shape):
+    b, s, h, hkv, dh, dt = shape
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    q = _randn(dev, b, s, h, dh, seed=1).to(dt)
+    k = _randn(dev, b, s, hkv, dh, seed=2).to(dt)
+    v = _randn(dev, b, s, hkv, dh, seed=3).to(dt)
+    before = fa.flash_attention_bhsd.launches
+    got = fa.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v)
+    err = (got.float() - want.float()).abs()
+    if dt == torch.float32:
+        assert float(err.max()) <= 2e-5
+    else:
+        mag = torch.maximum(got.float().abs(), want.float().abs())
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        assert bool((err <= ulp + 2e-5).all()), float(err.max())
+
+
+def test_flash_attention_vmap_grad_on_card(dev):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 2, 100, 4, 64, generator=g).to(dev)
+    kv = torch.randn(3, 2, 100, 2, 64, generator=g).to(dev)
+    w = (torch.randn(64, 64, generator=g) * 0.1).to(dev)
+
+    def loss(w, xi, ki):
+        return (ops.flash_attention(xi @ w, ki, 0.5 * ki) ** 2).sum()
+
+    before = fa.flash_attention_bhsd.launches
+    got = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0, 0))(
+        w, x, kv)
+    assert fa.flash_attention_bhsd.launches == before + 1
+    want = torch.stack([torch.func.grad(loss)(w.cpu(), x[i].cpu(),
+                                              kv[i].cpu()) for i in range(3)])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
+
+
+def test_lm_run_alg1_on_card_tracks_cpu(dev):
+    task = transformer_task()            # head_dim 16
+    data = task.default_data(n_train=96, n_test=24, seed=0)
+    part = partition.iid(96, 4, seed=0)
+    kw = dict(task=task, batch_size=4, rounds=4, eval_every=2,
+              eval_samples=48, seed=1, tau=2.0, lam=0.0, secure=True,
+              fused=True)
+    before = fa.flash_attention_bhsd.launches
+    p_gpu, h_gpu = runtime.run_alg1(data, part, **kw)
+    # 2 layers x (4 uploads, one launch each for all clients, + 2 eval
+    # points x 2 forwards)
+    assert fa.flash_attention_bhsd.launches - before == 2 * (4 + 2 * 2)
+    p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
+    assert h_gpu.comm == h_cpu.comm
+    np.testing.assert_allclose(h_gpu.train_cost, h_cpu.train_cost, rtol=1e-4)
+    for a, b in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4)

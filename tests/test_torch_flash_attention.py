@@ -1,0 +1,144 @@
+"""The port's causal GQA attention against the reference's kernel 5.
+
+Same inputs, made from a seed with numpy, go through
+``repro.kernels.ops.flash_attention`` (the Pallas kernel in interpret
+mode), ``repro.kernels.ref.flash_attention_bhsd`` (its plain reference,
+on k/v repeated G-fold) and the port's ``ops.flash_attention``, which on
+the CPU runs ``flash_attention_plain``.  Shapes: B ∈ {1, 2},
+S ∈ {1, 16, 77, 128}, H = 4, Hkv ∈ {1, 2, 4}, Dh ∈ {16, 64, 128}.
+
+Tolerances, with the largest difference measured on the CPU:
+
+* f32: 1e-5 absolute (measured 7.2e-7). Both compute the same f32
+  softmax; the kernel's online softmax and the two einsums sum in other
+  orders.
+* bf16: one bf16 ulp of the output, plus 2e-6 absolute for outputs
+  near zero.  Both compute in f32 from the same bf16 inputs and round
+  once at the end; where the f32 values straddle a rounding midpoint
+  they round to neighbours (measured: one ulp at |o| ≈ 0.19), and where
+  the output cancels to near zero, the f32 difference (below 1e-6) is
+  many of that output's tiny ulps.
+
+The op's backward (plain PyTorch, P recomputed in f32) equals autograd of
+the plain version to 1e-5, and ``vmap(grad)`` through the op — the
+engine's per-client uploads — equals a loop of per-client ``grad``s
+bit for bit (one call on the folded batch computes the same rows).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.func import grad, vmap
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+# every (S, Hkv) pair; B and Dh cycle through their values
+SHAPES = [(1 + i % 2, s, 4, hkv, (16, 64, 128)[i % 3])
+          for i, (s, hkv) in enumerate((s, hkv) for s in (1, 16, 77, 128)
+                                       for hkv in (1, 2, 4))]
+
+
+def _inputs(b, s, h, hkv, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, dh)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, dh)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, dh)).astype(np.float32))
+
+
+def _ref_bhsd(q, k, v):
+    """The reference's plain ``flash_attention_bhsd`` on (B·H, S, Dh), k/v
+    repeated over each group of query heads."""
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+
+    def bh(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, s, dh)
+    o = jref.flash_attention_bhsd(bh(q), bh(np.repeat(k, g, axis=2)),
+                                  bh(np.repeat(v, g, axis=2)), dh ** -0.5)
+    return np.asarray(o).reshape(b, h, s, dh).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+def test_plain_matches_reference_kernel_f32(shape):
+    q, k, v = _inputs(*shape)
+    got = ops.flash_attention(*map(torch.as_tensor, (q, k, v)))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), _ref_bhsd(q, k, v), rtol=0,
+                               atol=1e-5)
+
+
+def _bf16_ulp(x):
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[str(s) for s in SHAPES])
+def test_plain_matches_reference_kernel_bf16(shape):
+    q, k, v = (jnp.asarray(x).astype(jnp.bfloat16) for x in _inputs(*shape))
+    got = ops.flash_attention(*(
+        torch.tensor(np.asarray(x.astype(jnp.float32)))
+        .to(torch.bfloat16) for x in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    want = np.asarray(jops.flash_attention(q, k, v, interpret=True)
+                      .astype(jnp.float32))
+    lim = _bf16_ulp(np.maximum(np.abs(got), np.abs(want))) + 2e-6
+    assert (np.abs(got - want) <= lim).all(), np.abs(got - want).max()
+
+
+def test_backward_equals_autograd_of_plain():
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.tensor(x, requires_grad=True)
+               for x in _inputs(2, 77, 4, 2, 16, seed=1))
+    do = torch.tensor(rng.standard_normal(q.shape).astype(np.float32))
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v), (q, k, v),
+                               do)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("hkv", [1, 2])
+def test_vmap_grad_folds_clients_into_one_call(hkv, monkeypatch):
+    rng = np.random.default_rng(2)
+    n, b, s, h, dh = 3, 2, 19, 4, 16
+    w = torch.tensor(rng.standard_normal((dh, dh)).astype(np.float32) * 0.3)
+    x = torch.tensor(rng.standard_normal((n, b, s, h, dh)).astype(np.float32))
+    kv = torch.tensor(rng.standard_normal((n, b, s, hkv, dh))
+                      .astype(np.float32))
+    calls = []
+    plain = fa.flash_attention_plain
+    monkeypatch.setattr(fa, "flash_attention_plain",
+                        lambda q, k, v: calls.append(q.shape) or plain(q, k, v))
+
+    def loss(w, xi, ki):
+        o = ops.flash_attention(xi @ w, ki, 0.5 * ki)
+        return (o * o).sum()
+
+    got = vmap(grad(loss), in_dims=(None, 0, 0))(w, x, kv)
+    # the forward ran once, on the clients folded into the batch
+    assert calls == [(n * b, s, h, dh)]
+    want = torch.stack([grad(loss)(w, x[i], kv[i]) for i in range(n)])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["heads", "dims"])
+def test_shape_checks(bad):
+    q = torch.zeros(1, 4, 4, 16)
+    k = torch.zeros(1, 4, 3, 16) if bad == "heads" else torch.zeros(1, 5, 2,
+                                                                      16)
+    with pytest.raises(ValueError, match="Hkv"):
+        fa.flash_attention_bhsd(q, k, k, device="cpu")
+
+
+def test_plain_launches_nothing():
+    before = fa.flash_attention_bhsd.launches
+    q = torch.zeros(1, 3, 2, 16)
+    fa.flash_attention_bhsd(q, q, q, device="cpu")
+    assert fa.flash_attention_bhsd.launches == before

@@ -19,8 +19,10 @@ import torch
 from repro_torch.data import partition, synthetic
 from repro_torch.fed import compression, runtime
 from repro_torch.fed import sketch as fed_sketch
-from repro_torch.kernels import build, compress, ops, secure_agg, sketch, \
-    ssca_update
+from repro_torch.fed.tasks import transformer_task
+from repro_torch.kernels import build, compress, flash_attention, ops, \
+    secure_agg, sketch, ssca_update
+from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -44,7 +46,7 @@ def test_importing_the_port_loads_no_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _CHECK], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 20      # every module was imported
+    assert int(out.stdout.split()[0]) >= 35      # every module was imported
 
 
 _IMPORT = re.compile(
@@ -54,7 +56,9 @@ _IMPORT = re.compile(
 
 def test_sources_import_no_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) > 40
+    assert {"transformer.py", "attention.py", "layers.py", "tree.py",
+            "flash_attention.py", "llama3_8b.py"} <= {f.name for f in files}
     for f in files:
         hits = _IMPORT.findall(f.read_text())
         assert not hits, (f, hits)
@@ -172,4 +176,27 @@ def test_build_tag_hashes_headers_and_sources(tmp_path):
     # the package's own build reads every kernel source and the header
     names = {p.name for p in build.CSRC.iterdir()}
     assert {"ssca_update.cu", "secure_agg.cu", "compress.cu", "sketch.cu",
-            "prf.cuh"} <= names
+            "flash_attention.cu", "prf.cuh"} <= names
+
+
+def test_lm_entry_points_refuse_the_cpu_by_default(no_gpu):
+    task = transformer_task(seq_len=8, d_model=32, vocab=32)
+    data = task.default_data(n_train=8, n_test=4)
+    part = partition.iid(8, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.run_alg1(data, part, task=task, batch_size=2, rounds=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(task.cfg).init(torch.Generator())
+    q = torch.zeros(1, 3, 2, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_attention.flash_attention_bhsd(q, q, q)
+    with pytest.raises(ValueError, match="asked for"):
+        flash_attention.flash_attention_bhsd(q, q, q, device="cuda")
+    before = flash_attention.flash_attention_bhsd.launches
+    # the same calls run when the CPU is asked for; the model's attention
+    # follows its tensors, which the caller placed on the CPU
+    _, hist = runtime.run_alg1(data, part, task=task, batch_size=2, rounds=1,
+                               secure=True, device="cpu")
+    assert hist.rounds == [1]
+    ops.flash_attention(q, q, q)
+    assert flash_attention.flash_attention_bhsd.launches == before
