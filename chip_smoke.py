@@ -7,7 +7,7 @@ Phases (any failure raises; the script then exits non-zero without its
 last line):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, five in
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, six in
    parallel) and print the build time;
 2. hold every kernel against its plain PyTorch version on the card, at
    the paths' shapes and at edge shapes: ``ssca_update`` and ``compress``
@@ -17,6 +17,11 @@ last line):
    to a stated tolerance (its sums run in another order), at the LM
    path's shape (B·I = 8, S = 1024, H = 32, Hkv = 8, Dh = 128, bf16) and
    at edge shapes (S = 1 and 77, Dh = 64 and 16, f32, G = 1 and 8);
+   ``rwkv6_wkv`` to a stated tolerance (the kernel steps token by
+   token, the plain version sums the chunked form), at the RWKV path's
+   shape (N = 8, S = 1024, H = 64, D = 64, bf16 r/k/v, model-like
+   decays) and at edge shapes (S = 1, 16, 33 and 40, D = 16 and 64,
+   log-decay at the −5 floor and at 0, u shared and per sequence);
 3. drive the main path once — ``run_alg1(secure=True, fused=True)`` on
    the paper's MLP (784 → 128 → 10) at full width: 60,000 samples over
    10 iid clients, B = 100, 20 rounds — with every launch counter set to
@@ -35,7 +40,8 @@ last line):
 5. drive the decoder-only LM (``transformer_task()``: llama3-8b cut to
    2 layers of width 64) secure and fused on the card for 5 rounds,
    counters set to 0 just before and read just after, and hold it to
-   the port's CPU run of the same configuration;
+   the port's CPU run of the same configuration; then the same for
+   RWKV-6 (``rwkv6_task()``: rwkv6-7b cut to 2 layers of width 64);
 6. drive the LM path at the full width of llama3-8b (2 of its 32
    layers): ``run_alg1(secure=True, fused=True, tau=2, lam=0)`` on 256
    Zipf token documents of 1,024 tokens over 4 iid clients, B = 2, 4
@@ -45,15 +51,20 @@ last line):
    first cost within [ln V − 1, ln V + 3], the ledger against
    ``round_bytes`` computed from the parameter shapes; print the round
    time, the peak device memory and the device time by kind and busy
-   share of one more round under ``torch.profiler``;
+   share of one more round under ``torch.profiler``; then the same for
+   rwkv6-7b at full width (2 of its 32 layers), whose WKV scan launches
+   once per layer per forward; and rwkv6-7b's path once more at τ = 2,
+   8 and 32 with the cost read after each of its 4 rounds (finite
+   costs), to tell the step size from the port in the cost's rise;
 7. run the main path once more under ``torch.profiler`` and print the
    device time by kind and the device's busy share of the round loop;
 8. time each kernel and its plain version on the paths' shapes (CUDA
    events around the replay of a CUDA graph of 50 calls, so the host's
    launch overhead does not gate the device), and, for flash attention,
    ``scaled_dot_product_attention`` as the library yardstick (the port
-   never calls it); print one ``{"kernels": [...]}`` line, then the
-   result line ``{"ok": true, "device": {...}}``.
+   never calls it; no single PyTorch call computes the WKV scan); print
+   one ``{"kernels": [...]}`` line, then the result line
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -119,6 +130,13 @@ LM_PARAMS = 961_564_672
 # flash attention's shape on that path: the 4 clients' 2 sequences
 # folded into the batch
 FLASH_PATH = (LM_CLIENTS * LM_BATCH, LM_SEQ, 32, 8, 128)
+# the RWKV path at full width: rwkv6-7b cut to 2 of its 32 layers, on the
+# LM path's data, clients, batch and rounds; the parameter tree holds
+# final_norm, which the config's param_count() leaves out
+RWKV_PARAMS = 705_802_240
+# the WKV scan's shape on that path (N, S, H, D): the 4 clients' 2
+# sequences folded into N
+WKV_PATH = (LM_CLIENTS * LM_BATCH, LM_SEQ, 64, 64)
 
 
 def log(*args):
@@ -387,6 +405,59 @@ def phase_flash_parity(torch):
     return path_err
 
 
+def wkv_inputs(torch, n, s, h, d, dtype, lw=None, per_seq=False, seed=0):
+    """r, k, v (N(0, 1) in ``dtype``), the f32 log-decay and the f32 bonus
+    on the card.  The log-decay is ``lw`` everywhere, or drawn as the
+    model's: −exp(N(−1, 0.5²)) clamped to [−5, 0] (its decay_base is −1)."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(n, s, h, d, generator=g).to("cuda", dtype)
+               for _ in range(3))
+    if lw is None:
+        lwt = torch.clamp(-torch.exp(torch.randn(n, s, h, d, generator=g)
+                                     * 0.5 - 1.0), -5.0, 0.0)
+    else:
+        lwt = torch.full((n, s, h, d), float(lw))
+    u = torch.randn(*((n, h, d) if per_seq else (h, d)), generator=g)
+    return r, k, v, lwt.cuda(), u.cuda()
+
+
+def phase_wkv_parity(torch):
+    """The WKV kernel against its plain version on the card; returns the
+    max abs error at the RWKV path's shape.  Tolerance: within 1e-5 of the
+    largest |o| of the plain version, and finite: the kernel steps token
+    by token, the plain version sums the chunked form (products of
+    e^{±cumsum} factors) in another order; both are f32 from the same
+    inputs."""
+    from repro_torch.kernels import rwkv6_scan as rw
+    path_err = None
+    for shape, dt, lw, per_seq in (
+            (WKV_PATH, torch.bfloat16, None, False),
+            ((2, 1, 4, 16), torch.float32, None, False),
+            ((2, 16, 4, 16), torch.float32, -5.0, True),
+            ((3, 40, 4, 16), torch.float32, 0.0, False),
+            ((2, 40, 4, 16), torch.float32, -5.0, True),
+            ((2, 40, 8, 64), torch.bfloat16, None, True),
+            ((2, 33, 4, 16), torch.float32, None, False)):
+        x = wkv_inputs(torch, *shape, dt, lw=lw, per_seq=per_seq)
+        got = rw.rwkv6_wkv_bh(*x)
+        want = rw.wkv_plain(*x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        name = (f"(N, S, H, D) = {shape}, {str(dt).replace('torch.', '')}, "
+                f"lw {'model-like' if lw is None else lw}, u "
+                f"{'per sequence' if per_seq else 'shared'}")
+        if not bool(torch.isfinite(got).all()) or not err <= 1e-5 * top:
+            raise AssertionError(f"rwkv6_wkv differs from plain at {name}: "
+                                 f"max abs {err}, max |o| {top}")
+        log(f"rwkv6_wkv: kernel == plain within tolerance at {name}: max abs "
+            f"{err:.3e} ({err / top:.2e} of max |o| {top:.3e})")
+        if path_err is None:
+            path_err = err
+        del x, got, want
+    return path_err
+
+
 def card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu):
     """Largest differences of a card run from the CPU run of the same
     configuration: costs relative, accuracy and weights absolute."""
@@ -432,13 +503,10 @@ def lm_bf16_forward(torch):
         raise AssertionError(f"lm bf16 forward: card vs CPU {err}")
 
 
-def phase_lm_small(torch, kernels, runtime):
-    """The small LM on the card against the port's CPU run, 5 rounds,
-    with counted launches."""
+def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel):
+    """A small LM on the card against the port's CPU run, 5 rounds, with
+    counted launches: ``layer_kernel`` once per layer per forward."""
     from repro_torch.data import partition
-    from repro_torch.fed.tasks import transformer_task
-    lm_bf16_forward(torch)
-    task = transformer_task()
     data = task.default_data(n_train=96, n_test=24, seed=0)
     part = partition.iid(96, 4, seed=0)
     rounds = 5
@@ -451,41 +519,43 @@ def phase_lm_small(torch, kernels, runtime):
     launches = {k: fn.launches for k, fn in kernels.items()}
     want = {k: 0 for k in kernels}
     # 2 layers x (one upload forward for all clients + 2 eval forwards)
-    want.update(flash_attention=2 * 3 * rounds, ssca_update=rounds,
-                masked_sum=rounds)
-    log(f"lm_small: launches over {rounds} rounds: {launches}")
+    want.update({layer_kernel: 2 * 3 * rounds, "ssca_update": rounds,
+                 "masked_sum": rounds})
+    log(f"{name}: launches over {rounds} rounds: {launches}")
     if launches != want:
-        raise AssertionError(f"lm_small: launches {launches}, want {want}")
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
     p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
     diffs = card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu)
-    log(f"lm_small: card vs CPU over {rounds} rounds:", json.dumps(diffs),
+    log(f"{name}: card vs CPU over {rounds} rounds:", json.dumps(diffs),
         f"train cost {h_gpu.train_cost}")
     # tolerance: as the MLP paths', a last-bit gradient difference can
     # move an entry across a 2^-20 grid point of the secure quantizer
     limits = {"train_cost": 1e-4, "test_accuracy_abs": 1 / 744 + 1e-6,
               "params_abs": 1e-4}
     if h_gpu.comm != h_cpu.comm:
-        raise AssertionError("lm_small: card and CPU ledgers differ")
+        raise AssertionError(f"{name}: card and CPU ledgers differ")
     for k, lim in limits.items():
         if not diffs[k] <= lim:
-            raise AssertionError(f"lm_small: card run drifts from CPU run: "
+            raise AssertionError(f"{name}: card run drifts from CPU run: "
                                  f"{k} {diffs[k]} > {lim}")
     return launches
 
 
-def lm_full_width():
-    """The LM task at llama3-8b's full width, 2 layers, and its data."""
+def lm_full_width(arch):
+    """The LM task at ``arch``'s full width, 2 layers, and its data."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.fed.tasks import LMTask
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=LM_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), num_layers=LM_LAYERS)
     task = LMTask(cfg=cfg, seq_len=LM_SEQ)
     data = task.default_data(n_train=256, n_test=8, seed=0)
     return task, data
 
 
-def phase_lm_full(torch, kernels, runtime, card):
-    """The LM path at full width on the card, with counted launches."""
+def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
+                  layer_kernel):
+    """An LM path at ``arch``'s full width on the card, with counted
+    launches: ``layer_kernel`` once per layer per forward."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
     from repro_torch.core import protocol, ssca
@@ -493,9 +563,9 @@ def phase_lm_full(torch, kernels, runtime, card):
     from repro_torch.fed import aggregation, compression
     from repro_torch.fed.tasks import SumLoss
     t0 = time.perf_counter()
-    task, data = lm_full_width()
+    task, data = lm_full_width(arch)
     part = partition.iid(len(data.x_train), LM_CLIENTS, seed=0)
-    log(f"lm_full: data {data.x_train.shape} train, {data.x_test.shape} "
+    log(f"{name}: data {data.x_train.shape} train, {data.x_test.shape} "
         f"test, vocab {task.cfg.vocab_size} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -510,7 +580,7 @@ def phase_lm_full(torch, kernels, runtime, card):
     t0 = time.perf_counter()
     runtime.run_alg1(data, part, params=init(), rounds=1, **kw)
     torch.cuda.synchronize()
-    log(f"lm_full: warm-up round in {time.perf_counter() - t0:.2f} s")
+    log(f"{name}: warm-up round in {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -521,22 +591,22 @@ def phase_lm_full(torch, kernels, runtime, card):
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in kernels}
     n_evals = LM_ROUNDS // LM_EVAL_EVERY
-    want.update(flash_attention=LM_LAYERS * (LM_ROUNDS + 2 * n_evals),
-                ssca_update=LM_ROUNDS, masked_sum=LM_ROUNDS)
-    log(f"lm_full: launches over {LM_ROUNDS} rounds: {launches}")
+    want.update({layer_kernel: LM_LAYERS * (LM_ROUNDS + 2 * n_evals),
+                 "ssca_update": LM_ROUNDS, "masked_sum": LM_ROUNDS})
+    log(f"{name}: launches over {LM_ROUNDS} rounds: {launches}")
     if launches != want:
-        raise AssertionError(f"lm_full: launches {launches}, want {want}")
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
     n = tree.numel(params)
     cost = hist.train_cost
     ln_v = math.log(task.cfg.vocab_size)
-    log(f"lm_full: {n} parameters; train cost {cost}, test accuracy "
+    log(f"{name}: {n} parameters; train cost {cost}, test accuracy "
         f"{hist.test_accuracy} (ln V = {ln_v:.4f})")
-    if n != LM_PARAMS:
-        raise AssertionError(f"lm_full: {n} parameters, want {LM_PARAMS}")
+    if n != n_params:
+        raise AssertionError(f"{name}: {n} parameters, want {n_params}")
     if not all(math.isfinite(c) for c in cost + hist.test_accuracy):
-        raise AssertionError(f"lm_full: metrics not finite: {hist.metrics}")
+        raise AssertionError(f"{name}: metrics not finite: {hist.metrics}")
     if not ln_v - 1 <= cost[0] <= ln_v + 3:
-        raise AssertionError(f"lm_full: first cost {cost[0]} outside "
+        raise AssertionError(f"{name}: first cost {cost[0]} outside "
                              f"[ln V - 1, ln V + 3]")
     # the ledger, from the parameter shapes alone (meta tensors, no data)
     shapes = tree.map(lambda w: torch.empty(w.shape, dtype=w.dtype,
@@ -545,15 +615,15 @@ def phase_lm_full(torch, kernels, runtime, card):
         loss_fn=SumLoss(task), hp=ssca.SSCAHyperParams(tau=2.0, lam=0.0))
     ledger = compression.round_bytes(alg, aggregation.secure(), None, shapes,
                                      LM_CLIENTS)
-    want_up = LM_CLIENTS * (4 * LM_PARAMS + 4 * (LM_CLIENTS - 1))
+    want_up = LM_CLIENTS * (4 * n_params + 4 * (LM_CLIENTS - 1))
     if not hist.uplink_bytes_per_round == ledger.uplink_total == want_up:
-        raise AssertionError(f"lm_full: ledger {hist.uplink_bytes_per_round}"
+        raise AssertionError(f"{name}: ledger {hist.uplink_bytes_per_round}"
                              f" B uplink, round_bytes {ledger.uplink_total},"
                              f" want {want_up}")
-    log(f"lm_full: ledger {hist.uplink_bytes_per_round} uplink bytes per "
-        f"round = {LM_CLIENTS} x (4 x {LM_PARAMS} + 4 x {LM_CLIENTS - 1})")
+    log(f"{name}: ledger {hist.uplink_bytes_per_round} uplink bytes per "
+        f"round = {LM_CLIENTS} x (4 x {n_params} + 4 x {LM_CLIENTS - 1})")
     round_s = hist.wall_seconds / LM_ROUNDS
-    log(f"lm_full: round time {round_s * 1e3:.1f} ms (I={LM_CLIENTS}, "
+    log(f"{name}: round time {round_s * 1e3:.1f} ms (I={LM_CLIENTS}, "
         f"B={LM_BATCH}, S={LM_SEQ}, eval every {LM_EVAL_EVERY} rounds "
         f"included), peak device memory {peak / 2 ** 30:.2f} GiB "
         f"({peak} B) on {card}")
@@ -567,13 +637,43 @@ def phase_lm_full(torch, kernels, runtime, card):
                                      **kw)
     us, top_other = device_us_by_kind(torch, prof)
     busy = sum(v for k, v in us.items() if k != "staging_htod")
-    log("lm_full: profile of one round:", json.dumps({
+    # where the host spends the round, for the device's idle share
+    host = sorted(((e.key[:60], e.self_cpu_time_total)
+                   for e in prof.key_averages()), key=lambda kv: -kv[1])[:6]
+    log(f"{name}: profile of one round:", json.dumps({
         "profiled_wall_ms": h_prof.wall_seconds * 1e3, "device_us": us,
         "device_busy_share_of_round_loop":
             busy / (h_prof.wall_seconds * 1e6),
-        "largest_other_us": top_other}))
+        "largest_other_us": top_other, "largest_host_self_us": host}))
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_tau_witness(torch, runtime, name, arch):
+    """``arch``'s full-width path again at τ = 2, 8 and 32 (the server's
+    step shrinks about as 1/τ), 4 rounds with the cost read after each:
+    whether the rise of the cost after round 2 at τ = 2 comes from the
+    step size or from the port.  Fails only on a cost that is not
+    finite."""
+    from repro_torch.data import partition
+    task, data = lm_full_width(arch)
+    part = partition.iid(len(data.x_train), LM_CLIENTS, seed=0)
+    costs = {}
+    for tau in (2.0, 8.0, 32.0):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        _, hist = runtime.run_alg1(
+            data, part, params=task.init_params(gen), task=task,
+            batch_size=LM_BATCH, rounds=LM_ROUNDS, eval_every=1,
+            eval_samples=8, seed=0, secure=True, fused=True, tau=tau,
+            lam=0.0, device="cuda")
+        costs[tau] = hist.train_cost
+        if not all(math.isfinite(c) for c in hist.train_cost):
+            raise AssertionError(f"{name}: cost not finite at tau {tau}: "
+                                 f"{hist.train_cost}")
+        del hist
+        torch.cuda.empty_cache()
+    log(f"{name}: train cost after rounds 1..{LM_ROUNDS} by tau:",
+        json.dumps(costs))
 
 
 def phase_main_path(torch, su, sa, data, part, params, runtime):
@@ -640,13 +740,16 @@ def compressed_paths():
     return [
         ("topk8_secure", compression.topk(0.1, bits=8), True,
          {"compress": per, "sketch_encode": 0, "masked_sum": per,
-          "ssca_update": per, "flash_attention": 0}, 4_065_640, 4_065_280),
+          "ssca_update": per, "flash_attention": 0, "rwkv6_wkv": 0},
+         4_065_640, 4_065_280),
         ("qsgd8_plain", compression.qsgd(8), False,
          {"compress": 2 * per, "sketch_encode": 0, "masked_sum": 0,
-          "ssca_update": per, "flash_attention": 0}, 1_016_400, 4_065_280),
+          "ssca_update": per, "flash_attention": 0, "rwkv6_wkv": 0},
+         1_016_400, 4_065_280),
         ("sketch_secure", sketch.sketch(4, 1024, 0.02, keep=256), True,
          {"compress": 0, "sketch_encode": per, "masked_sum": 2 * per,
-          "ssca_update": per, "flash_attention": 0}, 245_520, 4_146_600),
+          "ssca_update": per, "flash_attention": 0, "rwkv6_wkv": 0},
+         245_520, 4_146_600),
     ]
 
 
@@ -658,7 +761,7 @@ def device_us_by_kind(torch, prof):
     kernel, the GEMMs (cuBLAS), host-to-device staging and the rest; and
     the five largest names among the "other" kind."""
     kinds = ("masked_sum", "ssca_update", "compress", "sketch_encode",
-             "flash_attention")
+             "flash_attention", "rwkv6_wkv")
     us = {k: 0.0 for k in kinds}
     us.update(gemm=0.0, staging_htod=0.0, other=0.0)
     other = {}
@@ -788,23 +891,34 @@ def phase_profile(torch, data, part, params, runtime):
     log("profile (round loop under torch.profiler):", json.dumps(out))
 
 
-def rwkv6_bound():
-    """The least time of TPU kernel 6, ``rwkv6_wkv_bh`` (not ported yet),
-    counted from its code at rwkv6-7b's shape: 64 heads of 64, B·I = 8
-    sequences of 1,024 tokens (BH = 512), chunk 16, f32 r/k/v/lw in and
-    o out.  Per chunk: the four matmuls (r·S_in, the T×T scores, their
-    product with v, the state update) and about 15·T·D + 2·D² + T²
-    elementwise operations (cumsum, exps, decays, bonus, state decay).
-    Returns (bytes_ms, ops_ms)."""
-    bh, s, d, t = 8 * 64, LM_SEQ, 64, 16
-    flops = bh * (s // t) * (2 * t * d * d + 2 * t * t * d + 2 * t * t * d
-                             + 2 * d * t * d + 15 * t * d + 2 * d * d
-                             + t * t)
-    nbytes = 4 * (4 * bh * s * d + bh * d + bh * s * d)
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+def wkv_work(n, s, h, d):
+    """(bytes, f32 operations, chunk) of the WKV scan at (N, S, H, D) with
+    bf16 r/k/v, f32 lw and o, and a shared f32 u (H, D): each input read
+    once, the output written once.  The operations are the least of the
+    chunked form over every chunk length T (T = 1 is the per-token
+    recurrence), counted for each (sequence, head) and chunk of t tokens:
+    the in-chunk pairs j < t only, 2 D each for the score and for its
+    product with v; the carry r·S_in (2 D² a token, none in the first
+    chunk, whose state is zero); the state update S·e^{total} + k_decᵀv
+    (2 D² a token, D² + D a chunk, none after the last chunk); and 15 D a
+    token elementwise (the prefix sum of lw, r·e^{cum−lw}, k·e^{−cum},
+    k·e^{total−cum}, the bonus r·u·k and its product with v, the sum of
+    the three terms)."""
+    nbytes = n * s * h * d * (3 * 2 + 4 + 4) + h * d * 4
+
+    def ops(t_max):
+        c = -(-s // t_max)
+        lens = [t_max] * (c - 1) + [s - t_max * (c - 1)]
+        return sum(15 * d * t + 2 * d * t * (t - 1)
+                   + (2 * d * d * t if i else 0)
+                   + (2 * d * d * t + d * d + d if i < c - 1 else 0)
+                   for i, t in enumerate(lens))
+
+    chunk = min(range(1, s + 1), key=ops)
+    return nbytes, n * h * ops(chunk), chunk
 
 
-def phase_timing(torch, su, sa, kc, ks, fa, launches, by_path, errs):
+def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     n = 794 * 128
@@ -848,6 +962,10 @@ def phase_timing(torch, su, sa, kc, ks, fa, launches, by_path, errs):
     # timed call
     lq, lk, lv = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the WKV scan at the RWKV path's shape, model-like decays; no single
+    # PyTorch call computes it
+    wx = wkv_inputs(torch, *WKV_PATH, torch.bfloat16, seed=2)
+    w_bytes, w_flops, w_chunk = wkv_work(*WKV_PATH)
     rows = []
     for name, src, replaces, kern, plain, library, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
@@ -876,7 +994,11 @@ def phase_timing(torch, su, sa, kc, ks, fa, launches, by_path, errs):
              lambda: fa.flash_attention_bhsd(fq, fk, fv),
              lambda: fa.flash_attention_plain(fq, fk, fv),
              lambda: sdpa(lq, lk, lv, is_causal=True, enable_gqa=True),
-             f_bytes, {"bf16": f_flops})):
+             f_bytes, {"bf16": f_flops}),
+            ("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+             "src/repro/kernels/rwkv6_scan.py:71",
+             lambda: rw.rwkv6_wkv_bh(*wx), lambda: rw.wkv_plain(*wx), None,
+             w_bytes, {"f32": w_flops})):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         # integer and f32 work run on separate pipes: the least time is
         # the larger of the two
@@ -894,10 +1016,11 @@ def phase_timing(torch, su, sa, kc, ks, fa, launches, by_path, errs):
             "library_ms": None if library is None else time_ms(library)})
         log(f"{name}: {time_ms(kern, graph=False):.4f} ms a call when "
             "launched eagerly from Python (wrapper overhead included)")
-    bytes_ms, ops_ms = rwkv6_bound()
-    log(f"rwkv6_wkv_bh (TPU kernel 6, not ported): bound at (BH, S, D) = "
-        f"(512, {LM_SEQ}, 64), chunk 16: {bytes_ms:.4f} ms by bytes, "
-        f"{ops_ms:.4f} ms by f32 operations")
+    log(f"rwkv6_wkv bound at (N, S, H, D) = {WKV_PATH}: "
+        f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes ({w_bytes} B), "
+        f"{w_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms by f32 operations "
+        f"({w_flops}, the chunked form at chunk {w_chunk}, the causal "
+        "pairs only)")
     return rows
 
 
@@ -921,6 +1044,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import compress as kc
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels import secure_agg as sa
     from repro_torch.kernels import sketch as ks
     from repro_torch.kernels import ssca_update as su
@@ -940,6 +1064,7 @@ def main() -> int:
 
     errs = phase_kernel_parity(torch, su, sa)
     errs["flash_attention"] = phase_flash_parity(torch)
+    errs["rwkv6_wkv"] = phase_wkv_parity(torch)
 
     t0 = time.perf_counter()
     data = synthetic.classification_dataset(60000, 10000, seed=0)
@@ -950,7 +1075,8 @@ def main() -> int:
     kernels = {"ssca_update": su.ssca_update_2d,
                "masked_sum": sa.masked_sum_2d, "compress": kc.compress_2d,
                "sketch_encode": ks.sketch_encode,
-               "flash_attention": fa.flash_attention_bhsd}
+               "flash_attention": fa.flash_attention_bhsd,
+               "rwkv6_wkv": rw.rwkv6_wkv_bh}
     for fn in kernels.values():
         fn.launches = 0
     _, hist = phase_main_path(torch, su, sa, data, part, params, runtime)
@@ -959,20 +1085,34 @@ def main() -> int:
         f"included) on {card}")
     by_path = {"secure_dense": {k: fn.launches
                                 for k, fn in kernels.items()}}
-    if by_path["secure_dense"]["compress"] \
-            or by_path["secure_dense"]["sketch_encode"] \
-            or by_path["secure_dense"]["flash_attention"]:
+    if any(by_path["secure_dense"][k] for k in ("compress", "sketch_encode",
+                                                "flash_attention",
+                                                "rwkv6_wkv")):
         raise AssertionError(f"main path launched a compressor or "
-                             f"attention kernel: {by_path['secure_dense']}")
+                             f"sequence-mixing kernel: "
+                             f"{by_path['secure_dense']}")
     by_path.update(phase_compressed_paths(torch, kernels, data, part, params,
                                           runtime, card))
-    by_path["lm_small"] = phase_lm_small(torch, kernels, runtime)
-    by_path["lm_full_width"] = phase_lm_full(torch, kernels, runtime, card)
+    from repro_torch.fed.tasks import rwkv6_task, transformer_task
+    lm_bf16_forward(torch)
+    by_path["lm_small"] = phase_lm_small(torch, kernels, runtime, "lm_small",
+                                         transformer_task(),
+                                         "flash_attention")
+    by_path["lm_full_width"] = phase_lm_full(
+        torch, kernels, runtime, card, "lm_full", "llama3-8b", LM_PARAMS,
+        "flash_attention")
+    by_path["rwkv_small"] = phase_lm_small(torch, kernels, runtime,
+                                           "rwkv_small", rwkv6_task(),
+                                           "rwkv6_wkv")
+    by_path["rwkv_full_width"] = phase_lm_full(
+        torch, kernels, runtime, card, "rwkv_full", "rwkv6-7b", RWKV_PARAMS,
+        "rwkv6_wkv")
+    phase_tau_witness(torch, runtime, "rwkv_full", "rwkv6-7b")
     total = {k: sum(p[k] for p in by_path.values()) for k in kernels}
     log(f"launches over all paths: {total}")
 
     phase_profile(torch, data, part, params, runtime)
-    rows = phase_timing(torch, su, sa, kc, ks, fa, total, by_path, errs)
+    rows = phase_timing(torch, su, sa, kc, ks, fa, rw, total, by_path, errs)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

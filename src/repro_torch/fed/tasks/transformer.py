@@ -2,7 +2,7 @@
 
 The port of ``repro/fed/tasks/transformer.py``: :class:`LMTask` wraps a
 :class:`repro_torch.configs.base.ModelConfig` of a family the port builds
-(``dense`` so far) as next-token prediction.  Each client holds token
+(``dense`` and ``ssm`` so far) as next-token prediction.  Each client holds token
 sequences and uploads the per-sample-weighted gradient of the
 sequence-mean cross-entropy; the server runs the same SSCA recursions as
 for the paper's MLP.

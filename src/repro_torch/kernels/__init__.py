@@ -9,8 +9,13 @@
 * ``sketch``      — the count-sketch encode of the sketched uploads.
 * ``flash_attention`` — causal GQA attention of the LM's training forward,
                     with a plain backward and a vmap rule.
+* ``rwkv6_scan``  — the WKV scan of the RWKV-6 time mix, with a plain
+                    backward and a vmap rule.
 
-``ops`` holds the wrappers for parameter and message dicts.  No module
-here builds or loads a kernel at import: the build runs on a wrapper's
-first launch.
+``ops`` holds the wrappers for parameter and message dicts and the
+differentiable model ops ``ops.flash_attention`` and ``ops.rwkv6_wkv``
+(exported here; the name ``flash_attention`` stays the submodule's).  No
+module here builds or loads a kernel at import: the build runs on a
+wrapper's first launch.
 """
+from repro_torch.kernels.ops import rwkv6_wkv  # noqa: F401

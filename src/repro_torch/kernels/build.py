@@ -107,6 +107,9 @@ def load() -> ctypes.CDLL:
     cdll.flash_attention_launch.argtypes = [p, p, p, p, i32, i32, i32, i32,
                                             i32, i32, ctypes.c_float, p]
     cdll.flash_attention_launch.restype = i32
+    cdll.rwkv6_wkv_launch.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
+                                      i64, i32, p]
+    cdll.rwkv6_wkv_launch.restype = i32
     cdll.kernel_error_string.argtypes = [i32]
     cdll.kernel_error_string.restype = ctypes.c_char_p
     _LIB = cdll

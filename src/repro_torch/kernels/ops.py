@@ -1,9 +1,10 @@
 """Public wrappers around the kernels for parameter trees.
 
 The port of ``repro/kernels/ops.py``'s ``ssca_update``,
-``secure_quant_sum``, ``secure_dequantize`` and ``flash_attention``.  A
-parameter or message tree (nested dicts, :mod:`repro_torch.tree`) is
-flattened leaf by leaf in ``jax.tree`` order (sorted keys, depth first:
+``secure_quant_sum``, ``secure_dequantize``, ``flash_attention`` and
+``rwkv6_wkv``.  A parameter or message tree (nested dicts,
+:mod:`repro_torch.tree`) is flattened leaf by leaf in ``jax.tree`` order
+(sorted keys, depth first:
 ``w1``, ``w2`` for the MLP; ``blocks/attn_norm`` … ``blocks/wv``,
 ``embed``, ``final_norm`` for the LM), each leaf row-major, into one
 buffer zero-padded to a multiple of 128 lanes, run through the kernel
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch import Device
 from repro_torch import tree as _tree
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import secure_agg as _sa
 from repro_torch.kernels import ssca_update as _su
 
@@ -130,3 +132,17 @@ def flash_attention(q, k, v):
     flash_attention`).
     """
     return _fa.FlashAttention.apply(q, k, v)
+
+
+def rwkv6_wkv(r, k, v, w, u):
+    """RWKV-6 WKV with data-dependent decay, differentiable and vmappable.
+
+    r/k/v: (B, S, H, Dh) in the activation dtype; w: (B, S, H, Dh) the
+    per-token decay in (0, 1]; u: (H, Dh) the bonus.  The log-decay is
+    ``clamp(log(max(w, 1e-20)), −5, 0)`` in f32, as the reference's
+    wrapper computes it.  Returns (B, S, H, Dh) f32.  Routes by where r
+    lies: the kernel for a CUDA tensor, the plain version for a CPU one
+    (:mod:`repro_torch.kernels.rwkv6_scan`).
+    """
+    lw = torch.clamp(torch.log(torch.clamp_min(w.float(), 1e-20)), -5.0, 0.0)
+    return _rw.RWKV6WKV.apply(r, k, v, lw, u.float())

@@ -1,12 +1,16 @@
-"""The decoder-only LM: the ``dense`` family of the reference's model zoo.
+"""The LM model zoo: the ``dense`` and ``ssm`` families of the reference's.
 
 The port of ``repro/models/transformer.py``'s llama-style GQA decoder
-(llama3-8b, yi-9b, granite-8b; granite-34b with its GELU MLP).
-``build_model(cfg)`` returns a :class:`Model` with
+(llama3-8b, yi-9b, granite-8b; granite-34b with its GELU MLP) and its
+attention-free RWKV-6 stack (rwkv6-7b: time mix and channel mix,
+:mod:`repro_torch.models.rwkv6`).  ``build_model(cfg)`` returns a
+:class:`Model` with
 
 * ``init(generator, device)`` — the layer-stacked parameter tree
-  ``{"blocks": {attn_norm, ffn_norm, wq, wk, wv, wo, <ffn>}, "embed",
-  "final_norm"}``, every block leaf ``(num_layers, …)``;
+  ``{"blocks": {...}, "embed", "final_norm"}``, every block leaf
+  ``(num_layers, …)``: ``attn_norm, ffn_norm, wq, wk, wv, wo, <ffn>``
+  (dense) or the time-mix and channel-mix leaves ``bonus, ck, cm_norm,
+  …, wv`` (ssm);
 * ``forward(params, batch)`` — the (B, S, padded_vocab) f32 logits;
 * ``forward_with_aux(params, batch)`` — the logits and the auxiliary
   losses (none for this family).
@@ -27,9 +31,7 @@ import torch
 
 from repro_torch import Device, resolve_device, tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
-
-PORTED_FAMILIES = ("dense",)
+from repro_torch.models import attention, layers, rwkv6
 
 
 def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -50,14 +52,33 @@ def _block_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
             **_ffn_shapes(cfg)}
 
 
+def _rwkv_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Per-layer parameter shapes of one RWKV-6 block: time mix, channel
+    mix and their two norms."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {**rwkv6.time_mix_params_shapes(d, cfg.rwkv_heads),
+            "tm_norm": (d,), "cm_norm": (d,),
+            "cmix_k": (d,), "cmix_r": (d,),
+            "ck": (d, f), "cv": (f, d), "cr": (d, d)}
+
+
+# constant initial values, by name (every other leaf is drawn)
+_FILL = {"decay_base": -1.0, "bonus": 0.0, "ln_w": 0.0, "ln_b": 0.0}
+
+
 def _init_stacked(generator, n: int, shapes: Dict[str, tuple], dtype,
                   device) -> Dict[str, torch.Tensor]:
-    """Norms and biases zero, every matrix N(0, 0.02²), drawn in sorted
-    name order."""
+    """Norms, biases, ``bonus`` and the group norm's ``ln_w``/``ln_b`` zero,
+    the token-shift mixes 0.5, ``decay_base`` −1, every other leaf
+    N(0, 0.02²), drawn in sorted name order."""
     out = {}
     for name, shape in sorted(shapes.items()):
-        if name.endswith("_norm") or name.startswith("b_"):
-            out[name] = torch.zeros((n,) + shape, dtype=dtype, device=device)
+        fill = 0.0 if name.endswith("_norm") or name.startswith("b_") \
+            else 0.5 if name.startswith(("mix_", "cmix_")) \
+            else _FILL.get(name)
+        if fill is not None:
+            out[name] = torch.full((n,) + shape, fill, dtype=dtype,
+                                   device=device)
         else:
             out[name] = layers.normal(generator, (n,) + shape, 0.02, dtype,
                                       device)
@@ -88,6 +109,21 @@ def _attn_block(cfg, p, x, positions):
     return x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
 
 
+def _rwkv_block(cfg, p, x, positions):
+    """Time mix then channel mix, each on the RMS-normed stream, from a
+    zero state (``positions`` unused: RWKV has none)."""
+    del positions
+    x = x + rwkv6.time_mix(p, layers.rms_norm(x, p["tm_norm"]),
+                           cfg.rwkv_heads)
+    return x + rwkv6.channel_mix(p, layers.rms_norm(x, p["cm_norm"]))
+
+
+# per ported family: (block shapes, block apply)
+_FAMILY = {"dense": (_block_shapes, _attn_block),
+           "ssm": (_rwkv_shapes, _rwkv_block)}
+PORTED_FAMILIES = tuple(_FAMILY)
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -103,7 +139,7 @@ class Model:
         dt = cfg.pdtype
         return {
             "blocks": _init_stacked(generator, cfg.num_layers,
-                                    _block_shapes(cfg), dt, dev),
+                                    _FAMILY[cfg.family][0](cfg), dt, dev),
             "embed": layers.normal(generator,
                                    (cfg.padded_vocab, cfg.d_model), 0.02,
                                    dt, dev),
@@ -131,8 +167,9 @@ class Model:
         # would zero-fill a whole (L, …) gradient per layer and sum them
         blocks = self._cast(params["blocks"])
         per_layer = zip(*(w.unbind(0) for w in blocks.values()))
+        block = _FAMILY[cfg.family][1]
         for ws in per_layer:
-            x = _attn_block(cfg, dict(zip(blocks, ws)), x, positions)
+            x = block(cfg, dict(zip(blocks, ws)), x, positions)
         x = layers.rms_norm(x, params["final_norm"])
         return layers.unembed(x, params["embed"]), []
 

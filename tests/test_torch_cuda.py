@@ -13,8 +13,10 @@ encode are ring arithmetic: all must equal their plain versions bit for
 bit (NaN compared as NaN).  The flash-attention kernel sums its scores
 and its P·V in another order than the plain version's einsums, and keeps
 an online softmax: f32 outputs within 2e-5 absolute of the plain
-version, bf16 outputs within one bf16 ulp (plus 2e-5 near zero).  The LM
-run on the card is held to its CPU run as the MLP runs are.
+version, bf16 outputs within one bf16 ulp (plus 2e-5 near zero).  The
+WKV kernel steps token by token where the plain version sums the chunked
+form: within 1e-5 of the plain version's largest |o|.  The LM runs on the
+card are held to their CPU runs as the MLP runs are.
 """
 import numpy as np
 import pytest
@@ -24,10 +26,11 @@ from repro_torch import tree
 from repro_torch.data import partition, synthetic
 from repro_torch.fed import compression, runtime
 from repro_torch.fed import sketch as fed_sketch
-from repro_torch.fed.tasks import transformer_task
+from repro_torch.fed.tasks import rwkv6_task, transformer_task
 from repro_torch.kernels import compress as kc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.kernels import secure_agg as sa
 from repro_torch.kernels import sketch as ks
 from repro_torch.kernels import ssca_update as su
@@ -294,6 +297,110 @@ def test_lm_run_alg1_on_card_tracks_cpu(dev):
     # 2 layers x (4 uploads, one launch each for all clients, + 2 eval
     # points x 2 forwards)
     assert fa.flash_attention_bhsd.launches - before == 2 * (4 + 2 * 2)
+    p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
+    assert h_gpu.comm == h_cpu.comm
+    np.testing.assert_allclose(h_gpu.train_cost, h_cpu.train_cost, rtol=1e-4)
+    for a, b in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4)
+
+
+WKV_SHAPES = [(8, 1024, 64, 64, "bf16", None, False),
+              (2, 1, 4, 16, "f32", None, False),
+              (2, 16, 4, 16, "f32", -5.0, True),
+              (3, 40, 4, 16, "f32", 0.0, False),
+              (2, 40, 2, 16, "f32", None, True),
+              (2, 77, 3, 16, "bf16", -5.0, False),
+              (1, 300, 2, 64, "f32", 0.0, True)]
+
+
+def _wkv_inputs(dev, n, s, h, d, dt, lw, per_seq, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(n, s, h, d, generator=g).to(dev, dt)
+               for _ in range(3))
+    if lw is None:
+        lwt = torch.clamp(-torch.exp(torch.randn(n, s, h, d, generator=g)
+                                     * 0.5 - 1.0), -5.0, 0.0)
+    else:
+        lwt = torch.full((n, s, h, d), lw)
+    u = torch.randn(*((n, h, d) if per_seq else (h, d)), generator=g)
+    return r, k, v, lwt.to(dev), u.to(dev)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES,
+                         ids=[str(s) for s in WKV_SHAPES])
+def test_rwkv6_wkv_kernel_matches_plain(dev, shape):
+    n, s, h, d, dt, lw, per_seq = shape
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    x = _wkv_inputs(dev, n, s, h, d, dt, lw, per_seq)
+    before = rw.rwkv6_wkv_bh.launches
+    got = rw.rwkv6_wkv_bh(*x)
+    torch.cuda.synchronize()
+    assert rw.rwkv6_wkv_bh.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == x[0].shape
+    want = rw.wkv_plain(*x)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_rwkv6_wkv_kernel_refuses_bad_arguments(dev):
+    x = [torch.zeros(1, 4, 2, 128, device=dev) for _ in range(4)]
+    u = torch.zeros(2, 128, device=dev)
+    before = rw.rwkv6_wkv_bh.launches
+    with pytest.raises(ValueError, match="head size"):
+        rw.rwkv6_wkv_bh(*x, u)
+    for d in (8, 32):
+        with pytest.raises(ValueError, match="head size"):
+            rw.rwkv6_wkv_bh(*(t[..., :d] for t in x), u[:, :d])
+    y = [t[..., :16] for t in x]
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        rw.rwkv6_wkv_bh(*(t.half() for t in y[:3]), y[3], u[:, :16])
+    with pytest.raises(ValueError, match="f32 lw and u"):
+        rw.rwkv6_wkv_bh(*y[:3], y[3].bfloat16(), u[:, :16])
+    assert rw.rwkv6_wkv_bh.launches == before
+
+
+@pytest.mark.parametrize("u_batched", [False, True],
+                         ids=["u_shared", "u_batched"])
+def test_rwkv6_wkv_vmap_grad_on_card(dev, u_batched):
+    g = torch.Generator().manual_seed(0)
+    m = 3
+    x = torch.randn(m, 2, 50, 4, 64, generator=g).to(dev)
+    lw = torch.clamp(-torch.exp(torch.randn(m, 2, 50, 4, 64, generator=g)
+                                - 1), -5, 0).to(dev)
+    u = torch.randn(*((m, 4, 64) if u_batched else (4, 64)),
+                    generator=g).to(dev)
+    w = (torch.randn(64, 64, generator=g) * 0.1).to(dev)
+
+    def loss(w, xi, lwi, ui):
+        return (rw.RWKV6WKV.apply(xi @ w, xi, 0.5 * xi, lwi, ui) ** 2).sum()
+
+    before = rw.rwkv6_wkv_bh.launches
+    got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 3)),
+                          in_dims=(None, 0, 0, 0 if u_batched else None))(
+        w, x, lw, u)
+    assert rw.rwkv6_wkv_bh.launches == before + 1
+    for j, gj in enumerate(got):
+        want = torch.stack([
+            torch.func.grad(loss, argnums=(0, 3))(
+                w.cpu(), x[i].cpu(), lw[i].cpu(),
+                (u[i] if u_batched else u).cpu())[j] for i in range(m)])
+        torch.testing.assert_close(gj.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_rwkv_run_alg1_on_card_tracks_cpu(dev):
+    task = rwkv6_task()                  # head size 16
+    data = task.default_data(n_train=96, n_test=24, seed=0)
+    part = partition.iid(96, 4, seed=0)
+    kw = dict(task=task, batch_size=4, rounds=4, eval_every=2,
+              eval_samples=48, seed=1, tau=2.0, lam=0.0, secure=True,
+              fused=True)
+    before = rw.rwkv6_wkv_bh.launches
+    p_gpu, h_gpu = runtime.run_alg1(data, part, **kw)
+    # 2 layers x (4 uploads, one launch each for all clients, + 2 eval
+    # points x 2 forwards)
+    assert rw.rwkv6_wkv_bh.launches - before == 2 * (4 + 2 * 2)
     p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
     assert h_gpu.comm == h_cpu.comm
     np.testing.assert_allclose(h_gpu.train_cost, h_cpu.train_cost, rtol=1e-4)

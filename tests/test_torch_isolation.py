@@ -19,9 +19,9 @@ import torch
 from repro_torch.data import partition, synthetic
 from repro_torch.fed import compression, runtime
 from repro_torch.fed import sketch as fed_sketch
-from repro_torch.fed.tasks import transformer_task
+from repro_torch.fed.tasks import rwkv6_task, transformer_task
 from repro_torch.kernels import build, compress, flash_attention, ops, \
-    secure_agg, sketch, ssca_update
+    rwkv6_scan, secure_agg, sketch, ssca_update
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,7 +58,8 @@ def test_sources_import_no_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 40
     assert {"transformer.py", "attention.py", "layers.py", "tree.py",
-            "flash_attention.py", "llama3_8b.py"} <= {f.name for f in files}
+            "flash_attention.py", "llama3_8b.py", "rwkv6.py",
+            "rwkv6_scan.py"} <= {f.name for f in files}
     for f in files:
         hits = _IMPORT.findall(f.read_text())
         assert not hits, (f, hits)
@@ -176,7 +177,8 @@ def test_build_tag_hashes_headers_and_sources(tmp_path):
     # the package's own build reads every kernel source and the header
     names = {p.name for p in build.CSRC.iterdir()}
     assert {"ssca_update.cu", "secure_agg.cu", "compress.cu", "sketch.cu",
-            "flash_attention.cu", "prf.cuh"} <= names
+            "flash_attention.cu", "rwkv6_scan.cu", "prf.cuh"} <= names
+    assert build.CSRC / "rwkv6_scan.cu" in build._sources()
 
 
 def test_lm_entry_points_refuse_the_cpu_by_default(no_gpu):
@@ -200,3 +202,27 @@ def test_lm_entry_points_refuse_the_cpu_by_default(no_gpu):
     assert hist.rounds == [1]
     ops.flash_attention(q, q, q)
     assert flash_attention.flash_attention_bhsd.launches == before
+
+
+def test_rwkv_entry_points_refuse_the_cpu_by_default(no_gpu):
+    task = rwkv6_task(seq_len=8, d_model=32, vocab=32)
+    data = task.default_data(n_train=8, n_test=4)
+    part = partition.iid(8, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.run_alg1(data, part, task=task, batch_size=2, rounds=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(task.cfg).init(torch.Generator())
+    x = torch.zeros(1, 3, 2, 16)
+    u = torch.zeros(2, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rwkv6_scan.rwkv6_wkv_bh(x, x, x, x, u)
+    with pytest.raises(ValueError, match="asked for"):
+        rwkv6_scan.rwkv6_wkv_bh(x, x, x, x, u, device="cuda")
+    before = rwkv6_scan.rwkv6_wkv_bh.launches
+    # the same calls run when the CPU is asked for; the model's WKV scan
+    # follows its tensors, which the caller placed on the CPU
+    _, hist = runtime.run_alg1(data, part, task=task, batch_size=2, rounds=1,
+                               secure=True, device="cpu")
+    assert hist.rounds == [1]
+    ops.rwkv6_wkv(x, x, x, x + 0.5, u)
+    assert rwkv6_scan.rwkv6_wkv_bh.launches == before

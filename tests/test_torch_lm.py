@@ -201,7 +201,7 @@ def test_loss_sum_and_gradient_match_jax():
 
 def test_unported_families_and_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("rwkv6-7b"))
+        build_model(get_config("recurrentgemma-9b"))
     q = torch.zeros(1, 4, 2, 16)
     with pytest.raises(NotImplementedError):
         attention.attend(q, q, q, window=2)
