@@ -7,16 +7,21 @@ Phases (any failure raises; the script then exits non-zero without its
 last line):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, six in
-   parallel) and print the build time;
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, seven in
+   parallel) and print the build time, and each flash-attention variant's
+   registers, spill bytes and shared memory at every head dim;
 2. hold every kernel against its plain PyTorch version on the card, at
    the paths' shapes and at edge shapes: ``ssca_update`` and ``compress``
    (both round every f32 operation separately), ``masked_sum``
    (including one client's masked upload at ``client_offset = i``) and
    ``sketch_encode`` (ring arithmetic) bit for bit; ``flash_attention``
-   to a stated tolerance (its sums run in another order), at the LM
-   path's shape (B·I = 8, S = 1024, H = 32, Hkv = 8, Dh = 128, bf16) and
-   at edge shapes (S = 1 and 77, Dh = 64 and 16, f32, G = 1 and 8);
+   to stated tolerances: its bf16 (wgmma) kernel, which rounds P to bf16
+   before P·V, to ``bf16_error_check``'s bound against the f64 softmax,
+   at the LM path's shape (B·I = 8, S = 1024, H = 32, Hkv = 8, Dh = 128)
+   and at edge shapes (Dh 16, 32, 64 and 128; S = 1, 65, 77, 128, 129,
+   300 and 1024; G = 1, 4, 8 and 48), with SDPA's error against the
+   same f64 softmax printed for the record; its f32 (SIMT) kernel within
+   2e-5 of the plain version (S = 1, 77 and 300, Dh 16, 64 and 128);
    ``rwkv6_wkv`` to a stated tolerance (the kernel steps token by
    token, the plain version sums the chunked form), at the RWKV path's
    shape (N = 8, S = 1024, H = 64, D = 64, bf16 r/k/v, model-like
@@ -47,7 +52,8 @@ last line):
    Zipf token documents of 1,024 tokens over 4 iid clients, B = 2, 4
    rounds, eval every 2 rounds on 8 documents and the 8 test documents;
    check the launch counts (flash attention once per layer per upload
-   forward for all clients and per eval forward), finite costs, the
+   forward for all clients and per eval forward, all of them the wgmma
+   variant; the small LM's f32 ones all the SIMT variant), finite costs, the
    first cost within [ln V − 1, ln V + 3], the ledger against
    ``round_bytes`` computed from the parameter shapes; print the round
    time, the peak device memory and the device time by kind and busy
@@ -62,9 +68,10 @@ last line):
    events around the replay of a CUDA graph of 50 calls, so the host's
    launch overhead does not gate the device), and, for flash attention,
    ``scaled_dot_product_attention`` as the library yardstick (the port
-   never calls it; no single PyTorch call computes the WKV scan); print
-   one ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}``.
+   never calls it; no single PyTorch call computes the WKV scan): the
+   wgmma variant at the LM path's shape, with its achieved TFLOP/s, and
+   the SIMT variant at the small LM's; print one ``{"kernels": [...]}``
+   line, then the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -130,6 +137,19 @@ LM_PARAMS = 961_564_672
 # flash attention's shape on that path: the 4 clients' 2 sequences
 # folded into the batch
 FLASH_PATH = (LM_CLIENTS * LM_BATCH, LM_SEQ, 32, 8, 128)
+# bf16 edge shapes (B, S, H, Hkv, Dh): every head dim, S in {1, 65, 77,
+# 128, 129, 300, 1024} (ragged and whole 128-row tiles) and G in {1, 4, 8,
+# 48} (48: granite-34b's grouping)
+FLASH_BF16_EDGES = [(2, 1, 4, 1, 128), (1, 65, 8, 1, 64), (2, 77, 4, 4, 16),
+                    (1, 128, 8, 2, 32), (1, 129, 48, 1, 128),
+                    (2, 300, 8, 1, 64), (1, 1024, 48, 1, 128),
+                    (1, 300, 4, 4, 32), (1, 1024, 4, 1, 16),
+                    (2, 65, 16, 2, 128)]
+FLASH_F32_EDGES = [(2, 1, 4, 1, 64), (2, 77, 8, 8, 16), (3, 77, 8, 1, 64),
+                   (2, 300, 8, 1, 128)]
+# the small LM's (f32) flash shape: 4 clients' 4 sequences of 32 tokens
+# folded into the batch, 4 heads of 16 on 4 kv heads
+FLASH_SMALL = (16, 32, 4, 4, 16)
 # the RWKV path at full width: rwkv6-7b cut to 2 of its 32 layers, on the
 # LM path's data, clients, batch and rounds; the parameter tree holds
 # final_norm, which the config's param_count() leaves out
@@ -366,43 +386,65 @@ def flash_inputs(torch, b, s, h, hkv, dh, dtype, seed=0):
 
 
 def phase_flash_parity(torch):
-    """flash_attention against its plain version on the card; returns the
-    max abs error at the LM path's shape.  Tolerance: f32 outputs within
-    2e-5 absolute, bf16 outputs within one bf16 ulp (plus 2e-5 near
-    zero): the kernel's online softmax and FMA chains sum in another
-    order than the plain version's einsums, and both round to the
-    output's dtype once."""
+    """flash_attention on the card, each call counted on its variant;
+    returns the max abs differences from the plain version (the wgmma
+    kernel's at the LM path's shape, the SIMT kernel's largest) and the
+    bf16 check's numbers at the path's shape.  Tolerances: f32
+    (the SIMT kernel) within 2e-5 absolute of the plain version, whose
+    einsums sum in another order than the kernel's online softmax; bf16
+    (the wgmma kernel, which rounds P to bf16 before P·V as the reference
+    model does) to ``bf16_error_check``'s bound against the f64 softmax of
+    the same inputs: elementwise one output ulp + 2^-8 · Σ p|v| + 1e-5,
+    and an RMS error within 1.5x the plain version's."""
     from repro_torch.kernels import flash_attention as fa
-    path_err = None
-    for shape, dt in ((FLASH_PATH, torch.bfloat16),
-                      ((2, 1, 4, 1, 64), torch.float32),
-                      ((2, 77, 8, 8, 16), torch.float32),
-                      ((3, 77, 8, 1, 64), torch.float32),
-                      ((1, 77, 16, 2, 16), torch.bfloat16),
-                      ((2, 300, 8, 1, 128), torch.float32)):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    path_err, simt_err, stats = None, 0.0, None
+    for shape, dt in ([(FLASH_PATH, torch.bfloat16)]
+                      + [(x, torch.bfloat16) for x in FLASH_BF16_EDGES]
+                      + [(x, torch.float32) for x in FLASH_F32_EDGES]):
         q, k, v = flash_inputs(torch, *shape, dt)
+        variant = fa.VARIANTS[dt]
+        before = dict(fa.flash_attention_bhsd.launches_by_variant)
         got = fa.flash_attention_bhsd(q, k, v)
-        want = fa.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        if dt == torch.float32:
-            ok = float(err.max()) <= 2e-5
-        else:
-            mag = torch.maximum(got.float().abs(), want.float().abs())
-            ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30)))
-                             - 7)
-            ok = bool((err <= ulp + 2e-5).all())
+        before[variant] += 1
         name = (f"(B, S, H, Hkv, Dh) = {shape}, "
                 f"{str(dt).replace('torch.', '')}")
-        if not ok or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"flash_attention differs from plain at "
-                                 f"{name}: max abs {float(err.max())}")
-        log(f"flash_attention: kernel == plain within tolerance at {name}: "
-            f"max abs {float(err.max()):.3e}")
+        if fa.flash_attention_bhsd.launches_by_variant != before:
+            raise AssertionError(f"flash_attention at {name} did not launch "
+                                 f"its {variant} kernel once")
+        err = float((got.float() - fa.flash_attention_plain(q, k, v).float())
+                    .abs().max())
+        if dt == torch.float32:
+            ok = err <= 2e-5 and bool(torch.isfinite(got).all())
+            detail = f"max abs {err:.3e} from plain"
+            simt_err = max(simt_err, err)
+        else:
+            ok, ratio, rms_got, rms_plain = fa.bf16_error_check(q, k, v, got)
+            detail = (f"max error / bound {ratio:.3f}, rms error vs f64 "
+                      f"{rms_got:.3e} (plain {rms_plain:.3e}, ratio "
+                      f"{rms_got / max(rms_plain, 1e-30):.3f}), max abs "
+                      f"{err:.3e} from plain")
+        if not ok:
+            raise AssertionError(f"flash_attention ({variant}) outside its "
+                                 f"tolerance at {name}: {detail}")
+        log(f"flash_attention ({variant}): within tolerance at {name}: "
+            f"{detail}")
         if path_err is None:
-            path_err = float(err.max())
-        del q, k, v, got, want, err
-    return path_err
+            path_err = err
+            stats = {"max_error_over_bound": ratio,
+                     "rms_error_vs_f64": rms_got,
+                     "plain_rms_error_vs_f64": rms_plain}
+            lib = sdpa(*(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+                       is_causal=True, enable_gqa=True).transpose(1, 2)
+            _, lib_ratio, lib_rms, _ = fa.bf16_error_check(q, k, v, lib)
+            stats["sdpa_rms_error_vs_f64"] = lib_rms
+            log(f"scaled_dot_product_attention at {name}, for the record: "
+                f"rms error vs f64 {lib_rms:.3e}, max error / bound "
+                f"{lib_ratio:.3f}")
+            del lib
+        del q, k, v, got
+    return path_err, simt_err, stats
 
 
 def wkv_inputs(torch, n, s, h, d, dtype, lw=None, per_seq=False, seed=0):
@@ -473,6 +515,20 @@ def card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu):
     return diffs
 
 
+def reset_counts(kernels):
+    """Every launch counter to 0, the flash kernel's per-variant ones too."""
+    for fn in kernels.values():
+        fn.launches = 0
+        for variant in getattr(fn, "launches_by_variant", {}):
+            fn.launches_by_variant[variant] = 0
+
+
+def flash_variants(kernels):
+    """The flash kernel's launches by variant since the last reset."""
+    return {f"flash_attention_{k}": n for k, n in
+            kernels["flash_attention"].launches_by_variant.items()}
+
+
 def lm_bf16_forward(torch):
     """The full-width path's attention configuration at a small width —
     bf16 activations, head_dim 128, four query heads on one kv head —
@@ -503,9 +559,12 @@ def lm_bf16_forward(torch):
         raise AssertionError(f"lm bf16 forward: card vs CPU {err}")
 
 
-def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel):
+def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
+                   flash_variant=None):
     """A small LM on the card against the port's CPU run, 5 rounds, with
-    counted launches: ``layer_kernel`` once per layer per forward."""
+    counted launches: ``layer_kernel`` once per layer per forward, each
+    flash launch on ``flash_variant``; returns the launches, the flash
+    ones also by variant."""
     from repro_torch.data import partition
     data = task.default_data(n_train=96, n_test=24, seed=0)
     part = partition.iid(96, 4, seed=0)
@@ -513,14 +572,16 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel):
     kw = dict(task=task, batch_size=4, rounds=rounds, eval_every=1,
               eval_samples=48, seed=1, tau=2.0, lam=0.0, secure=True,
               fused=True)
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda", **kw)
     launches = {k: fn.launches for k, fn in kernels.items()}
-    want = {k: 0 for k in kernels}
+    launches.update(flash_variants(kernels))
+    want = {k: 0 for k in launches}
     # 2 layers x (one upload forward for all clients + 2 eval forwards)
     want.update({layer_kernel: 2 * 3 * rounds, "ssca_update": rounds,
                  "masked_sum": rounds})
+    if flash_variant is not None:
+        want[flash_variant] = want["flash_attention"]
     log(f"{name}: launches over {rounds} rounds: {launches}")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -553,9 +614,11 @@ def lm_full_width(arch):
 
 
 def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
-                  layer_kernel):
+                  layer_kernel, flash_variant=None):
     """An LM path at ``arch``'s full width on the card, with counted
-    launches: ``layer_kernel`` once per layer per forward."""
+    launches: ``layer_kernel`` once per layer per forward, each flash
+    launch on ``flash_variant``; returns the launches, the flash ones also
+    by variant."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
     from repro_torch.core import protocol, ssca
@@ -583,16 +646,18 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     log(f"{name}: warm-up round in {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     params, hist = runtime.run_alg1(data, part, params=init(),
                                     rounds=LM_ROUNDS, **kw)
     launches = {k: fn.launches for k, fn in kernels.items()}
+    launches.update(flash_variants(kernels))
     peak = torch.cuda.max_memory_allocated()
-    want = {k: 0 for k in kernels}
+    want = {k: 0 for k in launches}
     n_evals = LM_ROUNDS // LM_EVAL_EVERY
     want.update({layer_kernel: LM_LAYERS * (LM_ROUNDS + 2 * n_evals),
                  "ssca_update": LM_ROUNDS, "masked_sum": LM_ROUNDS})
+    if flash_variant is not None:
+        want[flash_variant] = want["flash_attention"]
     log(f"{name}: launches over {LM_ROUNDS} rounds: {launches}")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -792,8 +857,7 @@ def phase_compressed_paths(torch, kernels, data, part, params, runtime,
     for name, comp, secure, want, up, down in compressed_paths():
         kw = dict(batch_size=100, eval_every=10, seed=0, secure=secure,
                   fused=True, params=params, compressor=comp)
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda",
                                         rounds=ROUNDS, **kw)
         launches = {k: fn.launches for k, fn in kernels.items()}
@@ -918,7 +982,8 @@ def wkv_work(n, s, h, d):
     return nbytes, n * h * ops(chunk), chunk
 
 
-def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs):
+def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
+                 flash_stats):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     n = 794 * 128
@@ -950,23 +1015,32 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs):
     s_f32 = CLIENTS * n * FLOPS_SKETCH
     log(f"sketch_encode timing input: {nonzero} nonzero levels of "
         f"{CLIENTS * n}")
-    # flash attention at the LM path's shape: each input read once and
-    # the output written once; the causal half of Q.K^T and P.V, 2·Dh
-    # FLOPs per (query, visible key) pair for each, at the bf16
-    # tensor-core peak (the inputs' type)
-    fb, fs, fh, fkv, fd = FLASH_PATH
-    fq, fk, fv = flash_inputs(torch, *FLASH_PATH, torch.bfloat16, seed=2)
-    f_bytes = 2 * (2 * fq.numel() + fk.numel() + fv.numel())
-    f_flops = 2 * 2 * fd * fb * fh * fs * (fs + 1) // 2
-    # the library's layout is (B, H, S, Dh): transposed once, outside the
-    # timed call
-    lq, lk, lv = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
+    # flash attention: each input read once and the output written once;
+    # the causal half of Q.K^T and P.V, 2·Dh FLOPs per (query, visible
+    # key) pair for each.  The wgmma variant at the LM path's shape, at
+    # the bf16 tensor-core peak (the inputs' type); the SIMT variant at
+    # the small LM's f32 shape, at the f32 SIMT peak (TF32 would break its
+    # tolerance)
+    def flash_work(b, s, h, hkv, dh, dtype, seed):
+        x = flash_inputs(torch, b, s, h, hkv, dh, dtype, seed=seed)
+        nbytes = x[0].element_size() * (2 * x[0].numel() + 2 * x[1].numel())
+        # the library's layout is (B, H, S, Dh): transposed once, outside
+        # the timed call
+        lib = tuple(t.transpose(1, 2).contiguous() for t in x)
+        return x, lib, nbytes, 2 * 2 * dh * b * h * s * (s + 1) // 2
+
+    fx, flib, f_bytes, f_flops = flash_work(*FLASH_PATH, torch.bfloat16, 2)
+    sx_, slib, fs_bytes, fs_flops = flash_work(*FLASH_SMALL, torch.float32,
+                                               2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # the WKV scan at the RWKV path's shape, model-like decays; no single
     # PyTorch call computes it
     wx = wkv_inputs(torch, *WKV_PATH, torch.bfloat16, seed=2)
     w_bytes, w_flops, w_chunk = wkv_work(*WKV_PATH)
     rows = []
+    # the flash row is the wgmma kernel's; the SIMT kernel has a row of
+    # its own
+    launch_key = {"flash_attention": "flash_attention_wgmma"}
     for name, src, replaces, kern, plain, library, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
              "src/repro/kernels/ssca_update.py:54",
@@ -989,12 +1063,19 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs):
              lambda: ks.sketch_encode_plain(sx, ssu, **skw), None,
              s_bytes, {"int32": s_int, "f32": s_f32}),
             ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention.py:78",
+             lambda: fa.flash_attention_bhsd(*fx),
+             lambda: fa.flash_attention_plain(*fx),
+             lambda: sdpa(*flib, is_causal=True, enable_gqa=True),
+             f_bytes, {"bf16": f_flops}),
+            ("flash_attention_simt",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:78",
-             lambda: fa.flash_attention_bhsd(fq, fk, fv),
-             lambda: fa.flash_attention_plain(fq, fk, fv),
-             lambda: sdpa(lq, lk, lv, is_causal=True, enable_gqa=True),
-             f_bytes, {"bf16": f_flops}),
+             lambda: fa.flash_attention_bhsd(*sx_),
+             lambda: fa.flash_attention_plain(*sx_),
+             lambda: sdpa(*slib, is_causal=True, enable_gqa=True),
+             fs_bytes, {"f32": fs_flops}),
             ("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
              "src/repro/kernels/rwkv6_scan.py:71",
              lambda: rw.rwkv6_wkv_bh(*wx), lambda: rw.wkv_plain(*wx), None,
@@ -1007,13 +1088,22 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs):
                      for k, v in ops.items()) * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "launches_by_path": {p: v[name] for p, v in by_path.items()},
+            "replaces": replaces,
+            "launches": launches[launch_key.get(name, name)],
+            "launches_by_path": {p: v.get(launch_key.get(name, name), 0)
+                                 for p, v in by_path.items()},
             "max_abs_err": errs[name], "ms": time_ms(kern),
             "plain_ms": time_ms(plain, iters=5, repeats=3),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if library is None else time_ms(library)})
+        if name.startswith("flash_attention"):
+            rows[-1]["shape"] = list(FLASH_PATH if name == "flash_attention"
+                                     else FLASH_SMALL)
+            rows[-1]["achieved_tflops"] = sum(ops.values()) \
+                / (rows[-1]["ms"] * 1e-3) / 1e12
+        if name == "flash_attention":
+            rows[-1]["bf16_check"] = flash_stats
         log(f"{name}: {time_ms(kern, graph=False):.4f} ms a call when "
             "launched eagerly from Python (wrapper overhead included)")
     log(f"rwkv6_wkv bound at (N, S, H, D) = {WKV_PATH}: "
@@ -1061,9 +1151,13 @@ def main() -> int:
     build.load()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s)")
+    log("flash_attention (registers a thread, spill bytes a thread, shared "
+        "bytes a block) by head dim:", json.dumps(
+            {dh: fa.kernel_attributes(dh) for dh in fa.HEAD_DIMS}))
 
     errs = phase_kernel_parity(torch, su, sa)
-    errs["flash_attention"] = phase_flash_parity(torch)
+    errs["flash_attention"], errs["flash_attention_simt"], flash_stats = \
+        phase_flash_parity(torch)
     errs["rwkv6_wkv"] = phase_wkv_parity(torch)
 
     t0 = time.perf_counter()
@@ -1077,8 +1171,7 @@ def main() -> int:
                "sketch_encode": ks.sketch_encode,
                "flash_attention": fa.flash_attention_bhsd,
                "rwkv6_wkv": rw.rwkv6_wkv_bh}
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     _, hist = phase_main_path(torch, su, sa, data, part, params, runtime)
     log(f"round time {hist.wall_seconds / ROUNDS * 1e3:.3f} ms "
         f"(secure fused, I={CLIENTS}, B=100, eval every 10 rounds "
@@ -1097,10 +1190,11 @@ def main() -> int:
     lm_bf16_forward(torch)
     by_path["lm_small"] = phase_lm_small(torch, kernels, runtime, "lm_small",
                                          transformer_task(),
-                                         "flash_attention")
+                                         "flash_attention",
+                                         "flash_attention_simt")
     by_path["lm_full_width"] = phase_lm_full(
         torch, kernels, runtime, card, "lm_full", "llama3-8b", LM_PARAMS,
-        "flash_attention")
+        "flash_attention", "flash_attention_wgmma")
     by_path["rwkv_small"] = phase_lm_small(torch, kernels, runtime,
                                            "rwkv_small", rwkv6_task(),
                                            "rwkv6_wkv")
@@ -1108,11 +1202,13 @@ def main() -> int:
         torch, kernels, runtime, card, "rwkv_full", "rwkv6-7b", RWKV_PARAMS,
         "rwkv6_wkv")
     phase_tau_witness(torch, runtime, "rwkv_full", "rwkv6-7b")
-    total = {k: sum(p[k] for p in by_path.values()) for k in kernels}
+    total = {k: sum(p.get(k, 0) for p in by_path.values())
+             for k in [*kernels, *flash_variants(kernels)]}
     log(f"launches over all paths: {total}")
 
     phase_profile(torch, data, part, params, runtime)
-    rows = phase_timing(torch, su, sa, kc, ks, fa, rw, total, by_path, errs)
+    rows = phase_timing(torch, su, sa, kc, ks, fa, rw, total, by_path, errs,
+                        flash_stats)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

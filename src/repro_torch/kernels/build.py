@@ -104,9 +104,13 @@ def load() -> ctypes.CDLL:
     cdll.sketch_encode_launch.argtypes = [p, p, i32, i64, i32, i64, i32, p,
                                           p]
     cdll.sketch_encode_launch.restype = i32
-    cdll.flash_attention_launch.argtypes = [p, p, p, p, i32, i32, i32, i32,
-                                            i32, i32, ctypes.c_float, p]
-    cdll.flash_attention_launch.restype = i32
+    for fn in (cdll.flash_attention_launch, cdll.flash_attention_sm90_launch):
+        fn.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, ctypes.c_float, p]
+        fn.restype = i32
+    for fn in (cdll.flash_attention_attributes,
+               cdll.flash_attention_sm90_attributes):
+        fn.argtypes = [i32, ctypes.POINTER(i32)]
+        fn.restype = None
     cdll.rwkv6_wkv_launch.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
                                       i64, i32, p]
     cdll.rwkv6_wkv_launch.restype = i32

@@ -1,4 +1,5 @@
-// Causal flash attention with grouped-query heads (GQA).
+// Causal flash attention with grouped-query heads (GQA), f32 q/k/v on the
+// SIMT lanes.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_bhsd and the head
@@ -9,18 +10,16 @@
 //   out[b, i, h, :] = sum_{j <= i} softmax_j(scale * q[b,i,h,:] . k[b,j,hk,:])
 //                     * v[b, j, hk, :]
 //
-// with f32 scores, probabilities and accumulators; q/k/v and out are bf16
-// or f32, in the model's (B, S, H, Dh) and (B, S, Hkv, Dh) layouts.  k and
-// v are read un-repeated (the reference's wrapper broadcasts them G-fold),
-// and Dh is not padded to 128 (the reference's wrapper pads it).
+// with f32 scores, probabilities and accumulators; q/k/v and out are f32,
+// in the model's (B, S, H, Dh) and (B, S, Hkv, Dh) layouts.  k and v are
+// read un-repeated (the reference's wrapper broadcasts them G-fold), and
+// Dh is not padded to 128 (the reference's wrapper pads it).
 //
-// Bound on the card: operations.  At the main path's shape (B = 8, S =
-// 1024, H = 32, Hkv = 8, Dh = 128, bf16) the causal half of Q.K^T and P.V
-// is 68.7 GFLOP against 167.8 MB of q, k, v and out: 69.5 us at the bf16
-// tensor-core peak, 50.1 us at the memory rate.  This first kernel does
-// its FLOPs as f32 FMAs on the SIMT lanes (67 TFLOP/s peak), about 15
-// times slower than the tensor cores could; mma.sync / wgmma and TMA
-// staging are left to a later kernel.
+// This kernel serves f32 inputs only; bf16 inputs go to the tensor-core
+// kernel of flash_attention_sm90.cu.  Bound on the card: operations, at
+// the f32 SIMT peak (67 TFLOP/s): the tensor cores' TF32 keeps 10 bits of
+// mantissa and would break the kernel's 2e-5 agreement with its plain
+// version, so the FLOPs stay f32 FMAs on the SIMT lanes.
 //
 // Design: one block of 256 threads per (64-row query tile, query head,
 // batch row); the TPU's sequential kv grid axis and its pl.when skip
@@ -38,7 +37,6 @@
 // from the first tile on and a fully masked row of a later tile adds
 // exp(-inf) = 0.  Row strides of Dh + 4 floats keep the float4 reads of q
 // and k conflict-free.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,26 +50,19 @@ constexpr int kRows = kBlockM / 16;
 constexpr int kKeys = kBlockN / 16;
 constexpr int kPS = kBlockN + 1;   // row stride of the probabilities
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((kBlockM + kBlockN) * (D + 4) + kBlockN * D +
                           kBlockM * kPS);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int seq, int heads, int kv_heads, float scale) {
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int seq, int heads,
+                           int kv_heads, float scale) {
   constexpr int kCols = D / 16;
   constexpr int kS = D + 4;   // row stride of the q and k tiles
   extern __shared__ float4 smem4[];
@@ -89,16 +80,16 @@ __global__ void __launch_bounds__(kThreads)
   const int hk = h / (heads / kv_heads);
   const int64_t q_pos = (int64_t)heads * D;      // elements per position
   const int64_t kv_pos = (int64_t)kv_heads * D;
-  const T* qb = q + (int64_t)b * seq * q_pos + (int64_t)h * D;
-  const T* kb = k + (int64_t)b * seq * kv_pos + (int64_t)hk * D;
-  const T* vb = v + (int64_t)b * seq * kv_pos + (int64_t)hk * D;
-  T* ob = out + (int64_t)b * seq * q_pos + (int64_t)h * D;
+  const float* qb = q + (int64_t)b * seq * q_pos + (int64_t)h * D;
+  const float* kb = k + (int64_t)b * seq * kv_pos + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * seq * kv_pos + (int64_t)hk * D;
+  float* ob = out + (int64_t)b * seq * q_pos + (int64_t)h * D;
 
   for (int i = tid; i < kBlockM * D; i += kThreads) {
     const int r = i / D;
     const int d = i % D;
     const int s = q0 + r;
-    qs[r * kS + d] = s < seq ? to_f32(qb[(int64_t)s * q_pos + d]) : 0.0f;
+    qs[r * kS + d] = s < seq ? qb[(int64_t)s * q_pos + d] : 0.0f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kCols];
@@ -118,8 +109,8 @@ __global__ void __launch_bounds__(kThreads)
       const int d = i % D;
       const int s = n0 + r;
       const bool ok = s < seq;
-      ks[r * kS + d] = ok ? to_f32(kb[(int64_t)s * kv_pos + d]) : 0.0f;
-      vs[r * D + d] = ok ? to_f32(vb[(int64_t)s * kv_pos + d]) : 0.0f;
+      ks[r * kS + d] = ok ? kb[(int64_t)s * kv_pos + d] : 0.0f;
+      vs[r * D + d] = ok ? vb[(int64_t)s * kv_pos + d] : 0.0f;
     }
     __syncthreads();
 
@@ -202,12 +193,12 @@ __global__ void __launch_bounds__(kThreads)
     if (s < seq) {
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        store(&ob[(int64_t)s * q_pos + tx + 16 * j], acc[r][j] / l[r]);
+        ob[(int64_t)s * q_pos + tx + 16 * j] = acc[r][j] / l[r];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int seq, int heads, int kv_heads, float scale,
                    cudaStream_t stream) {
@@ -218,66 +209,73 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
+        flash_attention_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq, heads, kv_heads,
-      scale);
+  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), seq, heads,
+      kv_heads, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         void* out, int batch, int seq, int heads,
-                         int kv_heads, int head_dim, float scale,
-                         cudaStream_t stream) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, batch, seq, heads, kv_heads, scale,
-                           stream);
-    case 32:
-      return launch<T, 32>(q, k, v, out, batch, seq, heads, kv_heads, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, batch, seq, heads, kv_heads, scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, batch, seq, heads, kv_heads, scale,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
+template <int D>
+void attributes(int* out) {
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, flash_attention_kernel<D>) != cudaSuccess) {
+    out[0] = out[1] = out[2] = -1;
+    return;
   }
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem_bytes<D>();
 }
 
 }  // namespace
 
 // q/out: device (batch, seq, heads, head_dim), k/v: device (batch, seq,
-// kv_heads, head_dim), contiguous, all f32 (dtype 0) or bf16 (dtype 1);
-// kv_heads divides heads; head_dim is 16, 32, 64 or 128.  Launches on
-// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for a
-// head_dim, dtype or head count the kernel does not take).
+// kv_heads, head_dim), contiguous f32; kv_heads divides heads; head_dim is
+// 16, 32, 64 or 128.  Launches on `stream`; returns cudaGetLastError()
+// (cudaErrorInvalidValue for a head_dim or head count the kernel does not
+// take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int seq, int heads, int kv_heads,
-                                      int head_dim, int dtype, float scale,
+                                      int head_dim, float scale,
                                       void* stream) {
   if (kv_heads <= 0 || heads % kv_heads) return (int)cudaErrorInvalidValue;
   if (batch == 0 || seq == 0 || heads == 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0:
-      return (int)launch_dtype<float>(q, k, v, out, batch, seq, heads,
-                                      kv_heads, head_dim, scale, s);
-    case 1:
-      return (int)launch_dtype<__nv_bfloat16>(q, k, v, out, batch, seq,
-                                              heads, kv_heads, head_dim,
-                                              scale, s);
+  switch (head_dim) {
+    case 16:
+      return (int)launch<16>(q, k, v, out, batch, seq, heads, kv_heads,
+                             scale, s);
+    case 32:
+      return (int)launch<32>(q, k, v, out, batch, seq, heads, kv_heads,
+                             scale, s);
+    case 64:
+      return (int)launch<64>(q, k, v, out, batch, seq, heads, kv_heads,
+                             scale, s);
+    case 128:
+      return (int)launch<128>(q, k, v, out, batch, seq, heads, kv_heads,
+                              scale, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// registers a thread, local (spill) bytes a thread and dynamic shared
+// bytes a block of the instance for head_dim, into out[0..2] (-1 each for
+// a head_dim without an instance)
+extern "C" void flash_attention_attributes(int head_dim, int* out) {
+  switch (head_dim) {
+    case 16: return attributes<16>(out);
+    case 32: return attributes<32>(out);
+    case 64: return attributes<64>(out);
+    case 128: return attributes<128>(out);
+    default: out[0] = out[1] = out[2] = -1;
   }
 }

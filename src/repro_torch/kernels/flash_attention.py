@@ -10,10 +10,20 @@ over each group of G = H / Hkv query heads; the port's kernel reads the
 model's (B, S, H, Dh) q and un-repeated (B, S, Hkv, Dh) k/v in place:
 query head h reads kv head h // G.
 
-On a CUDA tensor :func:`flash_attention_bhsd` launches the hand-written
-kernel ``csrc/flash_attention.cu``; on a CPU tensor it runs
-:func:`flash_attention_plain`, the materialised softmax.  The two sum in
-other orders, so they agree to f32 rounding, not bit for bit.
+On a CUDA tensor :func:`flash_attention_bhsd` launches a hand-written
+kernel, chosen by dtype (a dispatch, not a fallback: a failed build or
+launch raises):
+
+* bf16 → ``csrc/flash_attention_sm90.cu`` (variant ``"wgmma"``): the
+  products on the tensor cores, fed by TMA.  It rounds the probabilities
+  P to bf16 before P·V, as every tensor-core flash kernel does and as the
+  reference model does before its P·V; it agrees with the f64 softmax to
+  :func:`bf16_error_check`'s bound, not to one ulp of the plain version;
+* f32 → ``csrc/flash_attention.cu`` (variant ``"simt"``): f32 FMAs on the
+  SIMT lanes, within 2e-5 of the plain version (TF32 would break that).
+
+On a CPU tensor it runs :func:`flash_attention_plain`, the materialised
+f32 softmax.
 
 :class:`FlashAttention` makes the call differentiable and batchable:
 
@@ -27,13 +37,17 @@ other orders, so they agree to f32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch import Device, on_cuda
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's template instances
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)     # the kernels' template instances
+# the kernel each dtype launches, and its launch entry point
+VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+_ENTRY = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
 
 
 def _grouped(q, k, v):
@@ -75,14 +89,84 @@ def flash_attention_backward_plain(q, k, v, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bf16_error_check(q, k, v, got):
+    """Hold a bf16 attention output ``got`` to the f64 softmax of the same
+    bf16 inputs; returns ``(ok, max_ratio, rms_kernel, rms_plain)``.
+
+    With o64 and p_j the float64 output and probabilities, computed one
+    (batch row, kv head) at a time to bound memory:
+
+    * elementwise, ``|got − o64| ≤ ulp_bf16(|o64|) + 2^-8 · Σ_j p_j·|v_j|
+      + 1e-5``: the output's rounding; the bound of P's rounding to bf16
+      before P·V (bf16 keeps 8 significant bits, so each p_j moves by at
+      most 2^-8 of itself); f32 accumulation.  ``max_ratio`` is the
+      largest error over its bound;
+    * in aggregate, ``rms(got − o64) ≤ 1.5 · rms(plain − o64)``, with
+      ``plain`` :func:`flash_attention_plain` (f32 P, one rounding at the
+      end): the rigorous bound alone could let a masking slip of one key
+      through at late rows, where that key's weight is small.
+    """
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    plain = flash_attention_plain(q, k, v)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    max_ratio, se_got, se_plain = 0.0, 0.0, 0.0
+    for bi in range(b):
+        for hk in range(hkv):
+            heads = slice(hk * g, (hk + 1) * g)
+            kf, vf = k[bi, :, hk].double(), v[bi, :, hk].double()
+            scores = torch.einsum("qgd,kd->gqk", q[bi, :, heads].double(),
+                                  kf) * dh ** -0.5
+            p = torch.softmax(scores.masked_fill(~mask, float("-inf")), -1)
+            o64 = torch.einsum("gqk,kd->qgd", p, vf)
+            spread = torch.einsum("gqk,kd->qgd", p, vf.abs())
+            ulp = torch.exp2(torch.floor(torch.log2(
+                o64.abs().clamp_min(1e-30))) - 7)
+            err = got[bi, :, heads].double() - o64
+            bound = ulp + 2.0 ** -8 * spread + 1e-5
+            max_ratio = max(max_ratio, float((err.abs() / bound).max()))
+            se_got += float((err * err).sum())
+            d_plain = plain[bi, :, heads].double() - o64
+            se_plain += float((d_plain * d_plain).sum())
+    n = max(q.numel(), 1)
+    rms_got, rms_plain = (se_got / n) ** 0.5, (se_plain / n) ** 0.5
+    ok = (bool(torch.isfinite(got).all()) and max_ratio <= 1.0
+          and rms_got <= 1.5 * rms_plain)
+    return ok, max_ratio, rms_got, rms_plain
+
+
+def kernel_attributes(head_dim: int) -> dict:
+    """Each variant's ``(registers a thread, local (spill) bytes a thread,
+    dynamic shared bytes a block)`` at ``head_dim``, from
+    ``cudaFuncGetAttributes``."""
+    lib = build.load()
+    out = {}
+    for variant, entry in _ENTRY.items():
+        vals = (ctypes.c_int * 3)()
+        getattr(lib, f"{entry}_attributes")(head_dim, vals)
+        out[variant] = tuple(vals)
+    return out
+
+
+def _aligned(x):
+    """``x`` contiguous at a 16-byte aligned address, as the wgmma
+    kernel's tensor maps need (a view at an odd offset is copied)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def flash_attention_bhsd(q, k, v, *, device: Device = None):
     """Causal GQA attention: q (B, S, H, Dh), k/v (B, S, Hkv, Dh), one
     dtype (f32 or bf16) and device → (B, S, H, Dh) in q's dtype.
 
     A CPU tensor goes to :func:`flash_attention_plain` (only with
-    ``device="cpu"``); a CUDA tensor launches the kernel and adds one to
-    ``flash_attention_bhsd.launches``.  Use :func:`repro_torch.kernels.
-    ops.flash_attention` in models: it is differentiable and vmappable.
+    ``device="cpu"``); a CUDA tensor launches the kernel of its dtype's
+    variant (``VARIANTS``: bf16 the tensor-core kernel, f32 the SIMT
+    one) and adds one to ``flash_attention_bhsd.launches`` and to that
+    variant's count in ``flash_attention_bhsd.launches_by_variant``.  Use
+    :func:`repro_torch.kernels.ops.flash_attention` in models: it is
+    differentiable and vmappable.
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
@@ -97,25 +181,27 @@ def flash_attention_bhsd(q, k, v, *, device: Device = None):
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {dh}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in VARIANTS:
         raise ValueError(f"flash_attention kernel takes f32 or bf16, got "
                          f"{q.dtype}")
     for x in (k, v):
         if x.dtype != q.dtype or x.device != q.device:
             raise ValueError("q, k and v must share one dtype and device")
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (_aligned(x) for x in (q, k, v))
     out = torch.empty_like(q)
-    lib = build.load()
+    variant = VARIANTS[q.dtype]
+    launch = getattr(build.load(), f"{_ENTRY[variant]}_launch")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-        k.shape[2], dh, _DTYPE_CODES[q.dtype], dh ** -0.5, stream)
-    build.check(status, "flash_attention")
+    status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, s, h, k.shape[2], dh, dh ** -0.5, stream)
+    build.check(status, f"flash_attention ({variant})")
     flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.launches_by_variant[variant] += 1
     return out
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.launches_by_variant = {"wgmma": 0, "simt": 0}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -7,9 +7,10 @@ sequences, a query-chunked scan above 1,024 tokens); the port has one,
 the flash-attention op (:func:`repro_torch.kernels.ops.flash_attention`),
 which takes any S and never materialises the (S, S) scores on the card.
 
-One difference in rounding: the reference rounds the probabilities to the
-activation dtype before P·V (bf16 for llama3-8b); the flash kernel keeps
-them in f32 and rounds only the output.
+Rounding: the reference rounds the probabilities to the activation dtype
+before P·V (bf16 for llama3-8b), and so does the port's bf16 kernel on
+the card (``csrc/flash_attention_sm90.cu``); the f32 kernel and the plain
+version on the CPU keep them in f32 and round only the output.
 
 Shapes: q (B, S, H, Dh); k/v (B, S, Hkv, Dh) with H a multiple of Hkv.
 Sliding windows, non-causal attention and KV-cache decode are not ported

@@ -142,3 +142,77 @@ def test_plain_launches_nothing():
     q = torch.zeros(1, 3, 2, 16)
     fa.flash_attention_bhsd(q, q, q, device="cpu")
     assert fa.flash_attention_bhsd.launches == before
+
+
+# The card's bf16 kernel rounds P to bf16 before P·V, so it is held to the
+# f64 softmax by ``bf16_error_check`` and not to the plain version.  These
+# check the check: it accepts the plain version and an emulation of the
+# kernel's rounding, and rejects a masking slip of one key.
+CHECK_SHAPES = [(2, 77, 4, 1, 16), (1, 300, 8, 2, 64), (1, 129, 8, 1, 128),
+                (1, 200, 6, 3, 32)]
+
+
+def _bf16_inputs(shape, seed=3):
+    return tuple(torch.tensor(x).to(torch.bfloat16)
+                 for x in _inputs(*shape, seed=seed))
+
+
+def _emulate_kernel(q, k, v, tile=128):
+    """The wgmma kernel's arithmetic in f32 on the CPU: 128-key tiles,
+    online rescaling by exp2, P rounded to bf16 before P·V, l summed over
+    the unrounded P, one rounding of O / l at the end."""
+    b, s, h, dh = q.shape
+    qf, kf, vf, scale, _ = fa._grouped(q, k, v)
+    sl2 = scale * 1.4426950408889634
+    g = h // k.shape[2]
+    m = torch.full((b, k.shape[2], g, s), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*m.shape, dh)
+    rows = torch.arange(s)
+    for n0 in range(0, s, tile):
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf[:, n0:n0 + tile])
+        keys = torch.arange(n0, min(n0 + tile, s))
+        sc = sc.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
+        mx = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp2((m - mx) * sl2)
+        p = torch.exp2((sc - mx[..., None]) * sl2)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(torch.bfloat16).float(),
+            vf[:, n0:n0 + tile])
+        m = mx
+    o = acc / l[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", CHECK_SHAPES,
+                         ids=[str(s) for s in CHECK_SHAPES])
+def test_bf16_error_check_accepts_plain(shape):
+    q, k, v = _bf16_inputs(shape)
+    ok, ratio, rms_got, rms_plain = fa.bf16_error_check(
+        q, k, v, fa.flash_attention_plain(q, k, v))
+    assert ok and ratio <= 1.0 and rms_got == rms_plain > 0
+
+
+@pytest.mark.parametrize("shape", CHECK_SHAPES,
+                         ids=[str(s) for s in CHECK_SHAPES])
+def test_bf16_error_check_accepts_kernel_rounding(shape):
+    q, k, v = _bf16_inputs(shape)
+    got = _emulate_kernel(q, k, v)
+    ok, ratio, rms_got, rms_plain = fa.bf16_error_check(q, k, v, got)
+    # the rounding of P costs about 1.2x the plain version's RMS error
+    assert ok, (ratio, rms_got, rms_plain)
+    assert rms_plain < rms_got <= 1.5 * rms_plain
+
+
+@pytest.mark.parametrize("shape", CHECK_SHAPES,
+                         ids=[str(s) for s in CHECK_SHAPES])
+def test_bf16_error_check_rejects_one_extra_key(shape):
+    q, k, v = _bf16_inputs(shape)
+    qf, kf, vf, scale, _ = fa._grouped(q, k, v)
+    s = q.shape[1]
+    leak = torch.ones(s, s, dtype=torch.bool).tril(1)   # key i + 1 visible
+    got = torch.einsum("bhgqk,bkhd->bqhgd", fa._probs(qf, kf, scale, leak),
+                       vf).reshape(q.shape).to(q.dtype)
+    ok, ratio, rms_got, rms_plain = fa.bf16_error_check(q, k, v, got)
+    assert not ok and ratio > 1.0 and rms_got > 1.5 * rms_plain
