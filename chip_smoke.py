@@ -9,7 +9,8 @@ last line):
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, seven in
    parallel) and print the build time, and each flash-attention variant's
-   registers, spill bytes and shared memory at every head dim;
+   registers, spill bytes and shared memory at every head dim, and the
+   WKV kernel's at each of its instances;
 2. hold every kernel against its plain PyTorch version on the card, at
    the paths' shapes and at edge shapes: ``ssca_update`` and ``compress``
    (both round every f32 operation separately), ``masked_sum``
@@ -22,11 +23,13 @@ last line):
    300 and 1024; G = 1, 4, 8 and 48), with SDPA's error against the
    same f64 softmax printed for the record; its f32 (SIMT) kernel within
    2e-5 of the plain version (S = 1, 77 and 300, Dh 16, 64 and 128);
-   ``rwkv6_wkv`` to a stated tolerance (the kernel steps token by
-   token, the plain version sums the chunked form), at the RWKV path's
-   shape (N = 8, S = 1024, H = 64, D = 64, bf16 r/k/v, model-like
-   decays) and at edge shapes (S = 1, 16, 33 and 40, D = 16 and 64,
-   log-decay at the −5 floor and at 0, u shared and per sequence);
+   ``rwkv6_wkv`` to a stated tolerance (the kernel sums the plain
+   version's chunked form on the tensor cores, each f32 operand split
+   into two TF32 parts), each call counted on its variant, at the RWKV
+   path's shape (N = 8, S = 1024, H = 64, D = 64, bf16 r/k/v, model-like
+   decays) and at edge shapes (S = 1, 16, 33, 40, 77 and 1,000, D = 16
+   and 64, log-decay at the −5 floor and at 0, u shared and per
+   sequence);
 3. drive the main path once — ``run_alg1(secure=True, fused=True)`` on
    the paper's MLP (784 → 128 → 10) at full width: 60,000 samples over
    10 iid clients, B = 100, 20 rounds — with every launch counter set to
@@ -59,7 +62,7 @@ last line):
    time, the peak device memory and the device time by kind and busy
    share of one more round under ``torch.profiler``; then the same for
    rwkv6-7b at full width (2 of its 32 layers), whose WKV scan launches
-   once per layer per forward; and rwkv6-7b's path once more at τ = 2,
+   its tensor-core kernel once per layer per forward; and rwkv6-7b's path once more at τ = 2,
    8 and 32 with the cost read after each of its 4 rounds (finite
    costs), to tell the step size from the port in the cost's rise;
 7. run the main path once more under ``torch.profiler`` and print the
@@ -70,8 +73,11 @@ last line):
    ``scaled_dot_product_attention`` as the library yardstick (the port
    never calls it; no single PyTorch call computes the WKV scan): the
    wgmma variant at the LM path's shape, with its achieved TFLOP/s, and
-   the SIMT variant at the small LM's; print one ``{"kernels": [...]}``
-   line, then the result line ``{"ok": true, "device": {...}}``.
+   the SIMT variant at the small LM's; the ``masked_sum`` and
+   ``ssca_update`` rows also give, for each full-width LM path, the
+   launches, the profiled round's launch time and the bound at that
+   path's parameter count; print one ``{"kernels": [...]}`` line, then
+   the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -96,8 +102,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 FP32_FLOPS_PER_S = 67e12
-# dense bf16 tensor-core peak (data sheet, SXM, without sparsity)
+# dense bf16 and TF32 tensor-core peaks (data sheet, SXM, without
+# sparsity)
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 
 # integer operations per element of one directed mask stream: two murmur3
 # finalizers (3 shifts, 3 xors, 2 multiplies each), the xors with the two
@@ -464,12 +472,13 @@ def wkv_inputs(torch, n, s, h, d, dtype, lw=None, per_seq=False, seed=0):
 
 
 def phase_wkv_parity(torch):
-    """The WKV kernel against its plain version on the card; returns the
-    max abs error at the RWKV path's shape.  Tolerance: within 1e-5 of the
-    largest |o| of the plain version, and finite: the kernel steps token
-    by token, the plain version sums the chunked form (products of
-    e^{±cumsum} factors) in another order; both are f32 from the same
-    inputs."""
+    """The WKV kernel against its plain version on the card, each call
+    counted on its variant; returns the max abs error at the RWKV path's
+    shape.  Tolerance: within 1e-5 of the largest |o| of the plain
+    version, and finite: the kernel sums the plain version's chunked form
+    on the tensor cores, each f32 operand split into two TF32 parts, in
+    another order and with its score factors taken relative to the
+    chunk's 8th token; both are f32 from the same inputs."""
     from repro_torch.kernels import rwkv6_scan as rw
     path_err = None
     for shape, dt, lw, per_seq in (
@@ -479,21 +488,30 @@ def phase_wkv_parity(torch):
             ((3, 40, 4, 16), torch.float32, 0.0, False),
             ((2, 40, 4, 16), torch.float32, -5.0, True),
             ((2, 40, 8, 64), torch.bfloat16, None, True),
-            ((2, 33, 4, 16), torch.float32, None, False)):
+            ((2, 33, 4, 16), torch.float32, None, False),
+            ((2, 1, 4, 64), torch.bfloat16, None, False),
+            ((3, 77, 4, 64), torch.bfloat16, -5.0, True),
+            ((2, 1000, 8, 64), torch.bfloat16, 0.0, False)):
         x = wkv_inputs(torch, *shape, dt, lw=lw, per_seq=per_seq)
+        before = dict(rw.rwkv6_wkv_bh.launches_by_variant)
         got = rw.rwkv6_wkv_bh(*x)
-        want = rw.wkv_plain(*x)
         torch.cuda.synchronize()
+        before[rw.VARIANT] += 1
+        want = rw.wkv_plain(*x)
         err = float((got - want).abs().max())
         top = float(want.abs().max())
         name = (f"(N, S, H, D) = {shape}, {str(dt).replace('torch.', '')}, "
                 f"lw {'model-like' if lw is None else lw}, u "
                 f"{'per sequence' if per_seq else 'shared'}")
+        if rw.rwkv6_wkv_bh.launches_by_variant != before:
+            raise AssertionError(f"rwkv6_wkv at {name} did not launch its "
+                                 f"{rw.VARIANT} kernel once")
         if not bool(torch.isfinite(got).all()) or not err <= 1e-5 * top:
             raise AssertionError(f"rwkv6_wkv differs from plain at {name}: "
                                  f"max abs {err}, max |o| {top}")
-        log(f"rwkv6_wkv: kernel == plain within tolerance at {name}: max abs "
-            f"{err:.3e} ({err / top:.2e} of max |o| {top:.3e})")
+        log(f"rwkv6_wkv ({rw.VARIANT}): kernel == plain within tolerance at "
+            f"{name}: max abs {err:.3e} ({err / top:.2e} of max |o| "
+            f"{top:.3e})")
         if path_err is None:
             path_err = err
         del x, got, want
@@ -523,10 +541,12 @@ def reset_counts(kernels):
             fn.launches_by_variant[variant] = 0
 
 
-def flash_variants(kernels):
-    """The flash kernel's launches by variant since the last reset."""
-    return {f"flash_attention_{k}": n for k, n in
-            kernels["flash_attention"].launches_by_variant.items()}
+def variant_counts(kernels):
+    """The launches of each kernel with variants (flash attention, the WKV
+    scan), by variant, since the last reset: ``flash_attention_wgmma``
+    and so on."""
+    return {f"{name}_{k}": n for name, fn in kernels.items()
+            for k, n in getattr(fn, "launches_by_variant", {}).items()}
 
 
 def lm_bf16_forward(torch):
@@ -560,11 +580,10 @@ def lm_bf16_forward(torch):
 
 
 def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
-                   flash_variant=None):
+                   variant):
     """A small LM on the card against the port's CPU run, 5 rounds, with
     counted launches: ``layer_kernel`` once per layer per forward, each
-    flash launch on ``flash_variant``; returns the launches, the flash
-    ones also by variant."""
+    launch on ``variant``; returns the launches, also by variant."""
     from repro_torch.data import partition
     data = task.default_data(n_train=96, n_test=24, seed=0)
     part = partition.iid(96, 4, seed=0)
@@ -575,13 +594,12 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
     reset_counts(kernels)
     p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda", **kw)
     launches = {k: fn.launches for k, fn in kernels.items()}
-    launches.update(flash_variants(kernels))
+    launches.update(variant_counts(kernels))
     want = {k: 0 for k in launches}
     # 2 layers x (one upload forward for all clients + 2 eval forwards)
     want.update({layer_kernel: 2 * 3 * rounds, "ssca_update": rounds,
                  "masked_sum": rounds})
-    if flash_variant is not None:
-        want[flash_variant] = want["flash_attention"]
+    want[variant] = want[layer_kernel]
     log(f"{name}: launches over {rounds} rounds: {launches}")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -614,11 +632,11 @@ def lm_full_width(arch):
 
 
 def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
-                  layer_kernel, flash_variant=None):
+                  layer_kernel, variant):
     """An LM path at ``arch``'s full width on the card, with counted
-    launches: ``layer_kernel`` once per layer per forward, each flash
-    launch on ``flash_variant``; returns the launches, the flash ones also
-    by variant."""
+    launches: ``layer_kernel`` once per layer per forward, each launch on
+    ``variant``; returns the launches, also by variant, and the device
+    time by kind of one profiled round."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
     from repro_torch.core import protocol, ssca
@@ -650,14 +668,13 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     params, hist = runtime.run_alg1(data, part, params=init(),
                                     rounds=LM_ROUNDS, **kw)
     launches = {k: fn.launches for k, fn in kernels.items()}
-    launches.update(flash_variants(kernels))
+    launches.update(variant_counts(kernels))
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in launches}
     n_evals = LM_ROUNDS // LM_EVAL_EVERY
     want.update({layer_kernel: LM_LAYERS * (LM_ROUNDS + 2 * n_evals),
                  "ssca_update": LM_ROUNDS, "masked_sum": LM_ROUNDS})
-    if flash_variant is not None:
-        want[flash_variant] = want["flash_attention"]
+    want[variant] = want[layer_kernel]
     log(f"{name}: launches over {LM_ROUNDS} rounds: {launches}")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -711,7 +728,7 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
             busy / (h_prof.wall_seconds * 1e6),
         "largest_other_us": top_other, "largest_host_self_us": host}))
     torch.cuda.empty_cache()
-    return launches
+    return launches, us
 
 
 def phase_tau_witness(torch, runtime, name, arch):
@@ -956,30 +973,39 @@ def phase_profile(torch, data, part, params, runtime):
 
 
 def wkv_work(n, s, h, d):
-    """(bytes, f32 operations, chunk) of the WKV scan at (N, S, H, D) with
-    bf16 r/k/v, f32 lw and o, and a shared f32 u (H, D): each input read
-    once, the output written once.  The operations are the least of the
-    chunked form over every chunk length T (T = 1 is the per-token
-    recurrence), counted for each (sequence, head) and chunk of t tokens:
-    the in-chunk pairs j < t only, 2 D each for the score and for its
-    product with v; the carry r·S_in (2 D² a token, none in the first
-    chunk, whose state is zero); the state update S·e^{total} + k_decᵀv
-    (2 D² a token, D² + D a chunk, none after the last chunk); and 15 D a
-    token elementwise (the prefix sum of lw, r·e^{cum−lw}, k·e^{−cum},
-    k·e^{total−cum}, the bonus r·u·k and its product with v, the sum of
-    the three terms)."""
+    """(bytes, {"tf32": product FLOPs, "f32": elementwise FLOPs}, chunk) of
+    the WKV scan at (N, S, H, D) with bf16 r/k/v, f32 lw and o, and a
+    shared f32 u (H, D): each input read once, the output written once.
+    The operations are those of the chunked form at the chunk length T
+    (T = 1 is the per-token recurrence) whose least time is the least,
+    the products at the TF32 tensor-core rate (the kernel's f32 operands
+    need more than bf16) and the elementwise terms at the f32 rate, on
+    their separate units.  For each (sequence, head) and chunk of t
+    tokens: products, the in-chunk pairs j < t only, 2 D each for the
+    score and for its product with v; the carry r·S_in (2 D² a token, none
+    in the first chunk, whose state is zero); the state update's k_decᵀv
+    (2 D² a token, none after the last chunk); elementwise, 15 D a token
+    (the prefix sum of lw, r·e^{cum−lw}, k·e^{−cum}, k·e^{total−cum}, the
+    bonus r·u·k and its product with v, the sum of the three terms) and
+    the decay of the state, D² + D a chunk (none after the last)."""
     nbytes = n * s * h * d * (3 * 2 + 4 + 4) + h * d * 4
 
     def ops(t_max):
         c = -(-s // t_max)
         lens = [t_max] * (c - 1) + [s - t_max * (c - 1)]
-        return sum(15 * d * t + 2 * d * t * (t - 1)
-                   + (2 * d * d * t if i else 0)
-                   + (2 * d * d * t + d * d + d if i < c - 1 else 0)
+        prod = sum(2 * d * t * (t - 1) + (2 * d * d * t if i else 0)
+                   + (2 * d * d * t if i < c - 1 else 0)
                    for i, t in enumerate(lens))
+        elem = sum(15 * d * t + (d * d + d if i < c - 1 else 0)
+                   for i, t in enumerate(lens))
+        return {"tf32": n * h * prod, "f32": n * h * elem}
 
-    chunk = min(range(1, s + 1), key=ops)
-    return nbytes, n * h * ops(chunk), chunk
+    def least(t_max):
+        w = ops(t_max)
+        return max(w["tf32"] / TF32_FLOPS_PER_S, w["f32"] / FP32_FLOPS_PER_S)
+
+    chunk = min(range(1, s + 1), key=least)
+    return nbytes, ops(chunk), chunk
 
 
 def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
@@ -1036,11 +1062,12 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     # the WKV scan at the RWKV path's shape, model-like decays; no single
     # PyTorch call computes it
     wx = wkv_inputs(torch, *WKV_PATH, torch.bfloat16, seed=2)
-    w_bytes, w_flops, w_chunk = wkv_work(*WKV_PATH)
+    w_bytes, w_ops, w_chunk = wkv_work(*WKV_PATH)
     rows = []
     # the flash row is the wgmma kernel's; the SIMT kernel has a row of
     # its own
-    launch_key = {"flash_attention": "flash_attention_wgmma"}
+    launch_key = {"flash_attention": "flash_attention_wgmma",
+                  "rwkv6_wkv": "rwkv6_wkv_mma"}
     for name, src, replaces, kern, plain, library, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
              "src/repro/kernels/ssca_update.py:54",
@@ -1076,15 +1103,16 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
              lambda: fa.flash_attention_plain(*sx_),
              lambda: sdpa(*slib, is_causal=True, enable_gqa=True),
              fs_bytes, {"f32": fs_flops}),
-            ("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            ("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_scan_sm90.cu",
              "src/repro/kernels/rwkv6_scan.py:71",
              lambda: rw.rwkv6_wkv_bh(*wx), lambda: rw.wkv_plain(*wx), None,
-             w_bytes, {"f32": w_flops})):
+             w_bytes, w_ops)):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         # integer and f32 work run on separate pipes: the least time is
         # the larger of the two
         ops_ms = max(v / {"int32": INT32_OPS_PER_S, "f32": FP32_FLOPS_PER_S,
-                          "bf16": BF16_FLOPS_PER_S}[k]
+                          "bf16": BF16_FLOPS_PER_S,
+                          "tf32": TF32_FLOPS_PER_S}[k]
                      for k, v in ops.items()) * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": src,
@@ -1104,14 +1132,52 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                 / (rows[-1]["ms"] * 1e-3) / 1e12
         if name == "flash_attention":
             rows[-1]["bf16_check"] = flash_stats
+        if name == "rwkv6_wkv":
+            rows[-1]["shape"] = list(WKV_PATH)
+            rows[-1]["launches_by_variant"] = {
+                v: launches[f"rwkv6_wkv_{v}"]
+                for v in rw.rwkv6_wkv_bh.launches_by_variant}
         log(f"{name}: {time_ms(kern, graph=False):.4f} ms a call when "
             "launched eagerly from Python (wrapper overhead included)")
     log(f"rwkv6_wkv bound at (N, S, H, D) = {WKV_PATH}: "
         f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes ({w_bytes} B), "
-        f"{w_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms by f32 operations "
-        f"({w_flops}, the chunked form at chunk {w_chunk}, the causal "
-        "pairs only)")
+        f"{w_ops['tf32'] / TF32_FLOPS_PER_S * 1e3:.4f} ms by products "
+        f"({w_ops['tf32']} FLOP at the TF32 rate), "
+        f"{w_ops['f32'] / FP32_FLOPS_PER_S * 1e3:.4f} ms by elementwise "
+        f"terms ({w_ops['f32']} f32 FLOP), the chunked form at chunk "
+        f"{w_chunk}, the causal pairs only")
     return rows
+
+
+def full_width_rows(rows, by_path, profiled):
+    """The server-side kernels at the full-width LM paths' shapes: the
+    ``masked_sum`` and ``ssca_update`` rows gain, for each path, the
+    launches, the device time of the profiled round's one launch, and the
+    bound at that path's padded parameter count (I = 4 clients)."""
+    sizes = {"lm_full_width": LM_PARAMS, "rwkv_full_width": RWKV_PARAMS}
+    for row in rows:
+        if row["name"] not in ("masked_sum", "ssca_update"):
+            continue
+        row["full_width"] = {}
+        for path, n in sizes.items():
+            n = -(-n // 128) * 128
+            if row["name"] == "masked_sum":
+                nbytes = (LM_CLIENTS * n + n) * 4
+                ops_ms = n * LM_CLIENTS * ((LM_CLIENTS - 1) * OPS_PER_STREAM
+                                           + OPS_PER_ROW) \
+                    / INT32_OPS_PER_S * 1e3
+            else:
+                nbytes = (7 * n + 4) * 4
+                ops_ms = FLOPS_SSCA * n / FP32_FLOPS_PER_S * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row["full_width"][path] = {
+                "elements": n,
+                "launches": by_path[path][row["name"]],
+                "ms": profiled[path][row["name"]] / 1e3,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        log(f"{row['name']} at the full-width LM paths (time of the "
+            f"profiled round's launch):", json.dumps(row["full_width"]))
 
 
 def main() -> int:
@@ -1154,6 +1220,8 @@ def main() -> int:
     log("flash_attention (registers a thread, spill bytes a thread, shared "
         "bytes a block) by head dim:", json.dumps(
             {dh: fa.kernel_attributes(dh) for dh in fa.HEAD_DIMS}))
+    log("rwkv6_wkv (registers a thread, spill bytes a thread, shared bytes "
+        "a block) by instance:", json.dumps(rw.kernel_attributes()))
 
     errs = phase_kernel_parity(torch, su, sa)
     errs["flash_attention"], errs["flash_attention_simt"], flash_stats = \
@@ -1192,23 +1260,25 @@ def main() -> int:
                                          transformer_task(),
                                          "flash_attention",
                                          "flash_attention_simt")
-    by_path["lm_full_width"] = phase_lm_full(
+    profiled = {}
+    by_path["lm_full_width"], profiled["lm_full_width"] = phase_lm_full(
         torch, kernels, runtime, card, "lm_full", "llama3-8b", LM_PARAMS,
         "flash_attention", "flash_attention_wgmma")
     by_path["rwkv_small"] = phase_lm_small(torch, kernels, runtime,
                                            "rwkv_small", rwkv6_task(),
-                                           "rwkv6_wkv")
-    by_path["rwkv_full_width"] = phase_lm_full(
+                                           "rwkv6_wkv", "rwkv6_wkv_mma")
+    by_path["rwkv_full_width"], profiled["rwkv_full_width"] = phase_lm_full(
         torch, kernels, runtime, card, "rwkv_full", "rwkv6-7b", RWKV_PARAMS,
-        "rwkv6_wkv")
+        "rwkv6_wkv", "rwkv6_wkv_mma")
     phase_tau_witness(torch, runtime, "rwkv_full", "rwkv6-7b")
     total = {k: sum(p.get(k, 0) for p in by_path.values())
-             for k in [*kernels, *flash_variants(kernels)]}
+             for k in [*kernels, *variant_counts(kernels)]}
     log(f"launches over all paths: {total}")
 
     phase_profile(torch, data, part, params, runtime)
     rows = phase_timing(torch, su, sa, kc, ks, fa, rw, total, by_path, errs,
                         flash_stats)
+    full_width_rows(rows, by_path, profiled)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

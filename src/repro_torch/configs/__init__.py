@@ -2,7 +2,7 @@
 
 The port's copy of ``repro/configs/__init__.py``.  Every configuration is
 copied; :func:`repro_torch.models.build_model` builds the ``dense``
-family so far.
+and ``ssm`` families so far.
 """
 from __future__ import annotations
 

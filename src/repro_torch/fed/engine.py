@@ -28,6 +28,7 @@ The exact wire bytes of every round are recorded in the ledger.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List
@@ -159,6 +160,21 @@ def _sketched_round(compressor, aggregation, msgs, resid, seeds,
         compressor.update_residual(inp, support, vals)
 
 
+@contextlib.contextmanager
+def _full_f32_matmuls():
+    """Matrix products in full f32 inside the block, as the reference's
+    are (TF32 would keep about three decimal digits); the caller's
+    setting is restored after it, as the reference changes no global
+    setting."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@_full_f32_matmuls()
 def run(algorithm, data, part: Partition, *, task, batch_size: int,
         rounds: int, params=None, seed: int = 0, eval_every: int = 1,
         eval_samples: int = 10000, aggregation=None, compressor=None,
@@ -175,9 +191,6 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     :class:`History`.
     """
     dev = resolve_device(device)
-    # the MLP's matrix products run in full f32, as the reference's do;
-    # TF32 would keep about three decimal digits
-    torch.backends.cuda.matmul.allow_tf32 = False
     aggregation = aggregation if aggregation is not None \
         else PlainAggregation()
     if algorithm.combine != "sum":

@@ -111,9 +111,11 @@ def load() -> ctypes.CDLL:
                cdll.flash_attention_sm90_attributes):
         fn.argtypes = [i32, ctypes.POINTER(i32)]
         fn.restype = None
-    cdll.rwkv6_wkv_launch.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
-                                      i64, i32, p]
-    cdll.rwkv6_wkv_launch.restype = i32
+    cdll.rwkv6_wkv_sm90_launch.argtypes = [p, p, p, p, p, p, i32, i32, i32,
+                                           i32, i64, i32, p]
+    cdll.rwkv6_wkv_sm90_launch.restype = i32
+    cdll.rwkv6_wkv_sm90_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    cdll.rwkv6_wkv_sm90_attributes.restype = None
     cdll.kernel_error_string.argtypes = [i32]
     cdll.kernel_error_string.restype = ctypes.c_char_p
     _LIB = cdll

@@ -16,16 +16,20 @@ every sequence, or (N, H, D).  r, k and v are f32 or bf16; lw, u and the
 output o are f32, as the TPU kernel's ``out_shape`` is.
 
 On a CUDA tensor :func:`rwkv6_wkv_bh` launches the hand-written kernel
-``csrc/rwkv6_scan.cu``; on a CPU tensor it runs :func:`wkv_plain`, the
-reference's chunked form (chunks of 16 tokens, the carried state applied
-with cumulative decays).  The kernel steps token by token; the two agree
-to f32 rounding, not bit for bit.  S need not be a multiple of 16: the
-plain version pads the last chunk with tokens that change nothing (r, k,
+``csrc/rwkv6_scan_sm90.cu`` (variant ``"mma"``, the only one): the same
+chunked form, 16 tokens a chunk, its products on the tensor cores as
+three TF32 passes over a hi/lo split of each f32 operand.  On a CPU
+tensor it runs :func:`wkv_plain`, the reference's chunked form (chunks
+of 16 tokens, the carried state applied with cumulative decays).  The
+two agree to f32 rounding, not bit for bit.  S need not be a multiple
+of 16: both pad the last chunk with tokens that change nothing (r, k,
 v = 0, lw = 0).
 
 In the chunked form the in-chunk factors reach e^{±80} at the −5 floor,
 so the pairs j ≥ t, which the product never uses, can overflow: they are
 dropped with ``where``, never multiplied by a 0/1 mask (inf · 0 = NaN).
+The kernel takes its score factors relative to the chunk's 8th token,
+which halves their range, and drops the pairs by selection too.
 
 :class:`RWKV6WKV` makes the call differentiable and batchable:
 
@@ -36,6 +40,8 @@ dropped with ``where``, never multiplied by a 0/1 mask (inf · 0 = NaN).
   ctypes launch on ``data_ptr()`` could not see a batched tensor.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +54,7 @@ HEAD_DIMS = (16, 64)            # the kernel's template instances: the
                                 # card paths' head sizes (rwkv_small: 16,
                                 # rwkv6-7b: 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANT = "mma"                 # the kernel every (dtype, head size) takes
 
 
 def _chunked(x, chunks: int):
@@ -109,6 +116,22 @@ def _check(r, k, v, lw, u):
                          f"(N, H, D) = {(n, h, d)}, got {tuple(u.shape)}")
 
 
+def kernel_attributes() -> dict:
+    """``(registers a thread, local (spill) bytes a thread, dynamic shared
+    bytes a block)`` of each kernel instance, keyed ``"f32 D16"`` and so
+    on, from ``cudaFuncGetAttributes``."""
+    lib = build.load()
+    out = {}
+    for dtype, code in _DTYPE_CODES.items():
+        for d in HEAD_DIMS:
+            vals = (ctypes.c_int * 3)()
+            lib.rwkv6_wkv_sm90_attributes(d, code, vals)
+            name = str(dtype).replace("torch.float32", "f32") \
+                .replace("torch.bfloat16", "bf16")
+            out[f"{name} D{d}"] = tuple(vals)
+    return out
+
+
 def rwkv6_wkv_bh(r, k, v, lw, u, *, device: Device = None):
     """WKV of every (sequence, head): r/k/v (N, S, H, D) in one dtype
     (f32 or bf16), lw (N, S, H, D) f32 log-decay, u (H, D) or (N, H, D)
@@ -116,8 +139,10 @@ def rwkv6_wkv_bh(r, k, v, lw, u, *, device: Device = None):
 
     A CPU tensor goes to :func:`wkv_plain` (only with ``device="cpu"``);
     a CUDA tensor launches the kernel and adds one to
-    ``rwkv6_wkv_bh.launches``.  Use :func:`repro_torch.kernels.ops.
-    rwkv6_wkv` in models: it is differentiable and vmappable.
+    ``rwkv6_wkv_bh.launches`` and to ``rwkv6_wkv_bh.launches_by_variant
+    [VARIANT]``; a failed build or launch raises.  Use
+    :func:`repro_torch.kernels.ops.rwkv6_wkv` in models: it is
+    differentiable and vmappable.
     """
     _check(r, k, v, lw, u)
     if not on_cuda(r, device):
@@ -139,20 +164,26 @@ def rwkv6_wkv_bh(r, k, v, lw, u, *, device: Device = None):
     for x in (k, v, lw, u):
         if x.device != r.device:
             raise ValueError("r, k, v, lw and u must share one device")
+    # contiguous, and 16-byte aligned for the kernel's cp.async loads (a
+    # view at an odd offset is copied)
     r, k, v, lw, u = (x.contiguous() for x in (r, k, v, lw, u))
+    r, k, v, lw = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (r, k, v, lw))
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     lib = build.load()
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    status = lib.rwkv6_wkv_launch(
+    status = lib.rwkv6_wkv_sm90_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
         u.data_ptr(), out.data_ptr(), n, s, h, d,
         0 if u.dim() == 2 else h * d, _DTYPE_CODES[r.dtype], stream)
     build.check(status, "rwkv6_wkv")
     rwkv6_wkv_bh.launches += 1
+    rwkv6_wkv_bh.launches_by_variant[VARIANT] += 1
     return out
 
 
 rwkv6_wkv_bh.launches = 0
+rwkv6_wkv_bh.launches_by_variant = {VARIANT: 0}
 
 
 class RWKV6WKV(torch.autograd.Function):

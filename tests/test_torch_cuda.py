@@ -18,9 +18,10 @@ to bf16 before P·V, as the reference model does, so it is held to the
 f64 softmax of the same inputs by ``bf16_error_check``: elementwise one
 output ulp + 2^-8 · Σ p|v| + 1e-5, and an RMS error within 1.5x the
 plain version's.  The
-WKV kernel steps token by token where the plain version sums the chunked
-form: within 1e-5 of the plain version's largest |o|.  The LM runs on the
-card are held to their CPU runs as the MLP runs are.
+WKV kernel sums the plain version's chunked form on the tensor cores, each
+f32 operand split into two TF32 parts (tests/test_torch_rwkv6_scan.py
+emulates it): within 1e-5 of the plain version's largest |o|.  The LM
+runs on the card are held to their CPU runs as the MLP runs are.
 """
 import numpy as np
 import pytest
@@ -325,7 +326,10 @@ WKV_SHAPES = [(8, 1024, 64, 64, "bf16", None, False),
               (3, 40, 4, 16, "f32", 0.0, False),
               (2, 40, 2, 16, "f32", None, True),
               (2, 77, 3, 16, "bf16", -5.0, False),
-              (1, 300, 2, 64, "f32", 0.0, True)]
+              (1, 300, 2, 64, "f32", 0.0, True),
+              (2, 1, 4, 64, "bf16", None, False),
+              (3, 77, 4, 64, "bf16", -5.0, True),
+              (2, 33, 4, 64, "bf16", 0.0, False)]
 
 
 def _wkv_inputs(dev, n, s, h, d, dt, lw, per_seq, seed=0):
@@ -348,13 +352,31 @@ def test_rwkv6_wkv_kernel_matches_plain(dev, shape):
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
     x = _wkv_inputs(dev, n, s, h, d, dt, lw, per_seq)
     before = rw.rwkv6_wkv_bh.launches
+    mma = rw.rwkv6_wkv_bh.launches_by_variant["mma"]
     got = rw.rwkv6_wkv_bh(*x)
     torch.cuda.synchronize()
     assert rw.rwkv6_wkv_bh.launches == before + 1
+    assert rw.rwkv6_wkv_bh.launches_by_variant["mma"] == mma + 1
     assert got.dtype == torch.float32 and got.shape == x[0].shape
     want = rw.wkv_plain(*x)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_rwkv6_wkv_kernel_takes_misaligned_views(dev):
+    """The kernel's cp.async loads need 16-byte aligned rows: a view at an
+    odd offset is copied first, and gives the aligned tensor's output."""
+    x = _wkv_inputs(dev, 2, 40, 3, 64, torch.bfloat16, None, True)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    got = rw.rwkv6_wkv_bh(*(shifted(t) for t in x[:4]), x[4])
+    assert torch.equal(got, rw.rwkv6_wkv_bh(*x))
 
 
 def test_rwkv6_wkv_kernel_refuses_bad_arguments(dev):
@@ -411,10 +433,13 @@ def test_rwkv_run_alg1_on_card_tracks_cpu(dev):
               eval_samples=48, seed=1, tau=2.0, lam=0.0, secure=True,
               fused=True)
     before = rw.rwkv6_wkv_bh.launches
+    mma = rw.rwkv6_wkv_bh.launches_by_variant["mma"]
     p_gpu, h_gpu = runtime.run_alg1(data, part, **kw)
     # 2 layers x (4 uploads, one launch each for all clients, + 2 eval
-    # points x 2 forwards)
+    # points x 2 forwards), all on the tensor-core kernel
     assert rw.rwkv6_wkv_bh.launches - before == 2 * (4 + 2 * 2)
+    assert rw.rwkv6_wkv_bh.launches_by_variant["mma"] - mma \
+        == 2 * (4 + 2 * 2)
     p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
     assert h_gpu.comm == h_cpu.comm
     np.testing.assert_allclose(h_gpu.train_cost, h_cpu.train_cost, rtol=1e-4)

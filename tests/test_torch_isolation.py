@@ -177,8 +177,9 @@ def test_build_tag_hashes_headers_and_sources(tmp_path):
     # the package's own build reads every kernel source and the header
     names = {p.name for p in build.CSRC.iterdir()}
     assert {"ssca_update.cu", "secure_agg.cu", "compress.cu", "sketch.cu",
-            "flash_attention.cu", "rwkv6_scan.cu", "prf.cuh"} <= names
-    assert build.CSRC / "rwkv6_scan.cu" in build._sources()
+            "flash_attention.cu", "flash_attention_sm90.cu",
+            "rwkv6_scan_sm90.cu", "prf.cuh"} <= names
+    assert build.CSRC / "rwkv6_scan_sm90.cu" in build._sources()
 
 
 def test_lm_entry_points_refuse_the_cpu_by_default(no_gpu):

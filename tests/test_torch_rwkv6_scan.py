@@ -30,6 +30,16 @@ Tolerances, with the largest difference measured on the CPU:
   and the gradient equals a loop of per-slice gradients within 1e-6 of
   its largest entry (measured: equal; the folded call computes the same
   rows).
+
+The card kernel's arithmetic (``csrc/rwkv6_scan_sm90.cu``) is emulated
+here in plain PyTorch (:func:`_emulate_kernel`): chunks of 16, the score
+factors taken relative to the chunk's 8th token, every product on TF32
+operands (13 low mantissa bits masked off), each f32 operand split into
+hi + lo and summed as three passes (two where the other operand is bf16
+v, which TF32 holds exactly).  It stays within 1e-5 of the largest |o|
+of ``wkv_plain``, the card's tolerance, at the path's decays, the −5
+floor, no decay, ragged S and u shared or per sequence (measured at most
+1.4e-6); a single TF32 pass does not (4.0e-4 to 1.8e-3).
 """
 import jax
 import jax.numpy as jnp
@@ -213,6 +223,108 @@ def test_vmap_vjp_folds_clients_into_one_call(u_batched, monkeypatch):
         ref = torch.stack([w[j] for w in want])
         torch.testing.assert_close(g, ref, rtol=0,
                                    atol=1e-6 * float(ref.abs().max()))
+
+
+def _tf32(x):
+    """x with the 13 low mantissa bits masked off: what a TF32 product
+    reads of an f32 operand."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm(a, b, split_a, split_b, passes):
+    """a @ b on TF32 operands: one pass, or each split operand carried as
+    hi + lo (lo itself read as TF32) and the lo·lo term dropped."""
+    if passes == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if split_b:
+        out = out + ah @ _tf32(b - bh)
+    if split_a:
+        out = out + _tf32(a - ah) @ bh
+    return out
+
+
+def _emulate_kernel(r, k, v, lw, u, passes=3):
+    """The card kernel's chunked algebra and rounding on the CPU (the
+    kernel's mma products sum in another order)."""
+    t_len, ref_t = 16, 7
+    n, s, h, d = r.shape
+    split_v = r.dtype != torch.bfloat16
+    c = -(-s // t_len)
+    r, k, v, lw = (rw._chunked(x, c) for x in (r, k, v, lw))
+    u = u.float() if u.dim() == 3 else u.float()[None]
+    u = u[:, :, None, None, :]
+    cum = torch.cumsum(lw, dim=-2)
+    ref, total = cum[..., ref_t:ref_t + 1, :], cum[..., -1:, :]
+    r_car = r * torch.exp(cum - lw)
+    r_sc = r_car * torch.exp(-ref)
+    k_sc = k * torch.exp(ref - cum)
+    k_dec = k_sc * torch.exp(total - ref)
+    att = _mm(r_sc, k_sc.transpose(-1, -2), True, True, passes)
+    ti = torch.arange(t_len)
+    bonus = torch.diag_embed((r * u * k).sum(-1))
+    att = torch.where(ti[None] < ti[:, None], att,
+                      torch.where(ti[None] == ti[:, None], bonus, 0.0))
+    o = _mm(att, v, True, split_v, passes)
+    incr = _mm(k_dec.transpose(-1, -2), v, True, split_v, passes)
+    decay = torch.exp(total)[..., 0, :, None]
+    state = torch.zeros_like(incr[:, :, 0])
+    out = []
+    for i in range(c):
+        out.append(o[:, :, i] + _mm(r_car[:, :, i], state, True, True,
+                                    passes))
+        state = state * decay[:, :, i] + incr[:, :, i]
+    return rw._unchunked(torch.stack(out, dim=2), s)
+
+
+# (N, S, H, D), r/k/v dtype, log-decay (None: the card path's statistics,
+# −exp(N(−1, 0.5²)) clamped), u per sequence
+EMULATED = [((2, 64, 2, 64), torch.bfloat16, None, False),
+            ((2, 48, 2, 16), torch.float32, -5.0, True),
+            ((2, 48, 2, 64), torch.bfloat16, 0.0, False),
+            ((2, 33, 3, 16), torch.float32, None, True),
+            ((1, 77, 2, 64), torch.bfloat16, -5.0, True),
+            ((2, 1, 2, 16), torch.float32, None, False)]
+
+
+def _path_inputs(n, s, h, d, dtype, lw, per_seq, seed=0):
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.tensor(rng.standard_normal((n, s, h, d)),
+                            dtype=torch.float32).to(dtype)
+               for _ in range(3))
+    if lw is None:
+        lwa = np.clip(-np.exp(rng.normal(-1.0, 0.5, (n, s, h, d))), -5, 0)
+    else:
+        lwa = np.full((n, s, h, d), lw)
+    u = rng.standard_normal((n, h, d) if per_seq else (h, d))
+    return (r, k, v, torch.tensor(lwa, dtype=torch.float32),
+            torch.tensor(u, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("case", EMULATED,
+                         ids=[f"{c[0]}-{str(c[1])[6:]}-lw{c[2]}-"
+                              f"{'u_per_seq' if c[3] else 'u_shared'}"
+                              for c in EMULATED])
+def test_kernel_arithmetic_holds_the_card_tolerance(case):
+    shape, dtype, lw, per_seq = case
+    x = _path_inputs(*shape, dtype, lw, per_seq)
+    want = rw.wkv_plain(*x)
+    got = _emulate_kernel(*x)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    top = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * top
+
+
+def test_one_tf32_pass_misses_the_card_tolerance():
+    """Why the kernel splits its operands: one TF32 pass is a hundred
+    times outside the tolerance at the card path's decays."""
+    x = _path_inputs(2, 64, 2, 64, torch.bfloat16, None, False)
+    want = rw.wkv_plain(*x)
+    top = float(want.abs().max())
+    one = float((_emulate_kernel(*x, passes=1) - want).abs().max())
+    split = float((_emulate_kernel(*x) - want).abs().max())
+    assert one > 1e-4 * top and split <= 1e-5 * top
 
 
 def test_plain_launches_nothing():
