@@ -7,14 +7,21 @@ Phases (any failure raises; the script then exits non-zero without its
 last line):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, seven in
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, eight in
    parallel) and print the build time, and each flash-attention variant's
-   registers, spill bytes and shared memory at every head dim, and the
-   WKV kernel's at each of its instances;
+   registers, spill bytes and shared memory at every head dim, the WKV
+   kernel's at each of its instances and the masked sum's, and the masked
+   sum's stream loop in SASS by pipe (``cuobjdump``), which must issue no
+   fewer operations a stream than the bound below counts;
 2. hold every kernel against its plain PyTorch version on the card, at
-   the paths' shapes and at edge shapes: ``ssca_update`` and ``compress``
-   (both round every f32 operation separately), ``masked_sum``
-   (including one client's masked upload at ``client_offset = i``) and
+   the paths' shapes and at edge shapes, each launch counted on the
+   variant its wrapper's launch plan names: ``ssca_update`` (also on
+   views one element past 16-byte alignment) and ``compress`` (both round
+   every f32 operation separately), ``masked_sum`` (``rowsplit`` under
+   one wave of the card, ``vec`` past it, misaligned views, which the
+   wrapper copies; dropouts, a client offset, 600 clients whose streams
+   pass one shared-memory table, one client's masked upload at
+   ``client_offset = i``) and
    ``sketch_encode`` (ring arithmetic) bit for bit; ``flash_attention``
    to stated tolerances: its bf16 (wgmma) kernel, which rounds P to bf16
    before P·V, to ``bf16_error_check``'s bound against the f64 softmax,
@@ -65,19 +72,29 @@ last line):
    its tensor-core kernel once per layer per forward; and rwkv6-7b's path once more at τ = 2,
    8 and 32 with the cost read after each of its 4 rounds (finite
    costs), to tell the step size from the port in the cost's rise;
-7. run the main path once more under ``torch.profiler`` and print the
-   device time by kind and the device's busy share of the round loop;
+7. time ``masked_sum`` (I = 4) and ``ssca_update`` directly at both
+   full-width LM paths' widths, once those paths have freed their
+   memory: the median of 5 eager launches after 2 warm-ups, from CUDA
+   events, each output checked (the aggregate against Σ quantize(m_i),
+   the update against its plain version bit for bit); then run the main
+   path once more under ``torch.profiler`` and print the device time by
+   kind and the device's busy share of the round loop;
 8. time each kernel and its plain version on the paths' shapes (CUDA
    events around the replay of a CUDA graph of 50 calls, so the host's
    launch overhead does not gate the device), and, for flash attention,
    ``scaled_dot_product_attention`` as the library yardstick (the port
    never calls it; no single PyTorch call computes the WKV scan): the
    wgmma variant at the LM path's shape, with its achieved TFLOP/s, and
-   the SIMT variant at the small LM's; the ``masked_sum`` and
-   ``ssca_update`` rows also give, for each full-width LM path, the
-   launches, the profiled round's launch time and the bound at that
-   path's parameter count; print one ``{"kernels": [...]}`` line, then
-   the result line ``{"ok": true, "device": {...}}``.
+   the SIMT variant at the small LM's; the launch floor, an empty
+   kernel's graph replay, beside ``ssca_update`` and ``masked_sum`` at
+   the MLP shape; each row gives its bound's parts (bytes, and each kind
+   of operation at its rate), the ``masked_sum`` row its launches by
+   variant, and the ``masked_sum`` and ``ssca_update`` rows, for each
+   full-width LM path, the launches, the profiled round's launch time,
+   the direct launches' time and the bound at that path's parameter
+   count; print one
+   ``{"kernels": [...]}`` line, then the result line ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -93,26 +110,38 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth
-# and FP32.  The data sheet gives no int32 rate; this one is an estimate,
-# 132 SMs x 64 INT32 lanes (Hopper architecture white paper) x 1.98 GHz
-# (the clock behind the 67 TFLOP/s FP32 figure: 132 x 128 x 2 x 1.98 GHz).
-# If the multiplies issue on the FP32 pipe beside the INT32 one, the card
-# is faster than this, so the integer bound below is an upper estimate of
-# the least time.
+# and FP32.  The data sheet gives no int32 rate; two are derived here, at
+# 1.98 GHz (the clock behind the 67 TFLOP/s FP32 figure: 132 x 128 x 2 x
+# 1.98 GHz).  INT32_ALU_OPS_PER_S is the ALU pipe alone, 132 SMs x 64
+# INT32 lanes (Hopper architecture white paper): logic operations and
+# shifts issue only there.  INT32_OPS_PER_S is the SM's issue ceiling, 132
+# SMs x 4 schedulers x 32 lanes: integer multiplies and multiply-adds
+# issue on the FMA pipe (SASS IMAD), and each scheduler issues one warp
+# instruction a cycle.  Integer work is bounded by both: its ALU-pipe
+# operations at the first rate and all of its operations at the second.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 FP32_FLOPS_PER_S = 67e12
 # dense bf16 and TF32 tensor-core peaks (data sheet, SXM, without
 # sparsity)
 BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
+RATES = {"int32": INT32_OPS_PER_S, "int32_alu": INT32_ALU_OPS_PER_S,
+         "f32": FP32_FLOPS_PER_S, "bf16": BF16_FLOPS_PER_S,
+         "tf32": TF32_FLOPS_PER_S}
 
-# integer operations per element of one directed mask stream: two murmur3
-# finalizers (3 shifts, 3 xors, 2 multiplies each), the xors with the two
-# seed words (2: both words depend only on the pair, not the element), and
-# the accumulate into the upload (1: the coefficient is +-1); per client
-# row, the quantize (2) and the running sum (1)
-OPS_PER_STREAM = 2 * 8 + 2 + 1
+# integer operations per element of one directed mask stream, the least
+# the function needs: mask_bits is two murmur3 finalizers (3 shifts, 3
+# xors, 2 multiplies each) and the xors with the two seed words, but
+# f(v) = v ^ (v >> 16) is linear over xor and its own inverse, so with
+# f(seed) and f(seed + kGold) made once per stream and f(e) once per
+# element it takes 5 xors, 3 shifts and 4 multiplies (csrc/secure_agg.cu);
+# then the accumulate into the upload times the coefficient (1).  Of
+# these, the 8 xors and shifts issue only on the ALU pipe.  Per client
+# row: the quantize (2) and the running sum (1)
+OPS_PER_STREAM = 5 + 3 + 4 + 1
+ALU_OPS_PER_STREAM = 5 + 3
 OPS_PER_ROW = 3
 # f32 operations per element of the fused SSCA update
 FLOPS_SSCA = 14
@@ -202,6 +231,146 @@ def time_ms(fn, iters=50, repeats=7, graph=True):
     return statistics.median(times)
 
 
+def eager_ms(fn, warm=2, reps=5):
+    """Median over ``reps`` eager calls, after ``warm`` more, of each
+    call's device time from CUDA events around it."""
+    import torch
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# SASS opcodes by the pipe that issues them on Hopper
+SASS_ALU = {"LOP3", "SHF", "IADD3", "ISETP", "SEL", "LEA", "PRMT", "VIADD",
+            "IMNMX", "VIMNMX", "POPC", "FLO", "MOV", "PLOP3"}
+SASS_FMA = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD"}
+
+
+def stream_loop_mix():
+    """The masked sum's stream loop in SASS (``cuobjdump -sass`` of the
+    built library): the innermost loop (a backward branch's span holding
+    no other) with the most ``LOP3``.  Prints its opcodes and its
+    instructions by pipe a stream-element (each ``LDS.128`` reads one
+    table entry, one stream for four elements), and raises if the kernel
+    touches local memory or the loop issues fewer xors and shifts, or
+    fewer operations, a stream-element than the bound counts."""
+    import collections
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    from repro_torch.kernels import secure_agg as sa
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path())],
+                          check=True, capture_output=True, text=True).stdout
+    body = next(c for c in sass.split("Function : ")[1:]
+                if "masked_sum_kernel" in c.split("\n", 1)[0])
+    insns = [(int(a, 16), t.strip()) for a, t in
+             re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    spans = [(int(m.group(1), 16), a) for a, t in insns
+             for m in [re.search(r"\bBRA\b.*?\b0x([0-9a-f]+)\b", t)]
+             if m and int(m.group(1), 16) <= a]
+    inner = [(a, b) for a, b in spans if not any(
+        a <= c and d <= b and (c, d) != (a, b) for c, d in spans)]
+
+    def opcodes(a, b):
+        return collections.Counter(
+            t.split()[1 if t.startswith("@") else 0]
+            for x, t in insns if a <= x <= b)
+
+    ops = max((opcodes(a, b) for a, b in inner),
+              key=lambda o: o["LOP3.LUT"])
+    elems = ops["LDS.128"] * sa.ELEMS
+    pipes = collections.Counter()
+    for op, k in ops.items():
+        base = op.split(".")[0]
+        pipes["alu" if base in SASS_ALU else "fma" if base in SASS_FMA
+              else "other"] += k
+    xor_shift = sum(k for op, k in ops.items()
+                    if op.split(".")[0] in ("LOP3", "SHF")) / elems
+    ring = xor_shift + ops["IMAD"] / elems
+    log(f"masked_sum stream loop (SASS): {sum(ops.values())} instructions "
+        f"for {elems} stream-elements; a stream-element: "
+        f"{pipes['alu'] / elems} ALU-pipe, {pipes['fma'] / elems} FMA-pipe, "
+        f"{xor_shift} xors and shifts, {ops['IMAD'] / elems} IMAD;",
+        json.dumps(dict(ops.most_common())))
+    if re.search(r"\b(LDL|STL)\b", body):
+        raise AssertionError("masked_sum touches local memory")
+    if xor_shift < ALU_OPS_PER_STREAM or ring < OPS_PER_STREAM:
+        raise AssertionError(
+            f"masked_sum issues {xor_shift} xors and shifts and {ring} "
+            f"operations a stream-element, under the bound's "
+            f"{ALU_OPS_PER_STREAM} and {OPS_PER_STREAM}")
+
+
+def launch_floor_ms(torch):
+    """Device time of one launch of an empty kernel, from a CUDA-graph
+    replay as ``time_ms`` times the kernels: the least time any launch at
+    the MLP shape can take."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    return time_ms(lambda: build.check(lib.empty_launch(
+        torch.cuda.current_stream().cuda_stream), "empty"))
+
+
+# the full-width LM paths' parameter counts, at which the server kernels
+# run once a round
+FULL_WIDTH = {"lm_full_width": LM_PARAMS, "rwkv_full_width": RWKV_PARAMS}
+
+
+def server_kernels_full_width(torch, su, sa):
+    """``masked_sum`` (I = 4 clients) and ``ssca_update`` at each
+    full-width LM path's padded parameter count, timed directly: the
+    median of 5 eager launches after 2 warm-ups, from CUDA events.  Each
+    output is checked: the aggregate against Σ_i quantize(m_i) and the
+    update against its plain version, bit for bit (in slices of 2^20
+    rows).  Buffers: 19.2 GB for llama3-8b's masked sum, 26.9 GB for its
+    update."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sc = torch.tensor([0.5, 0.6, 0.1, 1e-5], device="cuda")
+    for path, n_params in FULL_WIDTH.items():
+        rows = -(-n_params // 128)
+        msgs = torch.randn(LM_CLIENTS, rows, 128, device="cuda",
+                           generator=gen).mul_(1e-3)
+        kw = dict(scale_bits=SCALE_BITS, num_clients=LM_CLIENTS)
+        ms_sum = eager_ms(lambda: sa.masked_sum_2d(msgs, 1, 2, **kw))
+        agg = sa.masked_sum_2d(msgs, 1, 2, **kw)
+        want = torch.zeros_like(agg)
+        for m in msgs:
+            want += sa.quantize(m, SCALE_BITS)
+        if not torch.equal(agg, want):
+            raise AssertionError(f"masked_sum at {path}'s width: aggregate "
+                                 "!= sum_i quantize(m_i)")
+        del msgs, agg, want
+        torch.cuda.empty_cache()
+        ins = [torch.randn(rows, 128, device="cuda", generator=gen)
+               for _ in range(4)]
+        ms_upd = eager_ms(lambda: su.ssca_update_2d(*ins, sc))
+        got = su.ssca_update_2d(*ins, sc)
+        for r0 in range(0, rows, 1 << 20):
+            part = [x[r0:r0 + (1 << 20)] for x in ins]
+            want = su.ssca_update_plain(*part, sc)
+            if not all(torch.equal(a[r0:r0 + (1 << 20)], b)
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"ssca_update at {path}'s width "
+                                     f"differs from plain at rows {r0}+")
+        del ins, got, want
+        torch.cuda.empty_cache()
+        out[path] = {"rows": rows, "masked_sum_ms": ms_sum,
+                     "ssca_update_ms": ms_upd}
+    return out
+
+
 def phase_kernel_parity(torch, su, sa):
     """Kernel against plain version on the card; returns the max abs
     errors at the main path's shapes."""
@@ -211,11 +380,24 @@ def phase_kernel_parity(torch, su, sa):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
+    def on_variant(fn, variant, call):
+        """``call()``, which must launch ``fn`` once on ``variant``."""
+        before = dict(fn.launches_by_variant)
+        out = call()
+        before[variant] += 1
+        if fn.launches_by_variant != before:
+            raise AssertionError(f"launched {fn.launches_by_variant}, want "
+                                 f"one more {variant}: {before}")
+        return out
+
     errs = {}
     sc = torch.tensor([0.9 / 7 ** 0.3, 0.9 / 7 ** 0.35, 0.1, 1e-5],
                       device=dev)
-    for rows in (794, 13):
+    # the paths' shape, a small one, views one element past alignment
+    for rows, shift in ((794, False), (13, False), (794, True)):
         ins = [randn(rows, 128) for _ in range(4)]
+        if shift:
+            ins = [misaligned(torch, x) for x in ins]
         got = su.ssca_update_2d(*ins, sc)
         want = su.ssca_update_plain(*ins, sc)
         torch.cuda.synchronize()
@@ -223,12 +405,17 @@ def phase_kernel_parity(torch, su, sa):
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"ssca_update differs at R={rows}: {err}")
         errs.setdefault("ssca_update", err)
-    log("ssca_update: kernel == plain bit for bit at R=794 and R=13")
+        log(f"ssca_update: kernel == plain bit for bit at R={rows}"
+            f"{' one element past alignment' if shift else ''}")
 
     key0, key1 = 0x8BADF00D, 0x1234567
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def check(msgs, name, **kw):
-        got = sa.masked_sum_2d(msgs, key0, key1, scale_bits=SCALE_BITS, **kw)
+        plan = sa.launch_plan(msgs[0].numel(), msgs.shape[0],
+                              kw["num_clients"], sms)
+        got = on_variant(sa.masked_sum_2d, plan[0], lambda: sa.masked_sum_2d(
+            msgs, key0, key1, scale_bits=SCALE_BITS, **kw))
         want = sa.masked_sum_plain(msgs, key0, key1, scale_bits=SCALE_BITS,
                                    **kw)
         torch.cuda.synchronize()
@@ -236,7 +423,9 @@ def phase_kernel_parity(torch, su, sa):
         if not torch.equal(got, want):
             raise AssertionError(f"masked_sum differs from plain: {name}, "
                                  f"max abs difference {err}")
-        log(f"masked_sum: kernel == plain bit for bit: {name}")
+        log(f"masked_sum: kernel == plain bit for bit: {name} ({plan[0]}, "
+            f"{plan[1]} split{'s' if plan[1] > 1 else ''}, {plan[2]} "
+            "blocks)")
         return got, err
 
     main = randn(CLIENTS, 794, 128, scale=1e-3)
@@ -260,9 +449,33 @@ def phase_kernel_parity(torch, su, sa):
         same = float((up == sa.quantize(main[i], SCALE_BITS)).float().mean())
         if same > 0.01:
             raise AssertionError(f"client {i}'s upload is not masked")
+    # past the wave threshold (vec), with dropouts and an offset; 600
+    # clients, whose streams pass one shared-memory table; rows one
+    # element past alignment (copied by the wrapper)
+    big = randn(4, 4608, 128, scale=1e-3)
+    check(big, "(4, 4608, 128)", num_clients=4)
+    check(big, "(4, 4608, 128) at client_offset 2 of 7, two dropouts",
+          num_clients=7, client_offset=2,
+          alive=torch.tensor([1, 1, 0, 1, 1, 0, 1], device=dev))
+    check(big[:3], "(3, 4608, 128) of 600 clients", num_clients=600)
+    check(big[:3, :8].contiguous(), "(3, 8, 128) of 600 clients",
+          num_clients=600)
+    check(misaligned(torch, main), "(10, 794, 128) one element past "
+          "alignment", num_clients=CLIENTS, alive=alive)
+    check(misaligned(torch, big), "(4, 4608, 128) one element past "
+          "alignment", num_clients=4)
     errs["compress"] = phase_compress_parity(torch, randn)
     errs["sketch_encode"] = phase_sketch_parity(torch, randn)
     return errs
+
+
+def misaligned(torch, t):
+    """``t`` copied into a contiguous view one element past a 16-byte
+    aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def same_bits(torch, a, b):
@@ -534,7 +747,7 @@ def card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu):
 
 
 def reset_counts(kernels):
-    """Every launch counter to 0, the flash kernel's per-variant ones too."""
+    """Every launch counter to 0, the per-variant ones too."""
     for fn in kernels.values():
         fn.launches = 0
         for variant in getattr(fn, "launches_by_variant", {}):
@@ -542,9 +755,9 @@ def reset_counts(kernels):
 
 
 def variant_counts(kernels):
-    """The launches of each kernel with variants (flash attention, the WKV
-    scan), by variant, since the last reset: ``flash_attention_wgmma``
-    and so on."""
+    """The launches of each kernel with variants (masked_sum, flash
+    attention, the WKV scan), by variant, since the last reset:
+    ``flash_attention_wgmma``, ``masked_sum_rowsplit`` and so on."""
     return {f"{name}_{k}": n for name, fn in kernels.items()
             for k, n in getattr(fn, "launches_by_variant", {}).items()}
 
@@ -600,6 +813,8 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
     want.update({layer_kernel: 2 * 3 * rounds, "ssca_update": rounds,
                  "masked_sum": rounds})
     want[variant] = want[layer_kernel]
+    from repro_torch import tree
+    want.update(server_variants(torch, tree.numel(p_gpu), 4, rounds))
     log(f"{name}: launches over {rounds} rounds: {launches}")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -618,6 +833,19 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
             raise AssertionError(f"{name}: card run drifts from CPU run: "
                                  f"{k} {diffs[k]} > {lim}")
     return launches
+
+
+def server_variants(torch, n_params, clients, rounds):
+    """The launches of each variant of ``masked_sum`` in ``rounds``
+    secure rounds of ``clients`` clients at ``n_params`` parameters
+    (padded to whole rows of 128), from its wrapper's launch plan."""
+    from repro_torch.kernels import secure_agg as sa
+    n = -(-n_params // 128) * 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {f"masked_sum_{v}": 0 for v in sa.VARIANTS}
+    want[f"masked_sum_{sa.launch_plan(n, clients, clients, sms)[0]}"] = \
+        rounds
+    return want
 
 
 def lm_full_width(arch):
@@ -675,6 +903,7 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     want.update({layer_kernel: LM_LAYERS * (LM_ROUNDS + 2 * n_evals),
                  "ssca_update": LM_ROUNDS, "masked_sum": LM_ROUNDS})
     want[variant] = want[layer_kernel]
+    want.update(server_variants(torch, n_params, LM_CLIENTS, LM_ROUNDS))
     log(f"{name}: launches over {LM_ROUNDS} rounds: {launches}")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -768,8 +997,8 @@ def phase_main_path(torch, su, sa, data, part, params, runtime):
     runtime.run_alg1(data, part, device="cuda", **dict(kw, rounds=2))
     log(f"warm-up: 2 rounds in {time.perf_counter() - t0:.2f} s "
         "(one-time CUDA and cuBLAS initialisation)")
-    su.ssca_update_2d.launches = 0
-    sa.masked_sum_2d.launches = 0
+    reset_counts({"ssca_update": su.ssca_update_2d,
+                  "masked_sum": sa.masked_sum_2d})
     p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda", **kw)
     launches = {"ssca_update": su.ssca_update_2d.launches,
                 "masked_sum": sa.masked_sum_2d.launches}
@@ -881,7 +1110,7 @@ def phase_compressed_paths(torch, kernels, data, part, params, runtime,
         log(f"{name}: launches over {ROUNDS} rounds: {launches}")
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, want {want}")
-        by_path[name] = launches
+        by_path[name] = {**launches, **variant_counts(kernels)}
         if (h_gpu.uplink_bytes_per_round, h_gpu.downlink_bytes_per_round) \
                 != (up, down):
             raise AssertionError(
@@ -1021,6 +1250,7 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     ssca_bytes = (7 * n + 4) * 4
     ms_bytes = (CLIENTS * n + n) * 4
     ms_ops = n * CLIENTS * ((CLIENTS - 1) * OPS_PER_STREAM + OPS_PER_ROW)
+    ms_alu = n * CLIENTS * (CLIENTS - 1) * ALU_OPS_PER_STREAM
     # compress at the top-k path's shape and scalars; each input read
     # once (x, 2 int64 and 2 f32 scalars a client), each output written
     # once (out, residual)
@@ -1078,7 +1308,7 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
              "src/repro/kernels/secure_agg.py:346",
              lambda: sa.masked_sum_2d(msgs, 1, 2, **kw),
              lambda: sa.masked_sum_plain(msgs, 1, 2, **kw), None,
-             ms_bytes, {"int32": ms_ops}),
+             ms_bytes, {"int32": ms_ops, "int32_alu": ms_alu}),
             ("compress", "src/repro_torch/kernels/csrc/compress.cu",
              "src/repro/kernels/compress.py:142",
              lambda: kc.compress_2d(msgs, csu, csf, **ckw),
@@ -1107,13 +1337,15 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
              "src/repro/kernels/rwkv6_scan.py:71",
              lambda: rw.rwkv6_wkv_bh(*wx), lambda: rw.wkv_plain(*wx), None,
              w_bytes, w_ops)):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        # integer and f32 work run on separate pipes: the least time is
-        # the larger of the two
-        ops_ms = max(v / {"int32": INT32_OPS_PER_S, "f32": FP32_FLOPS_PER_S,
-                          "bf16": BF16_FLOPS_PER_S,
-                          "tf32": TF32_FLOPS_PER_S}[k]
-                     for k, v in ops.items()) * 1e3
+        # each kind of work at its rate; integer and f32 work run on
+        # separate pipes, and the ALU pipe takes only part of the integer
+        # work: the least time is the largest part.  compress and
+        # sketch_encode count their integer work at the issue ceiling
+        # only: their bytes bound them well above it
+        parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        parts.update({k: v / RATES[k] * 1e3 for k, v in ops.items()})
+        bytes_ms = parts["bytes"]
+        ops_ms = max(v for k, v in parts.items() if k != "bytes")
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1124,7 +1356,12 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
             "plain_ms": time_ms(plain, iters=5, repeats=3),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None if library is None else time_ms(library)})
+            "library_ms": None if library is None else time_ms(library),
+            "bound_parts_ms": parts})
+        if name == "masked_sum":
+            rows[-1]["launches_by_variant"] = {
+                v: launches[f"masked_sum_{v}"]
+                for v in sa.masked_sum_2d.launches_by_variant}
         if name.startswith("flash_attention"):
             rows[-1]["shape"] = list(FLASH_PATH if name == "flash_attention"
                                      else FLASH_SMALL)
@@ -1139,6 +1376,13 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                 for v in rw.rwkv6_wkv_bh.launches_by_variant}
         log(f"{name}: {time_ms(kern, graph=False):.4f} ms a call when "
             "launched eagerly from Python (wrapper overhead included)")
+    floor = launch_floor_ms(torch)
+    for row in rows:
+        if row["name"] in ("masked_sum", "ssca_update"):
+            row["launch_floor_ms"] = floor
+    log(f"launch floor: {floor * 1e3:.4f} us a launch of an empty kernel "
+        f"(graph replay), beside ssca_update {rows[0]['ms'] * 1e3:.4f} us "
+        f"and masked_sum {rows[1]['ms'] * 1e3:.4f} us at the MLP shape")
     log(f"rwkv6_wkv bound at (N, S, H, D) = {WKV_PATH}: "
         f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes ({w_bytes} B), "
         f"{w_ops['tf32'] / TF32_FLOPS_PER_S * 1e3:.4f} ms by products "
@@ -1149,23 +1393,25 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     return rows
 
 
-def full_width_rows(rows, by_path, profiled):
+def full_width_rows(rows, by_path, profiled, direct):
     """The server-side kernels at the full-width LM paths' shapes: the
     ``masked_sum`` and ``ssca_update`` rows gain, for each path, the
-    launches, the device time of the profiled round's one launch, and the
+    launches, the device time of the profiled round's one launch, the
+    time of :func:`server_kernels_full_width`'s direct launches, and the
     bound at that path's padded parameter count (I = 4 clients)."""
-    sizes = {"lm_full_width": LM_PARAMS, "rwkv_full_width": RWKV_PARAMS}
     for row in rows:
         if row["name"] not in ("masked_sum", "ssca_update"):
             continue
         row["full_width"] = {}
-        for path, n in sizes.items():
+        for path, n in FULL_WIDTH.items():
             n = -(-n // 128) * 128
             if row["name"] == "masked_sum":
                 nbytes = (LM_CLIENTS * n + n) * 4
-                ops_ms = n * LM_CLIENTS * ((LM_CLIENTS - 1) * OPS_PER_STREAM
-                                           + OPS_PER_ROW) \
-                    / INT32_OPS_PER_S * 1e3
+                ops = n * LM_CLIENTS * ((LM_CLIENTS - 1) * OPS_PER_STREAM
+                                        + OPS_PER_ROW)
+                alu = n * LM_CLIENTS * (LM_CLIENTS - 1) * ALU_OPS_PER_STREAM
+                ops_ms = max(ops / INT32_OPS_PER_S,
+                             alu / INT32_ALU_OPS_PER_S) * 1e3
             else:
                 nbytes = (7 * n + 4) * 4
                 ops_ms = FLOPS_SSCA * n / FP32_FLOPS_PER_S * 1e3
@@ -1174,10 +1420,13 @@ def full_width_rows(rows, by_path, profiled):
                 "elements": n,
                 "launches": by_path[path][row["name"]],
                 "ms": profiled[path][row["name"]] / 1e3,
+                "direct_ms": direct[path][f"{row['name']}_ms"],
                 "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        log(f"{row['name']} at the full-width LM paths (time of the "
-            f"profiled round's launch):", json.dumps(row["full_width"]))
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_parts_ms": {"bytes": bytes_ms, "operations": ops_ms}}
+        log(f"{row['name']} at the full-width LM paths (ms: the profiled "
+            "round's launch; direct_ms: the median of 5 eager launches):",
+            json.dumps(row["full_width"]))
 
 
 def main() -> int:
@@ -1222,6 +1471,9 @@ def main() -> int:
             {dh: fa.kernel_attributes(dh) for dh in fa.HEAD_DIMS}))
     log("rwkv6_wkv (registers a thread, spill bytes a thread, shared bytes "
         "a block) by instance:", json.dumps(rw.kernel_attributes()))
+    log("masked_sum (registers a thread, spill bytes a thread, shared bytes "
+        "a block):", json.dumps(sa.kernel_attributes()))
+    stream_loop_mix()
 
     errs = phase_kernel_parity(torch, su, sa)
     errs["flash_attention"], errs["flash_attention_simt"], flash_stats = \
@@ -1246,6 +1498,8 @@ def main() -> int:
         f"included) on {card}")
     by_path = {"secure_dense": {k: fn.launches
                                 for k, fn in kernels.items()}}
+    by_path["secure_dense"].update(variant_counts(kernels))
+    log(f"main path launches by variant: {variant_counts(kernels)}")
     if any(by_path["secure_dense"][k] for k in ("compress", "sketch_encode",
                                                 "flash_attention",
                                                 "rwkv6_wkv")):
@@ -1275,10 +1529,14 @@ def main() -> int:
              for k in [*kernels, *variant_counts(kernels)]}
     log(f"launches over all paths: {total}")
 
+    direct = server_kernels_full_width(torch, su, sa)
+    log("masked_sum and ssca_update at the full-width LM paths' widths, "
+        "direct launches, checked against Σ quantize(m_i) and the plain "
+        "update:", json.dumps(direct))
     phase_profile(torch, data, part, params, runtime)
     rows = phase_timing(torch, su, sa, kc, ks, fa, rw, total, by_path, errs,
                         flash_stats)
-    full_width_rows(rows, by_path, profiled)
+    full_width_rows(rows, by_path, profiled, direct)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

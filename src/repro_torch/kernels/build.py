@@ -15,6 +15,7 @@ roundings stay IEEE.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -79,12 +80,17 @@ def _compile(nvcc: str, sources: list[Path], lib: Path) -> None:
         os.replace(tmp_lib, lib)
 
 
+def library_path() -> Path:
+    """Where :func:`load` builds the kernels' shared library."""
+    return BUILD_DIR / f"librepro_torch_kernels.{_tag()}.so"
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _LIB, build_seconds
     if _LIB is not None:
         return _LIB
-    lib = BUILD_DIR / f"librepro_torch_kernels.{_tag()}.so"
+    lib = library_path()
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -95,9 +101,13 @@ def load() -> ctypes.CDLL:
                         ctypes.c_uint32)
     cdll.ssca_update_launch.argtypes = [p, p, p, p, p, p, p, p, i64, p]
     cdll.ssca_update_launch.restype = i32
+    cdll.empty_launch.argtypes = [p]
+    cdll.empty_launch.restype = i32
     cdll.masked_sum_launch.argtypes = [p, i32, i64, i32, u32, u32, u32, i32,
-                                       p, p, p]
+                                       p, p, i32, i32, p]
     cdll.masked_sum_launch.restype = i32
+    cdll.masked_sum_attributes.argtypes = [ctypes.POINTER(i32)]
+    cdll.masked_sum_attributes.restype = None
     cdll.compress_launch.argtypes = [p, p, p, i32, i64, i32, i32, i32, p, p,
                                      p]
     cdll.compress_launch.restype = i32
@@ -120,6 +130,13 @@ def load() -> ctypes.CDLL:
     cdll.kernel_error_string.restype = ctypes.c_char_p
     _LIB = cdll
     return cdll
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device, for the kernels' grids."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(status: int, kernel: str) -> None:

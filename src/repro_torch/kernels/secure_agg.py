@@ -15,7 +15,8 @@ and returns Σ_i q_i bit for bit: the masks cancel exactly in the ring.
 row uploads nothing and every survivor's stream against it is cancelled.
 
 On a CUDA tensor :func:`masked_sum_2d` launches the hand-written kernel
-``csrc/secure_agg.cu``; on a CPU tensor it runs :func:`masked_sum_plain`.
+``csrc/secure_agg.cu`` on the plan of :func:`launch_plan`; on a CPU tensor
+it runs :func:`masked_sum_plain`.
 
 torch has no ``>>`` or ``+`` on ``uint32`` on the CPU, so the plain PRF
 holds each uint32 word in an int64 and masks it to 32 bits after every
@@ -24,6 +25,7 @@ low 32 bits, the only ones kept, stay right.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -33,6 +35,15 @@ from repro_torch import Device, on_cuda
 from repro_torch.kernels import build
 
 LANES = 128
+# the kernel's launch geometry (csrc/secure_agg.cu): threads a block,
+# consecutive elements a thread, blocks an SM (its launch bound), and the
+# most groups of threads that split one element tile's streams (a warp
+# each)
+THREADS = 256
+ELEMS = 4
+BLOCKS_PER_SM = 4
+MAX_SPLITS = 8
+VARIANTS = ("vec", "rowsplit")
 
 _MASK = 0xFFFFFFFF
 _M1 = 0x7FEB352D
@@ -109,6 +120,40 @@ def masked_sum_plain(msgs, key0: int, key1: int, *, scale_bits: int,
     return _to_int32(acc).reshape(out_shape)
 
 
+def launch_plan(n: int, i_loc: int, num_clients: int, sm_count: int
+                ) -> tuple[str, int, int]:
+    """``(variant, splits, blocks)`` of the kernel for n elements of I_loc
+    client rows among ``num_clients``, on a card of ``sm_count`` SMs.
+
+    One thread takes four elements.  Where those threads would fill less
+    than half of what the card holds at once (``sm_count`` ×
+    ``BLOCKS_PER_SM`` × ``THREADS``), the streams of each element are
+    split over 2, 4 or 8 groups of threads, doubling while the card still
+    holds them all and each group keeps at least one directed stream (the
+    ``rowsplit`` variant); otherwise ``vec``.  The grid is persistent:
+    at most ``BLOCKS_PER_SM`` blocks an SM, each striding over element
+    tiles of ``THREADS // splits × ELEMS``.
+    """
+    streams = i_loc * (num_clients - 1)
+    threads = -(-n // ELEMS)
+    resident = sm_count * BLOCKS_PER_SM * THREADS
+    splits = 1
+    while (splits < MAX_SPLITS and threads * splits * 2 <= resident
+           and splits * 2 <= streams):
+        splits *= 2
+    tile = THREADS // splits * ELEMS
+    blocks = max(1, min(-(-n // tile), sm_count * BLOCKS_PER_SM))
+    return ("rowsplit" if splits > 1 else "vec"), splits, blocks
+
+
+def kernel_attributes() -> tuple[int, int, int]:
+    """``(registers a thread, local (spill) bytes a thread, static shared
+    bytes a block)`` of the kernel, from ``cudaFuncGetAttributes``."""
+    vals = (ctypes.c_int * 3)()
+    build.load().masked_sum_attributes(vals)
+    return tuple(vals)
+
+
 def masked_sum_2d(msgs: torch.Tensor, key0: int, key1: int, *,
                   scale_bits: int, num_clients: int, client_offset: int = 0,
                   alive: Optional[torch.Tensor] = None,
@@ -119,8 +164,11 @@ def masked_sum_2d(msgs: torch.Tensor, key0: int, key1: int, *,
     rows are global clients [client_offset, client_offset + I_loc) of
     ``num_clients``; ``alive`` is an optional (num_clients,) 0/1 tensor on
     the messages' device.  A CPU tensor goes to :func:`masked_sum_plain`
-    (only with ``device="cpu"``); a CUDA tensor launches the kernel and
-    adds one to ``masked_sum_2d.launches``.
+    (only with ``device="cpu"``); a CUDA tensor launches the kernel on
+    :func:`launch_plan`'s variant and adds one to ``masked_sum_2d.launches``
+    and to that variant's count in ``masked_sum_2d.launches_by_variant``.
+    Messages that are not 16-byte aligned, as the kernel's loads need, are
+    copied first.
     """
     if msgs.dim() != 3 or msgs.shape[2] != LANES:
         raise ValueError(f"masked_sum_2d takes (I_loc, R, {LANES}), got "
@@ -152,14 +200,20 @@ def masked_sum_2d(msgs: torch.Tensor, key0: int, key1: int, *,
     lib = build.load()
     i_loc = msgs.shape[0]
     out = torch.empty(msgs.shape[1:], dtype=torch.int32, device=msgs.device)
+    if msgs.data_ptr() % 16:
+        msgs = msgs.clone()
+    variant, splits, blocks = launch_plan(
+        out.numel(), i_loc, int(num_clients), build.sm_count(msgs.device))
     stream = torch.cuda.current_stream(msgs.device).cuda_stream
     status = lib.masked_sum_launch(
         msgs.data_ptr(), i_loc, out.numel(), int(scale_bits), int(key0),
         int(key1), int(client_offset), int(num_clients), alive_ptr,
-        out.data_ptr(), stream)
+        out.data_ptr(), splits, blocks, stream)
     build.check(status, "masked_sum")
     masked_sum_2d.launches += 1
+    masked_sum_2d.launches_by_variant[variant] += 1
     return out
 
 
 masked_sum_2d.launches = 0
+masked_sum_2d.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -10,7 +10,9 @@ Tolerances: none for the four integer and update kernels.  The SSCA
 and compress kernels round every f32 operation separately, in the plain
 version's order (no FMA contraction), and the masked sum and the sketch
 encode are ring arithmetic: all must equal their plain versions bit for
-bit (NaN compared as NaN).  Flash attention has two kernels, chosen by
+bit (NaN compared as NaN), the masked sum on both variants its launch
+plan names (``vec`` and ``rowsplit``).  Flash attention has two kernels,
+chosen by
 dtype.  The f32 (SIMT) one sums its scores and its P·V in another order
 than the plain version's einsums, and keeps an online softmax: within
 2e-5 absolute of the plain version.  The bf16 (wgmma) one also rounds P
@@ -55,15 +57,55 @@ def _randn(dev, *shape, seed=0, scale=1.0):
     return (torch.randn(*shape, generator=g) * scale).to(dev)
 
 
-@pytest.mark.parametrize("rows", [1, 13, 794, 4099])
-def test_ssca_kernel_equals_plain(dev, rows):
-    ins = [_randn(dev, rows, 128, seed=s) for s in range(4)]
-    sc = torch.tensor([0.37, 0.81, 0.1, 1e-3], device=dev)
+def _shifted(t):
+    """``t`` copied into a contiguous view one element past a 16-byte
+    aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+def _ssca_equal_plain(ins, sc):
     before = su.ssca_update_2d.launches
     got = su.ssca_update_2d(*ins, sc)
     assert su.ssca_update_2d.launches == before + 1
     for a, b in zip(got, su.ssca_update_plain(*ins, sc)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows", [1, 13, 794, 4099])
+def test_ssca_kernel_equals_plain(dev, rows):
+    ins = [_randn(dev, rows, 128, seed=s) for s in range(4)]
+    sc = torch.tensor([0.37, 0.81, 0.1, 1e-3], device=dev)
+    _ssca_equal_plain(ins, sc)
+
+
+@pytest.mark.parametrize("rows", [3, 794])
+def test_ssca_kernel_takes_misaligned_views(dev, rows):
+    """Inputs one element past a 16-byte aligned address (the kernel loads
+    4 bytes at a time) equal the plain version."""
+    ins = [_randn(dev, rows, 128, seed=s) for s in range(4)]
+    ins = [ins[0], *(_shifted(x) for x in ins[1:])]
+    sc = torch.tensor([0.37, 0.81, 0.1, 1e-3], device=dev)
+    _ssca_equal_plain(ins, sc)
+
+
+def _masked_sum_equal_plain(msgs, variant, **kw):
+    """The kernel against the plain version, and the launch counted on
+    the variant its plan names."""
+    _, splits, _ = sa.launch_plan(msgs[0].numel(), msgs.shape[0],
+                                  kw["num_clients"],
+                                  torch.cuda.get_device_properties(
+                                      msgs.device).multi_processor_count)
+    before = dict(sa.masked_sum_2d.launches_by_variant)
+    got = sa.masked_sum_2d(msgs, 0xDEADBEEF, 77, scale_bits=20, **kw)
+    before[variant] += 1
+    assert sa.masked_sum_2d.launches_by_variant == before
+    assert torch.equal(got, sa.masked_sum_plain(msgs, 0xDEADBEEF, 77,
+                                                scale_bits=20, **kw))
+    return got, splits
 
 
 @pytest.mark.parametrize("num,offset,clients", [(10, 0, 10), (1, 0, 1),
@@ -87,6 +129,64 @@ def test_masked_sum_kernel_equals_plain(dev, num, offset, clients, rows,
         if alive is not None:
             q = q * alive[:, None, None]
         assert torch.equal(got, q.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("num,offset,clients,rows,variant", [
+    (4, 0, 4, 8, "rowsplit"),        # under one wave: streams split
+    (10, 0, 10, 794, "rowsplit"),    # the MLP path's shape
+    (4, 0, 4, 4608, "vec"),          # past the wave threshold
+    (4, 0, 4, 33_792, "vec"),        # eight tiles a block
+    (4, 2, 7, 4608, "vec"),          # client_offset
+    (3, 0, 600, 4608, "vec"),        # the table in chunks
+    (3, 0, 600, 8, "rowsplit"),
+])
+@pytest.mark.parametrize("with_alive", [False, True])
+def test_masked_sum_kernel_variants_equal_plain(dev, num, offset, clients,
+                                                rows, variant, with_alive):
+    msgs = _randn(dev, num, rows, 128, seed=3, scale=1e-2)
+    alive = None
+    if with_alive:
+        alive = torch.ones(clients, dtype=torch.int32, device=dev)
+        alive[1::4] = 0
+    got, splits = _masked_sum_equal_plain(
+        msgs, variant, num_clients=clients, client_offset=offset,
+        alive=alive)
+    assert (splits > 1) == (variant == "rowsplit")
+    if offset == 0 and num == clients:
+        q = sa.quantize(msgs, 20)
+        if alive is not None:
+            q = q * alive[:, None, None]
+        assert torch.equal(got, q.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("num,clients,rows,variant", [
+    (10, 10, 794, "rowsplit"), (4, 4, 4608, "vec"), (3, 600, 8, "rowsplit")])
+@pytest.mark.parametrize("with_alive", [False, True])
+def test_masked_sum_kernel_takes_misaligned_views(dev, num, clients, rows,
+                                                  variant, with_alive):
+    """Rows one element past a 16-byte aligned address (copied first: the
+    kernel's loads need 16-byte alignment) equal the plain version."""
+    msgs = _shifted(_randn(dev, num, rows, 128, seed=4, scale=1e-2))
+    alive = None
+    if with_alive:
+        alive = torch.ones(clients, dtype=torch.int32, device=dev)
+        alive[::3] = 0
+    _masked_sum_equal_plain(msgs, variant, num_clients=clients,
+                            alive=alive)
+
+
+@pytest.mark.parametrize("rows", [8, 4608])
+@pytest.mark.parametrize("i", [0, 3, 9])
+def test_masked_sum_kernel_single_upload_is_masked(dev, rows, i):
+    """One client's upload alone (client_offset = i of 10) is its masked
+    upload: the plain version's bits, and almost no element equal to its
+    quantized message."""
+    msgs = _randn(dev, 1, rows, 128, seed=5, scale=1e-2)
+    got, _ = _masked_sum_equal_plain(
+        msgs, "rowsplit" if rows == 8 else "vec", num_clients=10,
+        client_offset=i)
+    same = float((got == sa.quantize(msgs[0], 20)).float().mean())
+    assert same < 0.01
 
 
 def test_masked_sum_kernel_rejects_rows_past_num_clients(dev):
@@ -367,15 +467,7 @@ def test_rwkv6_wkv_kernel_takes_misaligned_views(dev):
     """The kernel's cp.async loads need 16-byte aligned rows: a view at an
     odd offset is copied first, and gives the aligned tensor's output."""
     x = _wkv_inputs(dev, 2, 40, 3, 64, torch.bfloat16, None, True)
-
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        assert view.is_contiguous() and view.data_ptr() % 16
-        return view
-
-    got = rw.rwkv6_wkv_bh(*(shifted(t) for t in x[:4]), x[4])
+    got = rw.rwkv6_wkv_bh(*(_shifted(t) for t in x[:4]), x[4])
     assert torch.equal(got, rw.rwkv6_wkv_bh(*x))
 
 
