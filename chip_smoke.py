@@ -22,14 +22,16 @@ last line):
    wrapper copies; dropouts, a client offset, 600 clients whose streams
    pass one shared-memory table, one client's masked upload at
    ``client_offset = i``) and
-   ``sketch_encode`` (ring arithmetic) bit for bit; ``flash_attention``
+   ``sketch_encode`` (ring arithmetic; at the path's 4 x 1024 sketch and
+   at 8 x 16,384) bit for bit; ``flash_attention``
    to stated tolerances: its bf16 (wgmma) kernel, which rounds P to bf16
    before P·V, to ``bf16_error_check``'s bound against the f64 softmax,
    at the LM path's shape (B·I = 8, S = 1024, H = 32, Hkv = 8, Dh = 128)
    and at edge shapes (Dh 16, 32, 64 and 128; S = 1, 65, 77, 128, 129,
    300 and 1024; G = 1, 4, 8 and 48), with SDPA's error against the
-   same f64 softmax printed for the record; its f32 (SIMT) kernel within
-   2e-5 of the plain version (S = 1, 77 and 300, Dh 16, 64 and 128);
+   same f64 softmax printed for the record; its f32 (3xTF32) kernel
+   within 2e-5 of the plain version (S = 1, 77 and 300, Dh 16, 64 and
+   128, the small LM's shape and llama3-8b's attention in f32);
    ``rwkv6_wkv`` to a stated tolerance (the kernel sums the plain
    version's chunked form on the tensor cores, each f32 operand split
    into two TF32 parts), each call counted on its variant, at the RWKV
@@ -63,7 +65,7 @@ last line):
    rounds, eval every 2 rounds on 8 documents and the 8 test documents;
    check the launch counts (flash attention once per layer per upload
    forward for all clients and per eval forward, all of them the wgmma
-   variant; the small LM's f32 ones all the SIMT variant), finite costs, the
+   variant; the small LM's f32 ones all the tf32x3 variant), finite costs, the
    first cost within [ln V − 1, ln V + 3], the ledger against
    ``round_bytes`` computed from the parameter shapes; print the round
    time, the peak device memory and the device time by kind and busy
@@ -85,11 +87,13 @@ last line):
    ``scaled_dot_product_attention`` as the library yardstick (the port
    never calls it; no single PyTorch call computes the WKV scan): the
    wgmma variant at the LM path's shape, with its achieved TFLOP/s, and
-   the SIMT variant at the small LM's; the launch floor, an empty
-   kernel's graph replay, beside ``ssca_update`` and ``masked_sum`` at
-   the MLP shape; each row gives its bound's parts (bytes, and each kind
-   of operation at its rate), the ``masked_sum`` row its launches by
-   variant, and the ``masked_sum`` and ``ssca_update`` rows, for each
+   the tf32x3 variant at the small LM's and at llama3-8b's attention in
+   f32 (``flash_attention_f32_wide``, SDPA's backend named); the launch
+   floor, an empty kernel's graph replay, beside ``ssca_update``,
+   ``masked_sum`` and ``sketch_encode`` at the MLP shape; each row gives
+   its bound's parts (bytes, and each kind of operation at its rate), the
+   ``masked_sum`` row its launches by variant,
+   and the ``masked_sum`` and ``ssca_update`` rows, for each
    full-width LM path, the launches, the profiled round's launch time,
    the direct launches' time and the bound at that path's parameter
    count; print one
@@ -124,12 +128,13 @@ INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
 INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 FP32_FLOPS_PER_S = 67e12
 # dense bf16 and TF32 tensor-core peaks (data sheet, SXM, without
-# sparsity)
+# sparsity).  tf32x3: an f32-accurate FLOP as three TF32 passes over the
+# hi + lo split of each operand (csrc/tf32x3.cuh)
 BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
 RATES = {"int32": INT32_OPS_PER_S, "int32_alu": INT32_ALU_OPS_PER_S,
          "f32": FP32_FLOPS_PER_S, "bf16": BF16_FLOPS_PER_S,
-         "tf32": TF32_FLOPS_PER_S}
+         "tf32": TF32_FLOPS_PER_S, "tf32x3": TF32_FLOPS_PER_S / 3}
 
 # integer operations per element of one directed mask stream, the least
 # the function needs: mask_bits is two murmur3 finalizers (3 shifts, 3
@@ -152,10 +157,12 @@ OPS_PRF_WORD = 1 + 2 + 2 * 8 + 1
 # floor, subtract, scale of u, compare, add, two clip compares, the
 # multiply by the step, |x|, the threshold compare and the residual
 FLOPS_COMPRESS = 12
-# sketch_encode: per element, the rounding draw (integer) and 5 f32
-# operations (scale, floor, subtract, compare, add) and the int convert;
-# per nonzero level and sketch row, the row seed (1 + 1 + 8), the hash
-# word (19), the bucket mask, the sign select and the atomic add
+# sketch_encode: per element, the zero test (f32); per nonzero element,
+# the rounding draw (integer) and 5 f32 operations (scale, floor,
+# subtract, compare, add) and the int convert (an exact zero or a NaN
+# rounds to 0 for every draw, so it needs none); per nonzero level and
+# sketch row, the row seed (1 + 1 + 8), the hash word (19), the bucket
+# mask, the sign select and the add
 FLOPS_SKETCH = 5
 OPS_SKETCH_ROW = 10 + 19 + 3
 
@@ -187,6 +194,13 @@ FLASH_F32_EDGES = [(2, 1, 4, 1, 64), (2, 77, 8, 8, 16), (3, 77, 8, 1, 64),
 # the small LM's (f32) flash shape: 4 clients' 4 sequences of 32 tokens
 # folded into the batch, 4 heads of 16 on 4 kv heads
 FLASH_SMALL = (16, 32, 4, 4, 16)
+# llama3-8b's attention at the LM path's shape in f32, the width a user
+# reaches with activ_dtype="float32": the f32 kernel timed where its
+# design, not the launch, sets the time
+FLASH_F32_WIDE = FLASH_PATH
+# the sketched path's sketch (rows, cols), and one of 131,072 buckets
+SKETCH_PATH = (4, 1024)
+SKETCH_LARGE = (8, 16384)
 # the RWKV path at full width: rwkv6-7b cut to 2 of its 32 layers, on the
 # LM path's data, clients, batch and rounds; the parameter tree holds
 # final_norm, which the config's param_count() leaves out
@@ -552,42 +566,64 @@ def phase_compress_parity(torch, randn):
 
 
 def phase_sketch_parity(torch, randn):
+    """``sketch_encode`` against its plain version bit for bit, each call
+    counted; returns the largest difference at the path's shape (0)."""
     from repro_torch.kernels import sketch as ks
     errs = []
 
     def check(x, su, name, **kw):
+        before = ks.sketch_encode.launches
         got = ks.sketch_encode(x, su, **kw)
         want = ks.sketch_encode_plain(x, su, **kw)
         torch.cuda.synchronize()
+        if ks.sketch_encode.launches != before + 1:
+            raise AssertionError(f"sketch_encode at {name} launched "
+                                 f"{ks.sketch_encode.launches - before} "
+                                 "times, want once")
         err = int((got.long() - want.long()).abs().max())
         if not torch.equal(got, want):
             raise AssertionError(f"sketch_encode differs from plain: {name}, "
                                  f"max abs difference {err}")
-        log(f"sketch_encode: kernel == plain bit for bit: {name}")
+        log(f"sketch_encode: kernel == plain bit for bit: "
+            f"{name}")
         return got, err
 
+    rows, cols = SKETCH_PATH
     # the path's shape: each client's top-256 pre-sparsified message
     x = presparsified(torch, randn(CLIENTS, 794, 128, scale=1e-3), 256)
     su = stream_scalars(torch, CLIENTS, 0, 0x5EEDC0DE)
-    sk, err = check(x, su, "(10, 794, 128) top-256, rows 4, cols 1024",
-                    rows=4, cols=1024, scale_bits=SCALE_BITS)
+    sk, err = check(x, su, f"(10, 794, 128) top-256, rows {rows}, cols "
+                    f"{cols}", rows=rows, cols=cols, scale_bits=SCALE_BITS)
     errs.append(err)
     if not sk.any():
         raise AssertionError("the sketch of a nonzero message is all zero")
+    lrows, lcols = SKETCH_LARGE
+    for keep in (None, 256):
+        xl = randn(2, 794, 128, scale=1e-3)
+        if keep is not None:
+            xl = presparsified(torch, xl, keep)
+        check(xl, su[:2].contiguous(), f"(2, 794, 128) "
+              f"{'dense' if keep is None else f'top-{keep}'}, rows {lrows}, "
+              f"cols {lcols}", rows=lrows, cols=lcols, scale_bits=SCALE_BITS)
     dense = randn(3, 7, 128, scale=1e-3)
     su3 = stream_scalars(torch, 3, 2 ** 32 - 200, 0x5EEDC0DE)
     check(dense, su3, "dense ragged (3, 7, 128), counters wrapping, cols 1",
           rows=3, cols=1, scale_bits=SCALE_BITS)
     check(dense, su3, "dense (3, 7, 128), rows 8, cols 64", rows=8, cols=64,
           scale_bits=SCALE_BITS)
+    check(misaligned(torch, dense), su3, "dense (3, 7, 128) one element "
+          "past alignment, rows 4, cols 4096", rows=4, cols=4096,
+          scale_bits=SCALE_BITS)
     zero, _ = check(torch.zeros_like(dense), su3, "all-zero message",
-                    rows=4, cols=1024, scale_bits=SCALE_BITS)
+                    rows=rows, cols=cols, scale_bits=SCALE_BITS)
     if zero.any():
         raise AssertionError("the sketch of a zero message is not zero")
-    dense.view(-1)[:4] = torch.tensor([float("nan"), float("inf"),
-                                       -float("inf"), 3e9])
-    check(dense, su3, "NaN/inf inputs (saturating)", rows=4, cols=64,
+    dense.view(-1)[:6] = torch.tensor([float("nan"), float("inf"),
+                                       -float("inf"), 3e9, 0.0, -0.0])
+    check(dense, su3, "NaN/inf/+-0 inputs (saturating)", rows=4, cols=64,
           scale_bits=SCALE_BITS)
+    check(dense, su3, "NaN/inf/+-0 inputs, rows 8, cols 16384", rows=lrows,
+          cols=lcols, scale_bits=SCALE_BITS)
     return max(errs)
 
 
@@ -609,20 +645,23 @@ def flash_inputs(torch, b, s, h, hkv, dh, dtype, seed=0):
 def phase_flash_parity(torch):
     """flash_attention on the card, each call counted on its variant;
     returns the max abs differences from the plain version (the wgmma
-    kernel's at the LM path's shape, the SIMT kernel's largest) and the
-    bf16 check's numbers at the path's shape.  Tolerances: f32
-    (the SIMT kernel) within 2e-5 absolute of the plain version, whose
-    einsums sum in another order than the kernel's online softmax; bf16
+    kernel's at the LM path's shape; the tf32x3 kernel's at the small
+    LM's shape and at ``FLASH_F32_WIDE``, by shape) and the bf16 check's
+    numbers at the path's shape.  Tolerances: f32 (the tf32x3 kernel,
+    whose products are three TF32 passes over split operands) within 2e-5
+    absolute of the plain version, whose einsums sum in another order
+    than the kernel's online softmax; bf16
     (the wgmma kernel, which rounds P to bf16 before P·V as the reference
     model does) to ``bf16_error_check``'s bound against the f64 softmax of
     the same inputs: elementwise one output ulp + 2^-8 · Σ p|v| + 1e-5,
     and an RMS error within 1.5x the plain version's."""
     from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    path_err, simt_err, stats = None, 0.0, None
+    path_err, f32_err, stats = None, {}, None
     for shape, dt in ([(FLASH_PATH, torch.bfloat16)]
                       + [(x, torch.bfloat16) for x in FLASH_BF16_EDGES]
-                      + [(x, torch.float32) for x in FLASH_F32_EDGES]):
+                      + [(x, torch.float32) for x in FLASH_F32_EDGES
+                         + [FLASH_SMALL, FLASH_F32_WIDE]]):
         q, k, v = flash_inputs(torch, *shape, dt)
         variant = fa.VARIANTS[dt]
         before = dict(fa.flash_attention_bhsd.launches_by_variant)
@@ -639,7 +678,7 @@ def phase_flash_parity(torch):
         if dt == torch.float32:
             ok = err <= 2e-5 and bool(torch.isfinite(got).all())
             detail = f"max abs {err:.3e} from plain"
-            simt_err = max(simt_err, err)
+            f32_err[shape] = err
         else:
             ok, ratio, rms_got, rms_plain = fa.bf16_error_check(q, k, v, got)
             detail = (f"max error / bound {ratio:.3f}, rms error vs f64 "
@@ -665,7 +704,7 @@ def phase_flash_parity(torch):
                 f"{lib_ratio:.3f}")
             del lib
         del q, k, v, got
-    return path_err, simt_err, stats
+    return path_err, f32_err, stats
 
 
 def wkv_inputs(torch, n, s, h, d, dtype, lw=None, per_seq=False, seed=0):
@@ -1237,6 +1276,15 @@ def wkv_work(n, s, h, d):
     return nbytes, ops(chunk), chunk
 
 
+def sdpa_backend(torch, lib_inputs, enable_gqa=True):
+    """The backend PyTorch's own selection gives causal
+    ``scaled_dot_product_attention`` on ``lib_inputs`` (for example
+    ``MATH`` or ``EFFICIENT_ATTENTION``)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(
+        *lib_inputs, is_causal=True, enable_gqa=enable_gqa)).name
+
+
 def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                  flash_stats):
     dev = torch.device("cuda")
@@ -1262,21 +1310,26 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     # hash work runs only for the levels this data rounds to nonzero
     sx = presparsified(torch, msgs, 256)
     ssu = stream_scalars(torch, CLIENTS, 0, 0x5EEDC0DE)
-    skw = dict(rows=4, cols=1024, scale_bits=SCALE_BITS)
+    sk_rows, sk_cols = SKETCH_PATH
+    skw = dict(rows=sk_rows, cols=sk_cols, scale_bits=SCALE_BITS)
+    live = int((sx != 0).sum())
     nonzero = int((ks.round_to_grid(
         sx.reshape(CLIENTS, -1), ks.counters(ssu, n), ssu[:, 0:1],
         SCALE_BITS) != 0).sum())
-    s_bytes = CLIENTS * n * 4 + CLIENTS * 3 * 8 + CLIENTS * 4 * 1024 * 4
-    s_int = CLIENTS * n * OPS_PRF_WORD + nonzero * 4 * OPS_SKETCH_ROW
-    s_f32 = CLIENTS * n * FLOPS_SKETCH
-    log(f"sketch_encode timing input: {nonzero} nonzero levels of "
-        f"{CLIENTS * n}")
+    s_bytes = CLIENTS * n * 4 + CLIENTS * 3 * 8 \
+        + CLIENTS * sk_rows * sk_cols * 4
+    s_int = live * OPS_PRF_WORD + nonzero * sk_rows * OPS_SKETCH_ROW
+    s_f32 = CLIENTS * n + live * FLOPS_SKETCH
+    log(f"sketch_encode timing input: {live} nonzero elements, {nonzero} "
+        f"nonzero levels of {CLIENTS * n}")
     # flash attention: each input read once and the output written once;
     # the causal half of Q.K^T and P.V, 2·Dh FLOPs per (query, visible
     # key) pair for each.  The wgmma variant at the LM path's shape, at
-    # the bf16 tensor-core peak (the inputs' type); the SIMT variant at
-    # the small LM's f32 shape, at the f32 SIMT peak (TF32 would break its
-    # tolerance)
+    # the bf16 tensor-core peak (the inputs' type).  The tf32x3 variant
+    # at the small LM's f32 shape and at FLASH_F32_WIDE: f32-accurate
+    # FLOPs take either f32 FMAs at the SIMT peak or three TF32 passes at
+    # the tensor cores' rate, and the least time is the faster route
+    # (the three passes, at a third of 495 TFLOP/s, against 67)
     def flash_work(b, s, h, hkv, dh, dtype, seed):
         x = flash_inputs(torch, b, s, h, hkv, dh, dtype, seed=seed)
         nbytes = x[0].element_size() * (2 * x[0].numel() + 2 * x[1].numel())
@@ -1285,19 +1338,29 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
         lib = tuple(t.transpose(1, 2).contiguous() for t in x)
         return x, lib, nbytes, 2 * 2 * dh * b * h * s * (s + 1) // 2
 
+    def f32_route(flops):
+        kind = min(("f32", "tf32x3"), key=lambda k: flops / RATES[k])
+        return {kind: flops}
+
     fx, flib, f_bytes, f_flops = flash_work(*FLASH_PATH, torch.bfloat16, 2)
     sx_, slib, fs_bytes, fs_flops = flash_work(*FLASH_SMALL, torch.float32,
                                                2)
+    wx, wlib, fw_bytes, fw_flops = flash_work(*FLASH_F32_WIDE, torch.float32,
+                                              2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_backends = {"flash_attention_tf32x3": sdpa_backend(torch, slib),
+                     "flash_attention_f32_wide": sdpa_backend(torch, wlib)}
     # the WKV scan at the RWKV path's shape, model-like decays; no single
     # PyTorch call computes it
-    wx = wkv_inputs(torch, *WKV_PATH, torch.bfloat16, seed=2)
+    wkx = wkv_inputs(torch, *WKV_PATH, torch.bfloat16, seed=2)
     w_bytes, w_ops, w_chunk = wkv_work(*WKV_PATH)
     rows = []
-    # the flash row is the wgmma kernel's; the SIMT kernel has a row of
-    # its own
+    # the flash row is the wgmma kernel's; the tf32x3 kernel has a row at
+    # the small LM's shape and a timing row at FLASH_F32_WIDE, a width no
+    # path runs in f32, whose launches are 0
     launch_key = {"flash_attention": "flash_attention_wgmma",
                   "rwkv6_wkv": "rwkv6_wkv_mma"}
+    timing_only = {"flash_attention_f32_wide"}
     for name, src, replaces, kern, plain, library, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
              "src/repro/kernels/ssca_update.py:54",
@@ -1326,17 +1389,24 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
              lambda: fa.flash_attention_plain(*fx),
              lambda: sdpa(*flib, is_causal=True, enable_gqa=True),
              f_bytes, {"bf16": f_flops}),
-            ("flash_attention_simt",
+            ("flash_attention_tf32x3",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:78",
              lambda: fa.flash_attention_bhsd(*sx_),
              lambda: fa.flash_attention_plain(*sx_),
              lambda: sdpa(*slib, is_causal=True, enable_gqa=True),
-             fs_bytes, {"f32": fs_flops}),
+             fs_bytes, f32_route(fs_flops)),
+            ("flash_attention_f32_wide",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:78",
+             lambda: fa.flash_attention_bhsd(*wx),
+             lambda: fa.flash_attention_plain(*wx),
+             lambda: sdpa(*wlib, is_causal=True, enable_gqa=True),
+             fw_bytes, f32_route(fw_flops)),
             ("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_scan_sm90.cu",
              "src/repro/kernels/rwkv6_scan.py:71",
-             lambda: rw.rwkv6_wkv_bh(*wx), lambda: rw.wkv_plain(*wx), None,
-             w_bytes, w_ops)):
+             lambda: rw.rwkv6_wkv_bh(*wkx), lambda: rw.wkv_plain(*wkx),
+             None, w_bytes, w_ops)):
         # each kind of work at its rate; integer and f32 work run on
         # separate pipes, and the ALU pipe takes only part of the integer
         # work: the least time is the largest part.  compress and
@@ -1349,9 +1419,11 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": launches[launch_key.get(name, name)],
-            "launches_by_path": {p: v.get(launch_key.get(name, name), 0)
-                                 for p, v in by_path.items()},
+            "launches": (0 if name in timing_only
+                         else launches[launch_key.get(name, name)]),
+            "launches_by_path": ({} if name in timing_only else
+                                 {p: v.get(launch_key.get(name, name), 0)
+                                  for p, v in by_path.items()}),
             "max_abs_err": errs[name], "ms": time_ms(kern),
             "plain_ms": time_ms(plain, iters=5, repeats=3),
             "bound_ms": max(bytes_ms, ops_ms),
@@ -1363,10 +1435,30 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                 v: launches[f"masked_sum_{v}"]
                 for v in sa.masked_sum_2d.launches_by_variant}
         if name.startswith("flash_attention"):
-            rows[-1]["shape"] = list(FLASH_PATH if name == "flash_attention"
-                                     else FLASH_SMALL)
+            rows[-1]["shape"] = list(
+                {"flash_attention": FLASH_PATH,
+                 "flash_attention_tf32x3": FLASH_SMALL}.get(name,
+                                                            FLASH_F32_WIDE))
             rows[-1]["achieved_tflops"] = sum(ops.values()) \
                 / (rows[-1]["ms"] * 1e-3) / 1e12
+        if name in sdpa_backends:
+            # the f32 FLOPs at the other route's rate, for the record
+            flops = sum(ops.values())
+            rows[-1]["bound_parts_ms"]["routes_ms"] = {
+                k: flops / RATES[k] * 1e3 for k in ("f32", "tf32x3")}
+            rows[-1]["library_backend"] = sdpa_backends[name]
+        if name == "flash_attention_f32_wide":
+            # SDPA takes its math backend for grouped heads in f32; on k/v
+            # repeated G-fold beforehand (outside the timed call) its
+            # memory-efficient one, for the record
+            g = FLASH_F32_WIDE[2] // FLASH_F32_WIDE[3]
+            rep = (wlib[0], *(t.repeat_interleave(g, dim=1)
+                              for t in wlib[1:]))
+            rows[-1]["library_repeated_kv_ms"] = time_ms(
+                lambda: sdpa(*rep, is_causal=True))
+            rows[-1]["library_repeated_kv_backend"] = sdpa_backend(
+                torch, rep, enable_gqa=False)
+            del rep
         if name == "flash_attention":
             rows[-1]["bf16_check"] = flash_stats
         if name == "rwkv6_wkv":
@@ -1378,11 +1470,13 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
             "launched eagerly from Python (wrapper overhead included)")
     floor = launch_floor_ms(torch)
     for row in rows:
-        if row["name"] in ("masked_sum", "ssca_update"):
+        if row["name"] in ("masked_sum", "ssca_update", "sketch_encode",
+                           "flash_attention_tf32x3"):
             row["launch_floor_ms"] = floor
     log(f"launch floor: {floor * 1e3:.4f} us a launch of an empty kernel "
-        f"(graph replay), beside ssca_update {rows[0]['ms'] * 1e3:.4f} us "
-        f"and masked_sum {rows[1]['ms'] * 1e3:.4f} us at the MLP shape")
+        f"(graph replay), beside ssca_update {rows[0]['ms'] * 1e3:.4f} us, "
+        f"masked_sum {rows[1]['ms'] * 1e3:.4f} us and sketch_encode "
+        f"{rows[3]['ms'] * 1e3:.4f} us at the MLP shape")
     log(f"rwkv6_wkv bound at (N, S, H, D) = {WKV_PATH}: "
         f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes ({w_bytes} B), "
         f"{w_ops['tf32'] / TF32_FLOPS_PER_S * 1e3:.4f} ms by products "
@@ -1476,8 +1570,9 @@ def main() -> int:
     stream_loop_mix()
 
     errs = phase_kernel_parity(torch, su, sa)
-    errs["flash_attention"], errs["flash_attention_simt"], flash_stats = \
-        phase_flash_parity(torch)
+    errs["flash_attention"], f32_err, flash_stats = phase_flash_parity(torch)
+    errs["flash_attention_tf32x3"] = f32_err[FLASH_SMALL]
+    errs["flash_attention_f32_wide"] = f32_err[FLASH_F32_WIDE]
     errs["rwkv6_wkv"] = phase_wkv_parity(torch)
 
     t0 = time.perf_counter()
@@ -1513,7 +1608,7 @@ def main() -> int:
     by_path["lm_small"] = phase_lm_small(torch, kernels, runtime, "lm_small",
                                          transformer_task(),
                                          "flash_attention",
-                                         "flash_attention_simt")
+                                         "flash_attention_tf32x3")
     profiled = {}
     by_path["lm_full_width"], profiled["lm_full_width"] = phase_lm_full(
         torch, kernels, runtime, card, "lm_full", "llama3-8b", LM_PARAMS,

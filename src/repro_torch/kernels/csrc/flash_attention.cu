@@ -1,5 +1,5 @@
 // Causal flash attention with grouped-query heads (GQA), f32 q/k/v on the
-// SIMT lanes.
+// tensor cores: every product a 3xTF32 mma.sync.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_bhsd and the head
@@ -13,188 +13,306 @@
 // with f32 scores, probabilities and accumulators; q/k/v and out are f32,
 // in the model's (B, S, H, Dh) and (B, S, Hkv, Dh) layouts.  k and v are
 // read un-repeated (the reference's wrapper broadcasts them G-fold), and
-// Dh is not padded to 128 (the reference's wrapper pads it).
+// Dh is not padded to 128 (the reference's wrapper pads it).  bf16 inputs
+// go to the wgmma kernel of flash_attention_sm90.cu.
 //
-// This kernel serves f32 inputs only; bf16 inputs go to the tensor-core
-// kernel of flash_attention_sm90.cu.  Bound on the card: operations, at
-// the f32 SIMT peak (67 TFLOP/s): the tensor cores' TF32 keeps 10 bits of
-// mantissa and would break the kernel's 2e-5 agreement with its plain
-// version, so the FLOPs stay f32 FMAs on the SIMT lanes.
+// Bound on the card: operations.  At llama3-8b's attention in f32
+// ((8, 1024, 32, 8, 128)) the causal pairs need 68.79 GFLOP and the
+// bytes are 335.5 MB (0.100 ms).  f32-accurate products take three TF32
+// passes (tf32x3.cuh; one pass keeps 11 bits and breaks the kernel's 2e-5
+// agreement with its plain version): 0.417 ms at the 495 TFLOP/s TF32
+// rate, below the 1.027 ms the same FLOPs take as f32 FMAs at 67 TFLOP/s.
 //
-// Design: one block of 256 threads per (64-row query tile, query head,
-// batch row); the TPU's sequential kv grid axis and its pl.when skip
-// become a loop inside the block over the 32-key K/V tiles up to the
-// diagonal.  The query tile and each K/V tile are staged in shared memory
-// as f32; thread (ty, tx) of the 16 x 16 layout owns query rows ty + 16 r
-// (r < 4), score columns tx + 16 c (c < 2) and output columns tx + 16 j
-// (j < Dh / 16).  The running max, sum and output accumulator live in
-// registers; the row max and sum are reduced over the 16 threads of a
-// row with warp shuffles (the 16 threads are one half-warp).  The
-// diagonal tile is masked elementwise and the ragged last tile by bounds
-// (keys and queries past S load as zeros, and their outputs are not
-// stored), so S need not be a multiple of 64.  The first K/V tile always
-// holds key 0, visible to every query row, so the running max is finite
-// from the first tile on and a fully masked row of a later tile adds
-// exp(-inf) = 0.  Row strides of Dh + 4 floats keep the float4 reads of q
-// and k conflict-free.
+// Design (FlashAttention-2): a block of W warps takes 16 W query rows of
+// one (query head, batch row), W = min(8, ceil(S / 16)), so a 32-token
+// sequence runs 2 warps and no idle rows; the heaviest query tiles are
+// launched first.  The block walks the K/V tiles of 64 keys up to its
+// last row (the TPU's sequential kv grid axis and its pl.when skip),
+// brought into shared memory by cp.async (keys past S zero-filled),
+// double-buffered, two barriers a tile.  Each warp owns 16 query rows and
+// keeps their running max and sum and their output accumulator (mma
+// accumulators) in registers; it skips a tile past its last row.  Per
+// tile and warp:
+//   S = Q K^T as mma m16n8k8, q the A operand: the two k-steps of each
+//     16-dim group take slots (t4, t4 + 4) as dims (4 t4 + 0, + 1) and
+//     (+ 2, + 3), so K is read as the B operand of both by one
+//     conflict-free LDS.128 (row stride = 16 mod 32 words);
+//   scale (times log2 e), the causal mask on the diagonal tile, the row
+//     max over the quad (two shuffles), the f32 online softmax in exp2;
+//   O += P V: the score accumulators are P's A fragment as they stand,
+//     with slots (t4, t4 + 4) taken as keys (2 t4, 2 t4 + 1), and V is
+//     read as the B operand at those keys (row stride = 4 mod 16 words,
+//     conflict-free).
+// Every operand is split into hi + lo as it is read, and each product is
+// summed in three passes, issued over four accumulators at a time (four
+// key groups of S, four 8-dim tiles of O): a tile's three passes back to
+// back would wait on the mma latency.  Each thread keeps its q in shared
+// memory as A fragments, one float4 a k-step in mma order, read back by
+// itself alone: registers are short at Dh 128, and q in load order would
+// be gathered into a register quad before every mma.  The diagonal tile
+// is computed whole and masked: branches around its key groups cost more
+// than the work they skip.  mma.sync reaches only part of the tensor
+// cores' TF32 rate on Hopper, and the splits and the softmax issue beside
+// it; wgmma (m64nNk8, B from shared memory, asynchronous) is the route
+// to the rest.
+// Ragged S: query rows past S load as zero and are not stored; the first
+// tile holds key 0, which every row sees, so the running max is finite
+// from then on and masked scores add exp2(-inf) = 0.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per block
-constexpr int kBlockN = 32;   // keys per K/V tile
-constexpr int kThreads = 256;
-constexpr int kRows = kBlockM / 16;
-constexpr int kKeys = kBlockN / 16;
-constexpr int kPS = kBlockN + 1;   // row stride of the probabilities
+using tf32x3::cp_async16;
+using tf32x3::mma;
+using tf32x3::split;
+using tf32x3::split_b;
+
+constexpr int kKeys = 64;       // keys a K/V tile
+constexpr int kMaxWarps = 8;
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((kBlockM + kBlockN) * (D + 4) + kBlockN * D +
-                          kBlockM * kPS);
-}
+struct Layout {
+  static constexpr int kKS = D % 32 == 0 ? D + 16 : D;   // = 16 mod 32
+  static constexpr int kVS = D + 4;                      // = 4 mod 16
+  static constexpr int kStage = kKeys * (kKS + kVS);     // floats a stage
+  // each warp's q fragments (16 rows x D), then two K/V stages
+  static constexpr size_t smem(int warps) {
+    return (16 * warps * D + 2 * kStage) * sizeof(float);
+  }
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ out, int seq, int heads,
                            int kv_heads, float scale) {
-  constexpr int kCols = D / 16;
-  constexpr int kS = D + 4;   // row stride of the q and k tiles
+  using L = Layout<D>;
+  constexpr int kKS = L::kKS, kVS = L::kVS;
+  constexpr int kGroups = D / 16;   // 16-dim groups of q and k
+  constexpr int kDimTiles = D / 8;  // 8-dim tiles of the output
+  constexpr int kKeyTiles = kKeys / 8;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // kBlockM x kS
-  float* ks = qs + kBlockM * kS;                 // kBlockN x kS
-  float* vs = ks + kBlockN * kS;                 // kBlockN x D
-  float* ps = vs + kBlockN * D;                  // kBlockM x kPS
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int q0 = blockIdx.x * kBlockM;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int rows_block = nthreads / 2;   // 16 rows a warp
+  float* kv0 = reinterpret_cast<float*>(smem4) + rows_block * D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * rows_block;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (heads / kv_heads);
-  const int64_t q_pos = (int64_t)heads * D;      // elements per position
+  const int64_t q_pos = (int64_t)heads * D;   // elements per position
   const int64_t kv_pos = (int64_t)kv_heads * D;
   const float* qb = q + (int64_t)b * seq * q_pos + (int64_t)h * D;
   const float* kb = k + (int64_t)b * seq * kv_pos + (int64_t)hk * D;
   const float* vb = v + (int64_t)b * seq * kv_pos + (int64_t)hk * D;
   float* ob = out + (int64_t)b * seq * q_pos + (int64_t)h * D;
 
-  for (int i = tid; i < kBlockM * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i % D;
-    const int s = q0 + r;
-    qs[r * kS + d] = s < seq ? qb[(int64_t)s * q_pos + d] : 0.0f;
-  }
+  const int tiles = (min(q0 + rows_block, seq) - 1) / kKeys + 1;
+  const int w0 = q0 + 16 * warp;   // the warp's first row
+  const int w_last = w0 + 15;
+  const int r0 = w0 + g, r1 = r0 + 8;   // this thread's two rows
+  const float scale_log2 = scale * 1.4426950408889634f;   // log2 e
 
-  float m[kRows], l[kRows], acc[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.0f;
-  }
-
-  const int last = min(q0 + kBlockM, seq) - 1;   // last query row stored
-  for (int n0 = 0; n0 <= last; n0 += kBlockN) {
-    __syncthreads();   // q is staged; the previous tile's readers are done
-    for (int i = tid; i < kBlockN * D; i += kThreads) {
-      const int r = i / D;
-      const int d = i % D;
-      const int s = n0 + r;
-      const bool ok = s < seq;
-      ks[r * kS + d] = ok ? kb[(int64_t)s * kv_pos + d] : 0.0f;
-      vs[r * D + d] = ok ? vb[(int64_t)s * kv_pos + d] : 0.0f;
+  // K/V tile t into stage t % 2 as one cp.async group (an empty group
+  // past the last tile, so every wait counts alike)
+  auto stage = [&](int t) {
+    if (t < tiles) {
+      float* ks = kv0 + (t & 1) * L::kStage;
+      float* vs = ks + kKeys * kKS;
+      const int n0 = t * kKeys;
+      for (int i = tid; i < kKeys * (D / 4); i += nthreads) {
+        const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+        const bool in = n0 + r < seq;
+        const int64_t off = (int64_t)(n0 + r) * kv_pos + c;
+        cp_async16(ks + r * kKS + c, in ? kb + off : kb, in);
+        cp_async16(vs + r * kVS + c, in ? vb + off : vb, in);
+      }
     }
-    __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage(0);
 
-    float sc[kRows][kKeys];
+  // this thread's q (rows r0 and r1, dims 16 j + 4 t4 .. + 3 of each
+  // group j) as A fragments, kept in shared memory for want of registers:
+  // one float4 a k-step, {(r0, d), (r1, d), (r0, d + 1), (r1, d + 1)}
+  // with d = 16 j + 4 t4 (+ 2 for the second k-step), so that each
+  // fragment is one LDS.128 into the four consecutive registers the mma
+  // reads.  Each thread reads back only what it wrote.
+  float4* qf = reinterpret_cast<float4*>(smem4) + warp * 2 * kGroups * 32 +
+               lane;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+  for (int j = 0; j < kGroups; ++j) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* p0 = qb + (int64_t)r0 * q_pos + 16 * j + 4 * t4;
+    const float4 a = r0 < seq ? *reinterpret_cast<const float4*>(p0) : zero;
+    const float4 c = r1 < seq ? *reinterpret_cast<const float4*>(
+                                    p0 + 8 * q_pos)
+                              : zero;
+    qf[(2 * j) * 32] = make_float4(a.x, c.x, a.y, c.y);
+    qf[(2 * j + 1) * 32] = make_float4(a.z, c.z, a.w, c.w);
+  }
+
+  float o[kDimTiles][4];
 #pragma unroll
-      for (int c = 0; c < kKeys; ++c) sc[r][c] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[kRows], kv[kKeys];
+  for (int d = 0; d < kDimTiles; ++d)
+    o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows r0, r1
+  float l0 = 0.0f, l1 = 0.0f;             // this thread's part of the sums
+
+  for (int t = 0; t < tiles; ++t) {
+    stage(t + 1);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();   // tile t has landed for every thread
+    const int n0 = t * kKeys;
+    if (n0 <= w_last && w0 < seq) {
+      const float* ks = kv0 + (t & 1) * L::kStage;
+      const float* vs = ks + kKeys * kKS;
+
+      float s[kKeyTiles][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        qv[r] = *reinterpret_cast<const float4*>(&qs[(ty + 16 * r) * kS + d]);
+      for (int nt = 0; nt < kKeyTiles; ++nt)
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kKeys; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * c) * kS + d]);
+      for (int j = 0; j < kGroups; ++j) {
+        // A fragments of the group's two k-steps: slots (t4, t4 + 4) are
+        // dims (+0, +1), then (+2, +3)
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kKeys; ++c) {
-          float a = sc[r][c];
-          a = fmaf(qv[r].x, kv[c].x, a);
-          a = fmaf(qv[r].y, kv[c].y, a);
-          a = fmaf(qv[r].z, kv[c].z, a);
-          a = fmaf(qv[r].w, kv[c].w, a);
-          sc[r][c] = a;
+        for (int st = 0; st < 2; ++st) {
+          const float4 a = qf[(2 * j + st) * 32];
+          split(a.x, ah[st][0], al[st][0]);
+          split(a.y, ah[st][1], al[st][1]);
+          split(a.z, ah[st][2], al[st][2]);
+          split(a.w, ah[st][3], al[st][3]);
         }
-    }
+        // four key groups at a time, each pass over all four before the
+        // next, so consecutive mma's accumulate into different tiles
+#pragma unroll
+        for (int n4 = 0; n4 < kKeyTiles; n4 += 4) {
+          uint32_t bb[2][4][4];   // [k-step][key group] {hi0, hi1, lo0, lo1}
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 kv = *reinterpret_cast<const float4*>(
+                ks + (8 * (n4 + i) + g) * kKS + 16 * j + 4 * t4);
+            split_b(kv.x, kv.y, bb[0][i]);
+            split_b(kv.z, kv.w, bb[1][i]);
+          }
+#pragma unroll
+          for (int st = 0; st < 2; ++st) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              mma(s[n4 + i], al[st], bb[st][i][0], bb[st][i][1]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              mma(s[n4 + i], ah[st], bb[st][i][2], bb[st][i][3]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              mma(s[n4 + i], ah[st], bb[st][i][0], bb[st][i][1]);
+          }
+        }
+      }
 
+      // scale (times log2 e, for exp2), the causal mask on the diagonal
+      // tile, the row max over the quad
+      const bool diag = n0 + kKeys - 1 > w0;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + ty + 16 * r;
-      float mx = -INFINITY;
+      for (int nt = 0; nt < kKeyTiles; ++nt) {
 #pragma unroll
-      for (int c = 0; c < kKeys; ++c) {
-        const int kpos = n0 + tx + 16 * c;
-        sc[r][c] = kpos <= qpos ? sc[r][c] * scale : -INFINITY;
-        mx = fmaxf(mx, sc[r][c]);
+        for (int e = 0; e < 2; ++e) {
+          const int key = n0 + 8 * nt + 2 * t4 + e;
+          const float x0 = s[nt][e] * scale_log2;
+          const float x1 = s[nt][2 + e] * scale_log2;
+          s[nt][e] = diag && key > r0 ? -INFINITY : x0;
+          s[nt][2 + e] = diag && key > r1 ? -INFINITY : x1;
+          mx0 = fmaxf(mx0, s[nt][e]);
+          mx1 = fmaxf(mx1, s[nt][2 + e]);
+        }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kKeys; ++c) {
-        const float p = expf(sc[r][c] - m_new);
-        ps[(ty + 16 * r) * kPS + tx + 16 * c] = p;
-        sum += p;
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
+      for (int nt = 0; nt < kKeyTiles; ++nt) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[r][j] *= alpha;
-    }
-    __syncthreads();
+        for (int e = 0; e < 2; ++e) {
+          s[nt][e] = exp2f(s[nt][e] - mn0);
+          s[nt][2 + e] = exp2f(s[nt][2 + e] - mn1);
+          sum0 += s[nt][e];
+          sum1 += s[nt][2 + e];
+        }
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+#pragma unroll
+      for (int d = 0; d < kDimTiles; ++d) {
+        o[d][0] *= alpha0;
+        o[d][1] *= alpha0;
+        o[d][2] *= alpha1;
+        o[d][3] *= alpha1;
+      }
 
-#pragma unroll 4
-    for (int n = 0; n < kBlockN; ++n) {
-      float pv[kRows];
+      // O += P V over the key groups: P's A fragment is the scores'
+      // accumulator, slots (t4, t4 + 4) = keys (2 t4, 2 t4 + 1); four
+      // output tiles at a time, each pass over all four before the next
+      constexpr int kDG = kDimTiles < 4 ? kDimTiles : 4;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) pv[r] = ps[(ty + 16 * r) * kPS + n];
+      for (int nt = 0; nt < kKeyTiles; ++nt) {
+        uint32_t ph[4], pl[4];
+        split(s[nt][0], ph[0], pl[0]);
+        split(s[nt][2], ph[1], pl[1]);
+        split(s[nt][1], ph[2], pl[2]);
+        split(s[nt][3], ph[3], pl[3]);
+        const float* vr = vs + (8 * nt + 2 * t4) * kVS + g;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float vv = vs[n * D + tx + 16 * j];
+        for (int d4 = 0; d4 < kDimTiles; d4 += kDG) {
+          uint32_t bb[kDG][4];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r][j] = fmaf(pv[r], vv, acc[r][j]);
+          for (int i = 0; i < kDG; ++i)
+            split_b(vr[8 * (d4 + i)], vr[kVS + 8 * (d4 + i)], bb[i]);
+#pragma unroll
+          for (int i = 0; i < kDG; ++i)
+            mma(o[d4 + i], pl, bb[i][0], bb[i][1]);
+#pragma unroll
+          for (int i = 0; i < kDG; ++i)
+            mma(o[d4 + i], ph, bb[i][2], bb[i][3]);
+#pragma unroll
+          for (int i = 0; i < kDG; ++i)
+            mma(o[d4 + i], ph, bb[i][0], bb[i][1]);
+        }
       }
     }
+    __syncthreads();   // stage t % 2 is free for tile t + 2
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int s = q0 + ty + 16 * r;
-    if (s < seq) {
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        ob[(int64_t)s * q_pos + tx + 16 * j] = acc[r][j] / l[r];
-    }
+  for (int d = 0; d < kDimTiles; ++d) {
+    const int col = 8 * d + 2 * t4;
+    if (r0 < seq)
+      *reinterpret_cast<float2*>(ob + (int64_t)r0 * q_pos + col) =
+          make_float2(o[d][0] / l0, o[d][1] / l0);
+    if (r1 < seq)
+      *reinterpret_cast<float2*>(ob + (int64_t)r1 * q_pos + col) =
+          make_float2(o[d][2] / l1, o[d][3] / l1);
   }
 }
 
@@ -202,7 +320,8 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int seq, int heads, int kv_heads, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  const int warps = min(kMaxWarps, (seq + 15) / 16);
+  const size_t smem = Layout<D>::smem(warps);
   // above 48 KB a block's dynamic shared memory must be allowed first;
   // once per instance, so that no attribute call falls inside a CUDA
   // graph capture (callers launch once before capturing)
@@ -210,12 +329,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_attention_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Layout<D>::smem(kMaxWarps));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const int rows = 16 * warps;
+  const dim3 grid((seq + rows - 1) / rows, heads, batch);
+  flash_attention_kernel<D><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), seq, heads,
       kv_heads, scale);
@@ -231,16 +352,16 @@ void attributes(int* out) {
   }
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)smem_bytes<D>();
+  out[2] = (int)Layout<D>::smem(kMaxWarps);
 }
 
 }  // namespace
 
 // q/out: device (batch, seq, heads, head_dim), k/v: device (batch, seq,
-// kv_heads, head_dim), contiguous f32; kv_heads divides heads; head_dim is
-// 16, 32, 64 or 128.  Launches on `stream`; returns cudaGetLastError()
-// (cudaErrorInvalidValue for a head_dim or head count the kernel does not
-// take).
+// kv_heads, head_dim), contiguous f32 at 16-byte aligned addresses;
+// kv_heads divides heads; head_dim is 16, 32, 64 or 128.  Launches on
+// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for a
+// head_dim or head count the kernel does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int seq, int heads, int kv_heads,

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py:78 (flash_attention_bhsd) and the
 // head mapping of its wrapper src/repro/kernels/ops.py::flash_attention,
-// for bf16 inputs (f32 inputs go to the SIMT kernel of
+// for bf16 inputs (f32 inputs go to the 3xTF32 kernel of
 // flash_attention.cu).  For each batch row b, query head h (kv head
 // hk = h / (H / Hkv)) and query position i:
 //

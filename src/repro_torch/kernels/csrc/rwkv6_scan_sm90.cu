@@ -93,7 +93,14 @@
 
 #include <type_traits>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using tf32x3::cp_async16;
+using tf32x3::mma_split;
+using tf32x3::split;
+using tf32x3::split_b;
 
 constexpr int kT = 16;    // tokens a chunk: the mma's 16 rows
 constexpr int kRef = 7;   // the token whose cumulative decay the scores'
@@ -144,51 +151,6 @@ struct Smem {
   float bonus[kT];            // r u k, summed over the keys
   float score[kWarps][kT][kScoreRow];   // each warp's partial scores
 };
-
-__device__ __forceinline__ uint32_t tf32_hi(float x) {
-  return __float_as_uint(x) & 0xffffe000u;
-}
-
-// x = hi + lo exactly, hi with TF32's 11 significant bits
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_hi(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a.b with b split into hi + lo, and a too when kSplitA (otherwise a
-// is exact in TF32); the small terms first
-template <bool kSplitA>
-__device__ __forceinline__ void mma_split(float (&d)[4],
-                                          const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4],
-                                          const uint32_t (&b)[4]) {
-  if (kSplitA) mma(d, al, b[0], b[1]);
-  mma(d, ah, b[2], b[3]);
-  mma(d, ah, b[0], b[1]);
-}
-
-// b = {hi0, hi1, lo0, lo1} of the B fragment (x0, x1)
-__device__ __forceinline__ void split_b(float x0, float x1,
-                                        uint32_t (&b)[4]) {
-  split(x0, b[0], b[2]);
-  split(x1, b[1], b[3]);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0));
-}
 
 // one (kT, D) slice of x (the chunk at x + off, rows `row` apart) into
 // dst, as 16-byte pieces: the thread's first piece is at token tid / kRow,

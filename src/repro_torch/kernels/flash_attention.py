@@ -19,8 +19,10 @@ launch raises):
   P to bf16 before P·V, as every tensor-core flash kernel does and as the
   reference model does before its P·V; it agrees with the f64 softmax to
   :func:`bf16_error_check`'s bound, not to one ulp of the plain version;
-* f32 → ``csrc/flash_attention.cu`` (variant ``"simt"``): f32 FMAs on the
-  SIMT lanes, within 2e-5 of the plain version (TF32 would break that).
+* f32 → ``csrc/flash_attention.cu`` (variant ``"tf32x3"``): the products
+  on the tensor cores as ``mma.sync`` TF32, each f32 operand split into
+  hi + lo and summed in three passes (``csrc/tf32x3.cuh``; one pass would
+  break it), within 2e-5 of the plain version.
 
 On a CPU tensor it runs :func:`flash_attention_plain`, the materialised
 f32 softmax.
@@ -46,8 +48,8 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernels' template instances
 # the kernel each dtype launches, and its launch entry point
-VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "simt"}
-_ENTRY = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
+VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+_ENTRY = {"wgmma": "flash_attention_sm90", "tf32x3": "flash_attention"}
 
 
 def _grouped(q, k, v):
@@ -162,8 +164,8 @@ def flash_attention_bhsd(q, k, v, *, device: Device = None):
 
     A CPU tensor goes to :func:`flash_attention_plain` (only with
     ``device="cpu"``); a CUDA tensor launches the kernel of its dtype's
-    variant (``VARIANTS``: bf16 the tensor-core kernel, f32 the SIMT
-    one) and adds one to ``flash_attention_bhsd.launches`` and to that
+    variant (``VARIANTS``: bf16 the wgmma kernel, f32 the 3xTF32 one)
+    and adds one to ``flash_attention_bhsd.launches`` and to that
     variant's count in ``flash_attention_bhsd.launches_by_variant``.  Use
     :func:`repro_torch.kernels.ops.flash_attention` in models: it is
     differentiable and vmappable.
@@ -201,7 +203,7 @@ def flash_attention_bhsd(q, k, v, *, device: Device = None):
 
 
 flash_attention_bhsd.launches = 0
-flash_attention_bhsd.launches_by_variant = {"wgmma": 0, "simt": 0}
+flash_attention_bhsd.launches_by_variant = dict.fromkeys(_ENTRY, 0)
 
 
 class FlashAttention(torch.autograd.Function):

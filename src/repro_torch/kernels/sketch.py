@@ -15,8 +15,10 @@ the secure fixed-point grid 2^-s.  Per element j and sketch row r:
 Each client's scalars are an (I, 3) int64 row [stream seed, counter base,
 sketch seed] (uint32 values).  On a CUDA tensor :func:`sketch_encode`
 launches the hand-written kernel ``csrc/sketch.cu``, one launch for all
-clients; on a CPU tensor it runs :func:`sketch_encode_plain`.  The two
-agree bit for bit.
+clients: each block streams a share of one client's message with 16-byte
+loads, encodes only its nonzero elements and adds their levels into the
+zero-filled output with integer atomics.  On a CPU tensor it runs
+:func:`sketch_encode_plain`.  Both agree bit for bit.
 
 The estimators (:func:`sketch_estimate`, :func:`sketch_estimate_median`)
 run on the server once a round; the reference computes them with XLA, and
@@ -48,17 +50,27 @@ def hash_and_sign(rseed, ctrs: torch.Tensor, cols: int):
     return w & (cols - 1), 1 - 2 * (w >> 31)
 
 
-def round_to_grid(x: torch.Tensor, ctrs: torch.Tensor, seed,
-                  scale_bits: int) -> torch.Tensor:
-    """Unbiased stochastic round of f32 onto integer units of 2^-s, as
-    int64.  An exact zero stays zero.  The float → int conversion
+def round_level(x: torch.Tensor, u: torch.Tensor,
+                scale_bits: int) -> torch.Tensor:
+    """The level of f32 x on the grid of 2^-s at the uniform u ∈ [0, 1],
+    as int64: ⌊x·2^s⌋ + [u < frac].  +0, −0 and NaN give 0 for every u
+    (u ≥ 0 never beats a zero fraction, and NaN converts to 0), which is
+    why the kernel draws no u for them.  The float → int conversion
     saturates to the int32 range and sends NaN to 0, as XLA's and the
     card's conversions do."""
     y = x * float(2.0 ** scale_bits)
     low = torch.floor(y)
-    q = low + (uniform(mask_bits(seed, ctrs)) < (y - low)).to(torch.float32)
+    q = low + (u < (y - low)).to(torch.float32)
     q = torch.nan_to_num(q.double(), nan=0.0)
     return q.clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(torch.int64)
+
+
+def round_to_grid(x: torch.Tensor, ctrs: torch.Tensor, seed,
+                  scale_bits: int) -> torch.Tensor:
+    """Unbiased stochastic round of f32 onto integer units of 2^-s, as
+    int64, u the client's counter-mode uniform at each counter.  An exact
+    zero stays zero."""
+    return round_level(x, uniform(mask_bits(seed, ctrs)), scale_bits)
 
 
 def _check_cols(cols: int) -> None:
@@ -92,7 +104,8 @@ def sketch_encode(x: torch.Tensor, su: torch.Tensor, *, rows: int,
 
     A CPU tensor goes to :func:`sketch_encode_plain` (only with
     ``device="cpu"``); a CUDA tensor launches the kernel and adds one to
-    ``sketch_encode.launches``.
+    ``sketch_encode.launches``.  A message that is not 16-byte aligned, as
+    the kernel's loads need, is copied first.
     """
     if x.dim() != 3 or x.shape[2] != LANES:
         raise ValueError(f"sketch_encode takes (I, R, {LANES}), got "
@@ -111,7 +124,12 @@ def sketch_encode(x: torch.Tensor, su: torch.Tensor, *, rows: int,
     if not on_cuda(x, device):
         return sketch_encode_plain(x, su, rows=rows, cols=cols,
                                    scale_bits=scale_bits)
+    if x.shape[0] > 65535:
+        raise ValueError(f"sketch_encode kernel takes at most 65535 "
+                         f"clients, got {x.shape[0]}")
     x, su = x.contiguous(), su.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
     lib = build.load()
     out = torch.zeros(x.shape[0], rows, cols, dtype=torch.int32,
                       device=x.device)

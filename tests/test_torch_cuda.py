@@ -12,10 +12,11 @@ version's order (no FMA contraction), and the masked sum and the sketch
 encode are ring arithmetic: all must equal their plain versions bit for
 bit (NaN compared as NaN), the masked sum on both variants its launch
 plan names (``vec`` and ``rowsplit``).  Flash attention has two kernels,
-chosen by
-dtype.  The f32 (SIMT) one sums its scores and its P·V in another order
-than the plain version's einsums, and keeps an online softmax: within
-2e-5 absolute of the plain version.  The bf16 (wgmma) one also rounds P
+chosen by dtype.  The f32 (tf32x3) one runs its products as three TF32
+passes over split operands, sums its scores and its P·V in another
+order than the plain version's einsums, and keeps an online softmax:
+within 2e-5 absolute of the plain version (tests/test_torch_flash_attention.py
+emulates it).  The bf16 (wgmma) one also rounds P
 to bf16 before P·V, as the reference model does, so it is held to the
 f64 softmax of the same inputs by ``bf16_error_check``: elementwise one
 output ulp + 2^-8 · Σ p|v| + 1e-5, and an RMS error within 1.5x the
@@ -265,14 +266,16 @@ def test_compress_kernel_equals_plain(dev, clients, rows, quantize, masked,
 
 
 @pytest.mark.parametrize("clients,rows,sk_rows,cols", [
-    (10, 794, 4, 1024), (10, 794, 4, 512), (3, 7, 3, 1), (1, 4099, 8, 64)])
+    (10, 794, 4, 1024), (10, 794, 4, 512), (3, 7, 3, 1), (1, 4099, 8, 64),
+    (2, 794, 8, 16384), (3, 7, 4, 16384)])
 @pytest.mark.parametrize("keep", [None, 256])
 def test_sketch_encode_kernel_equals_plain(dev, clients, rows, sk_rows, cols,
                                            keep):
     x = _randn(dev, clients, rows, 128, scale=1e-3)
     if keep is not None:                  # pre-sparsified, as on the path
         flat = x.reshape(clients, -1)
-        thr = torch.topk(flat.abs(), keep, dim=1).values[:, -1:]
+        thr = torch.topk(flat.abs(), min(keep, flat.shape[1]),
+                         dim=1).values[:, -1:]
         x = torch.where(flat.abs() >= thr, flat, 0.0).reshape(x.shape)
     sui = _scalars(dev, clients, 0, sketch=True)
     kw = dict(rows=sk_rows, cols=cols, scale_bits=20)
@@ -282,15 +285,21 @@ def test_sketch_encode_kernel_equals_plain(dev, clients, rows, sk_rows, cols,
     assert torch.equal(got, ks.sketch_encode_plain(x, sui, **kw))
 
 
-def test_sketch_encode_kernel_all_zero_and_special(dev):
+@pytest.mark.parametrize("cols", [64, 16384])
+def test_sketch_encode_kernel_all_zero_and_special(dev, cols):
     x = torch.zeros(2, 3, 128, device=dev)
     sui = _scalars(dev, 2, 5, sketch=True)
-    assert not ks.sketch_encode(x, sui, rows=4, cols=64, scale_bits=20).any()
-    x.view(-1)[:4] = torch.tensor([float("nan"), float("inf"), -float("inf"),
-                                   3e9])
-    assert torch.equal(ks.sketch_encode(x, sui, rows=4, cols=64,
+    assert not ks.sketch_encode(x, sui, rows=4, cols=cols,
+                                scale_bits=20).any()
+    x.view(-1)[:6] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                   3e9, 0.0, -0.0])
+    assert torch.equal(ks.sketch_encode(x, sui, rows=4, cols=cols,
                                         scale_bits=20),
-                       ks.sketch_encode_plain(x, sui, rows=4, cols=64,
+                       ks.sketch_encode_plain(x, sui, rows=4, cols=cols,
+                                              scale_bits=20))
+    assert torch.equal(ks.sketch_encode(_shifted(x), sui, rows=4, cols=cols,
+                                        scale_bits=20),
+                       ks.sketch_encode_plain(x, sui, rows=4, cols=cols,
                                               scale_bits=20))
 
 
@@ -347,7 +356,8 @@ def test_compressed_run_alg1_on_card_tracks_cpu(dev, name):
 # 128, 129, 300, 1024}, G cycling through 1, 4, 8 and 48 (granite-34b's);
 # and the LM path's shape
 FLASH_SHAPES = [(1, 1, 4, 1, 16, "f32"), (2, 77, 4, 2, 64, "f32"),
-                (2, 130, 4, 4, 32, "f32"), (1, 200, 8, 1, 128, "f32")] + [
+                (2, 130, 4, 4, 32, "f32"), (1, 200, 8, 1, 128, "f32"),
+                (2, 1024, 8, 2, 128, "f32"), (3, 77, 8, 1, 64, "f32")] + [
     (1 if s == 1024 else 2, s, g * (1 if g == 48 else 2),
      1 if g == 48 else 2, dh, "bf16")
     for i, (dh, s) in enumerate((dh, s) for dh in (16, 32, 64, 128)
@@ -388,10 +398,11 @@ def test_flash_attention_vmap_grad_on_card(dev):
     def loss(w, xi, ki):
         return (ops.flash_attention(xi @ w, ki, 0.5 * ki) ** 2).sum()
 
-    before = fa.flash_attention_bhsd.launches_by_variant["simt"]
+    before = fa.flash_attention_bhsd.launches_by_variant["tf32x3"]
     got = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0, 0))(
         w, x, kv)
-    assert fa.flash_attention_bhsd.launches_by_variant["simt"] == before + 1
+    assert fa.flash_attention_bhsd.launches_by_variant["tf32x3"] \
+        == before + 1
     want = torch.stack([torch.func.grad(loss)(w.cpu(), x[i].cpu(),
                                               kv[i].cpu()) for i in range(3)])
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
@@ -405,12 +416,12 @@ def test_lm_run_alg1_on_card_tracks_cpu(dev):
               eval_samples=48, seed=1, tau=2.0, lam=0.0, secure=True,
               fused=True)
     before = fa.flash_attention_bhsd.launches
-    simt = fa.flash_attention_bhsd.launches_by_variant["simt"]
+    tf32x3 = fa.flash_attention_bhsd.launches_by_variant["tf32x3"]
     p_gpu, h_gpu = runtime.run_alg1(data, part, **kw)
     # 2 layers x (4 uploads, one launch each for all clients, + 2 eval
-    # points x 2 forwards), all on the f32 (SIMT) kernel
+    # points x 2 forwards), all on the f32 (tf32x3) kernel
     assert fa.flash_attention_bhsd.launches - before == 2 * (4 + 2 * 2)
-    assert fa.flash_attention_bhsd.launches_by_variant["simt"] - simt \
+    assert fa.flash_attention_bhsd.launches_by_variant["tf32x3"] - tf32x3 \
         == 2 * (4 + 2 * 2)
     p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
     assert h_gpu.comm == h_cpu.comm

@@ -216,3 +216,79 @@ def test_bf16_error_check_rejects_one_extra_key(shape):
                        vf).reshape(q.shape).to(q.dtype)
     ok, ratio, rms_got, rms_plain = fa.bf16_error_check(q, k, v, got)
     assert not ok and ratio > 1.0 and rms_got > 1.5 * rms_plain
+
+
+# The card's f32 kernel (csrc/flash_attention.cu) runs both products on
+# the tensor cores as TF32, each f32 operand split into hi + lo and summed
+# in three passes, over 64-key tiles with an online softmax.  Its rounding
+# is emulated here; it must hold the card's tolerance, 2e-5 absolute,
+# against the plain version and the reference kernel in interpret mode.
+TF32X3_SHAPES = [(2, 77, 4, 2, 16), (1, 100, 4, 1, 128), (2, 32, 4, 4, 16),
+                 (1, 65, 8, 4, 64)]
+
+
+def _tf32(x):
+    """x with the 13 low mantissa bits masked off: what a TF32 product
+    reads of an f32 operand."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b on TF32 operands: one pass, or each operand carried as hi +
+    lo (lo itself read as TF32) and the lo·lo term dropped."""
+    if passes == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32(a), _tf32(b)
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _emulate_tf32x3(q, k, v, passes=3, tile=64):
+    """The f32 kernel's arithmetic on the CPU: 64-key tiles, S = Q·Kᵀ and
+    O += P·V on split operands, scale (times log2 e) then mask, the
+    online softmax in exp2, O / l at the end (the kernel's mma products
+    sum in another order)."""
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    qf = q.permute(0, 2, 1, 3)
+    kf, vf = (x.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+              for x in (k, v))
+    rows = torch.arange(s)[:, None]
+    scale_log2 = float(np.float32(dh ** -0.5) * np.float32(1.4426950408889634))
+    m = torch.full((b, h, s, 1), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, s, dh)
+    for n0 in range(0, s, tile):
+        kt, vt = kf[:, :, n0:n0 + tile], vf[:, :, n0:n0 + tile]
+        sc = _mm_tf32(qf, kt.transpose(-1, -2), passes) * scale_log2
+        keys = torch.arange(n0, n0 + kt.shape[2])[None, :]
+        sc = sc.masked_fill(keys > rows, float("-inf"))
+        mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp2(sc - mx)
+        alpha = torch.exp2(m - mx)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm_tf32(p, vt, passes)
+        m = mx
+    return (acc / l).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("shape", TF32X3_SHAPES,
+                         ids=[str(s) for s in TF32X3_SHAPES])
+def test_tf32x3_kernel_arithmetic_holds_the_card_tolerance(shape):
+    q, k, v = _inputs(*shape, seed=4)
+    got = _emulate_tf32x3(*map(torch.as_tensor, (q, k, v)))
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    plain = fa.flash_attention_plain(*map(torch.as_tensor, (q, k, v)))
+    assert float((got - plain).abs().max()) <= 2e-5
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    assert np.abs(got.numpy() - want).max() <= 2e-5
+
+
+def test_one_tf32_pass_misses_the_card_tolerance():
+    """Why the f32 kernel splits its operands: one TF32 pass lands far
+    outside 2e-5 of the plain version."""
+    q, k, v = map(torch.as_tensor, _inputs(1, 100, 4, 1, 128, seed=4))
+    plain = fa.flash_attention_plain(q, k, v)
+    one = float((_emulate_tf32x3(q, k, v, passes=1) - plain).abs().max())
+    split = float((_emulate_tf32x3(q, k, v) - plain).abs().max())
+    assert one > 10 * 2e-5 and split <= 2e-5

@@ -209,3 +209,71 @@ def test_sketch_wrapper_checks_its_arguments(kw, match):
     x, su = args.pop("x"), args.pop("su")
     with pytest.raises(ValueError, match=match):
         tksk.sketch_encode(x, su, device="cpu", **args)
+
+
+# the elements one block of csrc/sketch.cu takes from its client's
+# message: kThreads x kLoads 16-byte pieces (128 rows of 128)
+BLOCK_ELEMENTS = 4 * 512 * 8
+
+
+@pytest.mark.parametrize("n_rows,rows,cols,base,kind", [
+    (300, 4, 1024, 0, "sparse"), (7, 3, 1, 2 ** 32 - 300, "dense"),
+    (5, 2, 64, 640, "special"), (1, 8, 16, 0, "dense"),
+    (130, 8, 16384, 0, "sparse")])
+def test_block_partition_replay_equals_plain_and_reference(
+        n_rows, rows, cols, base, kind):
+    """The kernel's arithmetic: each block hashes only the nonzero
+    elements of its ``BLOCK_ELEMENTS`` share of a client's message, and
+    the blocks' levels are added into one zero-filled sketch mod 2^32, in
+    whatever order their atomics land."""
+    clients = 3
+    rng = np.random.default_rng(n_rows * 7 + cols)
+    x = (rng.standard_normal((clients, n_rows, 128)) * 1e-3).astype(
+        np.float32)
+    if kind == "sparse":                 # pre-sparsified, as on the path
+        x[np.abs(x) < 2.5e-3] = 0.0
+    if kind == "special":
+        x[:, 0, :5] = [np.nan, 0.0, -0.0, np.inf, 3e9]
+    su = _su(clients, base)
+    xt, sut = torch.tensor(x), torch.tensor(su.astype(np.int64))
+    flat = xt.reshape(clients, -1)
+    n = flat.shape[1]
+    ctrs = tkc.counters(sut, n)
+    q = tksk.round_to_grid(flat, ctrs, sut[:, 0:1], 20)
+    q = torch.where(flat.abs() > 0, q, 0)     # the kernel's zero test
+    total = torch.zeros(clients, rows * cols, dtype=torch.int64)
+    # the blocks in reverse, so the order differs from the plain version's
+    for e0 in reversed(range(0, n, BLOCK_ELEMENTS)):
+        e1 = min(n, e0 + BLOCK_ELEMENTS)
+        part = torch.zeros(clients, rows, cols, dtype=torch.int64)
+        for r in range(rows):
+            h, sgn = tksk.hash_and_sign(tksk.row_seed(sut[:, 2:3], r),
+                                        ctrs[:, e0:e1], cols)
+            part[:, r].scatter_add_(1, h, sgn * q[:, e0:e1])
+        total = (total + (part.reshape(clients, -1) & 0xFFFFFFFF)) \
+            & 0xFFFFFFFF
+    got = tksk._to_int32(total).reshape(clients, rows, cols).numpy()
+    kw = dict(rows=rows, cols=cols, scale_bits=20)
+    np.testing.assert_array_equal(
+        got, tksk.sketch_encode_plain(xt, sut, **kw).numpy())
+    np.testing.assert_array_equal(
+        got, _ref_encode(jksk.sketch_encode_xla, x, su, **kw))
+
+
+def test_zero_and_nan_round_to_zero_for_every_u():
+    """Why the kernel draws no u for +0, -0 and NaN: each rounds to level
+    0 at every u in [0, 1], including both ends and every uniform a
+    client's stream gives; a nonzero element below the grid step may round
+    up at a small u, so it must draw."""
+    ctrs = torch.arange(4096, dtype=torch.int64)[None]
+    seed = torch.tensor([[tkc.client_stream_seed(K0, K1, 0)]])
+    u = torch.cat([torch.tensor([0.0, 2.0 ** -32, 1e-7, 0.5, 1 - 2 ** -24,
+                                 1.0]),
+                   tkc.uniform(tksk.mask_bits(seed, ctrs))[0]])
+    for value in (0.0, -0.0, float("nan")):
+        x = torch.full_like(u, value)
+        assert not tksk.round_level(x, u, 20).any()
+    tiny = torch.full_like(u, 2.0 ** -40)
+    assert tksk.round_level(tiny, u, 20)[0] == 1
+    assert tksk.round_level(tiny, u, 20)[3] == 0
+
