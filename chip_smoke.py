@@ -21,7 +21,7 @@ last line):
    one wave of the card, ``vec`` past it, misaligned views, which the
    wrapper copies; dropouts, a client offset, 600 clients whose streams
    pass one shared-memory table, one client's masked upload at
-   ``client_offset = i``) and
+   ``client_offset = i``, Algorithm 2's upload at (10, 795, 128)) and
    ``sketch_encode`` (ring arithmetic; at the path's 4 x 1024 sketch and
    at 8 x 16,384) bit for bit; ``flash_attention``
    to stated tolerances: its bf16 (wgmma) kernel, which rounds P to bf16
@@ -53,7 +53,17 @@ last line):
    check the launch counts, the ledger, finite costs (falling for qsgd
    and top-k), and that a 5-round run on the card tracks the port's
    5-round CPU run; print each path's round time and its device time by
-   kind under ``torch.profiler``;
+   kind under ``torch.profiler``; then the paper's other algorithms the
+   same way, at the main path's data and weights, 20 rounds each:
+   ``run_alg2(limit_u=0.13)`` plain and secure (B = 100; the secure
+   (value, gradient) upload is 795 rows of 128), ``run_fedsgd`` secure
+   (B = 100) and ``run_fedavg(local_steps=2)`` secure, alone and with
+   ``topk(0.1, bits=8)`` on its model deltas (B = 50, Fig. 1's FedAvg
+   batch); check every kernel's launches (``masked_sum`` once a round on
+   the secure paths, ``compress`` once a round on the top-k one, nothing
+   else), the ledger, finite costs, Algorithm 2's slack finite and ≥ 0
+   (its final cost printed against U), and a 5-round run against the
+   port's CPU run;
 5. drive the decoder-only LM (``transformer_task()``: llama3-8b cut to
    2 layers of width 64) secure and fused on the card for 5 rounds,
    counters set to 0 just before and read just after, and hold it to
@@ -449,6 +459,16 @@ def phase_kernel_parity(torch, su, sa):
     if not torch.equal(agg, quant):
         raise AssertionError("masked aggregate != sum of quantized messages")
     log("masked_sum: aggregate == sum_i quantize(m_i) bit for bit")
+    # Algorithm 2's upload: the value, then 101,632 gradient entries, in
+    # 795 rows with a 127-element zero tail
+    alg2 = torch.nn.functional.pad(randn(CLIENTS, 101_633, scale=1e-3),
+                                   (0, 127)).reshape(CLIENTS, 795, 128)
+    agg, _ = check(alg2, "(10, 795, 128), Algorithm 2's (value, gradient)",
+                   num_clients=CLIENTS)
+    if not torch.equal(agg, sa.quantize(alg2, SCALE_BITS).sum(
+            0, dtype=torch.int32)):
+        raise AssertionError("masked aggregate != sum of quantized messages "
+                             "at (10, 795, 128)")
     check(randn(1, 794, 128, scale=1e-3), "I=1", num_clients=1)
     ragged = torch.nn.functional.pad(randn(3, 1000, scale=1e-3), (0, 24))
     check(ragged.reshape(3, 8, 128), "ragged n=1000 padded to 1024",
@@ -1212,6 +1232,101 @@ def phase_compressed_paths(torch, kernels, data, part, params, runtime,
     return by_path
 
 
+# the paper's other algorithms (Figs. 1-3) on the main path's data and
+# weights: (name, runtime entry, arguments, launches over ROUNDS rounds
+# other than 0, uplink bytes per round; downlink is 4,065,280 on each)
+def paper_paths():
+    from repro_torch.fed import aggregation, compression
+    per = ROUNDS
+    fedavg = dict(local_steps=2, lr_a=2.0, lr_alpha=0.3, batch_size=50)
+    return [
+        ("alg2_plain", "run_alg2", dict(limit_u=0.13, batch_size=100),
+         {}, 4_065_320),
+        ("alg2_secure", "run_alg2",
+         dict(limit_u=0.13, secure=True, batch_size=100),
+         {"masked_sum": per}, 4_065_680),
+        ("fedsgd_secure", "run_fedsgd",
+         dict(aggregation=aggregation.secure(), lr_a=2.0, lr_alpha=0.3,
+              batch_size=100), {"masked_sum": per}, 4_065_640),
+        ("fedavg_secure", "run_fedavg",
+         dict(fedavg, aggregation=aggregation.secure()),
+         {"masked_sum": per}, 4_065_640),
+        ("fedavg_topk8_secure", "run_fedavg",
+         dict(fedavg, aggregation=aggregation.secure(),
+              compressor=compression.topk(0.1, bits=8)),
+         {"compress": per, "masked_sum": per}, 4_065_640),
+    ]
+
+
+def phase_paper_algorithms(torch, kernels, data, part, params, runtime,
+                           card):
+    """Algorithm 2 and the FedSGD / FedAvg baselines at full width on the
+    card, with counted launches, the ledger, Algorithm 2's slack, and a
+    5-round run held to the port's CPU run; returns each path's
+    launches."""
+    by_path = {}
+    for name, entry, extra, nonzero, up in paper_paths():
+        run = getattr(runtime, entry)
+        kw = dict(extra, eval_every=10, seed=0, params=params)
+        reset_counts(kernels)
+        p_gpu, h_gpu = run(data, part, device="cuda", rounds=ROUNDS, **kw)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        want = {k: nonzero.get(k, 0) for k in kernels}
+        log(f"{name}: launches over {ROUNDS} rounds: {launches}")
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        by_path[name] = {**launches, **variant_counts(kernels)}
+        if (h_gpu.uplink_bytes_per_round, h_gpu.downlink_bytes_per_round) \
+                != (up, 4_065_280):
+            raise AssertionError(
+                f"{name}: ledger {h_gpu.uplink_bytes_per_round} up, "
+                f"{h_gpu.downlink_bytes_per_round} down; want {up}, "
+                "4065280")
+        cost = h_gpu.train_cost
+        if not all(math.isfinite(c) for c in cost):
+            raise AssertionError(f"{name}: train cost not finite: {cost}")
+        if entry == "run_alg2":
+            if not all(math.isfinite(v) and v >= 0.0 for v in h_gpu.slack):
+                raise AssertionError(f"{name}: slack {h_gpu.slack}")
+            log(f"{name}: final train cost {cost[-1]} against U = "
+                f"{extra['limit_u']}, slack {h_gpu.slack}")
+        log(f"{name}: ledger {up} uplink bytes per round; train cost "
+            f"{cost}, test accuracy {h_gpu.test_accuracy}; round time "
+            f"{h_gpu.wall_seconds / ROUNDS * 1e3:.3f} ms (I={CLIENTS}, "
+            f"B={extra['batch_size']}, eval every 10 rounds included) on "
+            f"{card}")
+
+        short = dict(kw, rounds=CARD_CPU_ROUNDS, eval_every=1)
+        p_gpu, h_gpu = run(data, part, device="cuda", **short)
+        t0 = time.perf_counter()
+        p_cpu, h_cpu = run(data, part, device="cpu", **short)
+        cpu_s = time.perf_counter() - t0
+        diffs = card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu)
+        diffs["slack_abs"] = max(abs(a - b) for a, b in
+                                 zip(h_gpu.slack, h_cpu.slack))
+        log(f"{name}: card vs CPU over {CARD_CPU_ROUNDS} rounds:",
+            json.dumps(diffs), f"(CPU run {cpu_s:.1f} s)")
+        # tolerance: the main path's, as the card's and the CPU's
+        # matmuls round differently and a gradient entry can cross a
+        # 2^-20 grid point of the secure quantizer; the slack (about 2)
+        # to 1.5e-5 relative; top-k's levels as the compressed paths'.
+        # Measured on an H100: cost 1.1e-7 to 2.1e-7 relative, accuracy
+        # 6e-8, weights 3.7e-8 (alg2_plain), 4.0e-6 (alg2_secure), 1.9e-6
+        # (fedsgd_secure), 6.7e-6 (fedavg_secure, two local steps), 0
+        # (fedavg_topk8_secure); slack 3.8e-6.
+        limits = {"train_cost": 1e-5, "test_accuracy_abs": 1e-3,
+                  "params_abs": 5e-5, "slack_abs": 3e-5}
+        if "compressor" in extra:
+            limits.update(train_cost=1e-4, params_abs=2e-3)
+        if h_gpu.comm != h_cpu.comm or h_gpu.rounds != h_cpu.rounds:
+            raise AssertionError(f"{name}: card and CPU ledgers differ")
+        for k, lim in limits.items():
+            if not diffs[k] <= lim:
+                raise AssertionError(f"{name}: card run drifts from CPU run: "
+                                     f"{k} {diffs[k]} > {lim}")
+    return by_path
+
+
 def phase_profile(torch, data, part, params, runtime):
     """Where the main path's round time goes: the same run once more
     under ``torch.profiler``, device activity summed by kind.  The
@@ -1603,6 +1718,10 @@ def main() -> int:
                              f"{by_path['secure_dense']}")
     by_path.update(phase_compressed_paths(torch, kernels, data, part, params,
                                           runtime, card))
+    t0 = time.perf_counter()
+    by_path.update(phase_paper_algorithms(torch, kernels, data, part, params,
+                                          runtime, card))
+    log(f"paper algorithms phase: {time.perf_counter() - t0:.1f} s")
     from repro_torch.fed.tasks import rwkv6_task, transformer_task
     lm_bf16_forward(torch)
     by_path["lm_small"] = phase_lm_small(torch, kernels, runtime, "lm_small",

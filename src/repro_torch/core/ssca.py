@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import Device, tree
-from repro_torch.core.schedules import PowerLaw
+from repro_torch.core.schedules import PowerLaw, paper_schedules
 from repro_torch.kernels import ops
 
 Params = tree.Tree
@@ -90,3 +90,34 @@ def server_update(state: SSCAState, params: Params, grad_agg: Params,
     new_params = tree.map(lambda w, wb: (1.0 - gamma) * w + gamma * wb,
                           params, omega_bar)
     return new_params, new_state
+
+
+def surrogate_value(state: SSCAState, hp: SSCAHyperParams,
+                    params: Params) -> torch.Tensor:
+    """F̄0^t(ω) up to its constant term — used by tests/diagnostics."""
+    val = tree.vdot(state.lin, params) + hp.tau * tree.sq_norm(params)
+    if hp.lam:
+        val = val + 2.0 * hp.lam * tree.vdot(state.beta, params)
+    return val
+
+
+def surrogate_grad(state: SSCAState, hp: SSCAHyperParams,
+                   params: Params) -> Params:
+    """∇F̄^t(ω) = lin^t + 2τω (+ 2λβ^t) — used to verify the Theorem-1
+    consistency condition ‖∇F̄^t(ω^t) − ∇F(ω^t)‖ → 0 ([11, Lemma 1])."""
+    g = tree.map(lambda b, w: b + 2.0 * hp.tau * w, state.lin, params)
+    if hp.lam and state.beta is not None:
+        g = tree.map(lambda gg, bt: gg + 2.0 * hp.lam * bt, g, state.beta)
+    return g
+
+
+def kkt_residual(grad: Params) -> torch.Tensor:
+    """‖∇F0(ω)‖₂ — the unconstrained KKT (stationarity) residual."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree.leaves(grad)))
+
+
+def default_hparams(batch_size: int, tau: float = 0.1,
+                    lam: float = 0.0) -> SSCAHyperParams:
+    rho, gamma = paper_schedules(batch_size)
+    return SSCAHyperParams(tau=tau, lam=lam, rho=rho, gamma=gamma)

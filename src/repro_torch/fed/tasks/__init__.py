@@ -8,7 +8,8 @@ LM of the ``dense`` family trained as a federated next-token task, and
 :func:`~repro_torch.fed.tasks.rwkv6.rwkv6_task`, the same over RWKV-6
 (the ``ssm`` family).
 """
-from repro_torch.fed.tasks.base import SumLoss, TaskData  # noqa: F401
+from repro_torch.fed.tasks.base import (  # noqa: F401
+    LocalObjective, SumLoss, TaskData, l2)
 from repro_torch.fed.tasks.mlp import MLPTask  # noqa: F401
 from repro_torch.fed.tasks.transformer import (  # noqa: F401
     LMTask, transformer_task)

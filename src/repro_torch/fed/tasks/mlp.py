@@ -34,6 +34,9 @@ class MLPTask:
         logp = torch.log_softmax(mlp.logits(params, x), dim=-1)
         return -torch.sum(w * torch.sum(y * logp, dim=-1))
 
+    def mean_loss(self, params, batch) -> torch.Tensor:
+        return mlp.cross_entropy(params, batch)
+
     def measure(self, params, x_tr, y_tr, x_te, y_te):
         return {"train_cost": mlp.cross_entropy(params, (x_tr, y_tr)),
                 "test_accuracy": mlp.accuracy(params, x_te, y_te),

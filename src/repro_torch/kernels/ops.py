@@ -71,8 +71,8 @@ def unflatten(flat: torch.Tensor, like: Params, lead: int = 0) -> Params:
     flat = flat.reshape(*lead_shape, -1)
     out, off = [], 0
     for x in _tree.leaves(like):
-        out.append(flat[..., off:off + x.numel()].reshape(*lead_shape,
-                                                          *x.shape))
+        out.append(flat[..., off:off + x.numel()].reshape(
+            (*lead_shape, *x.shape)))
         off += x.numel()
     return _tree.unflatten(like, out)
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch import Device, resolve_device
+from repro_torch import Device, resolve_device, tree
 
 Params = Dict[str, torch.Tensor]
 
@@ -56,8 +56,24 @@ def swish(z):
     return z * torch.sigmoid(z)
 
 
+def swish_prime(z):
+    """S'(z) = σ(z)(1 + z(1 − σ(z))) — used by the explicit recursions."""
+    s = torch.sigmoid(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
+def hidden(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Pre-activation of the hidden layer: x @ ω1ᵀ, shape (..., J)."""
+    return x @ params["w1"].T
+
+
 def logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return swish(x @ params["w1"].T) @ params["w2"].T
+    return swish(hidden(params, x)) @ params["w2"].T
+
+
+def predict(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Q_l(ω, x) of eq. (10): softmax class probabilities."""
+    return torch.softmax(logits(params, x), dim=-1)
 
 
 def cross_entropy(params: Params, batch) -> torch.Tensor:
@@ -67,6 +83,20 @@ def cross_entropy(params: Params, batch) -> torch.Tensor:
     return -torch.mean(torch.sum(y * logp, dim=-1))
 
 
+def cross_entropy_sum(params: Params, batch) -> torch.Tensor:
+    """Σ_n Σ_l −y log Q — un-normalized, for explicit client weights."""
+    x, y = batch
+    logp = torch.log_softmax(logits(params, x), dim=-1)
+    return -torch.sum(y * logp)
+
+
+def l2_objective(lam: float):
+    """F0(ω) = F(ω) + λ‖ω‖² of eq. (11)."""
+    def loss(params: Params, batch):
+        return cross_entropy(params, batch) + lam * sparsity(params)
+    return loss
+
+
 def accuracy(params: Params, x: torch.Tensor, y_onehot: torch.Tensor):
     pred = torch.argmax(logits(params, x), dim=-1)
     return torch.mean((pred == torch.argmax(y_onehot, dim=-1)).float())
@@ -74,7 +104,7 @@ def accuracy(params: Params, x: torch.Tensor, y_onehot: torch.Tensor):
 
 def sparsity(params: Params) -> torch.Tensor:
     """‖ω‖² — the paper's Fig.-3 'model sparsity' proxy."""
-    return sum(torch.sum(w * w) for w in params.values())
+    return tree.sq_norm(params)
 
 
 class MLP(nn.Module):

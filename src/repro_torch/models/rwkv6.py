@@ -18,7 +18,7 @@ about −1.4 (``ROADMAP.md``, queue 3); the port's stay finite.
 
 Like the reference's model forward, the port starts every sequence from
 a zero WKV state and a zero token shift.  Decode (``wkv_step``) and a
-carried ``RWKVState`` are not ported (``ROADMAP.md``, queue 1 item 9).
+carried ``RWKVState`` are not ported (``ROADMAP.md``, queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: the port runs the "
         "training forward from a zero state (see ROADMAP.md, queue 1 "
-        "item 9)")
+        "item 5)")
 
 
 def wkv_step(*args, **kwargs):

@@ -178,7 +178,7 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"build_model: the {cfg.family!r} family ({cfg.name}) is not "
-            "ported to repro_torch yet (ROADMAP.md, queue 1 item 9)")
+            "ported to repro_torch yet (ROADMAP.md, queue 1 item 5)")
     return Model(cfg=cfg)
 
 

@@ -1,26 +1,40 @@
-"""Parameter trees: nested dicts of tensors, in ``jax.tree`` leaf order.
+"""Parameter trees: nested dicts and tuples of tensors, in ``jax.tree``
+leaf order.
 
-A tree is a tensor or a dict whose values are trees.  Its leaves are
-visited in the reference's order: keys sorted, depth first.  The MLP's
-``{"w1", "w2"}`` is a tree of depth one; the LM's ``{"blocks": {...},
-"embed", "final_norm"}`` one of depth two.  That order fixes each
+A tree is a tensor, a dict whose values are trees, or a tuple of trees.
+Its leaves are visited in the reference's order, depth first: dicts by
+sorted key, tuples by position.  The MLP's ``{"w1", "w2"}`` is a tree of
+depth one; the LM's ``{"blocks": {...}, "embed", "final_norm"}`` one of
+depth two; Algorithm 2's upload ``(value, {"w1", "w2"})`` a tuple whose
+value is leaf 0.  That order fixes each
 element's flat index, hence its PRF counter in the secure masks and in
 qsgd's per-leaf counter bases, so every flatten of the port walks it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Union
+from typing import Any, Callable, Dict, List, Sequence, Union
 
 import torch
 
-Tree = Union[torch.Tensor, Dict[str, Any]]
+Tree = Union[torch.Tensor, Dict[str, Any], Sequence[Any]]
+
+
+def _children(node):
+    """The subtrees of an inner node in leaf order, or None for a leaf."""
+    if isinstance(node, dict):
+        return [node[k] for k in sorted(node)]
+    if isinstance(node, tuple):
+        return list(node)
+    return None
 
 
 def leaves(tree: Tree) -> List[torch.Tensor]:
-    """The leaves in ``jax.tree`` order: sorted keys, depth first."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
-    return [tree]
+    """The leaves in ``jax.tree`` order: depth first, dicts by sorted
+    key, tuples by position."""
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [x for k in kids for x in leaves(k)]
 
 
 def unflatten(like: Tree, values) -> Tree:
@@ -38,6 +52,14 @@ def _build(node, values, i):
         for k in sorted(node):
             out[k], i = _build(node[k], values, i)
         return out, i
+    if isinstance(node, tuple):
+        kids = []
+        for k in node:
+            kid, i = _build(k, values, i)
+            kids.append(kid)
+        if hasattr(node, "_fields"):                 # a NamedTuple
+            return type(node)(*kids), i
+        return tuple(kids), i
     return values[i], i + 1
 
 
@@ -50,3 +72,13 @@ def map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:  # noqa: A001
 
 def numel(tree: Tree) -> int:
     return sum(x.numel() for x in leaves(tree))
+
+
+def vdot(a: Tree, b: Tree) -> torch.Tensor:
+    """Σ over leaves of ⟨a, b⟩, leaf by leaf in leaf order."""
+    return sum(torch.sum(x * y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def sq_norm(a: Tree) -> torch.Tensor:
+    """‖a‖² over all leaves, leaf by leaf in leaf order."""
+    return sum(torch.sum(x * x) for x in leaves(a))

@@ -3,7 +3,8 @@
 * Importing every ``repro_torch`` module loads neither ``jax`` nor any
   ``repro`` module, and no source file of the port (nor
   ``chip_smoke.py``) imports them.
-* Without a GPU, ``run_alg1`` and the kernel wrappers raise unless the
+* Without a GPU, ``run_alg1``, ``run_alg2``, ``run_fedsgd``,
+  ``run_fedavg``, ``run`` and the kernel wrappers raise unless the
   caller passes ``device="cpu"``.
 """
 import os
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch.data import partition, synthetic
-from repro_torch.fed import compression, runtime
+from repro_torch.fed import aggregation, compression, runtime
 from repro_torch.fed import sketch as fed_sketch
 from repro_torch.fed.tasks import rwkv6_task, transformer_task
 from repro_torch.kernels import build, compress, flash_attention, ops, \
@@ -59,7 +60,8 @@ def test_sources_import_no_jax_or_reference():
     assert len(files) > 40
     assert {"transformer.py", "attention.py", "layers.py", "tree.py",
             "flash_attention.py", "llama3_8b.py", "rwkv6.py",
-            "rwkv6_scan.py"} <= {f.name for f in files}
+            "rwkv6_scan.py", "constrained.py", "fedavg.py", "autodiff.py",
+            "optimizers.py", "closed_form.py"} <= {f.name for f in files}
     for f in files:
         hits = _IMPORT.findall(f.read_text())
         assert not hits, (f, hits)
@@ -79,6 +81,33 @@ def test_run_alg1_refuses_the_cpu_by_default(no_gpu):
     _, hist = runtime.run_alg1(data, part, batch_size=5, rounds=1,
                                hidden=4, device="cpu")
     assert hist.rounds == [1]
+
+
+@pytest.mark.parametrize("entry", ["run_alg2", "run_fedsgd", "run_fedavg",
+                                   "run"])
+def test_paper_algorithms_refuse_the_cpu_by_default(no_gpu, entry):
+    from repro_torch.core import fedavg, protocol
+    from repro_torch.fed.tasks import LocalObjective, MLPTask
+    data = synthetic.classification_dataset(40, 10, k=16, l=3)
+    part = partition.iid(40, 2)
+    if entry == "run":
+        task = MLPTask(k=16, hidden=4, l=3)
+        alg = protocol.FedAvg(LocalObjective(task, 0.0),
+                              fedavg.SGDHyperParams(local_steps=2))
+
+        def call(**kw):
+            return runtime.run(task, alg, data, part, **kw)
+    else:
+        def call(**kw):
+            return getattr(runtime, entry)(data, part, hidden=4, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(batch_size=5, rounds=1)
+    before = secure_agg.masked_sum_2d.launches
+    # the same call runs when the CPU is asked for, launching nothing
+    _, hist = call(batch_size=5, rounds=1, aggregation=aggregation.secure(),
+                   device="cpu")
+    assert hist.rounds == [1] and len(hist.slack) == 1
+    assert secure_agg.masked_sum_2d.launches == before
 
 
 @pytest.mark.parametrize("comp", [compression.qsgd(8), compression.topk(0.1),

@@ -3,7 +3,9 @@ left unchanged by them.
 
 The port flattens every parameter or message tree (the secure masks'
 counters, qsgd's per-leaf counter bases, the fused update's buffer) in
-the reference's leaf order: keys sorted, depth first.  The MLP's
+the reference's leaf order: depth first, keys sorted, tuples by
+position (Algorithm 2's upload ``(value, {"w1", "w2"})`` puts the
+value at flat index 0).  The MLP's
 ``{"w1", "w2"}`` has depth one, so its flat layout (``w1`` row-major,
 then ``w2``) must stay exactly what it was; the LM's tree has depth two.
 ``flatten_padded`` writes a tree straight into one lane-padded
@@ -48,6 +50,75 @@ def test_leaf_order_is_jax_tree_order():
     assert jax.tree.structure(tree.map(lambda x: x.numpy(), doubled)) == \
         jax.tree.structure(t)
     assert tree.numel(_torch(t)) == sum(x.size for x in jax.tree.leaves(t))
+
+
+def _upload(seed=0, lead=()):
+    """Algorithm 2's (value, gradient) upload of a small MLP."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(lead).astype(np.float32),
+            {"w2": rng.standard_normal(lead + (3, 4)).astype(np.float32),
+             "w1": rng.standard_normal(lead + (4, 5)).astype(np.float32)})
+
+
+def test_tuples_are_nodes_in_jax_tree_order():
+    t = _upload()
+    tt = jax.tree.map(torch.as_tensor, t)
+    want = jax.tree.leaves(t)
+    got = tree.leaves(tt)
+    assert [x.shape for x in got] == [x.shape for x in want] == \
+        [(), (4, 5), (3, 4)]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b)
+    doubled = tree.map(lambda x, y: x + y, tt, tt)
+    assert isinstance(doubled, tuple) and isinstance(doubled[1], dict)
+    assert jax.tree.structure(tree.map(lambda x: x.numpy(), doubled)) == \
+        jax.tree.structure(t)
+    back = tree.unflatten(tt, [x * 0 + i for i, x in enumerate(got)])
+    assert [float(x.flatten()[0]) for x in tree.leaves(back)] == [0, 1, 2]
+    assert tree.numel(tt) == 1 + 20 + 12
+    # a NamedTuple is a node too, rebuilt as its own type
+    from repro_torch.core.constrained import ConstrainedState
+    st = ConstrainedState(3, (torch.ones(2),), torch.zeros(1), torch.ones(1))
+    st2 = tree.map(lambda x: x + 1, st)
+    assert isinstance(st2, ConstrainedState) and st2.step == 4
+    assert float(st2.lin_c[0][0]) == 2.0
+    # flat layout: the value first, then w1, then w2
+    flat = ops.flatten(tt)
+    assert float(flat[0]) == float(t[0])
+    np.testing.assert_array_equal(flat[1:21].numpy(), t[1]["w1"].ravel())
+    assert ops.flatten_padded(tt).shape == (1, 128)
+    back = ops.unflatten(ops.flatten_padded(tt), tt)
+    assert back[0].shape == () and float(back[0]) == float(t[0])
+
+
+def test_tuple_upload_secure_sum_equals_reference_kernel():
+    # the masked sum of (value, gradient) uploads: the value's PRF counter
+    # is 0 and the gradient's are shifted by one, as in the reference
+    msgs = jax.tree.map(lambda x: x * 1e-2, _upload(seed=3, lead=(4,)))
+    key = np.asarray([0x8BADF00D, 0x1234567], np.uint32)
+    got = ops.secure_quant_sum(jax.tree.map(torch.as_tensor, msgs), key,
+                               scale_bits=20, device="cpu")
+    want = jops.secure_quant_sum(msgs, jax.numpy.asarray(key),
+                                 scale_bits=20, interpret=True)
+    assert isinstance(got, tuple) and got[0].shape == ()
+    for a, b in zip(tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # one client's masked upload (client 2 of 4): here every mask word sits
+    # at its element's flat counter, so a shifted layout would differ
+    one = jax.tree.map(lambda x: x[2:3], msgs)
+    got = ops.secure_quant_sum(jax.tree.map(torch.as_tensor, one), key,
+                               scale_bits=20, client_offset=2,
+                               num_clients=4, device="cpu")
+    want = jops.secure_quant_sum(one, jax.numpy.asarray(key), scale_bits=20,
+                                 client_offset=2, num_clients=4,
+                                 interpret=True)
+    for a, b in zip(tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    swapped = ops.secure_quant_sum(
+        jax.tree.map(torch.as_tensor, ({"w1": one[1]["w1"]}, one[0],
+                                       {"w2": one[1]["w2"]})), key,
+        scale_bits=20, client_offset=2, num_clients=4, device="cpu")
+    assert not np.array_equal(swapped[1].numpy(), np.asarray(want[0]))
 
 
 @pytest.mark.parametrize("lead", [0, 1])
