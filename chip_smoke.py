@@ -63,7 +63,26 @@ last line):
    the secure paths, ``compress`` once a round on the top-k one, nothing
    else), the ledger, finite costs, Algorithm 2's slack finite and ≥ 0
    (its final cost printed against U), and a 5-round run against the
-   port's CPU run;
+   port's CPU run; then partial participation and async rounds
+   (``phase_participation``), at the same data and weights: Algorithm 1
+   fused with ``sampled(10)``, ``secure(num_sampled=10)`` and that with
+   ``topk(0.1, bits=8)`` of I = 100 clients (20 rounds), a population of
+   I = 10,000 clients of 6 samples with ``secure(num_sampled=8)`` and
+   top-k (B = 6, 10 rounds, a 4.07 GB residual arena on the card), and
+   async rounds over the main path's 10 clients with the trace of
+   ``StalenessConfig(max_staleness=2, delay_probs=(0.5, 0.2, 0.15, 0.1,
+   0.05))``: secure, drop-stragglers (K = 0), plain, FedAvg secure with
+   top-k and Algorithm 1 secure with the sketch; check each path's
+   launches (every async masked sum carries ``alive``, counted on
+   ``launches_by_variant["alive"]``), its ledger with
+   ``comm["async"]``, finite costs, its round time, device busy share
+   and peak memory, and a 5-round run against the port's CPU run; check
+   bit for bit that S = I is full participation, that an all-zero trace
+   is the synchronous run (secure dense, FedAvg with top-k), that the
+   population's residual rows of clients never drawn stay zero, and that
+   the masked sum through ``alive`` is the survivors' quantized sum; and
+   run rwkv_small under FedSGD with ``sampled(2)`` of 4 clients, its WKV
+   launches counted;
 5. drive the decoder-only LM (``transformer_task()``: llama3-8b cut to
    2 layers of width 64) secure and fused on the card for 5 rounds,
    counters set to 0 just before and read just after, and hold it to
@@ -404,11 +423,14 @@ def phase_kernel_parity(torch, su, sa):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    def on_variant(fn, variant, call):
-        """``call()``, which must launch ``fn`` once on ``variant``."""
+    def on_variant(fn, variant, call, alive=False):
+        """``call()``, which must launch ``fn`` once on ``variant`` (and
+        count it as carrying ``alive`` when it does)."""
         before = dict(fn.launches_by_variant)
         out = call()
         before[variant] += 1
+        if alive:
+            before["alive"] += 1
         if fn.launches_by_variant != before:
             raise AssertionError(f"launched {fn.launches_by_variant}, want "
                                  f"one more {variant}: {before}")
@@ -439,7 +461,8 @@ def phase_kernel_parity(torch, su, sa):
         plan = sa.launch_plan(msgs[0].numel(), msgs.shape[0],
                               kw["num_clients"], sms)
         got = on_variant(sa.masked_sum_2d, plan[0], lambda: sa.masked_sum_2d(
-            msgs, key0, key1, scale_bits=SCALE_BITS, **kw))
+            msgs, key0, key1, scale_bits=SCALE_BITS, **kw),
+            alive=kw.get("alive") is not None)
         want = sa.masked_sum_plain(msgs, key0, key1, scale_bits=SCALE_BITS,
                                    **kw)
         torch.cuda.synchronize()
@@ -1327,6 +1350,349 @@ def phase_paper_algorithms(torch, kernels, data, part, params, runtime,
     return by_path
 
 
+# partial participation and async rounds (phase_participation): the
+# delay distribution of the staleness trace (the reference bench's),
+# the 10,000-client population's cohort, batch and rounds
+ASYNC_PROBS = (0.5, 0.2, 0.15, 0.1, 0.05)
+POP_CLIENTS, POP_COHORT, POP_BATCH, POP_ROUNDS = 10_000, 8, 6, 10
+
+
+def async_ledger(k, dropped, rec_per):
+    """``History.comm["async"]`` of the phase's 20 x 10 trace (seed 0:
+    107 of its 200 slots delayed)."""
+    return {"max_staleness": k, "stale_fraction": 107 / 200,
+            "dropped_total": dropped, "dropout_rate": dropped / 200,
+            "recovery_bytes_per_drop": rec_per,
+            "recovery_bytes_total": dropped * rec_per}
+
+
+class KeptArenaTopK:
+    """Builds a top-k compressor whose residual arena the phase can read
+    back (the engine keeps it to itself)."""
+    arenas = []
+
+    @classmethod
+    def make(cls, compression, fraction, bits):
+        class KeptArena(compression.TopKCompressor):
+            def init_client_state(self, like, num_clients):
+                arena = super().init_client_state(like, num_clients)
+                cls.arenas.append(arena)
+                return arena
+        return KeptArena(fraction=fraction, bits=bits)
+
+
+# (name, runtime entry, partition, arguments, rounds, launches other than
+# 0, launches with alive, uplink / downlink bytes a round, comm["async"])
+def participation_paths():
+    from repro_torch.fed import aggregation, compression, sketch
+    from repro_torch.fed.staleness import StalenessConfig
+    per = ROUNDS
+    k2 = StalenessConfig(max_staleness=2, delay_probs=ASYNC_PROBS)
+    k0 = StalenessConfig(max_staleness=0, delay_probs=ASYNC_PROBS)
+    alg1 = dict(batch_size=100, fused=True)
+    fedavg = dict(local_steps=2, lr_a=2.0, lr_alpha=0.3, batch_size=50)
+    topk8 = compression.topk(0.1, bits=8)
+    secure_k2 = async_ledger(2, 33, 36)
+    return [
+        ("sampled_plain", "run_alg1", "i100",
+         dict(alg1, aggregation=aggregation.sampled(10)), per,
+         {"ssca_update": per}, 0, 4_065_280, 4_065_280, None),
+        ("sampled_secure", "run_alg1", "i100",
+         dict(alg1, aggregation=aggregation.secure(num_sampled=10)), per,
+         {"ssca_update": per, "masked_sum": per}, 0, 4_065_640, 4_065_280,
+         None),
+        ("sampled_topk8_secure", "run_alg1", "i100",
+         dict(alg1, aggregation=aggregation.secure(num_sampled=10),
+              compressor=topk8), per,
+         {"ssca_update": per, "masked_sum": per, "compress": per}, 0,
+         4_065_640, 4_065_280, None),
+        ("population10k_topk8_secure", "run_alg1", "i10k",
+         dict(batch_size=POP_BATCH, fused=True,
+              aggregation=aggregation.secure(num_sampled=POP_COHORT),
+              compressor=KeptArenaTopK.make(compression, 0.1, 8)),
+         POP_ROUNDS, {"ssca_update": POP_ROUNDS, "masked_sum": POP_ROUNDS,
+                      "compress": POP_ROUNDS}, 0, 3_252_448, 3_252_224,
+         None),
+        ("async_secure", "run_alg1", "main",
+         dict(alg1, secure=True, staleness=k2), per,
+         {"ssca_update": per, "masked_sum": per}, per, 4_065_640,
+         4_065_280, secure_k2),
+        ("drop_secure", "run_alg1", "main",
+         dict(alg1, secure=True, staleness=k0), per,
+         {"ssca_update": per, "masked_sum": per}, per, 4_065_640,
+         4_065_280, async_ledger(0, 107, 36)),
+        ("async_plain", "run_alg1", "main", dict(alg1, staleness=k2), per,
+         {"ssca_update": per}, 0, 4_065_280, 4_065_280,
+         async_ledger(2, 33, 0)),
+        ("async_fedavg_topk8_secure", "run_fedavg", "main",
+         dict(fedavg, aggregation=aggregation.secure(), compressor=topk8,
+              staleness=k2), per,
+         {"masked_sum": per, "compress": per}, per, 4_065_640, 4_065_280,
+         secure_k2),
+        ("async_sketch_secure", "run_alg1", "main",
+         dict(alg1, secure=True, staleness=k2,
+              compressor=sketch.sketch(4, 1024, 0.02, keep=256)), per,
+         {"ssca_update": per, "sketch_encode": per, "masked_sum": 2 * per},
+         2 * per, 245_520, 4_146_600, secure_k2),
+    ]
+
+
+def phase_participation(torch, kernels, data, parts, params, runtime,
+                        card):
+    """Cohorts (``sampled(S)``, ``secure(num_sampled=S)``, a population of
+    10,000) and async rounds (bounded staleness, drop-stragglers, the
+    masked sum's ``alive`` path) at the MLP's full width on the card, with
+    counted launches, exact ledgers, the bitwise invariants of the
+    reference, and a 5-round run held to the port's CPU run; returns each
+    path's launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree
+    from repro_torch.data import partition
+    from repro_torch.fed import aggregation, compression
+    from repro_torch.fed import staleness as staleness_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import secure_agg as sa
+    # the trace every async path draws: (cohort 10, rounds 1..20, seed 0)
+    trace = partition.sample_staleness(10, range(1, ROUNDS + 1), 0,
+                                       ASYNC_PROBS)
+    drops = {k: int(staleness_mod.dropped_per_round(trace, k).sum())
+             for k in (0, 2)}
+    log(f"participation: the trace drops {drops[2]} slots at K = 2 (in "
+        f"{int((trace > 2).any(axis=1).sum())} of {ROUNDS} rounds) and "
+        f"{drops[0]} at K = 0; stale share {float((trace > 0).mean())}")
+    if drops != {0: 107, 2: 33} or int((trace > 0).sum()) != 107:
+        raise AssertionError(f"participation: trace drops {drops}")
+    by_path = {}
+    for name, entry, pkey, extra, rounds, nonzero, alive, up, down, \
+            want_async in participation_paths():
+        run, part = getattr(runtime, entry), parts[pkey]
+        kw = dict(extra, eval_every=10, seed=0, params=params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        p_gpu, h_gpu = run(data, part, device="cuda", rounds=rounds, **kw)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        want = {k: nonzero.get(k, 0) for k in kernels}
+        log(f"{name}: launches over {rounds} rounds: {launches}, with "
+            f"alive {sa.masked_sum_2d.launches_by_variant['alive']}")
+        if launches != want or \
+                sa.masked_sum_2d.launches_by_variant["alive"] != alive:
+            raise AssertionError(f"{name}: launches {launches} ("
+                                 f"{variant_counts(kernels)}), want {want} "
+                                 f"and {alive} with alive")
+        by_path[name] = {**launches, **variant_counts(kernels)}
+        if (h_gpu.uplink_bytes_per_round, h_gpu.downlink_bytes_per_round) \
+                != (up, down) or h_gpu.comm.get("async") != want_async:
+            raise AssertionError(
+                f"{name}: ledger {h_gpu.uplink_bytes_per_round} up, "
+                f"{h_gpu.downlink_bytes_per_round} down, async "
+                f"{h_gpu.comm.get('async')}; want {up}, {down}, {want_async}")
+        cost = h_gpu.train_cost
+        if not all(math.isfinite(c) for c in cost + h_gpu.test_accuracy):
+            raise AssertionError(f"{name}: metrics not finite: {cost}")
+        log(f"{name}: ledger {up} up / {down} down bytes a round, async "
+            f"{json.dumps(h_gpu.comm.get('async'))}; train cost {cost}, "
+            f"test accuracy {h_gpu.test_accuracy}; round time "
+            f"{h_gpu.wall_seconds / rounds * 1e3:.3f} ms (I = "
+            f"{part.num_clients}, B = {extra['batch_size']}, eval every 10 "
+            f"rounds included), peak device memory "
+            f"{torch.cuda.max_memory_allocated()} B on {card}")
+        if name.startswith("population"):
+            check_population_arena(torch, partition, part.num_clients,
+                                   rounds)
+            # the arena's birth, in the first round: allocate and zero
+            # one more of its size
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh = torch.zeros(part.num_clients, 101_632, device="cuda")
+            torch.cuda.synchronize()
+            log(f"{name}: a fresh {fresh.numel() * 4} B zero arena takes "
+                f"{(time.perf_counter() - t0) * 1e3:.3f} ms to allocate "
+                "and fill")
+            del fresh
+        del p_gpu
+        torch.cuda.empty_cache()
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, h_prof = run(data, part, device="cuda", rounds=rounds, **kw)
+        us, top_other = device_us_by_kind(torch, prof)
+        busy = sum(v for k, v in us.items() if k != "staging_htod")
+        # where the host spends the run, for the device's idle share
+        host = sorted(((e.key[:60], e.self_cpu_time_total)
+                       for e in prof.key_averages()), key=lambda kv: -kv[1])
+        log(f"{name}: profile:", json.dumps({
+            "rounds": rounds, "profiled_wall_ms": h_prof.wall_seconds * 1e3,
+            "device_us": us, "device_busy_share_of_round_loop":
+                busy / (h_prof.wall_seconds * 1e6),
+            "largest_other_us": top_other,
+            "largest_host_self_us": host[:6]}))
+        KeptArenaTopK.arenas.clear()
+        torch.cuda.empty_cache()
+
+        # the card against the port's CPU run, over fewer rounds
+        short = dict(kw, rounds=CARD_CPU_ROUNDS, eval_every=1)
+        p_gpu, h_gpu = run(data, part, device="cuda", **short)
+        t0 = time.perf_counter()
+        p_cpu, h_cpu = run(data, part, device="cpu", **short)
+        cpu_s = time.perf_counter() - t0
+        KeptArenaTopK.arenas.clear()
+        diffs = card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu)
+        log(f"{name}: card vs CPU over {CARD_CPU_ROUNDS} rounds:",
+            json.dumps(diffs), f"(CPU run {cpu_s:.1f} s)")
+        # tolerance: the paper algorithms' phase's.  A last-bit gradient
+        # difference can move an entry across a 2^-20 grid point of the
+        # secure quantizer; top-k's threshold and stochastic levels can
+        # then keep or round an entry the other way
+        limits = {"train_cost": 1e-6, "test_accuracy_abs": 1e-3,
+                  "params_abs": 1e-3 if "topk" in name else 2e-5}
+        if h_gpu.comm != h_cpu.comm or h_gpu.rounds != h_cpu.rounds:
+            raise AssertionError(f"{name}: card and CPU ledgers differ")
+        for k, lim in limits.items():
+            if not diffs[k] <= lim:
+                raise AssertionError(f"{name}: card run drifts from CPU run: "
+                                     f"{k} {diffs[k]} > {lim}")
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+
+    base = dict(batch_size=100, fused=True, eval_every=10, seed=0,
+                params=params, rounds=ROUNDS, device="cuda")
+    # S = I is full participation, bit for bit
+    same_run(torch, "secure(num_sampled=10) at I = 10 against secure()",
+             runtime.run_alg1(data, parts["main"], secure=True, **base),
+             runtime.run_alg1(data, parts["main"], **base,
+                              aggregation=aggregation.secure(
+                                  num_sampled=CLIENTS)))
+    # an all-zero trace is the synchronous run, bit for bit
+    zero = staleness_mod.StalenessConfig(max_staleness=2)
+    same_run(torch, "secure dense, all-zero trace against sync",
+             runtime.run_alg1(data, parts["main"], secure=True, **base),
+             runtime.run_alg1(data, parts["main"], secure=True,
+                              staleness=zero, **base))
+    fedavg = {k: v for k, v in base.items() if k != "fused"}
+    fedavg.update(local_steps=2, lr_a=2.0, lr_alpha=0.3, batch_size=50,
+                  aggregation=aggregation.secure())
+    same_run(torch, "fedavg_topk8_secure, all-zero trace against sync",
+             runtime.run_fedavg(data, parts["main"], **fedavg,
+                                compressor=compression.topk(0.1, bits=8)),
+             runtime.run_fedavg(data, parts["main"], **fedavg,
+                                compressor=compression.topk(0.1, bits=8),
+                                staleness=zero))
+    check_alive_combine(torch, sa, ops, tree, runtime, aggregation, data,
+                        parts["main"], dict(base, rounds=CARD_CPU_ROUNDS),
+                        participation_paths()[4][3]["staleness"])
+    by_path["rwkv_small_sampled"] = phase_rwkv_sampled(torch, kernels,
+                                                       runtime)
+    return by_path
+
+
+def same_run(torch, what, run_a, run_b):
+    """Two runs' weights and histories equal bit for bit."""
+    from repro_torch import tree
+    (p_a, h_a), (p_b, h_b) = run_a, run_b
+    if not all(torch.equal(a, b) for a, b in zip(tree.leaves(p_a),
+                                                 tree.leaves(p_b))) \
+            or h_a.metrics != h_b.metrics:
+        raise AssertionError(f"{what}: runs differ: {h_a.metrics} against "
+                             f"{h_b.metrics}")
+    log(f"participation: {what}: weights and metrics bit for bit")
+
+
+def check_population_arena(torch, partition, num_clients, rounds):
+    """After the 10,000-client run: the residual rows of every client never
+    drawn still hold their initial zeros, and every drawn client's row has
+    moved, read back row by row."""
+    import numpy as np
+    arena = KeptArenaTopK.arenas[-1]
+    drawn = np.unique(partition.sample_cohorts(
+        num_clients, POP_COHORT, np.arange(1, rounds + 1), 0))
+    moved = torch.zeros(num_clients, dtype=torch.bool, device="cuda")
+    nbytes = 0
+    for leaf in arena.values():
+        moved |= (leaf != 0).flatten(1).any(dim=1)
+        nbytes += leaf.numel() * leaf.element_size()
+    moved = moved.cpu().numpy()
+    if moved[drawn].sum() != len(drawn) or moved.sum() != len(drawn):
+        raise AssertionError(f"population: {int(moved.sum())} rows moved, "
+                             f"{len(drawn)} clients drawn")
+    log(f"population: residual arena {tuple(arena['w1'].shape[:1])} rows, "
+        f"{nbytes} B on the card; the {num_clients - len(drawn)} rows of "
+        f"clients never drawn are all zero, the {len(drawn)} drawn rows "
+        "have moved")
+
+
+def check_alive_combine(torch, sa, ops, tree, runtime, aggregation, data,
+                        part, kw, staleness):
+    """On the async secure path, every round's masked sum through
+    ``alive`` equals the plain sum of the survivors' quantized messages,
+    bit for bit, and the engine's aggregate is its dequantization."""
+    calls = []
+
+    class Recording(aggregation.SecureAggregation):
+        def combine_messages(self, wmsgs, key_words, *, alive=None,
+                             device=None):
+            out = super().combine_messages(wmsgs, key_words, alive=alive,
+                                           device=device)
+            calls.append((wmsgs, key_words, alive, out))
+            return out
+
+    runtime.run_alg1(data, part, aggregation=Recording(),
+                     staleness=staleness, **kw)
+    dropped = 0
+    for wmsgs, key_words, alive, out in calls:
+        msgs = ops.flatten_padded(wmsgs, lead=1)
+        agg = sa.masked_sum_2d(msgs, int(key_words[0]), int(key_words[-1]),
+                               scale_bits=SCALE_BITS,
+                               num_clients=msgs.shape[0], alive=alive,
+                               device=msgs.device)
+        want = (sa.quantize(msgs, SCALE_BITS)
+                * alive.reshape(-1, 1, 1)).sum(0, dtype=torch.int32)
+        flat = torch.cat([v.reshape(-1) for v in tree.leaves(out)])
+        if not torch.equal(agg, want) or not torch.equal(
+                flat, sa.dequantize(agg, SCALE_BITS).reshape(-1)[
+                    :flat.numel()]):
+            raise AssertionError("async_secure: the masked sum through "
+                                 "alive is not the survivor sum")
+        dropped += int((alive == 0).sum())
+    if len(calls) != kw["rounds"] or not dropped:
+        raise AssertionError(f"async_secure: {len(calls)} combines, "
+                             f"{dropped} dropped slots")
+    log(f"async_secure: {len(calls)} rounds' masked sums through alive "
+        f"({dropped} dropped slots) == sum of the survivors' "
+        "quantize(lambda'_i m_i), bit for bit")
+
+
+def phase_rwkv_sampled(torch, kernels, runtime):
+    """rwkv_small (the reduced RWKV-6) under FedSGD with ``sampled(2)`` of
+    4 clients, 3 rounds: finite costs, the WKV scan launched once per
+    layer per forward (one super-batch upload and two eval forwards a
+    round); returns the launches."""
+    from repro_torch.data import partition
+    from repro_torch.fed import aggregation
+    from repro_torch.fed.tasks import rwkv6_task
+    task = rwkv6_task()
+    data = task.default_data(n_train=96, n_test=24, seed=0)
+    part = partition.iid(96, 4, seed=0)
+    rounds = 3
+    reset_counts(kernels)
+    _, hist = runtime.run_fedsgd(
+        data, part, task=task, batch_size=4, rounds=rounds, lr_a=0.5,
+        eval_every=1, eval_samples=48, seed=1,
+        aggregation=aggregation.sampled(2), device="cuda")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches.update(variant_counts(kernels))
+    want = {k: 0 for k in launches}
+    want.update(rwkv6_wkv=2 * 3 * rounds, rwkv6_wkv_mma=2 * 3 * rounds)
+    log(f"rwkv_small_sampled: launches over {rounds} rounds: {launches}; "
+        f"train cost {hist.train_cost}, participants "
+        f"{hist.comm['participants']}")
+    if launches != want or hist.comm["participants"] != 2 or not all(
+            math.isfinite(c) for c in hist.train_cost):
+        raise AssertionError(f"rwkv_small_sampled: launches {launches}, "
+                             f"want {want}; cost {hist.train_cost}")
+    return launches
+
+
 def phase_profile(torch, data, part, params, runtime):
     """Where the main path's round time goes: the same run once more
     under ``torch.profiler``, device activity summed by kind.  The
@@ -1722,6 +2088,13 @@ def main() -> int:
     by_path.update(phase_paper_algorithms(torch, kernels, data, part, params,
                                           runtime, card))
     log(f"paper algorithms phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parts = {"main": part,
+             "i100": partition.iid(60000, 100, seed=0),
+             "i10k": partition.iid(60000, POP_CLIENTS, seed=0)}
+    by_path.update(phase_participation(torch, kernels, data, parts, params,
+                                       runtime, card))
+    log(f"participation phase: {time.perf_counter() - t0:.1f} s")
     from repro_torch.fed.tasks import rwkv6_task, transformer_task
     lm_bf16_forward(torch)
     by_path["lm_small"] = phase_lm_small(torch, kernels, runtime, "lm_small",

@@ -24,7 +24,9 @@ declared by ``combine``:
 
 ``server_step`` takes the ``device=`` keyword the engine passes (the
 fused kernel's wrapper reads it); ``round_metrics(state)`` returns device
-scalars, read back once after the round loop.
+scalars, read back once after the round loop.  ``client_state(state)``
+is the state slice an upload reads, snapshotted beside the parameters by
+the engine's async rounds.
 """
 from __future__ import annotations
 
@@ -56,6 +58,14 @@ class _Base:
 
     def client_weights(self, part, batch_size: int) -> np.ndarray:
         return part.weights(batch_size)            # N_i / (B·N)
+
+    def client_state(self, state):
+        """The state slice ``client_upload`` reads, which the async engine
+        snapshots beside the parameters so a delayed upload replays
+        faithfully.  Sum-combine uploads are pure functions of (params,
+        batch): the empty tree."""
+        del state
+        return ()
 
     def round_metrics(self, state) -> Dict[str, Any]:
         del state
@@ -185,6 +195,11 @@ class FedAvg(_Base):
     def init_state(self, params):
         del params
         return CounterState(step=1)
+
+    def client_state(self, state):
+        # local SGD reads the round counter (its lr schedule): a delayed
+        # client replays with the lr of the round it computed at
+        return state
 
     def client_upload(self, params, state, batch):
         lr = self.hp.lr(state.step)

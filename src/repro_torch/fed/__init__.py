@@ -1,3 +1,4 @@
 """Federated runtime of the port: the single-device engine, the task
-contract, aggregation strategies, the byte ledger, the round keys and
-the :func:`repro_torch.fed.runtime.run_alg1` entry point."""
+contract, aggregation strategies (full or cohort participation), the
+staleness helpers of async rounds, the byte ledger, the round keys and
+the :mod:`repro_torch.fed.runtime` entry points."""

@@ -1,33 +1,50 @@
-"""The synchronous single-device federated driver.
+"""The single-device federated engine, cohort-native, with async rounds.
 
 The port of ``repro/fed/engine.py``'s round body for one device, without
-scan, mesh, cohorts, async rounds or pipelining.  Per run:
+scan, mesh, hierarchical groups or pipelining.  Per run:
 
-1. the mini-batch schedule is drawn up front on the host
-   (:func:`build_schedule`, the reference's draw: (T, I, B) for
-   sum-combine algorithms, (T, I, E, B) for mean-combine ones) and staged
-   on the device once, with the training arrays;
-2. each round, a Python loop step, gathers the clients' batches on the
-   device and forms the aggregate:
+1. the per-round cohorts (T, S) and their mini-batch schedule are drawn
+   up front on the host (:func:`build_schedule`, the reference's draw:
+   (T, S, B) for sum-combine algorithms, (T, S, E, B) for mean-combine
+   ones; S = I is the identity cohort) and staged on the device once,
+   with the training arrays; nothing (T, I, …)-shaped is drawn;
+2. each round, a Python loop step, gathers the cohort's population
+   weights, applies the strategy's ``cohort_weights`` (λ'), gathers the
+   cohort's batches on the device and forms the aggregate:
 
    * sum-combine (Algorithms 1 and 2, FedSGD), linear aggregation
-     (plain), no compressor: one upload on the weighted super-batch —
-     the upload is additive in the batch, so no per-client message is
-     materialized;
-   * otherwise per-client uploads under ``torch.func.vmap``: sum-combine
-     ones with each client's λ_i folded into its per-sample weights,
-     mean-combine ones (FedAvg's E local steps) weighted by λ_i = N_i/N
+     (plain or sampled), no compressor: one upload on the λ'-weighted
+     cohort super-batch — the upload is additive in the batch, so no
+     per-client message is materialized;
+   * otherwise per-slot uploads under ``torch.func.vmap`` over the S
+     cohort slots: sum-combine ones with λ'_i folded into the per-sample
+     weights, mean-combine ones (FedAvg's E local steps) weighted by λ'_i
      after the upload; compressed when a compressor is set (qsgd, top-k,
-     or the count-sketch's two phases, :func:`_sketched_round`, with the
-     error-feedback residuals of a population-resident (I, …) arena; a
-     mean-combine message is compressed as its delta from the model),
-     then the strategy's combine — for secure aggregation quantize, mask
-     and sum in one kernel launch;
+     or the count-sketch's two phases, :func:`_sketched_round`), the
+     stream seeds keyed on the slots' global client ids and the
+     error-feedback residuals gathered from and scattered back to the
+     cohort's rows of a population-resident (I, …) arena (the rows of
+     non-participants never move); a mean-combine message is compressed
+     as its delta from the model; then the strategy's combine — for
+     secure aggregation quantize, mask over the cohort positions and sum
+     in one kernel launch;
 
    then ``server_step`` (the fused SSCA kernel when ``fused=True``);
 3. eval probes and the algorithm's round metrics (Algorithm 2's slack)
    at every ``eval_every``-th round return device scalars that are read
    back once, after the loop, so no round waits on the host.
+
+``staleness=`` (a :class:`repro_torch.fed.staleness.StalenessConfig`)
+turns on the async round mode: a ring of the last K + 1 (parameters,
+client state) snapshots, newest at slot 0; every cohort slot uploads
+against the snapshot of its trace delay τ = min(trace, K), slots past K
+are dropped (weight 0, compressed message gated to 0, residual kept,
+secure pair masks cancelled through the masked sum's ``alive`` path),
+and the weights are discounted by d(τ) and renormalized
+(:func:`repro_torch.fed.staleness.discount_reweight`).  Each ring slot
+a round reads runs the synchronous program, and each cohort row is
+selected at its delay, so an all-zero trace equals the synchronous run
+bit for bit.
 
 The exact wire bytes of every round are recorded in the ledger.
 """
@@ -43,8 +60,10 @@ import torch
 from torch.func import vmap
 
 from repro_torch import Device, resolve_device, tree
-from repro_torch.data.partition import Partition, sample_schedule
+from repro_torch.data.partition import (Partition, sample_cohorts,
+                                        sample_schedule, sample_staleness)
 from repro_torch.fed import compression as compression_mod
+from repro_torch.fed import staleness as staleness_mod
 from repro_torch.fed.aggregation import PlainAggregation
 from repro_torch.fed.keys import phase2_key, round_keys
 from repro_torch.kernels.compress import client_stream_seed
@@ -138,20 +157,72 @@ def _round_ids(rounds: int, local_steps: int, e_axis: bool) -> np.ndarray:
 
 
 def build_schedule(part: Partition, batch_size: int, rounds: int,
-                   local_steps: int, seed: int,
-                   e_axis: bool = False) -> np.ndarray:
-    """Per-round batches at full participation, drawn exactly as the
-    reference's ``build_schedule`` draws them (its cohort is the identity
-    when every client uploads): (T, I, B) for sum-combine algorithms, or
-    (T, I, E, B) when ``e_axis`` (mean-combine local-step algorithms, the
+                   local_steps: int, seed: int, e_axis: bool = False,
+                   cohort_size=None) -> tuple:
+    """The per-round cohorts and their batches, drawn exactly as the
+    reference's ``build_schedule`` draws them: ``(cohorts, idx)`` with
+    ``cohorts`` (T, S) sorted client ids (the identity when S = I, the
+    default) and ``idx`` (T, S, B) for sum-combine algorithms, or
+    (T, S, E, B) when ``e_axis`` (mean-combine local-step algorithms, the
     E axis kept even at E = 1; each local step drawn under its own id
-    t·1000 + e)."""
+    t·1000 + e over the round's cohort).  Only the cohort's rows are
+    emitted, so index memory is O(T·S·B)."""
+    i = part.num_clients
+    s = i if cohort_size is None else int(cohort_size)
+    cohorts = sample_cohorts(i, s, np.arange(1, rounds + 1,
+                                             dtype=np.int64), seed)
     ids = _round_ids(rounds, local_steps, e_axis)
-    idx = sample_schedule(part, batch_size, ids, seed)       # (T·E, I, B)
+    per_id = cohorts if not e_axis \
+        else np.repeat(cohorts, local_steps, axis=0)
+    idx = sample_schedule(part, batch_size, ids, seed,
+                          cohorts=per_id)                   # (T·E, S, B)
     if e_axis:
-        idx = idx.reshape(rounds, local_steps, part.num_clients,
+        idx = idx.reshape(rounds, local_steps, s,
                           batch_size).transpose(0, 2, 1, 3)
-    return idx
+    return cohorts, idx
+
+
+def _staleness_trace(staleness, staleness_trace, cohort: int, rounds: int,
+                     seed: int):
+    """The (T, S) int64 delay trace of an async run, or ``None`` for a
+    synchronous one: drawn from ``staleness.delay_probs`` on its own rng
+    stream, or the caller's, validated."""
+    if staleness_trace is not None and staleness is None:
+        raise ValueError(
+            "staleness_trace requires the async round mode: pass a "
+            "repro_torch.fed.staleness.StalenessConfig as staleness=")
+    if staleness is None:
+        return None
+    if not isinstance(staleness, staleness_mod.StalenessConfig):
+        raise TypeError(f"staleness={staleness!r} is not a "
+                        "repro_torch.fed.staleness.StalenessConfig")
+    if staleness_trace is None:
+        return sample_staleness(cohort, np.arange(1, rounds + 1,
+                                                  dtype=np.int64),
+                                seed, staleness.delay_probs)
+    trace = np.asarray(staleness_trace, np.int64)
+    if trace.shape != (rounds, cohort):
+        raise ValueError(f"staleness_trace shape {trace.shape} != (rounds, "
+                         f"cohort) = {(rounds, cohort)}")
+    if (trace < 0).any():
+        raise ValueError("staleness_trace delays must be >= 0")
+    return trace
+
+
+def _async_ledger(trace, max_staleness: int, aggregation,
+                  num_clients: int) -> Dict[str, Any]:
+    """``History.comm["async"]``: the trace's stale share and dropouts,
+    and the seed-share recovery bytes the strategy charges a drop."""
+    dropped = int(staleness_mod.dropped_per_round(trace,
+                                                  max_staleness).sum())
+    rec = getattr(aggregation, "recovery_bytes_per_drop", None)
+    rec_per = int(rec(num_clients)) if rec else 0
+    return {"max_staleness": max_staleness,
+            "stale_fraction": float((trace > 0).mean()),
+            "dropped_total": dropped,
+            "dropout_rate": float(dropped / trace.size),
+            "recovery_bytes_per_drop": rec_per,
+            "recovery_bytes_total": dropped * rec_per}
 
 
 def _check_compressor(compressor, aggregation):
@@ -179,22 +250,35 @@ def _check_compressor(compressor, aggregation):
     return compressor
 
 
-def _sketched_round(compressor, aggregation, msgs, resid, seeds,
-                    key_words, dev):
+def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (S,) slot mask shaped to broadcast over ``like``'s rows."""
+    return mask.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+def _sketched_round(compressor, aggregation, msgs, resid, seeds, key_words,
+                    dev, alive=None):
     """The count-sketch's two phases (the reference's sketched branch):
-    sketch every client's message plus residual, combine the sketches
-    under the round key, take the support from the aggregate, combine the
-    clients' on-grid values at the support under ``fold_in(round key,
-    0x5EED)``, and debit each client's residual by its own values.
-    Returns (the k-sparse update, new residuals)."""
+    sketch every slot's message plus residual, combine the sketches under
+    the round key, take the support from the aggregate, combine the
+    slots' on-grid values at the support under ``fold_in(round key,
+    0x5EED)``, and debit each slot's residual by its own values.  With
+    ``alive`` (async rounds) a dropped slot's sketch and values are gated
+    to zero and both combines cancel its masks.  Returns (the k-sparse
+    update, new residuals)."""
+    def gate(c):
+        if alive is None:
+            return c
+        return torch.where(_rows(alive != 0, c), c, torch.zeros_like(c))
+
     inp = tree.map(lambda m, r: m.float() + r, msgs, resid)
     like = tree.map(lambda v: v[0], inp)
-    sk = compressor.encode(inp, seeds, device=dev)
+    sk = gate(compressor.encode(inp, seeds, device=dev))
     support = compressor.support(
-        aggregation.combine_messages(sk, key_words, device=dev), like)
+        aggregation.combine_messages(sk, key_words, alive=alive,
+                                     device=dev), like)
     vals = compressor.values(inp, support, seeds)
-    agg_v = aggregation.combine_messages(vals, phase2_key(key_words),
-                                         device=dev)
+    agg_v = aggregation.combine_messages(gate(vals), phase2_key(key_words),
+                                         alive=alive, device=dev)
     return compressor.reassemble(agg_v, support, like), \
         compressor.update_residual(inp, support, vals)
 
@@ -217,17 +301,24 @@ def _full_f32_matmuls():
 def run(algorithm, data, part: Partition, *, task, batch_size: int,
         rounds: int, params=None, seed: int = 0, eval_every: int = 1,
         eval_samples: int = 10000, aggregation=None, compressor=None,
+        staleness=None, staleness_trace=None,
         device: Device = None) -> tuple:
     """Run ``algorithm`` on ``task`` for ``rounds`` rounds on ``device``
     (``cuda`` unless the caller asks for the CPU).
 
     ``params=None`` initializes from ``task.init_params`` with a CPU
-    generator seeded by ``seed``.  ``seed`` also keys the batch schedule
-    and the per-round aggregation key words.  ``compressor`` (qsgd, top-k
-    or the count-sketch) compresses every client's upload; a stateful one
-    keeps its error-feedback residuals, shaped like one client's message,
-    in an (I, …) arena on ``device``.  Returns the final parameters (on
-    ``device``) and the :class:`History`.
+    generator seeded by ``seed``.  ``seed`` also keys the cohort draw, the
+    batch schedule, the staleness trace and the per-round aggregation key
+    words.  ``aggregation`` sets the cohort size S (``sampled(S)``,
+    ``secure(num_sampled=S)``; full participation by default).
+    ``compressor`` (qsgd, top-k or the count-sketch) compresses every
+    upload; a stateful one keeps its error-feedback residuals, shaped
+    like one client's message, in an (I, …) arena on ``device``.
+    ``staleness`` (a :class:`repro_torch.fed.staleness.StalenessConfig`)
+    turns on async rounds with a trace drawn from its ``delay_probs``, or
+    the (rounds, S) ``staleness_trace`` given; ``History.comm["async"]``
+    then holds the trace's dropouts and their recovery bytes.  Returns
+    the final parameters (on ``device``) and the :class:`History`.
     """
     dev = resolve_device(device)
     aggregation = aggregation if aggregation is not None \
@@ -235,13 +326,19 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     combine = algorithm.combine
     compressor = _check_compressor(compressor, aggregation)
     num_clients = part.num_clients
+    cohort = aggregation.cohort_size(num_clients)        # validates S
     if params is None:
         params = task.init_params(torch.Generator().manual_seed(seed))
     params = tree.map(lambda v: v.detach().to(dev, torch.float32, copy=True),
                       params)
-    schedule = build_schedule(part, batch_size, rounds,
-                              algorithm.local_steps, seed,
-                              e_axis=combine == "mean")
+    cohorts, schedule = build_schedule(part, batch_size, rounds,
+                                       algorithm.local_steps, seed,
+                                       e_axis=combine == "mean",
+                                       cohort_size=cohort)
+    trace = _staleness_trace(staleness, staleness_trace, cohort, rounds,
+                             seed)
+    is_async = trace is not None
+    cohorts_dev = torch.as_tensor(cohorts, device=dev)
     schedule = torch.as_tensor(schedule, device=dev)
     x_train = torch.as_tensor(data.x_train, device=dev)
     y_train = torch.as_tensor(data.y_train, device=dev)
@@ -252,70 +349,147 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     measure = evaluator(task, data, eval_samples, dev)
     ledger = compression_mod.round_bytes(algorithm, aggregation, compressor,
                                          params, num_clients)
-    arena = None
-    if compressor is not None:
-        # full participation: every client, by its global id, every round
-        cids = torch.arange(num_clients, device=dev)
-        # the per-(round, client) stream seeds, from the round key's
-        # first and last words, staged once
-        seeds = torch.as_tensor(np.asarray(
-            [[client_stream_seed(int(kw[0]), int(kw[-1]), c)
-              for c in range(num_clients)] for kw in keyw], np.int64),
-            device=dev).reshape(rounds, num_clients)
     hist = History(uplink_bytes_per_round=ledger.uplink_total,
                    downlink_bytes_per_round=ledger.downlink_total,
                    comm=ledger.as_dict())
+    arena = None
+    if compressor is not None:
+        # the per-(round, slot) stream seeds, from the round key's first
+        # and last words and the slot's global client id, so a client's
+        # draws do not depend on its cohort position: (T, S), staged once
+        kw64 = keyw.astype(np.int64)
+        seeds = torch.as_tensor(client_stream_seed(
+            kw64[:, :1], kw64[:, -1:], cohorts), device=dev)
+    if is_async:
+        k_max = staleness.max_staleness
+        # τ = min(trace, K); τ > K drops the slot (discount 0, masks
+        # cancelled, residual kept)
+        tau_host = np.minimum(trace, k_max)
+        tau_dev = torch.as_tensor(tau_host, device=dev)
+        alive_dev = torch.as_tensor((trace <= k_max).astype(np.int32),
+                                    device=dev)
+        disc_dev = torch.where(alive_dev != 0, staleness.discount(tau_dev),
+                               0.0)
+        # the snapshot ring, newest first; rounds before the run see the
+        # initial point, so a delayed slot in round 1 replays against it
+        ring = [(params, algorithm.client_state(state))] * (k_max + 1)
+        # the sum-combine uploads read no state: they replay at the live one
+        has_cs = bool(tree.leaves(ring[0][1]))
+        hist.comm["async"] = _async_ledger(trace, k_max, aggregation,
+                                           num_clients)
 
-    def upload(batch):
-        return algorithm.client_upload(params, state, batch)
+    def weighted(msgs, rw):
+        """λ'_i · m_i for each slot's leaf row."""
+        return tree.map(lambda m: m * _rows(rw, m), msgs)
 
-    def weighted(msgs):
-        """λ_i · m_i for each client's leaf row."""
-        return tree.map(lambda m: m * weights.reshape(
-            (-1,) + (1,) * (m.ndim - 1)), msgs)
+    def vmapped(batch, t):
+        """The per-slot uploads.  Async: the synchronous program once per
+        ring slot this round reads, each cohort row selected at its
+        delay (so slot 0 alone is the synchronous run)."""
+        def at(p, s):
+            return vmap(lambda b: algorithm.client_upload(p, s, b))(batch)
+        if not is_async:
+            return at(params, state)
+        out = None
+        for k in np.unique(tau_host[t]):
+            out_k = at(ring[k][0], ring[k][1] if has_cs else state)
+            sel = tau_dev[t] == int(k)
+            out = out_k if out is None else tree.map(
+                lambda o, ok: torch.where(_rows(sel, o), ok, o), out, out_k)
+        return out
 
     def aggregate(t):
-        """Round t's aggregate.  The (I, …) per-client uploads are locals
+        """Round t's aggregate.  The (S, …) per-slot uploads are locals
         here, so they are freed before the server step."""
         nonlocal arena
-        idx_t = schedule[t]                          # (I, B) or (I, E, B)
+        cohort_t = cohorts_dev[t]
+        idx_t = schedule[t]                          # (S, B) or (S, E, B)
+        rw = aggregation.cohort_weights(weights[cohort_t], combine,
+                                        num_clients)
+        alive = None
+        if is_async:
+            rw = staleness_mod.discount_reweight(rw, disc_dev[t])
+            alive = alive_dev[t]
+        if combine == "sum" and compressor is None \
+                and not aggregation.needs_messages:
+            # linear fast path: one upload on the weighted super-batch;
+            # async, one per ring slot read, its weights masked to the
+            # slots at that delay
+            flat = idx_t.reshape(-1)
+            bx, by = x_train[flat], y_train[flat]
+            if not is_async:
+                return algorithm.client_upload(
+                    params, state,
+                    (bx, by, rw.repeat_interleave(idx_t.shape[1])))
+            agg = None
+            for k in np.unique(tau_host[t]):
+                wk = torch.where(tau_dev[t] == int(k), rw, 0.0)
+                g = algorithm.client_upload(
+                    ring[k][0], state,
+                    (bx, by, wk.repeat_interleave(idx_t.shape[1])))
+                agg = g if agg is None else tree.map(torch.add, agg, g)
+            return agg
+        # the per-slot bases of mean-combine deltas: each slot's snapshot
+        base = params
+        if is_async and combine == "mean" and compressor is not None:
+            base = tree.map(lambda *h: torch.stack(h)[tau_dev[t]],
+                            *(r[0] for r in ring))
         if combine == "sum":
-            if compressor is None and not aggregation.needs_messages:
-                # linear fast path: one upload on the weighted super-batch
-                flat = idx_t.reshape(-1)
-                return upload((x_train[flat], y_train[flat],
-                               weights.repeat_interleave(idx_t.shape[1])))
-            ws = weights[:, None].expand(idx_t.shape)        # λ_i per sample
-            raw = vmap(upload)((x_train[idx_t], y_train[idx_t], ws))
+            ws = rw[:, None].expand(idx_t.shape)     # λ'_i per sample
+            raw = vmapped((x_train[idx_t], y_train[idx_t], ws), t)
         else:                                                # mean: models
-            models = vmap(upload)((x_train[idx_t], y_train[idx_t]))
+            models = vmapped((x_train[idx_t], y_train[idx_t]), t)
             raw = models if compressor is None else \
-                tree.map(lambda m, p: m - p, models, params)
+                tree.map(lambda m, p: m - p, models, base)
         if compressor is None:
-            msgs = raw if combine == "sum" else weighted(raw)
-            return aggregation.combine_messages(msgs, keyw[t], device=dev)
+            msgs = raw if combine == "sum" else weighted(raw, rw)
+            return aggregation.combine_messages(msgs, keyw[t], alive=alive,
+                                                device=dev)
         if compressor.stateful and arena is None:
             arena = compressor.init_client_state(
                 tree.map(lambda v: v[0], raw), num_clients)
-        resid = None if arena is None else tree.map(lambda a: a[cids], arena)
+        resid = None if arena is None else \
+            tree.map(lambda a: a[cohort_t], arena)
         if getattr(compressor, "sketched", False):
-            # λ_i is applied before the encode (the bucket values must
-            # stay on the fixed-point grid); a sum-combine message carries
-            # it already
-            msgs = raw if combine == "sum" else weighted(raw)
+            # λ' is applied before the encode (the bucket values must
+            # stay on the fixed-point grid); a sum-combine message
+            # carries it already
+            msgs = raw if combine == "sum" else weighted(raw, rw)
             agg, new_resid = _sketched_round(compressor, aggregation, msgs,
-                                             resid, seeds[t], keyw[t], dev)
+                                             resid, seeds[t], keyw[t], dev,
+                                             alive)
             if combine == "mean":
+                if is_async:
+                    # the deltas were taken against the slots' own
+                    # snapshots: the update applies to ω^t + Σ λ'_i
+                    # (ω^{t−τ_i} − ω^t), an exact zero shift on an
+                    # all-zero trace (the where keeps −0.0 + x exact)
+                    shift = tree.map(
+                        lambda p, b: (_rows(rw, b) * (b - p[None])).sum(0),
+                        params, base)
+                    agg = tree.map(
+                        lambda sh, d: torch.where(sh == 0, d, sh + d),
+                        shift, agg)
                 agg = tree.map(lambda p, d: p + d, params, agg)
         else:
             comp, new_resid = compressor.compress(raw, resid, seeds[t],
                                                   device=dev)
+            if is_async:
+                # a dropped slot's upload never arrived
+                comp = tree.map(lambda c: torch.where(
+                    _rows(alive != 0, c), c, torch.zeros_like(c)), comp)
             msgs = comp if combine == "sum" else weighted(
-                tree.map(lambda d, p: p + d, comp, params))
-            agg = aggregation.combine_messages(msgs, keyw[t], device=dev)
+                tree.map(lambda d, p: p + d, comp, base), rw)
+            agg = aggregation.combine_messages(msgs, keyw[t], alive=alive,
+                                               device=dev)
         if arena is not None:
+            if is_async:
+                # a dropped slot applied nothing: its residual rides
+                # through unchanged
+                new_resid = tree.map(lambda nr, od: torch.where(
+                    _rows(alive != 0, nr), nr, od), new_resid, resid)
             for a, r in zip(tree.leaves(arena), tree.leaves(new_resid)):
-                a[cids] = r
+                a[cohort_t] = r
         return agg
 
     evals = []
@@ -323,6 +497,8 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     for t in range(rounds):
         params, state = algorithm.server_step(params, state, aggregate(t),
                                               device=dev)
+        if is_async:
+            ring = [(params, algorithm.client_state(state))] + ring[:-1]
         if (t + 1) % eval_every == 0 or t + 1 == rounds:
             slack = algorithm.round_metrics(state).get("slack")
             if slack is None:       # a fill, not a copy the host waits on

@@ -12,10 +12,12 @@ algorithm (:mod:`repro_torch.core.protocol`) from the task's loss:
 on the paper's MLP task by default, or on a decoder-only LM task
 (:func:`repro_torch.fed.tasks.transformer_task`,
 :func:`~repro_torch.fed.tasks.rwkv6_task`), with plain or secure
-aggregation and optionally compressed or sketched uploads, on one device
-at full participation.  The mini-batch schedule is shared across the
-sum-combine algorithms (same seed ⇒ same sample draws), so convergence
-comparisons are paired; FedAvg draws its local steps under their own ids.
+aggregation, full or partial participation (``sampled(S)``,
+``secure(num_sampled=S)``), synchronous or async rounds (``staleness=``)
+and optionally compressed or sketched uploads, on one device.  The
+mini-batch schedule is shared across the sum-combine algorithms (same
+seed ⇒ same sample draws), so convergence comparisons are paired;
+FedAvg draws its local steps under their own ids.
 """
 from __future__ import annotations
 
@@ -61,14 +63,15 @@ def run(task, algorithm, data, part: Partition, *, batch_size: int,
 
     ``params=None`` initializes from ``task.init_params`` seeded by
     ``seed`` (in :func:`repro_torch.fed.engine.run`).  Runs on ``cuda``
-    unless ``device="cpu"`` is passed.  ``mesh``, ``staleness``,
-    ``staleness_trace``, ``arena``, ``pipeline`` and ``profile_dir`` keep
-    the reference's signature but are not ported yet: setting one raises.
+    unless ``device="cpu"`` is passed.  ``aggregation`` may sample a
+    cohort (``sampled(S)``, ``secure(num_sampled=S)``); ``staleness`` (a
+    :class:`repro_torch.fed.staleness.StalenessConfig`) and
+    ``staleness_trace`` run async rounds.  ``mesh``, ``arena``,
+    ``pipeline`` and ``profile_dir`` keep the reference's signature but
+    are not ported yet: setting one raises.
     """
     dev = resolve_device(device)
-    unported = {"mesh": mesh,
-                "staleness": staleness, "staleness_trace": staleness_trace,
-                "arena": arena, "pipeline": pipeline or None,
+    unported = {"mesh": mesh, "arena": arena, "pipeline": pipeline or None,
                 "profile_dir": profile_dir}
     unported = sorted(k for k, v in unported.items() if v is not None)
     if unported:
@@ -78,7 +81,8 @@ def run(task, algorithm, data, part: Partition, *, batch_size: int,
                       batch_size=batch_size, rounds=rounds, params=params,
                       seed=seed, eval_every=eval_every,
                       eval_samples=eval_samples, aggregation=aggregation,
-                      compressor=compressor, device=dev)
+                      compressor=compressor, staleness=staleness,
+                      staleness_trace=staleness_trace, device=dev)
 
 
 def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
@@ -106,8 +110,10 @@ def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
     :func:`repro_torch.models.transformer.params_from_numpy`).  Runs on ``cuda``
     unless ``device="cpu"`` is passed.
 
-    ``mesh``, ``staleness``, ``staleness_trace``, ``arena``, ``pipeline``
-    and ``profile_dir`` keep the reference's signature but are not ported
+    ``aggregation`` may sample a cohort (``sampled(S)``,
+    ``secure(num_sampled=S)``); ``staleness`` / ``staleness_trace`` run
+    async rounds (:func:`run`).  ``mesh``, ``arena``, ``pipeline`` and
+    ``profile_dir`` keep the reference's signature but are not ported
     yet: setting one raises.
     """
     task = _resolve_task(task, data, hidden)

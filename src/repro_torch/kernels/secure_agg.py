@@ -166,7 +166,8 @@ def masked_sum_2d(msgs: torch.Tensor, key0: int, key1: int, *,
     the messages' device.  A CPU tensor goes to :func:`masked_sum_plain`
     (only with ``device="cpu"``); a CUDA tensor launches the kernel on
     :func:`launch_plan`'s variant and adds one to ``masked_sum_2d.launches``
-    and to that variant's count in ``masked_sum_2d.launches_by_variant``.
+    and to that variant's count in ``masked_sum_2d.launches_by_variant``,
+    and, when ``alive`` is given, to its ``"alive"`` count.
     Messages that are not 16-byte aligned, as the kernel's loads need, are
     copied first.
     """
@@ -212,8 +213,11 @@ def masked_sum_2d(msgs: torch.Tensor, key0: int, key1: int, *,
     build.check(status, "masked_sum")
     masked_sum_2d.launches += 1
     masked_sum_2d.launches_by_variant[variant] += 1
+    if alive_ptr is not None:
+        masked_sum_2d.launches_by_variant["alive"] += 1
     return out
 
 
 masked_sum_2d.launches = 0
-masked_sum_2d.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+# the launches of each variant, and (``"alive"``) of those with dropouts
+masked_sum_2d.launches_by_variant = dict.fromkeys(VARIANTS + ("alive",), 0)

@@ -195,8 +195,8 @@ def test_build_schedule_matches_reference(local_steps, e_axis):
     tp = tpart.Partition(jp.flat, jp.offsets, jp.sizes)
     want = jengine.build_schedule(jp, 8, 5, local_steps, seed=7,
                                   e_axis=e_axis)[1]
-    idx = tengine.build_schedule(tp, 8, 5, local_steps, seed=7,
-                                 e_axis=e_axis)
+    _, idx = tengine.build_schedule(tp, 8, 5, local_steps, seed=7,
+                                    e_axis=e_axis)
     np.testing.assert_array_equal(idx, np.asarray(want))
     assert idx.shape == ((5, 6, local_steps, 8) if e_axis else (5, 6, 8))
     if e_axis and local_steps == 2:

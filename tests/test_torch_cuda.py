@@ -32,8 +32,9 @@ import torch
 
 from repro_torch import tree
 from repro_torch.data import partition, synthetic
-from repro_torch.fed import compression, runtime
+from repro_torch.fed import aggregation, compression, runtime
 from repro_torch.fed import sketch as fed_sketch
+from repro_torch.fed.staleness import StalenessConfig
 from repro_torch.fed.tasks import rwkv6_task, transformer_task
 from repro_torch.kernels import compress as kc
 from repro_torch.kernels import flash_attention as fa
@@ -103,6 +104,8 @@ def _masked_sum_equal_plain(msgs, variant, **kw):
     before = dict(sa.masked_sum_2d.launches_by_variant)
     got = sa.masked_sum_2d(msgs, 0xDEADBEEF, 77, scale_bits=20, **kw)
     before[variant] += 1
+    if kw.get("alive") is not None:
+        before["alive"] += 1
     assert sa.masked_sum_2d.launches_by_variant == before
     assert torch.equal(got, sa.masked_sum_plain(msgs, 0xDEADBEEF, 77,
                                                 scale_bits=20, **kw))
@@ -223,6 +226,37 @@ def test_run_alg1_on_card_tracks_cpu(dev):
     p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
     assert h_gpu.rounds == h_cpu.rounds
     assert h_gpu.uplink_bytes_per_round == h_cpu.uplink_bytes_per_round
+    np.testing.assert_allclose(h_gpu.train_cost, h_cpu.train_cost, rtol=1e-4)
+    for k in p_cpu:
+        np.testing.assert_allclose(p_gpu[k].cpu().numpy(), p_cpu[k].numpy(),
+                                   rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ["sampled_secure", "async_secure"])
+def test_participation_run_on_card_tracks_cpu(dev, case):
+    """A cohort run (``secure(num_sampled=4)`` of I = 16) and an async
+    secure run (K = 1, dropouts through the masked sum's ``alive``) on
+    the card against the same runs on the CPU."""
+    data = synthetic.classification_dataset(2000, 500, seed=0)
+    kw = dict(batch_size=10, rounds=6, eval_every=2, eval_samples=300,
+              seed=3, fused=True)
+    if case == "sampled_secure":
+        part = partition.iid(2000, 16, seed=0)
+        kw["aggregation"] = aggregation.secure(num_sampled=4)
+    else:
+        part = partition.iid(2000, 10, seed=0)
+        kw.update(secure=True, staleness=StalenessConfig(
+            max_staleness=1, delay_probs=[0.4, 0.3, 0.2, 0.1]))
+    n_sa = sa.masked_sum_2d.launches
+    n_alive = sa.masked_sum_2d.launches_by_variant["alive"]
+    p_gpu, h_gpu = runtime.run_alg1(data, part, **kw)
+    assert sa.masked_sum_2d.launches - n_sa == 6
+    assert sa.masked_sum_2d.launches_by_variant["alive"] - n_alive == \
+        (6 if case == "async_secure" else 0)
+    p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
+    assert h_gpu.rounds == h_cpu.rounds and h_gpu.comm == h_cpu.comm
+    if case == "async_secure":
+        assert h_gpu.comm["async"]["dropped_total"] > 0
     np.testing.assert_allclose(h_gpu.train_cost, h_cpu.train_cost, rtol=1e-4)
     for k in p_cpu:
         np.testing.assert_allclose(p_gpu[k].cpu().numpy(), p_cpu[k].numpy(),

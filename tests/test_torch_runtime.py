@@ -166,14 +166,18 @@ def test_sketch_scale_bits_mismatch_raises(setup):
                                    "staleness_trace", "arena", "pipeline",
                                    "profile_dir"])
 def test_unported_options_raise(setup, kwarg):
-    # compressors are ported; True is not one
+    # compressors and async rounds are ported: True is neither a
+    # compressor nor a StalenessConfig, and a trace needs staleness=
     data, part, _ = setup
-    exc = TypeError if kwarg == "compressor" else NotImplementedError
+    exc = {"compressor": TypeError, "staleness": TypeError,
+           "staleness_trace": ValueError}.get(kwarg, NotImplementedError)
     with pytest.raises(exc, match=kwarg):
         trt.run_alg1(data, part, device="cpu", **KW, **{kwarg: True})
 
 
-@pytest.mark.parametrize("kw,exc", [({"num_sampled": 4}, NotImplementedError),
+# a sampled secure aggregation still refuses the mask-materializing path
+@pytest.mark.parametrize("kw,exc", [({"num_sampled": 4, "streaming": False},
+                                     NotImplementedError),
                                     ({"streaming": False}, NotImplementedError),
                                     ({"scale_bits": 31}, ValueError),
                                     ({"scale_bits": True}, ValueError)])
