@@ -82,7 +82,29 @@ last line):
    population's residual rows of clients never drawn stay zero, and that
    the masked sum through ``alive`` is the survivors' quantized sum; and
    run rwkv_small under FedSGD with ``sampled(2)`` of 4 clients, its WKV
-   launches counted;
+   launches counted; then the engine's single-device modes
+   (``phase_engine_modes``), at the same data and weights, 20 rounds:
+   the masked sum's ring mode (``masked_ring_sum_2d``, the hierarchical
+   tree's level 2) first held bit for bit against its plain version
+   (G = 2, 3, 16 and 600 groups, both variants, dropouts, a group offset,
+   rows one element past alignment); ``hierarchical(secure(), G)`` at
+   G = 2 and 3 (``masked_sum`` G times a round, the ring mode once; final
+   weights bit for bit those of flat secure), at G = 2 with
+   ``topk(0.1, bits=8)`` and with async rounds (the participation
+   phase's K = 2 trace: 33 drops at 16 B each, the ``alive`` launches
+   counted), ``pipeline=True`` flat and under the tree (bit for bit the
+   async run at the constant τ ≡ 1 trace, no ``alive`` launch), and the
+   pipelined secure run once more with ``profile_dir`` (its one trace
+   file must name ``masked_sum_kernel``): each path's launches, ledger
+   (the tree's edge hop included), ``comm`` entry, finite costs, round
+   time, device time by kind, and a 5-round run against the port's CPU
+   run; and a cohort of 512 of the 10,000-client population under
+   ``hierarchical(secure(num_sampled=512), groups=16)`` beside flat
+   ``secure(num_sampled=512)`` (B = 6, 10 rounds, the card only), after
+   ``masked_sum`` is held bit for bit at its level-1 shape (32, 794, 128)
+   under a folded group key: final weights bit for bit, the ledgers, root
+   ingest and mask pairs by the reference's formulas, each path's
+   masked-sum device time and round time;
 5. drive the decoder-only LM (``transformer_task()``: llama3-8b cut to
    2 layers of width 64) secure and fused on the card for 5 rounds,
    counters set to 0 just before and read just after, and hold it to
@@ -107,7 +129,9 @@ last line):
    full-width LM paths' widths, once those paths have freed their
    memory: the median of 5 eager launches after 2 warm-ups, from CUDA
    events, each output checked (the aggregate against Σ quantize(m_i),
-   the update against its plain version bit for bit); then run the main
+   the update against its plain version bit for bit), and the ring mode
+   (G = 2 group rows) at llama3-8b's width the same way, checked against
+   the int32 sum; then run the main
    path once more under ``torch.profiler`` and print the device time by
    kind and the device's busy share of the round loop;
 8. time each kernel and its plain version on the paths' shapes (CUDA
@@ -120,8 +144,14 @@ last line):
    f32 (``flash_attention_f32_wide``, SDPA's backend named); the launch
    floor, an empty kernel's graph replay, beside ``ssca_update``,
    ``masked_sum`` and ``sketch_encode`` at the MLP shape; each row gives
-   its bound's parts (bytes, and each kind of operation at its rate), the
-   ``masked_sum`` row its launches by variant,
+   its bound's parts (bytes, and each kind of operation at its rate; the
+   masked sum's count only the streams its output needs,
+   ``streams_needed``: none where every row is local), the
+   ``masked_sum`` row its launches by variant, the ring mode's row
+   (``masked_ring_sum``) its time at the S = 512 tree's level 2,
+   (16, 794, 128) int32, and at llama3-8b's width, and both rows a
+   ``shard`` timing where the streams are real (3 of 10 clients, 3 of
+   16 groups, at offset 5),
    and the ``masked_sum`` and ``ssca_update`` rows, for each
    full-width LM path, the launches, the profiled round's launch time,
    the direct launches' time and the bound at that path's parameter
@@ -1693,6 +1723,349 @@ def phase_rwkv_sampled(torch, kernels, runtime):
     return launches
 
 
+# the engine's single-device modes: (name, runtime entry, arguments,
+# launches over ROUNDS rounds other than 0, launches with alive, uplink
+# bytes a round, the comm entry to check ("async" or "pipeline") and its
+# value, the run it equals bit for bit: None or (what, arguments))
+MLP_N = 101_632
+
+
+def tree_uplink(s, g, n=MLP_N):
+    """The hierarchical secure ledger's uplink a round: S client uploads
+    with M − 1 group peers' seed shares, and G edge partials with G − 1
+    group-level ones."""
+    m = -(-s // g)
+    return s * (4 * n + 4 * (m - 1)) + g * (4 * n + 4 * (g - 1))
+
+
+def engine_mode_paths():
+    from repro_torch.fed import aggregation, compression
+    from repro_torch.fed.staleness import ConstantDiscount, StalenessConfig
+    per = ROUNDS
+    alg1 = dict(batch_size=100, fused=True)
+    hier2 = aggregation.hierarchical(aggregation.secure(), groups=2)
+    tau1 = dict(staleness=StalenessConfig(max_staleness=1,
+                                          schedule=ConstantDiscount()),
+                staleness_trace=[[1] * CLIENTS] * ROUNDS)
+    pipe = ("pipeline", {"enabled": True, "depth": 1,
+                         "extra_snapshot_slots": 1})
+    return [
+        ("hier2_secure", dict(alg1, aggregation=hier2),
+         {"ssca_update": per, "masked_sum": 2 * per,
+          "masked_ring_sum": per}, 0, tree_uplink(CLIENTS, 2), None,
+         ("flat secure", dict(alg1, secure=True))),
+        ("hier3_secure", dict(alg1, aggregation=aggregation.hierarchical(
+            aggregation.secure(), groups=3)),
+         {"ssca_update": per, "masked_sum": 3 * per,
+          "masked_ring_sum": per}, 0, tree_uplink(CLIENTS, 3), None,
+         ("flat secure", dict(alg1, secure=True))),
+        ("hier2_topk8_secure", dict(alg1, aggregation=hier2,
+                                    compressor=compression.topk(0.1,
+                                                                bits=8)),
+         {"ssca_update": per, "masked_sum": 2 * per, "masked_ring_sum": per,
+          "compress": per}, 0, tree_uplink(CLIENTS, 2), None, None),
+        ("async_hier2_secure", dict(alg1, aggregation=hier2,
+                                    staleness=StalenessConfig(
+                                        max_staleness=2,
+                                        delay_probs=ASYNC_PROBS)),
+         {"ssca_update": per, "masked_sum": 2 * per,
+          "masked_ring_sum": per}, 2 * per, tree_uplink(CLIENTS, 2),
+         ("async", async_ledger(2, 33, 16)), None),
+        ("pipeline_secure", dict(alg1, secure=True, pipeline=True),
+         {"ssca_update": per, "masked_sum": per}, 0, 4_065_640, pipe,
+         ("async τ ≡ 1", dict(alg1, secure=True, **tau1))),
+        ("pipeline_hier2_secure", dict(alg1, aggregation=hier2,
+                                       pipeline=True),
+         {"ssca_update": per, "masked_sum": 2 * per,
+          "masked_ring_sum": per}, 0, tree_uplink(CLIENTS, 2), pipe,
+         ("async τ ≡ 1", dict(alg1, aggregation=hier2, **tau1))),
+    ]
+
+
+def masked_us(torch, prof):
+    """Device µs of the masked sum's two instances in one profiled run:
+    the quantizing one (``masked_sum``) and the ring mode
+    (``masked_ring_sum``)."""
+    us = {"masked_sum": 0.0, "masked_ring_sum": 0.0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "masked_sum_kernel" in e.name:
+            kind = "masked_ring_sum" if "masked_sum_kernel<int" in e.name \
+                else "masked_sum"
+            us[kind] += e.time_range.elapsed_us()
+    return us
+
+
+def phase_ring_parity(torch, sa):
+    """The masked sum's ring mode against its plain version on the card,
+    bit for bit: the tree's level-2 shapes at the MLP's 794 rows (G = 2,
+    3, 16; both variants), dropouts, a group offset, 600 groups (the
+    table in chunks) and rows one element past alignment; the whole set
+    of groups sums to the plain int32 sum.  Returns the max abs error."""
+    g = torch.Generator().manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rows(num, r):
+        return torch.randint(-2 ** 31, 2 ** 31, (num, r, 128), generator=g,
+                             dtype=torch.int64).to(torch.int32).cuda()
+
+    err = 0
+    for num, groups, r, offset, alive, shift in (
+            (2, 2, 794, 0, None, False), (3, 3, 794, 0, None, False),
+            (16, 16, 794, 0, None, False), (16, 16, 4608, 0, None, False),
+            (16, 16, 794, 0, [1, 0] * 8, False), (3, 16, 794, 5, None, False),
+            (3, 600, 4608, 0, None, False), (3, 600, 8, 0, None, False),
+            (16, 16, 794, 0, None, True)):
+        q = rows(num, r)
+        if shift:
+            q = misaligned(torch, q)
+        a = None if alive is None else torch.tensor(alive, device="cuda")
+        kw = dict(num_clients=groups, client_offset=offset, alive=a)
+        variant = sa.launch_plan(r * 128, num, groups, sms)[0]
+        before = dict(sa.masked_ring_sum_2d.launches_by_variant)
+        got = sa.masked_ring_sum_2d(q, 0x8BADF00D, 0x1234567, **kw)
+        before[variant] += 1
+        if a is not None:
+            before["alive"] += 1
+        want = sa.masked_ring_sum_plain(q, 0x8BADF00D, 0x1234567, **kw)
+        torch.cuda.synchronize()
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        name = (f"({num}, {r}, 128) of {groups} groups at offset {offset}"
+                f"{', dropouts' if a is not None else ''}"
+                f"{', one element past alignment' if shift else ''}")
+        if not torch.equal(got, want) or \
+                sa.masked_ring_sum_2d.launches_by_variant != before:
+            raise AssertionError(
+                f"masked_ring_sum differs from plain: {name} "
+                f"({sa.masked_ring_sum_2d.launches_by_variant})")
+        if offset == 0 and num == groups and a is None:
+            total = q.long().sum(0) & 0xFFFFFFFF
+            total = torch.where(total >= 2 ** 31, total - 2 ** 32, total)
+            if not torch.equal(got, total.to(torch.int32)):
+                raise AssertionError(f"masked_ring_sum != plain ring sum: "
+                                     f"{name}")
+        log(f"masked_ring_sum: kernel == plain bit for bit: {name} "
+            f"({variant})")
+    return err
+
+
+def phase_engine_modes(torch, kernels, data, parts, params, runtime, card):
+    """The engine's single-device modes at the MLP's full width on the
+    card: the hierarchical secure tree (G = 2 and 3, with top-k, async
+    with dropouts), pipelined rounds (flat and under the tree), a
+    profiled pipelined run, and the tree at a cohort of 512 of 10,000
+    clients beside flat secure.  Exact launches (the ring mode too),
+    ledgers and bitwise equalities, finite costs, and a 5-round run held
+    to the port's CPU run; returns each path's launches."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree
+    from repro_torch.fed import aggregation
+    from repro_torch.kernels import secure_agg as sa
+    by_path = {}
+    part = parts["main"]
+    for name, extra, nonzero, alive, up, entry, same in engine_mode_paths():
+        kw = dict(extra, eval_every=10, seed=0, params=params)
+        reset_counts(kernels)
+        p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda",
+                                        rounds=ROUNDS, **kw)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        want = {k: nonzero.get(k, 0) for k in kernels}
+        n_alive = sa.masked_sum_2d.launches_by_variant["alive"] \
+            + sa.masked_ring_sum_2d.launches_by_variant["alive"]
+        log(f"{name}: launches over {ROUNDS} rounds: {launches}, with "
+            f"alive {n_alive}")
+        if launches != want or n_alive != alive:
+            raise AssertionError(f"{name}: launches {launches} ("
+                                 f"{variant_counts(kernels)}), want {want} "
+                                 f"and {alive} with alive")
+        by_path[name] = {**launches, **variant_counts(kernels)}
+        got_entry = {k: h_gpu.comm.get(k) for k in ("async", "pipeline")}
+        want_entry = {"async": None, "pipeline": None}
+        if entry is not None:
+            want_entry[entry[0]] = entry[1]
+        if (h_gpu.uplink_bytes_per_round, h_gpu.downlink_bytes_per_round) \
+                != (up, 4_065_280) or got_entry != want_entry:
+            raise AssertionError(
+                f"{name}: ledger {h_gpu.uplink_bytes_per_round} up, "
+                f"{h_gpu.downlink_bytes_per_round} down, {got_entry}; want "
+                f"{up}, 4065280, {want_entry}")
+        cost = h_gpu.train_cost
+        if not all(math.isfinite(c) for c in cost + h_gpu.test_accuracy):
+            raise AssertionError(f"{name}: metrics not finite: {cost}")
+        log(f"{name}: ledger {up} up / 4065280 down bytes a round "
+            f"(group hop {h_gpu.comm['breakdown']['group_uplink_bytes']}), "
+            f"{json.dumps(got_entry)}; train cost {cost}, test accuracy "
+            f"{h_gpu.test_accuracy}; round time "
+            f"{h_gpu.wall_seconds / ROUNDS * 1e3:.3f} ms (I = {CLIENTS}, "
+            f"B = 100, eval every 10 rounds included) on {card}")
+        if same is not None:
+            same_run(torch, f"{name} against {same[0]}", (p_gpu, h_gpu),
+                     runtime.run_alg1(data, part, device="cuda",
+                                      rounds=ROUNDS,
+                                      **dict(same[1], eval_every=10, seed=0,
+                                             params=params)))
+        del p_gpu
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, h_prof = runtime.run_alg1(data, part, device="cuda",
+                                         rounds=ROUNDS, **kw)
+        us, top_other = device_us_by_kind(torch, prof)
+        busy = sum(v for k, v in us.items() if k != "staging_htod")
+        log(f"{name}: profile:", json.dumps({
+            "rounds": ROUNDS, "profiled_wall_ms": h_prof.wall_seconds * 1e3,
+            "device_us": us, "masked_sum_us_by_mode": masked_us(torch, prof),
+            "device_busy_share_of_round_loop":
+                busy / (h_prof.wall_seconds * 1e6),
+            "largest_other_us": top_other}))
+
+        # the card against the port's CPU run, over fewer rounds (the
+        # participation phase's limits)
+        short = dict(kw, rounds=CARD_CPU_ROUNDS, eval_every=1)
+        p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda", **short)
+        t0 = time.perf_counter()
+        p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **short)
+        cpu_s = time.perf_counter() - t0
+        diffs = card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu)
+        log(f"{name}: card vs CPU over {CARD_CPU_ROUNDS} rounds:",
+            json.dumps(diffs), f"(CPU run {cpu_s:.1f} s)")
+        limits = {"train_cost": 1e-6, "test_accuracy_abs": 1e-3,
+                  "params_abs": 1e-3 if "topk" in name else 2e-5}
+        if h_gpu.comm != h_cpu.comm or h_gpu.rounds != h_cpu.rounds:
+            raise AssertionError(f"{name}: card and CPU ledgers differ")
+        for k, lim in limits.items():
+            if not diffs[k] <= lim:
+                raise AssertionError(f"{name}: card run drifts from CPU run: "
+                                     f"{k} {diffs[k]} > {lim}")
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+
+    # profile_dir: the pipelined secure run writes one Chrome trace, which
+    # names the masked sum's kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        runtime.run_alg1(data, part, device="cuda", rounds=ROUNDS,
+                         secure=True, pipeline=True, batch_size=100,
+                         fused=True, eval_every=10, seed=0, params=params,
+                         profile_dir=tmp)
+        traces = [p for p in Path(tmp).rglob("*") if p.is_file()]
+        if len(traces) != 1 or "masked_sum_kernel" not in \
+                traces[0].read_text():
+            raise AssertionError(f"profile_dir wrote {traces}, or its trace "
+                                 "names no masked_sum_kernel")
+        log(f"pipeline_secure with profile_dir: one trace, "
+            f"{traces[0].stat().st_size} B, names masked_sum_kernel")
+
+    by_path["hier16_S512"] = phase_hier16_s512(torch, kernels, data,
+                                               parts["i10k"], runtime, tree,
+                                               aggregation, card)
+    return by_path
+
+
+HIER_COHORT, HIER_GROUPS, HIER_ROUNDS = 512, 16, 10
+
+
+def level1_parity(torch, members):
+    """``masked_sum`` at the S = 512 tree's level-1 shape, (M, 794, 128)
+    f32 of M = 32 members, under the key of the last group of round 1
+    (the round key folded by the group id), against its plain version bit
+    for bit: M(M − 1) = 992 directed streams.  With the ring mode's
+    parity and the tree's bitwise equality with flat secure, it holds
+    the flat path's (512, 794, 128) too."""
+    from repro_torch.fed import keys
+    from repro_torch.kernels import secure_agg as sa
+    kd = keys.fold_in(keys.round_keys(0, 1)[0], [HIER_GROUPS - 1])[0]
+    g = torch.Generator().manual_seed(8)
+    msgs = (torch.randn(members, 794, 128, generator=g) * 1e-3).cuda()
+    kw = dict(scale_bits=SCALE_BITS, num_clients=members)
+    got = sa.masked_sum_2d(msgs, int(kd[0]), int(kd[-1]), **kw)
+    want = sa.masked_sum_plain(msgs, int(kd[0]), int(kd[-1]), **kw)
+    if not torch.equal(got, want):
+        raise AssertionError(f"masked_sum at the tree's level-1 shape "
+                             f"({members}, 794, 128) != plain")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    variant = sa.launch_plan(794 * 128, members, members, sms)[0]
+    log(f"masked_sum: kernel == plain bit for bit at the S = 512 tree's "
+        f"level-1 shape ({members}, 794, 128) of {members} members under a "
+        f"folded group key ({variant})")
+
+
+def phase_hier16_s512(torch, kernels, data, part, runtime, tree, aggregation,
+                      card):
+    """A cohort of 512 of the 10,000-client population (6 samples each,
+    B = 6, 10 rounds) under ``hierarchical(secure(num_sampled=512),
+    groups=16)`` beside flat ``secure(num_sampled=512)``, on the card only
+    (the CPU's plain masked sum at S = 512 is too slow): final weights bit
+    for bit, the ledgers by the reference's formulas, each path's
+    masked-sum device time and round time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.mlpapp import model
+    s, g, rounds = HIER_COHORT, HIER_GROUPS, HIER_ROUNDS
+    params = model.init_params(torch.Generator().manual_seed(0), 784, 128,
+                               10)
+    hier = aggregation.hierarchical(aggregation.secure(num_sampled=s),
+                                    groups=g)
+    flat = aggregation.secure(num_sampled=s)
+    m = hier.members(part.num_clients)
+    want = {"hier16": dict(agg=hier, up=tree_uplink(s, g),
+                           launches={"ssca_update": rounds,
+                                     "masked_sum": g * rounds,
+                                     "masked_ring_sum": rounds},
+                           root=g * 4 * MLP_N,
+                           pairs=g * m * (m - 1) // 2 + g * (g - 1) // 2),
+            "flat": dict(agg=flat, up=s * (4 * MLP_N + 4 * (s - 1)),
+                         launches={"ssca_update": rounds,
+                                   "masked_sum": rounds},
+                         root=s * 4 * MLP_N, pairs=s * (s - 1) // 2)}
+    if (want["hier16"]["up"], want["flat"]["up"], want["hier16"]["root"],
+            want["hier16"]["pairs"], want["flat"]["pairs"]) != (
+            214_711_232, 209_188_864, 6_504_448, 8_056, 130_816) or \
+            hier.root_ingest_bytes(MLP_N, part.num_clients) \
+            != want["hier16"]["root"] or \
+            hier.mask_pair_count(part.num_clients) != want["hier16"]["pairs"]:
+        raise AssertionError("hier16_S512: the tree's hooks differ from the "
+                             "reference's formulas")
+    level1_parity(torch, m)
+    runs, launches_out = {}, {}
+    for key, w in want.items():
+        kw = dict(batch_size=POP_BATCH, rounds=rounds, eval_every=rounds,
+                  seed=0, fused=True, params=params, aggregation=w["agg"])
+        # warm-up at the path's shapes, kept out of the round time
+        runtime.run_alg1(data, part, device="cuda", **dict(kw, rounds=2))
+        reset_counts(kernels)
+        p, h = runtime.run_alg1(data, part, device="cuda", **kw)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        if launches != {k: w["launches"].get(k, 0) for k in kernels} \
+                or h.uplink_bytes_per_round != w["up"] \
+                or h.downlink_bytes_per_round != s * 4 * MLP_N \
+                or not all(math.isfinite(c) for c in h.train_cost):
+            raise AssertionError(f"hier16_S512 ({key}): launches {launches},"
+                                 f" ledger {h.uplink_bytes_per_round} / "
+                                 f"{h.downlink_bytes_per_round}, cost "
+                                 f"{h.train_cost}")
+        if key == "hier16":
+            launches_out = {**launches, **variant_counts(kernels)}
+        runs[key] = (p, h)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, h_prof = runtime.run_alg1(data, part, device="cuda", **kw)
+        us = masked_us(torch, prof)
+        kinds, _ = device_us_by_kind(torch, prof)
+        busy = sum(v for k, v in kinds.items() if k != "staging_htod") \
+            / (h_prof.wall_seconds * 1e6)
+        log(f"hier16_S512 ({key}): device busy {busy:.4f} of the profiled "
+            f"round loop, device us by kind {json.dumps(kinds)}")
+        log(f"hier16_S512 ({key}): uplink {h.uplink_bytes_per_round} B, "
+            f"root ingest {w['root']} B, mask pairs {w['pairs']} a round; "
+            f"round time {h.wall_seconds / rounds * 1e3:.3f} ms; masked-sum "
+            "device time a round "
+            f"{json.dumps({k: v / rounds for k, v in us.items()})} us "
+            f"(profiled run {h_prof.wall_seconds / rounds * 1e3:.3f} ms a "
+            f"round); train cost {h.train_cost} on {card}")
+    same_run(torch, "hier16_S512 against flat secure(num_sampled=512)",
+             runs["hier16"], runs["flat"])
+    return launches_out
+
+
 def phase_profile(torch, data, part, params, runtime):
     """Where the main path's round time goes: the same run once more
     under ``torch.profiler``, device activity summed by kind.  The
@@ -1775,11 +2148,15 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                           for _ in range(4))
     sc = torch.tensor([0.5, 0.6, 0.1, 1e-5], device=dev)
     msgs = (torch.randn(CLIENTS, 794, 128, generator=g) * 1e-3).to(dev)
-    kw = dict(scale_bits=SCALE_BITS, num_clients=CLIENTS)
+    kq = dict(scale_bits=SCALE_BITS)
+    kw = dict(kq, num_clients=CLIENTS)
     ssca_bytes = (7 * n + 4) * 4
+    # the masked sum: every client local at offset 0, so its output needs
+    # no stream (streams_needed)
     ms_bytes = (CLIENTS * n + n) * 4
-    ms_ops = n * CLIENTS * ((CLIENTS - 1) * OPS_PER_STREAM + OPS_PER_ROW)
-    ms_alu = n * CLIENTS * (CLIENTS - 1) * ALU_OPS_PER_STREAM
+    ms_streams = streams_needed(CLIENTS, 0, CLIENTS)
+    ms_ops = n * (ms_streams * OPS_PER_STREAM + CLIENTS * OPS_PER_ROW)
+    ms_alu = n * ms_streams * ALU_OPS_PER_STREAM
     # compress at the top-k path's shape and scalars; each input read
     # once (x, 2 int64 and 2 f32 scalars a client), each output written
     # once (out, residual)
@@ -1915,6 +2292,16 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
             rows[-1]["launches_by_variant"] = {
                 v: launches[f"masked_sum_{v}"]
                 for v in sa.masked_sum_2d.launches_by_variant}
+            rows[-1]["streams_needed"] = ms_streams
+            rows[-1]["streams_run"] = CLIENTS * (CLIENTS - 1)
+            rows[-1]["shard"] = shard_timing(
+                torch, lambda q, k0, k1, **a: sa.masked_sum_2d(q, k0, k1,
+                                                               **a, **kq),
+                lambda q, k0, k1, **a: sa.masked_sum_plain(q, k0, k1, **a,
+                                                           **kq),
+                msgs[5:8].contiguous(), CLIENTS, 5, OPS_PER_ROW)
+            log("masked_sum at a shard of 3 of 10 clients at offset 5:",
+                json.dumps(rows[-1]["shard"]))
         if name.startswith("flash_attention"):
             rows[-1]["shape"] = list(
                 {"flash_attention": FLASH_PATH,
@@ -1968,6 +2355,138 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     return rows
 
 
+# the ring mode's operations per element of one group row: the running
+# sum times alive, one multiply-add (no quantize)
+OPS_PER_RING_ROW = 1
+
+
+def streams_needed(i_loc, offset, num_clients, alive=None):
+    """Directed mask streams an element that the masked sum's output
+    needs, in either mode: each live local row's streams to the live rows
+    outside [offset, offset + i_loc).  A stream between two live local
+    rows cancels its partner's in the sum mod 2^32 (and one to or from a
+    dropped row is never added), so at offset 0 with every row local the
+    output is the plain sum of the rows and needs no stream: a function
+    that skips those streams gives the same bits."""
+    live = [1] * num_clients if alive is None else [int(a) for a in alive]
+    local = range(offset, offset + i_loc)
+    outside = sum(live[j] for j in range(num_clients) if j not in local)
+    return sum(live[i] for i in local) * outside
+
+
+def mask_work(rows, n, streams, per_row):
+    """The masked sum's bound's parts in ms, either mode, over ``rows``
+    local rows of n elements whose output needs ``streams`` directed
+    streams an element (:func:`streams_needed`).  Bytes: each row read
+    once, the sum written once, (rows + 1)·4·n.  Operations: each stream
+    at OPS_PER_STREAM (ALU_OPS_PER_STREAM of them on the ALU pipe) and
+    ``per_row`` a row (OPS_PER_ROW quantizing, OPS_PER_RING_ROW in the
+    ring mode)."""
+    ops = {"int32": n * (streams * OPS_PER_STREAM + rows * per_row),
+           "int32_alu": n * streams * ALU_OPS_PER_STREAM}
+    parts = {"bytes": (rows + 1) * 4 * n / HBM_BYTES_PER_S * 1e3}
+    parts.update({k: v / RATES[k] * 1e3 for k, v in ops.items()})
+    return parts
+
+
+def bound_of(parts):
+    """(bound_ms, bound_by) of a bound's parts."""
+    ops_ms = max(v for k, v in parts.items() if k != "bytes")
+    return max(parts["bytes"], ops_ms), \
+        "bytes" if parts["bytes"] >= ops_ms else "operations"
+
+
+def shard_timing(torch, kernel, plain, q, num_clients, offset, per_row):
+    """One mode of the masked sum at a shard, where its streams are real:
+    the rows ``q`` (I_loc, R, 128) are rows [offset, offset + I_loc) of
+    ``num_clients``, so their streams to the other rows do not cancel.
+    Held bit for bit against the plain version, then timed (graph
+    replay) beside the bound of the streams its output needs."""
+    kw = dict(num_clients=num_clients, client_offset=offset)
+    if not torch.equal(kernel(q, 1, 2, **kw), plain(q, 1, 2, **kw)):
+        raise AssertionError(f"masked sum at a shard {tuple(q.shape)} of "
+                             f"{num_clients} at offset {offset} != plain")
+    i_loc, r = q.shape[:2]
+    needed = streams_needed(i_loc, offset, num_clients)
+    parts = mask_work(i_loc, r * 128, needed, per_row)
+    bound, by = bound_of(parts)
+    return {"shape": list(q.shape), "num_clients": num_clients,
+            "offset": offset, "streams_needed": needed,
+            "streams_run": i_loc * (num_clients - 1),
+            "ms": time_ms(lambda: kernel(q, 1, 2, **kw)), "bound_ms": bound,
+            "bound_by": by, "bound_parts_ms": parts}
+
+
+def ring_full_width(torch, sa):
+    """The ring mode timed directly at llama3-8b's full-width row count
+    with G = 2 group partials: the median of 5 eager launches after 2
+    warm-ups, from CUDA events; the output checked against the plain
+    int32 sum (entries in ±2^30, so the sum does not wrap).  Buffers:
+    7.7 GB in, 3.8 GB out."""
+    rows = -(-LM_PARAMS // 128)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randint(-2 ** 30, 2 ** 30, (2, rows, 128), device="cuda",
+                      generator=gen, dtype=torch.int32)
+    ms = eager_ms(lambda: sa.masked_ring_sum_2d(q, 1, 2, num_clients=2))
+    got = sa.masked_ring_sum_2d(q, 1, 2, num_clients=2)
+    if not torch.equal(got, q[0] + q[1]):
+        raise AssertionError("masked_ring_sum at llama3-8b's width != the "
+                             "plain int32 sum")
+    del q, got
+    torch.cuda.empty_cache()
+    parts = mask_work(2, rows * 128, streams_needed(2, 0, 2),
+                      OPS_PER_RING_ROW)
+    bound, by = bound_of(parts)
+    out = {"rows": rows, "groups": 2, "direct_ms": ms, "bound_ms": bound,
+           "bound_by": by, "bound_parts_ms": parts}
+    log("masked_ring_sum at llama3-8b's full-width rows, G = 2, direct "
+        "launches, checked against the int32 sum:", json.dumps(out))
+    return out
+
+
+def ring_row(torch, sa, launches, by_path, err, full_width):
+    """The ``{"kernels": [...]}`` row of the masked sum's ring mode,
+    timed at the S = 512 tree's level 2, (G, R, 128) = (16, 794, 128)
+    int32, every group local at offset 0 (so its bound is its bytes:
+    :func:`streams_needed`), with its time at llama3-8b's width and at a
+    shard of 3 of the 16 groups at offset 5 beside it."""
+    g = torch.Generator().manual_seed(6)
+    shape = (HIER_GROUPS, 794, 128)
+    q = torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                      dtype=torch.int64).to(torch.int32).cuda()
+    needed = streams_needed(shape[0], 0, shape[0])
+    parts = mask_work(shape[0], shape[1] * shape[2], needed,
+                      OPS_PER_RING_ROW)
+    bound, by = bound_of(parts)
+    shard = shard_timing(torch, sa.masked_ring_sum_2d,
+                         sa.masked_ring_sum_plain, q[5:8].contiguous(),
+                         shape[0], 5, OPS_PER_RING_ROW)
+    row = {"name": "masked_ring_sum", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/secure_agg.cu",
+           "replaces": "src/repro/kernels/secure_agg.py:233",
+           "launches": launches["masked_ring_sum"],
+           "launches_by_path": {p: v.get("masked_ring_sum", 0)
+                                for p, v in by_path.items()},
+           "launches_by_variant": {
+               v: launches[f"masked_ring_sum_{v}"]
+               for v in sa.masked_ring_sum_2d.launches_by_variant},
+           "max_abs_err": err,
+           "ms": time_ms(lambda: sa.masked_ring_sum_2d(
+               q, 1, 2, num_clients=shape[0])),
+           "plain_ms": time_ms(lambda: sa.masked_ring_sum_plain(
+               q, 1, 2, num_clients=shape[0]), iters=5, repeats=3),
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "bound_parts_ms": parts, "shape": list(shape),
+           "streams_needed": needed,
+           "streams_run": shape[0] * (shape[0] - 1), "shard": shard,
+           "full_width": {"llama3-8b": full_width}}
+    log(f"masked_ring_sum: {row['ms'] * 1e3:.4f} us at {shape} against a "
+        f"{bound * 1e3:.4f} us bound ({by}); at a shard of 3 of 16 groups "
+        f"at offset 5: {shard['ms'] * 1e3:.4f} us against "
+        f"{shard['bound_ms'] * 1e3:.4f} us ({shard['bound_by']})")
+    return row
+
+
 def full_width_rows(rows, by_path, profiled, direct):
     """The server-side kernels at the full-width LM paths' shapes: the
     ``masked_sum`` and ``ssca_update`` rows gain, for each path, the
@@ -1981,12 +2500,10 @@ def full_width_rows(rows, by_path, profiled, direct):
         for path, n in FULL_WIDTH.items():
             n = -(-n // 128) * 128
             if row["name"] == "masked_sum":
+                parts = mask_work(LM_CLIENTS, n, streams_needed(
+                    LM_CLIENTS, 0, LM_CLIENTS), OPS_PER_ROW)
                 nbytes = (LM_CLIENTS * n + n) * 4
-                ops = n * LM_CLIENTS * ((LM_CLIENTS - 1) * OPS_PER_STREAM
-                                        + OPS_PER_ROW)
-                alu = n * LM_CLIENTS * (LM_CLIENTS - 1) * ALU_OPS_PER_STREAM
-                ops_ms = max(ops / INT32_OPS_PER_S,
-                             alu / INT32_ALU_OPS_PER_S) * 1e3
+                ops_ms = max(v for k, v in parts.items() if k != "bytes")
             else:
                 nbytes = (7 * n + 4) * 4
                 ops_ms = FLOPS_SSCA * n / FP32_FLOPS_PER_S * 1e3
@@ -2047,7 +2564,7 @@ def main() -> int:
     log("rwkv6_wkv (registers a thread, spill bytes a thread, shared bytes "
         "a block) by instance:", json.dumps(rw.kernel_attributes()))
     log("masked_sum (registers a thread, spill bytes a thread, shared bytes "
-        "a block):", json.dumps(sa.kernel_attributes()))
+        "a block) by instance:", json.dumps(sa.kernel_attributes()))
     stream_loop_mix()
 
     errs = phase_kernel_parity(torch, su, sa)
@@ -2095,6 +2612,13 @@ def main() -> int:
     by_path.update(phase_participation(torch, kernels, data, parts, params,
                                        runtime, card))
     log(f"participation phase: {time.perf_counter() - t0:.1f} s")
+    # the ring mode's wrapper counts its launches apart from masked_sum's
+    kernels = dict(kernels, masked_ring_sum=sa.masked_ring_sum_2d)
+    t0 = time.perf_counter()
+    errs["masked_ring_sum"] = phase_ring_parity(torch, sa)
+    by_path.update(phase_engine_modes(torch, kernels, data, parts, params,
+                                      runtime, card))
+    log(f"engine modes phase: {time.perf_counter() - t0:.1f} s")
     from repro_torch.fed.tasks import rwkv6_task, transformer_task
     lm_bf16_forward(torch)
     by_path["lm_small"] = phase_lm_small(torch, kernels, runtime, "lm_small",
@@ -2120,9 +2644,12 @@ def main() -> int:
     log("masked_sum and ssca_update at the full-width LM paths' widths, "
         "direct launches, checked against Σ quantize(m_i) and the plain "
         "update:", json.dumps(direct))
+    ring_direct = ring_full_width(torch, sa)
     phase_profile(torch, data, part, params, runtime)
     rows = phase_timing(torch, su, sa, kc, ks, fa, rw, total, by_path, errs,
                         flash_stats)
+    rows.append(ring_row(torch, sa, total, by_path,
+                         errs["masked_ring_sum"], ring_direct))
     full_width_rows(rows, by_path, profiled, direct)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -262,6 +262,10 @@ def round_bytes(algorithm, aggregation, compressor, params,
       ``params`` per participating client, plus any compressor-declared
       per-client extra (``extra_downlink_bytes``: the sketch's k support
       indices).
+
+    A hierarchical aggregation adds the second uplink hop, the G edge
+    aggregators' group partials to the root (``group_uplink_bytes``), to
+    the round total and the breakdown, not to the per-client charge.
     """
     comp = compressor if compressor is not None else identity()
     elements, leaves, elem_bytes = algorithm.upload_spec(params)
@@ -271,12 +275,14 @@ def round_bytes(algorithm, aggregation, compressor, params,
     per_client = aggregation.uplink_wire_bytes(payload, wire_el,
                                                num_clients)
     participants = aggregation.participants(num_clients)
+    group_up = aggregation.group_uplink_bytes(payload, wire_el, num_clients) \
+        if hasattr(aggregation, "group_uplink_bytes") else 0
     down = _param_bytes(params)
     if hasattr(comp, "extra_downlink_bytes"):
         down += comp.extra_downlink_bytes(elements)
     return RoundBytes(
         uplink_per_client=per_client,
-        uplink_total=per_client * participants,
+        uplink_total=per_client * participants + group_up,
         downlink_per_client=down,
         downlink_total=down * participants,
         participants=participants,
@@ -288,5 +294,5 @@ def round_bytes(algorithm, aggregation, compressor, params,
             "upload_leaves": leaves,
             "upload_elem_bytes": elem_bytes,
             "wire_overhead_bytes": per_client - payload,
-            "group_uplink_bytes": 0,
+            "group_uplink_bytes": group_up,
         })

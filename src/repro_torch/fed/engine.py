@@ -1,13 +1,14 @@
 """The single-device federated engine, cohort-native, with async rounds.
 
 The port of ``repro/fed/engine.py``'s round body for one device, without
-scan, mesh, hierarchical groups or pipelining.  Per run:
+scan or mesh.  Per run:
 
 1. the per-round cohorts (T, S) and their mini-batch schedule are drawn
    up front on the host (:func:`build_schedule`, the reference's draw:
    (T, S, B) for sum-combine algorithms, (T, S, E, B) for mean-combine
-   ones; S = I is the identity cohort) and staged on the device once,
-   with the training arrays; nothing (T, I, …)-shaped is drawn;
+   ones; S = I is the identity cohort; a hierarchical aggregation's
+   group permutation reorders each cohort row) and staged on the device
+   once, with the training arrays; nothing (T, I, …)-shaped is drawn;
 2. each round, a Python loop step, gathers the cohort's population
    weights, applies the strategy's ``cohort_weights`` (λ'), gathers the
    cohort's batches on the device and forms the aggregate:
@@ -46,13 +47,23 @@ a round reads runs the synchronous program, and each cohort row is
 selected at its delay, so an all-zero trace equals the synchronous run
 bit for bit.
 
+``pipeline=True`` is, as in the reference, the async mode at the
+constant τ ≡ 1 trace (K = 1, no discount), which it runs bit for bit.
+The reference overlaps round t + 1's uploads with round t's combine; the
+port runs both in order on one CUDA stream: its MLP rounds are host
+bound (on an H100 the device is busy 1.4–10.7% of the round loop,
+``PERF.md`` §5), so a second stream would have nothing to overlap yet.
+``profile_dir`` traces the timed loop with ``torch.profiler``.
+
 The exact wire bytes of every round are recorded in the ledger.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
+from pathlib import Path
 from typing import Any, Dict, List
 
 import numpy as np
@@ -61,7 +72,8 @@ from torch.func import vmap
 
 from repro_torch import Device, resolve_device, tree
 from repro_torch.data.partition import (Partition, sample_cohorts,
-                                        sample_schedule, sample_staleness)
+                                        sample_groups, sample_schedule,
+                                        sample_staleness)
 from repro_torch.fed import compression as compression_mod
 from repro_torch.fed import staleness as staleness_mod
 from repro_torch.fed.aggregation import PlainAggregation
@@ -158,7 +170,7 @@ def _round_ids(rounds: int, local_steps: int, e_axis: bool) -> np.ndarray:
 
 def build_schedule(part: Partition, batch_size: int, rounds: int,
                    local_steps: int, seed: int, e_axis: bool = False,
-                   cohort_size=None) -> tuple:
+                   cohort_size=None, groups=None) -> tuple:
     """The per-round cohorts and their batches, drawn exactly as the
     reference's ``build_schedule`` draws them: ``(cohorts, idx)`` with
     ``cohorts`` (T, S) sorted client ids (the identity when S = I, the
@@ -166,11 +178,20 @@ def build_schedule(part: Partition, batch_size: int, rounds: int,
     (T, S, E, B) when ``e_axis`` (mean-combine local-step algorithms, the
     E axis kept even at E = 1; each local step drawn under its own id
     t·1000 + e over the round's cohort).  Only the cohort's rows are
-    emitted, so index memory is O(T·S·B)."""
+    emitted, so index memory is O(T·S·B).
+
+    ``groups`` (hierarchical aggregation) reorders each cohort row by the
+    round's group permutation (:func:`repro_torch.data.partition.
+    sample_groups`), so group g is the block [g·M, (g + 1)·M).  Batches
+    are drawn by client id, so no client's batches move."""
     i = part.num_clients
     s = i if cohort_size is None else int(cohort_size)
     cohorts = sample_cohorts(i, s, np.arange(1, rounds + 1,
                                              dtype=np.int64), seed)
+    if groups is not None and int(groups) > 1:
+        perm = sample_groups(s, int(groups),
+                             np.arange(1, rounds + 1, dtype=np.int64), seed)
+        cohorts = np.take_along_axis(cohorts, perm, axis=1)
     ids = _round_ids(rounds, local_steps, e_axis)
     per_id = cohorts if not e_axis \
         else np.repeat(cohorts, local_steps, axis=0)
@@ -284,6 +305,26 @@ def _sketched_round(compressor, aggregation, msgs, resid, seeds, key_words,
 
 
 @contextlib.contextmanager
+def _traced(profile_dir, dev: torch.device):
+    """With a ``profile_dir``, the block runs under ``torch.profiler`` (the
+    CPU, and the card when ``dev`` is one) and its Chrome trace is written
+    as one new file under that directory; otherwise nothing is traced."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(
+        out / f"repro_torch.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+
+
+@contextlib.contextmanager
 def _full_f32_matmuls():
     """Matrix products in full f32 inside the block, as the reference's
     are (TF32 would keep about three decimal digits); the caller's
@@ -301,8 +342,8 @@ def _full_f32_matmuls():
 def run(algorithm, data, part: Partition, *, task, batch_size: int,
         rounds: int, params=None, seed: int = 0, eval_every: int = 1,
         eval_samples: int = 10000, aggregation=None, compressor=None,
-        staleness=None, staleness_trace=None,
-        device: Device = None) -> tuple:
+        staleness=None, staleness_trace=None, pipeline: bool = False,
+        profile_dir=None, device: Device = None) -> tuple:
     """Run ``algorithm`` on ``task`` for ``rounds`` rounds on ``device``
     (``cuda`` unless the caller asks for the CPU).
 
@@ -317,8 +358,15 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     ``staleness`` (a :class:`repro_torch.fed.staleness.StalenessConfig`)
     turns on async rounds with a trace drawn from its ``delay_probs``, or
     the (rounds, S) ``staleness_trace`` given; ``History.comm["async"]``
-    then holds the trace's dropouts and their recovery bytes.  Returns
-    the final parameters (on ``device``) and the :class:`History`.
+    then holds the trace's dropouts and their recovery bytes.
+    ``aggregation`` may be the hierarchical tree
+    (:func:`repro_torch.fed.aggregation.hierarchical`), with any of the
+    above.  ``pipeline=True`` runs the async mode at the constant τ ≡ 1
+    trace (K = 1, no discount) without an ``alive`` mask, as the
+    reference's pipelined rounds do, and writes ``comm["pipeline"]``; it
+    refuses ``staleness=``.  ``profile_dir`` writes one Chrome trace of
+    the timed loop there (``torch.profiler``).  Returns the final
+    parameters (on ``device``) and the :class:`History`.
     """
     dev = resolve_device(device)
     aggregation = aggregation if aggregation is not None \
@@ -334,9 +382,22 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     cohorts, schedule = build_schedule(part, batch_size, rounds,
                                        algorithm.local_steps, seed,
                                        e_axis=combine == "mean",
-                                       cohort_size=cohort)
+                                       cohort_size=cohort,
+                                       groups=getattr(aggregation, "groups",
+                                                      None))
+    if pipeline and staleness is not None:
+        raise ValueError(
+            "pipeline=True IS the constant tau=1 bounded-staleness "
+            "schedule, executed overlapped on hardware; composing it "
+            "with an async staleness= config is not defined — pick one")
     trace = _staleness_trace(staleness, staleness_trace, cohort, rounds,
                              seed)
+    if pipeline:
+        # every slot one round stale, undiscounted: the reference's
+        # pipelined trajectory; no slot drops, so no alive mask is passed
+        staleness = staleness_mod.StalenessConfig(
+            max_staleness=1, schedule=staleness_mod.ConstantDiscount())
+        trace = np.ones((rounds, cohort), np.int64)
     is_async = trace is not None
     cohorts_dev = torch.as_tensor(cohorts, device=dev)
     schedule = torch.as_tensor(schedule, device=dev)
@@ -375,8 +436,12 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         ring = [(params, algorithm.client_state(state))] * (k_max + 1)
         # the sum-combine uploads read no state: they replay at the live one
         has_cs = bool(tree.leaves(ring[0][1]))
-        hist.comm["async"] = _async_ledger(trace, k_max, aggregation,
-                                           num_clients)
+        if pipeline:
+            hist.comm["pipeline"] = {"enabled": True, "depth": 1,
+                                     "extra_snapshot_slots": 1}
+        else:
+            hist.comm["async"] = _async_ledger(trace, k_max, aggregation,
+                                               num_clients)
 
     def weighted(msgs, rw):
         """λ'_i · m_i for each slot's leaf row."""
@@ -409,7 +474,8 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         alive = None
         if is_async:
             rw = staleness_mod.discount_reweight(rw, disc_dev[t])
-            alive = alive_dev[t]
+            if not pipeline:
+                alive = alive_dev[t]
         if combine == "sum" and compressor is None \
                 and not aggregation.needs_messages:
             # linear fast path: one upload on the weighted super-batch;
@@ -474,7 +540,7 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         else:
             comp, new_resid = compressor.compress(raw, resid, seeds[t],
                                                   device=dev)
-            if is_async:
+            if alive is not None:
                 # a dropped slot's upload never arrived
                 comp = tree.map(lambda c: torch.where(
                     _rows(alive != 0, c), c, torch.zeros_like(c)), comp)
@@ -483,7 +549,7 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
             agg = aggregation.combine_messages(msgs, keyw[t], alive=alive,
                                                device=dev)
         if arena is not None:
-            if is_async:
+            if alive is not None:
                 # a dropped slot applied nothing: its residual rides
                 # through unchanged
                 new_resid = tree.map(lambda nr, od: torch.where(
@@ -493,23 +559,24 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         return agg
 
     evals = []
-    t0 = time.perf_counter()
-    for t in range(rounds):
-        params, state = algorithm.server_step(params, state, aggregate(t),
-                                              device=dev)
-        if is_async:
-            ring = [(params, algorithm.client_state(state))] + ring[:-1]
-        if (t + 1) % eval_every == 0 or t + 1 == rounds:
-            slack = algorithm.round_metrics(state).get("slack")
-            if slack is None:       # a fill, not a copy the host waits on
-                slack = torch.zeros((), device=dev)
-            evals.append((t + 1, measure(params), slack))
-    names = list(evals[0][1]) if evals else []
-    values = torch.stack([torch.stack([*(v[k].float() for k in names),
-                                       s.float()])
-                          for _, v, s in evals]).cpu().tolist() \
-        if evals else []
-    hist.wall_seconds = time.perf_counter() - t0
+    with _traced(profile_dir, dev):
+        t0 = time.perf_counter()
+        for t in range(rounds):
+            params, state = algorithm.server_step(params, state,
+                                                  aggregate(t), device=dev)
+            if is_async:
+                ring = [(params, algorithm.client_state(state))] + ring[:-1]
+            if (t + 1) % eval_every == 0 or t + 1 == rounds:
+                slack = algorithm.round_metrics(state).get("slack")
+                if slack is None:   # a fill, not a copy the host waits on
+                    slack = torch.zeros((), device=dev)
+                evals.append((t + 1, measure(params), slack))
+        names = list(evals[0][1]) if evals else []
+        values = torch.stack([torch.stack([*(v[k].float() for k in names),
+                                           s.float()])
+                              for _, v, s in evals]).cpu().tolist() \
+            if evals else []
+        hist.wall_seconds = time.perf_counter() - t0
     for (t_pt, _, _), row in zip(evals, values):
         hist.rounds.append(t_pt)
         for k, v in zip(names, row):

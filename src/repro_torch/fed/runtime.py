@@ -11,10 +11,11 @@ algorithm (:mod:`repro_torch.core.protocol`) from the task's loss:
 
 on the paper's MLP task by default, or on a decoder-only LM task
 (:func:`repro_torch.fed.tasks.transformer_task`,
-:func:`~repro_torch.fed.tasks.rwkv6_task`), with plain or secure
-aggregation, full or partial participation (``sampled(S)``,
-``secure(num_sampled=S)``), synchronous or async rounds (``staleness=``)
-and optionally compressed or sketched uploads, on one device.  The
+:func:`~repro_torch.fed.tasks.rwkv6_task`), with plain, secure or
+hierarchical (``hierarchical(inner, G)``) aggregation, full or partial
+participation (``sampled(S)``, ``secure(num_sampled=S)``), synchronous,
+async (``staleness=``) or pipelined (``pipeline=True``) rounds and
+optionally compressed or sketched uploads, on one device.  The
 mini-batch schedule is shared across the sum-combine algorithms (same
 seed ⇒ same sample draws), so convergence comparisons are paired;
 FedAvg draws its local steps under their own ids.
@@ -64,25 +65,30 @@ def run(task, algorithm, data, part: Partition, *, batch_size: int,
     ``params=None`` initializes from ``task.init_params`` seeded by
     ``seed`` (in :func:`repro_torch.fed.engine.run`).  Runs on ``cuda``
     unless ``device="cpu"`` is passed.  ``aggregation`` may sample a
-    cohort (``sampled(S)``, ``secure(num_sampled=S)``); ``staleness`` (a
+    cohort (``sampled(S)``, ``secure(num_sampled=S)``) or be the
+    two-level tree (``hierarchical(inner, groups)``); ``staleness`` (a
     :class:`repro_torch.fed.staleness.StalenessConfig`) and
-    ``staleness_trace`` run async rounds.  ``mesh``, ``arena``,
-    ``pipeline`` and ``profile_dir`` keep the reference's signature but
-    are not ported yet: setting one raises.
+    ``staleness_trace`` run async rounds; ``pipeline=True`` runs the
+    reference's pipelined rounds (the async mode at the constant τ ≡ 1
+    trace; it refuses ``staleness=``); ``profile_dir`` writes a
+    ``torch.profiler`` Chrome trace of the timed loop there.  ``arena``
+    must be ``None``, ``"replicated"`` or ``"sharded"``; one device has
+    nothing to shard, so it is then ignored, as in the reference without
+    a mesh.  ``mesh`` is not ported yet: setting it raises.
     """
     dev = resolve_device(device)
-    unported = {"mesh": mesh, "arena": arena, "pipeline": pipeline or None,
-                "profile_dir": profile_dir}
-    unported = sorted(k for k, v in unported.items() if v is not None)
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)} not ported to repro_torch yet")
+    if mesh is not None:
+        raise NotImplementedError("mesh not ported to repro_torch yet")
+    if arena not in (None, "replicated", "sharded"):
+        raise ValueError(
+            f"arena={arena!r} not in (None, 'replicated', 'sharded')")
     return engine.run(algorithm, data, part, task=task,
                       batch_size=batch_size, rounds=rounds, params=params,
                       seed=seed, eval_every=eval_every,
                       eval_samples=eval_samples, aggregation=aggregation,
                       compressor=compressor, staleness=staleness,
-                      staleness_trace=staleness_trace, device=dev)
+                      staleness_trace=staleness_trace, pipeline=pipeline,
+                      profile_dir=profile_dir, device=dev)
 
 
 def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
@@ -111,10 +117,11 @@ def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
     unless ``device="cpu"`` is passed.
 
     ``aggregation`` may sample a cohort (``sampled(S)``,
-    ``secure(num_sampled=S)``); ``staleness`` / ``staleness_trace`` run
-    async rounds (:func:`run`).  ``mesh``, ``arena``, ``pipeline`` and
-    ``profile_dir`` keep the reference's signature but are not ported
-    yet: setting one raises.
+    ``secure(num_sampled=S)``) or be the tree (``hierarchical(inner,
+    groups)``); ``staleness`` / ``staleness_trace`` run async rounds,
+    ``pipeline=True`` pipelined ones; ``profile_dir`` traces the timed
+    loop; ``arena`` is validated and ignored on one device (:func:`run`).
+    ``mesh`` is not ported yet: setting it raises.
     """
     task = _resolve_task(task, data, hidden)
     rho, gamma = paper_schedules(batch_size)
@@ -144,7 +151,8 @@ def run_alg2(data, part: Partition, *, batch_size: int, rounds: int,
     ``secure=True`` masks the (value, gradient) upload q1 — the secure
     constrained variant the paper's §III-B requires.  The slack s^t at
     each eval point is ``History.slack``.  Other arguments as
-    :func:`run_alg1`'s."""
+    :func:`run_alg1`'s: cohorts, the hierarchical tree, compressors,
+    async and pipelined rounds, ``profile_dir`` and ``arena``."""
     task = _resolve_task(task, data, hidden)
     rho, gamma = paper_schedules(batch_size)
     hp = constrained.ConstrainedHyperParams(tau=tau, c=c, rho=rho,
@@ -170,7 +178,9 @@ def run_fedsgd(data, part: Partition, *, batch_size: int, rounds: int,
                pipeline: bool = False, profile_dir=None,
                device: Device = None) -> tuple:
     """E = 1 SGD baseline [3],[4] on the same objective as Algorithm 1,
-    learning rate ``lr_a / t^lr_alpha``."""
+    learning rate ``lr_a / t^lr_alpha``.  Other arguments as
+    :func:`run_alg1`'s: cohorts, the hierarchical tree, compressors,
+    async and pipelined rounds, ``profile_dir`` and ``arena``."""
     task = _resolve_task(task, data, hidden)
     hp = fedavg.SGDHyperParams(lr=sgd_learning_rate(lr_a, lr_alpha))
     alg = protocol.FedSGD(loss_fn=SumLoss(task), hp=hp, lam=lam)
@@ -195,7 +205,9 @@ def run_fedavg(data, part: Partition, *, batch_size: int, rounds: int,
 
     Per-client batches are (I, E, B) samples; aggregation weight N_i/N.
     The local objective is the task's mean loss + λ‖ω‖²
-    (:class:`repro_torch.fed.tasks.base.LocalObjective`).
+    (:class:`repro_torch.fed.tasks.base.LocalObjective`).  Other arguments
+    as :func:`run_alg1`'s: cohorts, the hierarchical tree, compressors,
+    async and pipelined rounds, ``profile_dir`` and ``arena``.
     """
     task = _resolve_task(task, data, hidden)
     hp = fedavg.SGDHyperParams(lr=sgd_learning_rate(lr_a, lr_alpha),

@@ -106,7 +106,10 @@ def load() -> ctypes.CDLL:
     cdll.masked_sum_launch.argtypes = [p, i32, i64, i32, u32, u32, u32, i32,
                                        p, p, i32, i32, p]
     cdll.masked_sum_launch.restype = i32
-    cdll.masked_sum_attributes.argtypes = [ctypes.POINTER(i32)]
+    cdll.masked_ring_sum_launch.argtypes = [p, i32, i64, u32, u32, u32, i32,
+                                            p, p, i32, i32, p]
+    cdll.masked_ring_sum_launch.restype = i32
+    cdll.masked_sum_attributes.argtypes = [i32, ctypes.POINTER(i32)]
     cdll.masked_sum_attributes.restype = None
     cdll.compress_launch.argtypes = [p, p, p, i32, i64, i32, i32, i32, p, p,
                                      p]

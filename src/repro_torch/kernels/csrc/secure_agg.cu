@@ -10,7 +10,14 @@
 //   upload = upload * alive[i]
 //   out[e] = sum_li upload                                  (mod 2^32)
 //
-// with sgn = +1 for i < j, -1 for i > j, 0 for i == j.  Every client's
+// with sgn = +1 for i < j, -1 for i > j, 0 for i == j.
+//
+// The ring mode (masked_ring_sum_launch) takes rows that are already int32
+// ring elements, q = m[li, e], and skips the quantize: level 2 of the
+// hierarchical tree re-masks the G group partials in Z_2^32 with it, the
+// port of the reference's XLA masked_ring_partial_sum
+// (src/repro/kernels/secure_agg.py).  The two modes are one template,
+// instantiated on the row type; everything else is shared.  Every client's
 // masked upload is formed and added: each element regenerates each of the
 // I_loc * (num_clients - 1) directed mask streams (less those of dropped
 // clients), and the masks cancel only in the total.
@@ -129,14 +136,26 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+__device__ __forceinline__ int4 load4(const int32_t* p) {
+  return __ldg(reinterpret_cast<const int4*>(p));
+}
+
 // acc += a * round_half_even(v * scale), elementwise
-__device__ __forceinline__ void add_quantized(uint32_t (&acc)[kElems],
-                                              float4 v, float scale,
-                                              uint32_t a) {
+__device__ __forceinline__ void add_row(uint32_t (&acc)[kElems], float4 v,
+                                       float scale, uint32_t a) {
   acc[0] += a * (uint32_t)__float2int_rn(v.x * scale);
   acc[1] += a * (uint32_t)__float2int_rn(v.y * scale);
   acc[2] += a * (uint32_t)__float2int_rn(v.z * scale);
   acc[3] += a * (uint32_t)__float2int_rn(v.w * scale);
+}
+
+// the ring mode: acc += a * v, elementwise, v already in Z_2^32
+__device__ __forceinline__ void add_row(uint32_t (&acc)[kElems], int4 v,
+                                       float, uint32_t a) {
+  acc[0] += a * (uint32_t)v.x;
+  acc[1] += a * (uint32_t)v.y;
+  acc[2] += a * (uint32_t)v.z;
+  acc[3] += a * (uint32_t)v.w;
 }
 
 // acc[k] += coef * mask_bits(seed, e_k) for the table's streams [lo, hi),
@@ -159,8 +178,11 @@ __device__ __forceinline__ void add_streams(const uint4* table, int lo,
   }
 }
 
+// T = float: quantize each row (masked_sum_launch); T = int32_t: the rows
+// are ring elements already (masked_ring_sum_launch)
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    masked_sum_kernel(const float* __restrict__ msgs, int i_loc, int64_t n,
+    masked_sum_kernel(const T* __restrict__ msgs, int i_loc, int64_t n,
                       float scale, uint32_t key0, uint32_t key1,
                       uint32_t offset, int num_clients,
                       const int32_t* __restrict__ alive,
@@ -192,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     // the group's first kPrefetch client rows are loaded before its
     // streams and quantized after them, so the loads are in flight while
     // the streams run
-    float4 v[kPrefetch];
+    decltype(load4(msgs)) v[kPrefetch];
 #pragma unroll
     for (int r = 0; r < kPrefetch; ++r) {
       const int li = group + r * splits;
@@ -213,20 +235,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                     acc);
       }
     }
-    // the group's client rows, quantized, times alive[i]
+    // the group's client rows, quantized (float rows), times alive[i]
     if (valid) {
 #pragma unroll
       for (int r = 0; r < kPrefetch; ++r) {
         const int li = group + r * splits;
         if (li < i_loc) {
-          add_quantized(acc, v[r], scale,
-                        alive != nullptr ? (uint32_t)alive[offset + li] : 1u);
+          add_row(acc, v[r], scale,
+                  alive != nullptr ? (uint32_t)alive[offset + li] : 1u);
         }
       }
       for (int li = group + kPrefetch * splits; li < i_loc; li += splits) {
-        add_quantized(acc, load4(msgs + (int64_t)li * n + e0),
-                      scale,
-                      alive != nullptr ? (uint32_t)alive[offset + li] : 1u);
+        add_row(acc, load4(msgs + (int64_t)li * n + e0), scale,
+                alive != nullptr ? (uint32_t)alive[offset + li] : 1u);
       }
     }
     if (splits > 1) {
@@ -250,6 +271,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// The launch of either mode: returns cudaGetLastError()
+// (cudaErrorInvalidValue for a plan the kernel does not take).
+template <typename T>
+int launch(const T* msgs, int i_loc, int64_t n, float scale, uint32_t key0,
+           uint32_t key1, uint32_t offset, int num_clients,
+           const int32_t* alive, int32_t* out, int splits, int blocks,
+           void* stream) {
+  if (n == 0) return (int)cudaGetLastError();
+  if (n % kElems || splits < 1 || splits > kThreads / 32 ||
+      kThreads % splits || blocks < 1 ||
+      (int64_t)i_loc * num_clients >= (int64_t)1 << 31) {
+    return (int)cudaErrorInvalidValue;
+  }
+  masked_sum_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      msgs, i_loc, n, scale, key0, key1, offset, num_clients, alive, out,
+      splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // msgs: device (i_loc, n) f32, contiguous, n a multiple of 4, 16-byte
@@ -263,24 +303,31 @@ extern "C" int masked_sum_launch(const float* msgs, int i_loc, int64_t n,
                                  uint32_t offset, int num_clients,
                                  const int32_t* alive, int32_t* out,
                                  int splits, int blocks, void* stream) {
-  if (n == 0) return (int)cudaGetLastError();
-  if (n % kElems || splits < 1 || splits > kThreads / 32 ||
-      kThreads % splits || blocks < 1 ||
-      (int64_t)i_loc * num_clients >= (int64_t)1 << 31) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const float scale = (float)(1u << scale_bits);
-  masked_sum_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      msgs, i_loc, n, scale, key0, key1, offset, num_clients, alive, out,
-      splits);
-  return (int)cudaGetLastError();
+  return launch(msgs, i_loc, n, (float)(1u << scale_bits), key0, key1,
+                offset, num_clients, alive, out, splits, blocks, stream);
+}
+
+// The ring mode: q is device (i_loc, n) int32, ring elements already, under
+// the same layout, plan and alignment rules as masked_sum_launch.
+extern "C" int masked_ring_sum_launch(const int32_t* q, int i_loc, int64_t n,
+                                      uint32_t key0, uint32_t key1,
+                                      uint32_t offset, int num_clients,
+                                      const int32_t* alive, int32_t* out,
+                                      int splits, int blocks, void* stream) {
+  return launch(q, i_loc, n, 0.0f, key0, key1, offset, num_clients, alive,
+                out, splits, blocks, stream);
 }
 
 // (registers a thread, local (spill) bytes a thread, static shared bytes a
-// block) of the kernel, from cudaFuncGetAttributes
-extern "C" void masked_sum_attributes(int* vals) {
+// block) of the quantizing instance (ring == 0) or of the ring mode's int32
+// instance (ring != 0), from cudaFuncGetAttributes
+extern "C" void masked_sum_attributes(int ring, int* vals) {
   cudaFuncAttributes a;
-  cudaFuncGetAttributes(&a, masked_sum_kernel);
+  if (ring) {
+    cudaFuncGetAttributes(&a, masked_sum_kernel<int32_t>);
+  } else {
+    cudaFuncGetAttributes(&a, masked_sum_kernel<float>);
+  }
   vals[0] = a.numRegs;
   vals[1] = (int)a.localSizeBytes;
   vals[2] = (int)a.sharedSizeBytes;

@@ -1,8 +1,9 @@
 """Public wrappers around the kernels for parameter trees.
 
 The port of ``repro/kernels/ops.py``'s ``ssca_update``,
-``secure_quant_sum``, ``secure_dequantize``, ``flash_attention`` and
-``rwkv6_wkv``.  A parameter or message tree (nested dicts,
+``secure_quant_sum``, ``secure_ring_partial_sum``, ``secure_dequantize``,
+``flash_attention`` and ``rwkv6_wkv``, and the hierarchical tree's level
+1 (``secure_group_sums``).  A parameter or message tree (nested dicts,
 :mod:`repro_torch.tree`) is flattened leaf by leaf in ``jax.tree`` order
 (sorted keys, depth first:
 ``w1``, ``w2`` for the MLP; ``blocks/attn_norm`` … ``blocks/wv``,
@@ -114,6 +115,60 @@ def secure_quant_sum(wmsgs: Params, key_words, *, scale_bits: int,
                             client_offset=client_offset, alive=alive,
                             device=device)
     return unflatten(agg, _tree.map(lambda v: v[0], wmsgs))
+
+
+def secure_group_sums(grouped: Params, group_keys, *, scale_bits: int,
+                      members: int, member_offset: int = 0,
+                      alive: Optional[torch.Tensor] = None,
+                      device: Device = None) -> torch.Tensor:
+    """Level 1 of the hierarchical tree over a secure inner: one streaming
+    masked sum per group, into one flat buffer.
+
+    Every leaf of ``grouped`` carries leading (G_loc, M_loc) group and
+    member axes; the tree is flattened once, to (G_loc, M_loc, R, 128).
+    Group g's rows are member positions [member_offset, member_offset +
+    M_loc) of ``members``, masked under the key words ``group_keys[g]``
+    (first and last) with ``alive[g]`` of the optional (G_loc, members)
+    0/1 rows, and its int32 sum is written into row g of one
+    (G_loc, R, 128) buffer, which is returned flat: level 2
+    (:func:`secure_ring_partial_sum`) reads it in place.
+    """
+    msgs = flatten_padded(grouped, lead=2)
+    out = torch.empty((msgs.shape[0],) + msgs.shape[2:], dtype=torch.int32,
+                      device=msgs.device)
+    for g in range(msgs.shape[0]):
+        kd = np.asarray(group_keys[g], np.uint32).reshape(-1)
+        _sa.masked_sum_2d(msgs[g], int(kd[0]), int(kd[-1]),
+                          scale_bits=scale_bits, num_clients=int(members),
+                          client_offset=member_offset,
+                          alive=None if alive is None else alive[g],
+                          out=out[g], device=device)
+    return out
+
+
+def secure_ring_partial_sum(partials: torch.Tensor, key_words, *,
+                            group_offset: int = 0,
+                            num_groups: Optional[int] = None,
+                            device: Device = None) -> torch.Tensor:
+    """Level 2 of the hierarchical tree: the group-level masked merge of
+    partial sums that are int32 ring elements already.
+
+    ``partials`` is the flat (G_loc, R, 128) int32 buffer of
+    :func:`secure_group_sums`, read in place.  Each group partial is
+    re-masked with the directed streams keyed by the group-tagged round
+    key (:func:`repro_torch.kernels.secure_agg.group_key_words` of the
+    first and last of ``key_words``) and summed mod 2^32 by the masked
+    sum's ring mode, with no dequantize/requantize between the levels.
+    The local groups are global ids [group_offset, group_offset + G_loc)
+    of ``num_groups``, so the sums of disjoint group shards add to the
+    plain sum of all partials bit for bit.  Returns the flat (R, 128)
+    int32 aggregate.
+    """
+    ng = partials.shape[0] if num_groups is None else int(num_groups)
+    kd = np.asarray(key_words, np.uint32).reshape(-1)
+    key0, key1 = _sa.group_key_words(kd[0], kd[-1])
+    return _sa.masked_ring_sum_2d(partials, key0, key1, num_clients=ng,
+                                  client_offset=group_offset, device=device)
 
 
 def secure_dequantize(agg_q: Params, scale_bits: int) -> Params:

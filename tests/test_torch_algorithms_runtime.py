@@ -58,6 +58,7 @@ from repro_torch.fed import compression as tcomp
 from repro_torch.fed import runtime as trt
 from repro_torch.fed import sketch as tsketch
 from repro_torch.mlpapp import model as tm
+from test_torch_runtime import check_ported_mode
 
 KW = dict(batch_size=10, rounds=6, eval_every=2, eval_samples=300, seed=3)
 
@@ -188,11 +189,17 @@ def test_secure_alg2_matches_plain_trajectory(setup):
 @pytest.mark.parametrize("fn", ["run_alg2", "run_fedsgd", "run_fedavg"])
 @pytest.mark.parametrize("kwarg", ["mesh", "staleness", "staleness_trace",
                                    "arena", "pipeline", "profile_dir"])
-def test_unported_options_raise(setup, fn, kwarg):
-    # async rounds are ported: True is not a StalenessConfig, and a trace
-    # needs staleness=
+def test_unported_options_raise(setup, fn, kwarg, tmp_path):
+    # only mesh is still unported.  True is not a StalenessConfig, a trace
+    # needs staleness=, and arena=True names no placement (ValueError, as
+    # in the reference); pipeline=True and a profile_dir run, and are held
+    # as in test_torch_runtime.py
     data, part, _ = setup
-    exc = {"staleness": TypeError,
-           "staleness_trace": ValueError}.get(kwarg, NotImplementedError)
+    if kwarg in ("pipeline", "profile_dir"):
+        check_ported_mode(getattr(trt, fn), data, part, kwarg, tmp_path,
+                          **KW)
+        return
+    exc = {"staleness": TypeError, "staleness_trace": ValueError,
+           "arena": ValueError}.get(kwarg, NotImplementedError)
     with pytest.raises(exc, match=kwarg):
         getattr(trt, fn)(data, part, device="cpu", **KW, **{kwarg: True})

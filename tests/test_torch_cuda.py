@@ -34,7 +34,7 @@ from repro_torch import tree
 from repro_torch.data import partition, synthetic
 from repro_torch.fed import aggregation, compression, runtime
 from repro_torch.fed import sketch as fed_sketch
-from repro_torch.fed.staleness import StalenessConfig
+from repro_torch.fed.staleness import ConstantDiscount, StalenessConfig
 from repro_torch.fed.tasks import rwkv6_task, transformer_task
 from repro_torch.kernels import compress as kc
 from repro_torch.kernels import flash_attention as fa
@@ -203,6 +203,125 @@ def test_masked_sum_kernel_rejects_rows_past_num_clients(dev):
     assert sa.masked_sum_2d.launches == before
 
 
+def _int32_rows(dev, *shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+
+
+def _ring_total(q, alive=None):
+    """Σ_i alive_i q_i mod 2^32, as int32."""
+    q = q.long()
+    if alive is not None:
+        q = q * alive.long()[:, None, None]
+    t = q.sum(0) & 0xFFFFFFFF
+    return torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)
+
+
+@pytest.mark.parametrize("num,offset,groups,rows,variant", [
+    (1, 0, 1, 8, "vec"),              # one group: no streams
+    (2, 0, 2, 8, "rowsplit"),         # the tree's G = 2
+    (3, 0, 3, 794, "rowsplit"),       # G = 3 at the MLP's rows
+    (16, 0, 16, 794, "rowsplit"),     # the S = 512 path's G = 16
+    (2, 0, 2, 4608, "vec"),           # past the wave threshold
+    (16, 0, 16, 4608, "vec"),
+    (3, 2, 7, 4608, "vec"),           # a group offset
+    (3, 5, 16, 794, "rowsplit"),
+    (3, 0, 600, 4608, "vec"),         # 600 groups: the table in chunks
+    (3, 0, 600, 8, "rowsplit"),
+])
+@pytest.mark.parametrize("with_alive", [False, True])
+def test_masked_ring_sum_kernel_equals_plain(dev, num, offset, groups, rows,
+                                             variant, with_alive):
+    """The ring mode against its plain version bit for bit, on the
+    variant its plan names, counted on its own wrapper; the whole set of
+    groups sums to the plain ring sum."""
+    q = _int32_rows(dev, num, rows, 128, seed=num + rows)
+    alive = None
+    if with_alive:
+        alive = torch.ones(groups, dtype=torch.int32, device=dev)
+        alive[1::3] = 0
+    kw = dict(num_clients=groups, client_offset=offset, alive=alive)
+    before = dict(sa.masked_ring_sum_2d.launches_by_variant)
+    n_sum = sa.masked_sum_2d.launches
+    got = sa.masked_ring_sum_2d(q, 0xDEADBEEF, 77, **kw)
+    before[variant] += 1
+    if with_alive:
+        before["alive"] += 1
+    assert sa.masked_ring_sum_2d.launches_by_variant == before
+    assert sa.masked_sum_2d.launches == n_sum
+    assert torch.equal(got, sa.masked_ring_sum_plain(q, 0xDEADBEEF, 77,
+                                                     **kw))
+    if offset == 0 and num == groups:
+        assert torch.equal(got, _ring_total(q, alive))
+
+
+@pytest.mark.parametrize("num,groups,rows,variant", [
+    (2, 2, 794, "rowsplit"), (16, 16, 4608, "vec"), (3, 600, 8, "rowsplit")])
+def test_masked_ring_sum_kernel_takes_misaligned_views(dev, num, groups,
+                                                       rows, variant):
+    q = _shifted(_int32_rows(dev, num, rows, 128, seed=9))
+    before = sa.masked_ring_sum_2d.launches_by_variant[variant]
+    got = sa.masked_ring_sum_2d(q, 5, 6, num_clients=groups)
+    assert sa.masked_ring_sum_2d.launches_by_variant[variant] == before + 1
+    assert torch.equal(got, sa.masked_ring_sum_plain(q, 5, 6,
+                                                     num_clients=groups))
+
+
+def test_masked_sums_write_into_out(dev):
+    """Both modes write their aggregate into a row of a preallocated
+    buffer (the tree's level-1 layout) with the bits of a fresh output;
+    a misaligned or mistyped ``out`` is refused before any launch."""
+    msgs = _randn(dev, 4, 794, 128, scale=1e-2)
+    buf = torch.zeros(3, 794, 128, dtype=torch.int32, device=dev)
+    kw = dict(scale_bits=20, num_clients=4)
+    assert sa.masked_sum_2d(msgs, 1, 2, out=buf[1], **kw).data_ptr() \
+        == buf[1].data_ptr()
+    assert torch.equal(buf[1], sa.masked_sum_2d(msgs, 1, 2, **kw))
+    q = _int32_rows(dev, 3, 794, 128)
+    sa.masked_ring_sum_2d(q, 1, 2, num_clients=3, out=buf[2])
+    assert torch.equal(buf[2], sa.masked_ring_sum_2d(q, 1, 2,
+                                                     num_clients=3))
+    counts = (sa.masked_sum_2d.launches, sa.masked_ring_sum_2d.launches)
+    with pytest.raises(ValueError, match="out"):
+        sa.masked_sum_2d(msgs, 1, 2, out=_shifted(buf[0]), **kw)
+    with pytest.raises(ValueError, match="out"):
+        sa.masked_ring_sum_2d(q, 1, 2, num_clients=3, out=buf[0].float())
+    with pytest.raises(ValueError, match="int32"):
+        sa.masked_ring_sum_2d(q.float(), 1, 2, num_clients=3)
+    assert (sa.masked_sum_2d.launches,
+            sa.masked_ring_sum_2d.launches) == counts
+
+
+@pytest.mark.parametrize("s,groups", [(8, 2), (10, 3), (40, 16), (7, 7)])
+@pytest.mark.parametrize("with_alive", [False, True])
+def test_tree_combine_on_card_equals_flat(dev, s, groups, with_alive):
+    """``hierarchical(secure(), G)``'s combine on the card equals the
+    flat secure combine on the card bit for bit (G masked sums and one
+    ring merge), and its int32 root equals the CPU's."""
+    msgs = {"w1": _randn(dev, s, 784, 16, scale=1e-2),
+            "w2": _randn(dev, s, 16, 10, seed=1, scale=1e-2)}
+    kd = np.asarray([0x1234, 0xABCD], np.uint32)
+    alive = None
+    if with_alive:
+        alive = torch.ones(s, dtype=torch.int32, device=dev)
+        alive[::4] = 0
+    hier = aggregation.hierarchical(aggregation.secure(), groups=groups)
+    counts = (sa.masked_sum_2d.launches, sa.masked_ring_sum_2d.launches)
+    got = hier.combine_messages(msgs, kd, alive=alive)
+    assert (sa.masked_sum_2d.launches - counts[0],
+            sa.masked_ring_sum_2d.launches - counts[1]) == (groups, 1)
+    want = aggregation.secure().combine_messages(msgs, kd, alive=alive)
+    root = hier.partial_combine(msgs, kd, 0, None, alive)
+    cpu = hier.partial_combine({k: v.cpu() for k, v in msgs.items()}, kd,
+                               0, None,
+                               None if alive is None else alive.cpu(),
+                               device="cpu")
+    for k in msgs:
+        assert torch.equal(got[k], want[k])
+        assert torch.equal(root[k].cpu(), cpu[k])
+
+
 def test_secure_quant_sum_dict_on_card(dev):
     msgs = {"w1": _randn(dev, 5, 7, 13, scale=0.1),
             "w2": _randn(dev, 5, 257, seed=1, scale=0.1)}
@@ -261,6 +380,46 @@ def test_participation_run_on_card_tracks_cpu(dev, case):
     for k in p_cpu:
         np.testing.assert_allclose(p_gpu[k].cpu().numpy(), p_cpu[k].numpy(),
                                    rtol=1e-4, atol=2e-5)
+
+
+def test_hierarchical_and_pipelined_runs_on_card(dev):
+    """On the card: ``hierarchical(secure(), 3)`` lands on the flat secure
+    run's weights bit for bit (the cohort rows permuted, each client's
+    upload unchanged) with 3 masked sums and one ring merge a round, and
+    tracks its CPU run; ``pipeline=True`` equals the async run at the
+    constant τ ≡ 1 trace bit for bit and passes no ``alive``."""
+    data = synthetic.classification_dataset(2000, 500, seed=0)
+    part = partition.iid(2000, 10, seed=0)
+    kw = dict(batch_size=10, rounds=6, eval_every=2, eval_samples=300,
+              seed=3, fused=True)
+    hier = dict(kw, aggregation=aggregation.hierarchical(
+        aggregation.secure(), groups=3))
+    counts = (sa.masked_sum_2d.launches, sa.masked_ring_sum_2d.launches)
+    p_h, h_h = runtime.run_alg1(data, part, **hier)
+    assert (sa.masked_sum_2d.launches - counts[0],
+            sa.masked_ring_sum_2d.launches - counts[1]) == (18, 6)
+    p_f, h_f = runtime.run_alg1(data, part, secure=True, **kw)
+    for k in p_f:
+        assert torch.equal(p_h[k], p_f[k])
+    assert h_h.metrics == h_f.metrics
+    p_c, h_c = runtime.run_alg1(data, part, device="cpu", **hier)
+    assert h_h.comm == h_c.comm
+    np.testing.assert_allclose(h_h.train_cost, h_c.train_cost, rtol=1e-4)
+    for k in p_c:
+        np.testing.assert_allclose(p_h[k].cpu().numpy(), p_c[k].numpy(),
+                                   rtol=1e-4, atol=2e-5)
+    alive = sa.masked_sum_2d.launches_by_variant["alive"]
+    p_p, h_p = runtime.run_alg1(data, part, secure=True, pipeline=True,
+                                **kw)
+    assert sa.masked_sum_2d.launches_by_variant["alive"] == alive
+    p_a, h_a = runtime.run_alg1(
+        data, part, secure=True, staleness=StalenessConfig(
+            max_staleness=1, schedule=ConstantDiscount()),
+        staleness_trace=np.ones((6, 10), np.int64), **kw)
+    for k in p_a:
+        assert torch.equal(p_p[k], p_a[k])
+    assert h_p.metrics == h_a.metrics
+    assert h_p.comm["pipeline"]["enabled"] and "async" not in h_p.comm
 
 
 def _same_bits(a, b):

@@ -162,15 +162,44 @@ def test_sketch_scale_bits_mismatch_raises(setup):
                      secure=True, device="cpu", **KW)
 
 
+def check_ported_mode(run, data, part, kwarg, tmp_path, **kw):
+    """``pipeline=True`` runs the async mode at the constant τ ≡ 1 trace
+    bit for bit, with ``comm["pipeline"]`` and no ``comm["async"]``;
+    ``profile_dir`` writes one trace file of the run."""
+    from repro_torch.fed.staleness import ConstantDiscount, StalenessConfig
+    if kwarg == "pipeline":
+        p_p, h_p = run(data, part, device="cpu", pipeline=True, **kw)
+        p_a, h_a = run(data, part, device="cpu", staleness=StalenessConfig(
+            max_staleness=1, schedule=ConstantDiscount()),
+            staleness_trace=np.ones((kw["rounds"], 10), np.int64), **kw)
+        for a, b in zip(tm.params_to_numpy(p_p), tm.params_to_numpy(p_a)):
+            np.testing.assert_array_equal(a, b)
+        assert h_p.metrics == h_a.metrics and h_p.slack == h_a.slack
+        assert h_p.comm["pipeline"] == {"enabled": True, "depth": 1,
+                                        "extra_snapshot_slots": 1}
+        assert "async" not in h_p.comm
+        return
+    prof = tmp_path / "trace"
+    _, h = run(data, part, device="cpu", profile_dir=str(prof), **kw)
+    assert np.isfinite(h.train_cost).all()
+    assert len([p for p in prof.rglob("*") if p.is_file()]) == 1
+
+
 @pytest.mark.parametrize("kwarg", ["compressor", "mesh", "staleness",
                                    "staleness_trace", "arena", "pipeline",
                                    "profile_dir"])
-def test_unported_options_raise(setup, kwarg):
-    # compressors and async rounds are ported: True is neither a
-    # compressor nor a StalenessConfig, and a trace needs staleness=
+def test_unported_options_raise(setup, kwarg, tmp_path):
+    # only mesh is still unported.  True is neither a compressor nor a
+    # StalenessConfig, a trace needs staleness=, and arena=True names no
+    # placement (ValueError, as in the reference); pipeline=True and a
+    # profile_dir run, and are held instead
     data, part, _ = setup
+    if kwarg in ("pipeline", "profile_dir"):
+        check_ported_mode(trt.run_alg1, data, part, kwarg, tmp_path, **KW)
+        return
     exc = {"compressor": TypeError, "staleness": TypeError,
-           "staleness_trace": ValueError}.get(kwarg, NotImplementedError)
+           "staleness_trace": ValueError,
+           "arena": ValueError}.get(kwarg, NotImplementedError)
     with pytest.raises(exc, match=kwarg):
         trt.run_alg1(data, part, device="cpu", **KW, **{kwarg: True})
 
