@@ -155,15 +155,32 @@ last line):
    and the ``masked_sum`` and ``ssca_update`` rows, for each
    full-width LM path, the launches, the profiled round's launch time,
    the direct launches' time and the bound at that path's parameter
-   count; print one
-   ``{"kernels": [...]}`` line, then the result line ``{"ok": true,
-   "device": {...}}``.
+   count;
+9. drive the client-sharded synchronous round (``phase_client_mesh``):
+   in a one-rank NCCL group (a ``FileStore`` in a temporary directory),
+   ``mesh=make_client_mesh()`` on secure dense, ``topk(0.1, bits=8)`` +
+   secure with arena ``"sharded"`` and ``"replicated"``, the secure
+   sketch, FedAvg secure with top-k, ``secure(num_sampled=10)`` of 100
+   clients and ``secure(num_sampled=3)`` of 10, 20 rounds each, counters
+   set to 0 just before each run and read just after: each bit for bit
+   its ``mesh=None`` run on the card (weights, every metric, ``comm``),
+   the same launches, the predicted psum calls a round (``PERF.md``
+   §4); the vmapped upload over 2 x 5 slots against 10 on the card; then
+   two spawned gloo ranks sharing ``cuda:0`` on secure dense, the cohort
+   of 3 (padded to 4), the sketch and FedAvg with top-k: the ranks bit
+   for bit each other, cost within 5e-5 and accuracy within 2e-3 of
+   ``mesh=None``, the masked sum launched per rank at (S_loc, R, 128)
+   with ``client_offset = rank·S_loc`` of S_pad; each path's round time,
+   device busy share and peak memory printed;
+then print one ``{"kernels": [...]}`` line, then the result line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2521,6 +2538,326 @@ def full_width_rows(rows, by_path, profiled, direct):
             json.dumps(row["full_width"]))
 
 
+# the client-sharded rounds (phase_client_mesh), at the paths' PERF.md §4
+# configurations, 20 rounds: (name, runtime entry, population, arguments,
+# arena, psum calls a round).  The psums: the combine (two on the
+# sketch's two phases), the home-sharded weight gather, and for top-k and
+# the sketch the residual rows' gather (home-sharded only) and their
+# replication
+def mesh_paths():
+    from repro_torch.fed import aggregation, compression, sketch
+    alg1 = dict(batch_size=100, fused=True)
+    fedavg = dict(local_steps=2, lr_a=2.0, lr_alpha=0.3, batch_size=50)
+    topk8 = compression.topk(0.1, bits=8)
+    sk = sketch.sketch(4, 1024, 0.02, keep=256)
+    return [
+        ("secure_dense", "run_alg1", "main", dict(alg1, secure=True),
+         "sharded", 2),
+        ("topk8_secure", "run_alg1", "main",
+         dict(alg1, secure=True, compressor=topk8), "sharded", 4),
+        ("topk8_secure_replicated", "run_alg1", "main",
+         dict(alg1, secure=True, compressor=topk8), "replicated", 2),
+        ("sketch_secure", "run_alg1", "main",
+         dict(alg1, secure=True, compressor=sk), "sharded", 5),
+        ("fedavg_topk8_secure", "run_fedavg", "main",
+         dict(fedavg, aggregation=aggregation.secure(), compressor=topk8),
+         "sharded", 4),
+        ("sampled_secure", "run_alg1", "i100",
+         dict(alg1, aggregation=aggregation.secure(num_sampled=10)),
+         "sharded", 2),
+        ("secure3", "run_alg1", "main",
+         dict(alg1, aggregation=aggregation.secure(num_sampled=3)),
+         "sharded", 2),
+    ]
+
+
+# the paths the two gloo ranks on one card run
+GLOO_PATHS = ("secure_dense", "secure3", "sketch_secure",
+              "fedavg_topk8_secure")
+MESH_TIMEOUT_S = 600
+
+
+def path_bits(torch, params):
+    """The final weights as int32 bits on the CPU, leaf order."""
+    from repro_torch import tree
+    return [v.detach().cpu().contiguous().view(torch.int32)
+            for v in tree.leaves(params)]
+
+
+def profiled_busy(torch, run):
+    """The device's busy share of one more run under ``torch.profiler``
+    (kernels by kind, host-to-device staging left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, h = run()
+    us, _ = device_us_by_kind(torch, prof)
+    return sum(v for k, v in us.items() if k != "staging_htod") \
+        / (h.wall_seconds * 1e6)
+
+
+def mesh_rank_paths(names):
+    """One rank of the two-rank gloo world on ``cuda:0``: each path of
+    ``names`` on the client mesh, 20 rounds, with the masked sum's launch
+    shapes and offsets recorded; returns what the parent checks."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.data import partition, synthetic
+    from repro_torch.fed import runtime
+    from repro_torch.kernels import compress as kc
+    from repro_torch.kernels import secure_agg as sa
+    from repro_torch.kernels import sketch as ks
+    from repro_torch.kernels import ssca_update as su
+    from repro_torch.launch import make_client_mesh
+    from repro_torch.mlpapp import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_client_mesh()
+    data = synthetic.classification_dataset(60000, 10000, seed=0)
+    parts = {"main": partition.iid(60000, CLIENTS, seed=0),
+             "i100": partition.iid(60000, 100, seed=0)}
+    params = model.init_params(torch.Generator().manual_seed(0), 784, 128,
+                               10)
+    kernels = {"ssca_update": su.ssca_update_2d,
+               "masked_sum": sa.masked_sum_2d, "compress": kc.compress_2d,
+               "sketch_encode": ks.sketch_encode}
+    paths = {p[0]: p for p in mesh_paths()}
+    launch = sa._launch
+    seen = []
+
+    def recording(fn, name, rows, scale_args, key0, key1, num_clients,
+                  client_offset, alive, out):
+        # the masked sum's kernel launches, as the wrapper makes them
+        if name == "masked_sum":
+            seen.append((list(rows.shape), int(client_offset),
+                         int(num_clients)))
+        return launch(fn, name, rows, scale_args, key0, key1, num_clients,
+                      client_offset, alive, out)
+
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device), "wraps": mesh.int32_wraps,
+           "paths": {}}
+    sa._launch = recording
+    try:
+        for name in names:
+            _, entry, pkey, extra, arena, _ = paths[name]
+
+            def run(entry=entry, pkey=pkey, extra=extra, arena=arena):
+                return getattr(runtime, entry)(
+                    data, parts[pkey], rounds=ROUNDS, eval_every=10,
+                    seed=0, params=params, mesh=mesh, arena=arena, **extra)
+            run()                                   # warm-up
+            reset_counts(kernels)
+            seen.clear()
+            mesh.psum_calls = mesh.all_reduces = mesh.psum_bytes = 0
+            torch.cuda.reset_peak_memory_stats()
+            p, h = run()
+            d = h.as_dict()
+            wall = d.pop("wall_seconds")
+            out["paths"][name] = {
+                "bits": [b.numpy() for b in path_bits(torch, p)],
+                "hist": d, "launches": {k: f.launches
+                                        for k, f in kernels.items()},
+                "masked": list(seen), "psum_calls": mesh.psum_calls,
+                "psum_bytes": mesh.psum_bytes,
+                "round_ms": wall / ROUNDS * 1e3,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "busy": profiled_busy(torch, run)}
+            del p
+    finally:
+        sa._launch = launch
+    return out
+
+
+def upload_batch_witness(torch, data, params):
+    """The per-slot uploads of the main path's first round under one vmap
+    over all 10 slots against two vmaps over 5 (a rank's share on two
+    ranks), on the card: the largest difference and the share of entries
+    that differ.  Where they differ, the two-rank secure paths quantize
+    other last bits than ``mesh=None`` (ROADMAP queue 3)."""
+    from torch.func import vmap
+    from repro_torch.core import protocol, ssca
+    from repro_torch.core.schedules import paper_schedules
+    from repro_torch.fed.engine import build_schedule
+    from repro_torch.fed.tasks.base import SumLoss
+    from repro_torch.fed.tasks.mlp import MLPTask
+    from repro_torch.data import partition
+    rho, gamma = paper_schedules(100)
+    alg = protocol.SSCAUnconstrained(
+        loss_fn=SumLoss(MLPTask(k=784, hidden=128, l=10)),
+        hp=ssca.SSCAHyperParams(tau=0.1, lam=1e-5, rho=rho, gamma=gamma))
+    p = {k: v.cuda() for k, v in params.items()}
+    state = alg.init_state(p)
+    _, idx = build_schedule(partition.iid(60000, CLIENTS, seed=0), 100, 1,
+                            1, 0)
+    idx = torch.as_tensor(idx[0], device="cuda")
+    x = torch.as_tensor(data.x_train, device="cuda")[idx]
+    y = torch.as_tensor(data.y_train, device="cuda")[idx]
+    w = torch.full(idx.shape, 0.1, device="cuda")
+
+    def upload(lo, hi):
+        return vmap(lambda b: alg.client_upload(p, state, b))(
+            (x[lo:hi], y[lo:hi], w[lo:hi]))
+
+    whole, halves = upload(0, CLIENTS), (upload(0, 5), upload(5, CLIENTS))
+    gap, differ, total = 0.0, 0, 0
+    for k in whole:
+        part = torch.cat([h[k] for h in halves])
+        gap = max(gap, float((part - whole[k]).abs().max()))
+        differ += int((part != whole[k]).sum())
+        total += part.numel()
+    log(f"vmapped upload on the card, 2 x 5 slots against 10: max |diff| "
+        f"{gap:.3e}, {differ} of {total} entries differ")
+    if not gap <= 1e-5:
+        raise AssertionError(f"upload batch witness: {gap}")
+    return {"max_abs": gap, "entries_differing": differ, "entries": total}
+
+
+def phase_client_mesh(torch, kernels, data, parts, params, runtime, card):
+    """The client-sharded synchronous round on the card: a one-rank NCCL
+    group, each path bit for bit its ``mesh=None`` run with the same
+    launches and the predicted psums; then two gloo ranks on ``cuda:0``,
+    the ranks bit for bit each other and within 5e-5 of ``mesh=None``,
+    the masked sum launched at each rank's shard."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import LocalWorld, make_client_mesh
+    torch.cuda.empty_cache()
+    paths = {p[0]: p for p in mesh_paths()}
+    single, results = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_client_mesh()
+        if (mesh.backend, mesh.size, mesh.device.type) != ("nccl", 1,
+                                                            "cuda"):
+            raise AssertionError(f"client mesh: {mesh}")
+        # the int32 partials' exact round trip (one rank sums nothing: a
+        # sum across ranks wrapping needs two cards)
+        ring = torch.tensor([2 ** 31 - 1, -2 ** 31, -1, 12345],
+                            dtype=torch.int32, device=mesh.device)
+        if not torch.equal(mesh.psum({"q": ring})["q"], ring):
+            raise AssertionError("nccl psum of int32 partials is not exact")
+        for name, entry, pkey, extra, arena, per_round in mesh_paths():
+            def run(**kw):
+                return getattr(runtime, entry)(
+                    data, parts[pkey], rounds=ROUNDS, eval_every=10, seed=0,
+                    params=params, **extra, **kw)
+            reset_counts(kernels)
+            p_n, h_n = run(device="cuda")
+            want = {k: fn.launches for k, fn in kernels.items()}
+            want.update(variant_counts(kernels))
+            single[name] = (path_bits(torch, p_n), h_n)
+            reset_counts(kernels)
+            mesh.psum_calls = mesh.all_reduces = mesh.psum_bytes = 0
+            torch.cuda.reset_peak_memory_stats()
+            p_m, h_m = run(mesh=mesh, arena=arena)
+            peak = torch.cuda.max_memory_allocated()
+            got = {k: fn.launches for k, fn in kernels.items()}
+            got.update(variant_counts(kernels))
+            calls, nbytes = mesh.psum_calls, mesh.psum_bytes
+            if got != want or not got["masked_sum"]:
+                raise AssertionError(f"mesh {name}: launches {got}, "
+                                     f"mesh=None {want}")
+            if calls != per_round * ROUNDS:
+                raise AssertionError(f"mesh {name}: {calls} psums, want "
+                                     f"{per_round} a round")
+            same = all(torch.equal(a, b) for a, b in
+                       zip(path_bits(torch, p_m), single[name][0]))
+            for k in ("rounds", "metrics", "slack", "cum_uplink_bytes",
+                      "uplink_bytes_per_round", "downlink_bytes_per_round",
+                      "comm"):
+                same = same and getattr(h_m, k) == getattr(h_n, k)
+            if not same:
+                raise AssertionError(f"mesh {name}: the one-rank nccl run is "
+                                     "not mesh=None bit for bit")
+            busy = profiled_busy(torch, lambda: run(mesh=mesh, arena=arena))
+            results[f"nccl1_{name}"] = {
+                "launches": got, "psums_per_round": per_round,
+                "psum_bytes_per_round": nbytes // ROUNDS,
+                "round_ms": h_m.wall_seconds / ROUNDS * 1e3,
+                "round_ms_mesh_none": h_n.wall_seconds / ROUNDS * 1e3,
+                "device_busy_share": busy, "peak_bytes": peak}
+            log(f"client mesh, one nccl rank, {name} (arena {arena}): bit "
+                f"for bit mesh=None, launches {got}, {per_round} psums a "
+                "round:", json.dumps(results[f"nccl1_{name}"]), f"on {card}")
+            del p_n, p_m
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    results["upload_batch_witness"] = upload_batch_witness(torch, data,
+                                                           params)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = LocalWorld(mesh_rank_paths, 2, backend="gloo",
+                       args=(GLOO_PATHS,), timeout_s=MESH_TIMEOUT_S).join()
+    log("client mesh, two gloo ranks on cuda:0: "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    for r in ranks:
+        if (r["backend"], r["size"], r["device"], r["wraps"]) \
+                != ("gloo", 2, "cuda:0", True):
+            raise AssertionError(f"gloo rank {r['rank']}: {r['backend']}, "
+                                 f"{r['size']} ranks on {r['device']}, "
+                                 f"int32 wraps {r['wraps']}")
+    p0, p1 = (r["paths"] for r in ranks)
+    for name in GLOO_PATHS:
+        _, entry, pkey, extra, _, per_round = paths[name]
+        a, b = p0[name], p1[name]
+        if not all((x == y).all() for x, y in zip(a["bits"], b["bits"])) \
+                or a["hist"] != b["hist"]:
+            raise AssertionError(f"gloo {name}: the ranks differ")
+        if name not in single:
+            raise AssertionError(f"gloo {name}: no mesh=None run")
+        bits_n, h_n = single[name]
+        gap = max(abs(x - y) for x, y in zip(a["hist"]["train_cost"],
+                                              h_n.train_cost))
+        acc = max(abs(x - y) for x, y in zip(a["hist"]["test_accuracy"],
+                                              h_n.test_accuracy))
+        w_gap = max(float((torch.from_numpy(x).view(torch.float32)
+                           - y.view(torch.float32)).abs().max())
+                    for x, y in zip(a["bits"], bits_n))
+        if not gap < 5e-5 or not acc < 2e-3 \
+                or a["hist"]["comm"] != h_n.comm:
+            raise AssertionError(f"gloo {name}: cost gap {gap}, accuracy "
+                                 f"gap {acc} from mesh=None")
+        s = CLIENTS if extra.get("aggregation") is None \
+            else extra["aggregation"].cohort_size(CLIENTS)
+        s_pad = -(-s // 2) * 2
+        for r, res in ((0, a), (1, b)):
+            per = 2 if name == "sketch_secure" else 1
+            if len(res["masked"]) != per * ROUNDS \
+                    or res["launches"]["masked_sum"] != per * ROUNDS:
+                raise AssertionError(f"gloo {name} rank {r}: masked sums "
+                                     f"{res['launches']}")
+            for shape, off, nc in res["masked"]:
+                rows_ok = name == "sketch_secure" or shape[1:] == [794, 128]
+                if shape[0] != s_pad // 2 or off != r * s_pad // 2 \
+                        or nc != s_pad or not rows_ok:
+                    raise AssertionError(
+                        f"gloo {name} rank {r}: masked sum at {shape}, "
+                        f"offset {off}, {nc} clients")
+            if res["psum_calls"] != per_round * ROUNDS:
+                raise AssertionError(f"gloo {name} rank {r}: "
+                                     f"{res['psum_calls']} psums")
+        results[f"gloo2_{name}"] = {
+            "cost_gap": gap, "accuracy_gap": acc, "weights_gap": w_gap,
+            "bitwise_mesh_none": all((x == y.numpy()).all() for x, y in
+                                     zip(a["bits"], bits_n)),
+            "masked_sum_rank0": a["masked"][0], "masked_sum_rank1":
+                b["masked"][0], "launches": a["launches"],
+            "psums_per_round": per_round,
+            "psum_bytes_per_round": a["psum_bytes"] // ROUNDS,
+            "round_ms": [a["round_ms"], b["round_ms"]],
+            "device_busy_share": [a["busy"], b["busy"]],
+            "peak_bytes": [a["peak_bytes"], b["peak_bytes"]]}
+        log(f"client mesh, two gloo ranks on cuda:0, {name}: ranks bit for "
+            "bit,", json.dumps(results[f"gloo2_{name}"]), f"on {card}")
+    return results
+
+
 def main() -> int:
     # the full-width LM path allocates and frees many tensors of 4-8 GB;
     # growable segments keep the freed ones reusable (set before CUDA
@@ -2651,6 +2988,9 @@ def main() -> int:
     rows.append(ring_row(torch, sa, total, by_path,
                          errs["masked_ring_sum"], ring_direct))
     full_width_rows(rows, by_path, profiled, direct)
+    t0 = time.perf_counter()
+    phase_client_mesh(torch, kernels, data, parts, params, runtime, card)
+    log(f"client mesh phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
-"""The single-device federated engine, cohort-native, with async rounds.
+"""The federated engine, cohort-native, with async rounds, on one device
+or client-sharded over a 1-D mesh of ranks.
 
-The port of ``repro/fed/engine.py``'s round body for one device, without
-scan or mesh.  Per run:
+The port of ``repro/fed/engine.py``'s round body, without scan.  Per
+run:
 
 1. the per-round cohorts (T, S) and their mini-batch schedule are drawn
    up front on the host (:func:`build_schedule`, the reference's draw:
@@ -55,6 +56,21 @@ bound (on an H100 the device is busy 1.4–10.7% of the round loop,
 ``PERF.md`` §5), so a second stream would have nothing to overlap yet.
 ``profile_dir`` traces the timed loop with ``torch.profiler``.
 
+``mesh=`` (a :class:`repro_torch.launch.mesh.ClientMesh` over a
+``torch.distributed`` group) shards each synchronous round's cohort, as
+the reference's ``shard_map`` over ``"clients"`` does: the cohort is
+padded to a multiple of the D ranks with sentinel slots (id I, weight 0,
+compressed upload gated to 0, residual write dropped), every rank
+computes the cohort-wide weights and uploads its S_loc slots at cohort
+positions [rank·S_loc, (rank + 1)·S_loc), and the aggregate is
+``finalize_combine(psum(partial_combine(…, offset, S_pad)))`` (the
+linear fast path psums its one upload).  Under secure aggregation the
+partials are int32 masked sums, so the aggregate, and each round's
+model, are the one-device ones bit for bit.  ``arena="sharded"`` homes
+the residual arena's rows and the weight vector on their clients' ranks
+(:mod:`repro_torch.fed.arena`), gathered and written back through psums
+of int32 bits; ``"replicated"`` keeps every row on every rank.
+
 The exact wire bytes of every round are recorded in the ledger.
 """
 from __future__ import annotations
@@ -74,11 +90,13 @@ from repro_torch import Device, resolve_device, tree
 from repro_torch.data.partition import (Partition, sample_cohorts,
                                         sample_groups, sample_schedule,
                                         sample_staleness)
+from repro_torch.fed import arena as arena_mod
 from repro_torch.fed import compression as compression_mod
 from repro_torch.fed import staleness as staleness_mod
 from repro_torch.fed.aggregation import PlainAggregation
 from repro_torch.fed.keys import phase2_key, round_keys
 from repro_torch.kernels.compress import client_stream_seed
+from repro_torch.launch.mesh import ClientMesh
 
 
 _MLP_METRICS = ("train_cost", "test_accuracy", "sparsity")
@@ -304,6 +322,84 @@ def _sketched_round(compressor, aggregation, msgs, resid, seeds, key_words,
         compressor.update_residual(inp, support, vals)
 
 
+@dataclasses.dataclass(frozen=True)
+class _MeshCombine:
+    """A strategy's combine on a client mesh, the reference's 1-D mesh
+    ``_combine``: ``finalize_combine`` of the psum of the ranks'
+    ``partial_combine``s, each rank's slots at cohort positions
+    [offset, offset + S_loc) of the padded ``cohort_size``."""
+    aggregation: Any
+    mesh: ClientMesh
+    offset: int
+    cohort_size: int
+
+    def combine_messages(self, wmsgs, key_words, *, alive=None,
+                         device: Device = None):
+        agg = self.aggregation
+        return agg.finalize_combine(self.mesh.psum(agg.partial_combine(
+            wmsgs, key_words, self.offset, self.cohort_size, alive,
+            device=device)))
+
+
+def _pad_cohort(cohorts: np.ndarray, schedule: np.ndarray, num_clients: int,
+                ranks: int) -> tuple:
+    """The cohort padded to a multiple of the mesh's ``ranks`` with the
+    sentinel id I (zero round weight, gated upload, write-back dropped)
+    and batch index 0, so any (S, D) runs, S = 1 on two ranks included."""
+    pad = (-cohorts.shape[1]) % ranks
+    if not pad:
+        return cohorts, schedule
+    rounds = cohorts.shape[0]
+    cohorts = np.concatenate(
+        [cohorts, np.full((rounds, pad), num_clients, cohorts.dtype)], 1)
+    widths = [(0, 0), (0, pad)] + [(0, 0)] * (schedule.ndim - 2)
+    return cohorts, np.pad(schedule, widths)
+
+
+def _check_mesh(mesh, aggregation, staleness, staleness_trace,
+                pipeline) -> None:
+    """Refuse what the client-sharded round does not run: a mesh that is
+    not the 1-D client mesh, the tree on it, and the async and pipelined
+    modes on it (the sharded snapshot ring and the pipelined collective
+    are not ported yet)."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, ClientMesh):
+        raise NotImplementedError(
+            f"mesh={mesh!r}: only the 1-D client mesh of "
+            "repro_torch.launch.make_client_mesh is ported; other meshes, "
+            "the (groups, clients) mesh among them, wait for ROADMAP "
+            "queue 1, item 4c")
+    if getattr(aggregation, "groups", None) is not None:
+        raise ValueError(
+            "HierarchicalAggregation shards over a 2-D (groups, clients) "
+            "mesh, not the 1-D client mesh: a flat cohort shard cannot "
+            "host the tree's two reductions")
+    for name, on in (("staleness", staleness is not None),
+                     ("staleness_trace", staleness_trace is not None),
+                     ("pipeline", bool(pipeline))):
+        if on:
+            raise NotImplementedError(
+                f"mesh= with {name}=: the sharded async ring and the "
+                "pipelined ring collective are not ported to repro_torch "
+                "yet (ROADMAP queue 1, item 4c)")
+
+
+def _run_device(mesh, device: Device) -> torch.device:
+    """The run's device: the mesh rank's own when a mesh is set (a
+    ``device`` that names another is refused), else ``cuda`` unless the
+    caller asks for the CPU."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None:
+        want = torch.device(device)
+        if want.type != mesh.device.type or (
+                want.index is not None and want != mesh.device):
+            raise ValueError(f"device={device!r} but the mesh's rank "
+                             f"{mesh.rank} runs on {mesh.device}")
+    return mesh.device
+
+
 @contextlib.contextmanager
 def _traced(profile_dir, dev: torch.device):
     """With a ``profile_dir``, the block runs under ``torch.profiler`` (the
@@ -342,8 +438,9 @@ def _full_f32_matmuls():
 def run(algorithm, data, part: Partition, *, task, batch_size: int,
         rounds: int, params=None, seed: int = 0, eval_every: int = 1,
         eval_samples: int = 10000, aggregation=None, compressor=None,
-        staleness=None, staleness_trace=None, pipeline: bool = False,
-        profile_dir=None, device: Device = None) -> tuple:
+        mesh=None, arena=None, staleness=None, staleness_trace=None,
+        pipeline: bool = False, profile_dir=None,
+        device: Device = None) -> tuple:
     """Run ``algorithm`` on ``task`` for ``rounds`` rounds on ``device``
     (``cuda`` unless the caller asks for the CPU).
 
@@ -365,12 +462,34 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     trace (K = 1, no discount) without an ``alive`` mask, as the
     reference's pipelined rounds do, and writes ``comm["pipeline"]``; it
     refuses ``staleness=``.  ``profile_dir`` writes one Chrome trace of
-    the timed loop there (``torch.profiler``).  Returns the final
-    parameters (on ``device``) and the :class:`History`.
+    the timed loop there (``torch.profiler``).
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.ClientMesh`) shards each
+    round's cohort over the mesh's ranks: every rank makes the same call,
+    uploads its S_loc = S_pad / D slots at cohort positions [rank·S_loc,
+    (rank + 1)·S_loc) and takes the aggregate from one psum of the
+    strategy's partials (int32 masked partials under secure aggregation,
+    so the aggregate is the one-device aggregate bit for bit); the
+    cohort is padded to a multiple of D with sentinel slots of weight 0.
+    Every rank returns the same parameters and :class:`History`.
+    ``arena`` places the population-resident state on the mesh:
+    ``"sharded"`` (the default with a mesh) homes each client's residual
+    row and population weight on one rank (:mod:`repro_torch.fed.arena`),
+    ``"replicated"`` keeps all of them on every rank; the two are bit for
+    bit one run.  Without a mesh ``arena`` is ignored, as in the
+    reference.  The mesh runs synchronous rounds of a flat strategy:
+    with the tree it raises ``ValueError``, with ``staleness=``,
+    ``staleness_trace=`` or ``pipeline=True`` ``NotImplementedError``.
+    Returns the final parameters (on ``device``) and the
+    :class:`History`.
     """
-    dev = resolve_device(device)
+    if arena not in (None, "replicated", "sharded"):
+        raise ValueError(
+            f"arena={arena!r} not in (None, 'replicated', 'sharded')")
     aggregation = aggregation if aggregation is not None \
         else PlainAggregation()
+    _check_mesh(mesh, aggregation, staleness, staleness_trace, pipeline)
+    dev = _run_device(mesh, device)
     combine = algorithm.combine
     compressor = _check_compressor(compressor, aggregation)
     num_clients = part.num_clients
@@ -399,12 +518,29 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
             max_staleness=1, schedule=staleness_mod.ConstantDiscount())
         trace = np.ones((rounds, cohort), np.int64)
     is_async = trace is not None
+    # the rank's cohort slots: all S without a mesh
+    s_pad, offset, plan, me = cohort, 0, None, None
+    if mesh is not None:
+        cohorts, schedule = _pad_cohort(cohorts, schedule, num_clients,
+                                        mesh.size)
+        s_pad = cohorts.shape[1]
+        offset = mesh.rank * (s_pad // mesh.size)
+        schedule = schedule[:, offset:offset + s_pad // mesh.size]
+        if (arena or "sharded") == "sharded":
+            plan = arena_mod.make_plan(num_clients, mesh)
+            me = arena_mod.shard_index(plan, mesh)
+    local = slice(offset, offset + schedule.shape[1])
+    combiner = aggregation if mesh is None \
+        else _MeshCombine(aggregation, mesh, offset, s_pad)
     cohorts_dev = torch.as_tensor(cohorts, device=dev)
     schedule = torch.as_tensor(schedule, device=dev)
     x_train = torch.as_tensor(data.x_train, device=dev)
     y_train = torch.as_tensor(data.y_train, device=dev)
     weights = torch.as_tensor(algorithm.client_weights(part, batch_size),
                               device=dev)
+    if plan is not None:
+        # the (I,)-resident weight vector is home-sharded like the arena
+        weights = arena_mod.home_rows(plan, weights, me)
     keyw = round_keys(seed, rounds)
     state = algorithm.init_state(params)
     measure = evaluator(task, data, eval_samples, dev)
@@ -413,14 +549,14 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     hist = History(uplink_bytes_per_round=ledger.uplink_total,
                    downlink_bytes_per_round=ledger.downlink_total,
                    comm=ledger.as_dict())
-    arena = None
+    resid_arena = None
     if compressor is not None:
         # the per-(round, slot) stream seeds, from the round key's first
         # and last words and the slot's global client id, so a client's
         # draws do not depend on its cohort position: (T, S), staged once
         kw64 = keyw.astype(np.int64)
         seeds = torch.as_tensor(client_stream_seed(
-            kw64[:, :1], kw64[:, -1:], cohorts), device=dev)
+            kw64[:, :1], kw64[:, -1:], cohorts)[:, local], device=dev)
     if is_async:
         k_max = staleness.max_staleness
         # τ = min(trace, K); τ > K drops the slot (discount 0, masks
@@ -464,29 +600,55 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         return out
 
     def aggregate(t):
-        """Round t's aggregate.  The (S, …) per-slot uploads are locals
-        here, so they are freed before the server step."""
-        nonlocal arena
-        cohort_t = cohorts_dev[t]
-        idx_t = schedule[t]                          # (S, B) or (S, E, B)
-        rw = aggregation.cohort_weights(weights[cohort_t], combine,
-                                        num_clients)
+        """Round t's aggregate.  The (S_loc, …) per-slot uploads are
+        locals here, so they are freed before the server step."""
+        nonlocal resid_arena
+        cohort_t = cohorts_dev[t]                    # (S_pad,), every rank
+        idx_t = schedule[t]                  # (S_loc, B) or (S_loc, E, B)
+        live_full = keep = None
+        if mesh is None:
+            w_c = weights[cohort_t]
+        else:
+            # sentinel pads (id I) get weight 0: the replicated gather
+            # clamps them, the home-sharded one reads their dead row
+            live_full = cohort_t < num_clients
+            if plan is None:
+                w_c = weights[cohort_t.clamp(max=num_clients - 1)]
+            else:
+                w_c = arena_mod.gather_rows(plan, weights, cohort_t, me,
+                                            mesh.psum)
+            w_c = torch.where(live_full, w_c, 0.0)
+            keep = live_full[local]
+        # the cohort-wide weights, the same on every rank, then the slice
+        # of this rank's slots
+        rw = aggregation.cohort_weights(w_c, combine, num_clients)[local]
         alive = None
         if is_async:
             rw = staleness_mod.discount_reweight(rw, disc_dev[t])
             if not pipeline:
                 alive = alive_dev[t]
+                keep = alive != 0
+
+        def gate(c):
+            """A slot's compressed upload zeroed where it never arrived
+            (an async dropout) or is a mesh's sentinel pad."""
+            if keep is None:
+                return c
+            return torch.where(_rows(keep, c), c, torch.zeros_like(c))
+
         if combine == "sum" and compressor is None \
                 and not aggregation.needs_messages:
-            # linear fast path: one upload on the weighted super-batch;
-            # async, one per ring slot read, its weights masked to the
-            # slots at that delay
+            # linear fast path: one upload on the weighted super-batch
+            # (on a mesh, the rank's slots', psummed); async, one per
+            # ring slot read, its weights masked to the slots at that
+            # delay
             flat = idx_t.reshape(-1)
             bx, by = x_train[flat], y_train[flat]
             if not is_async:
-                return algorithm.client_upload(
+                agg = algorithm.client_upload(
                     params, state,
                     (bx, by, rw.repeat_interleave(idx_t.shape[1])))
+                return agg if mesh is None else mesh.psum(agg)
             agg = None
             for k in np.unique(tau_host[t]):
                 wk = torch.where(tau_dev[t] == int(k), rw, 0.0)
@@ -509,19 +671,34 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                 tree.map(lambda m, p: m - p, models, base)
         if compressor is None:
             msgs = raw if combine == "sum" else weighted(raw, rw)
-            return aggregation.combine_messages(msgs, keyw[t], alive=alive,
-                                                device=dev)
-        if compressor.stateful and arena is None:
-            arena = compressor.init_client_state(
-                tree.map(lambda v: v[0], raw), num_clients)
-        resid = None if arena is None else \
-            tree.map(lambda a: a[cohort_t], arena)
+            return combiner.combine_messages(msgs, keyw[t], alive=alive,
+                                             device=dev)
+        if compressor.stateful and resid_arena is None:
+            resid_arena = compressor.init_client_state(
+                tree.map(lambda v: v[0], raw),
+                num_clients if plan is None else plan.rows_per_shard)
+        resid = None
+        if resid_arena is not None:
+            if mesh is None:
+                resid = tree.map(lambda a: a[cohort_t], resid_arena)
+            elif plan is None:
+                # a sentinel reads zeros, as from the sharded dead row
+                resid = tree.map(lambda a: gate(
+                    a[cohort_t[local].clamp(max=num_clients - 1)]),
+                    resid_arena)
+            else:
+                resid = tree.map(lambda a: a[local], arena_mod.gather_rows(
+                    plan, resid_arena, cohort_t, me, mesh.psum))
         if getattr(compressor, "sketched", False):
             # λ' is applied before the encode (the bucket values must
             # stay on the fixed-point grid); a sum-combine message
             # carries it already
             msgs = raw if combine == "sum" else weighted(raw, rw)
-            agg, new_resid = _sketched_round(compressor, aggregation, msgs,
+            if mesh is not None:
+                # a sentinel pad's message and residual are zero, so its
+                # sketch and phase-2 values are exact zeros
+                msgs = tree.map(gate, msgs)
+            agg, new_resid = _sketched_round(compressor, combiner, msgs,
                                              resid, seeds[t], keyw[t], dev,
                                              alive)
             if combine == "mean":
@@ -540,23 +717,38 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         else:
             comp, new_resid = compressor.compress(raw, resid, seeds[t],
                                                   device=dev)
-            if alive is not None:
-                # a dropped slot's upload never arrived
-                comp = tree.map(lambda c: torch.where(
-                    _rows(alive != 0, c), c, torch.zeros_like(c)), comp)
+            # a dropped slot's upload never arrived; a pad's is zero
+            comp = tree.map(gate, comp)
             msgs = comp if combine == "sum" else weighted(
                 tree.map(lambda d, p: p + d, comp, base), rw)
-            agg = aggregation.combine_messages(msgs, keyw[t], alive=alive,
-                                               device=dev)
-        if arena is not None:
-            if alive is not None:
-                # a dropped slot applied nothing: its residual rides
-                # through unchanged
-                new_resid = tree.map(lambda nr, od: torch.where(
-                    _rows(alive != 0, nr), nr, od), new_resid, resid)
-            for a, r in zip(tree.leaves(arena), tree.leaves(new_resid)):
-                a[cohort_t] = r
+            agg = combiner.combine_messages(msgs, keyw[t], alive=alive,
+                                            device=dev)
+        if resid_arena is not None:
+            write_back(new_resid, resid, cohort_t, live_full, alive)
         return agg
+
+    def write_back(new_resid, resid, cohort_t, live_full, alive):
+        """The cohort's new residual rows into the arena.  A dropped
+        async slot keeps its row; on a mesh one psum replicates every
+        rank's rows, then the live ones are written: all of them into the
+        replicated arena, the rank's own into the home-sharded one."""
+        if alive is not None:
+            # a dropped slot applied nothing: its residual rides through
+            new_resid = tree.map(lambda nr, od: torch.where(
+                _rows(alive != 0, nr), nr, od), new_resid, resid)
+        if mesh is None:
+            for a, r in zip(tree.leaves(resid_arena),
+                            tree.leaves(new_resid)):
+                a[cohort_t] = r
+            return
+        rows = arena_mod.replicate_rows(new_resid, s_pad, offset, mesh.psum)
+        if plan is not None:
+            arena_mod.scatter_rows(plan, resid_arena, rows, cohort_t,
+                                   live_full, me)
+            return
+        # the live slots are the first S positions, the pads the last
+        for a, r in zip(tree.leaves(resid_arena), tree.leaves(rows)):
+            a[cohort_t[:cohort]] = r[:cohort]
 
     evals = []
     with _traced(profile_dir, dev):

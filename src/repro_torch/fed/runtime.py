@@ -15,7 +15,9 @@ on the paper's MLP task by default, or on a decoder-only LM task
 hierarchical (``hierarchical(inner, G)``) aggregation, full or partial
 participation (``sampled(S)``, ``secure(num_sampled=S)``), synchronous,
 async (``staleness=``) or pipelined (``pipeline=True``) rounds and
-optionally compressed or sketched uploads, on one device.  The
+optionally compressed or sketched uploads, on one device or, with
+``mesh=`` (:func:`repro_torch.launch.make_client_mesh`), with the cohort
+sharded over the ranks of a ``torch.distributed`` group.  The
 mini-batch schedule is shared across the sum-combine algorithms (same
 seed ⇒ same sample draws), so convergence comparisons are paired;
 FedAvg draws its local steps under their own ids.
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 from typing import Union
 
-from repro_torch import Device, resolve_device
+from repro_torch import Device
 from repro_torch.core import constrained, fedavg, protocol, ssca
 from repro_torch.core.schedules import paper_schedules, sgd_learning_rate
 from repro_torch.data.partition import Partition
@@ -71,24 +73,28 @@ def run(task, algorithm, data, part: Partition, *, batch_size: int,
     ``staleness_trace`` run async rounds; ``pipeline=True`` runs the
     reference's pipelined rounds (the async mode at the constant τ ≡ 1
     trace; it refuses ``staleness=``); ``profile_dir`` writes a
-    ``torch.profiler`` Chrome trace of the timed loop there.  ``arena``
-    must be ``None``, ``"replicated"`` or ``"sharded"``; one device has
-    nothing to shard, so it is then ignored, as in the reference without
-    a mesh.  ``mesh`` is not ported yet: setting it raises.
+    ``torch.profiler`` Chrome trace of the timed loop there.
+
+    ``mesh`` (:func:`repro_torch.launch.make_client_mesh`, every rank of
+    the group making the same call) shards each round's cohort over the
+    ranks, the aggregate one psum of their partials; it then runs on the
+    mesh rank's device.  ``arena`` must be ``None``, ``"replicated"`` or
+    ``"sharded"`` (the default with a mesh): where the population's
+    residual rows and weights live on the mesh; one device has nothing to
+    shard, so without a mesh it is ignored, as in the reference.  The
+    mesh runs synchronous rounds of a flat strategy: ``hierarchical(...)``
+    on it raises ``ValueError``, and ``staleness=``, ``staleness_trace=``
+    or ``pipeline=True`` with it raise ``NotImplementedError`` (ROADMAP
+    queue 1, item 4c).
     """
-    dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError("mesh not ported to repro_torch yet")
-    if arena not in (None, "replicated", "sharded"):
-        raise ValueError(
-            f"arena={arena!r} not in (None, 'replicated', 'sharded')")
     return engine.run(algorithm, data, part, task=task,
                       batch_size=batch_size, rounds=rounds, params=params,
                       seed=seed, eval_every=eval_every,
                       eval_samples=eval_samples, aggregation=aggregation,
-                      compressor=compressor, staleness=staleness,
-                      staleness_trace=staleness_trace, pipeline=pipeline,
-                      profile_dir=profile_dir, device=dev)
+                      compressor=compressor, mesh=mesh, arena=arena,
+                      staleness=staleness, staleness_trace=staleness_trace,
+                      pipeline=pipeline, profile_dir=profile_dir,
+                      device=device)
 
 
 def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
@@ -120,8 +126,8 @@ def run_alg1(data, part: Partition, *, batch_size: int, rounds: int,
     ``secure(num_sampled=S)``) or be the tree (``hierarchical(inner,
     groups)``); ``staleness`` / ``staleness_trace`` run async rounds,
     ``pipeline=True`` pipelined ones; ``profile_dir`` traces the timed
-    loop; ``arena`` is validated and ignored on one device (:func:`run`).
-    ``mesh`` is not ported yet: setting it raises.
+    loop; ``mesh`` (a client mesh of ranks) shards the cohort and
+    ``arena`` places its population state (:func:`run`).
     """
     task = _resolve_task(task, data, hidden)
     rho, gamma = paper_schedules(batch_size)
@@ -152,7 +158,7 @@ def run_alg2(data, part: Partition, *, batch_size: int, rounds: int,
     constrained variant the paper's §III-B requires.  The slack s^t at
     each eval point is ``History.slack``.  Other arguments as
     :func:`run_alg1`'s: cohorts, the hierarchical tree, compressors,
-    async and pipelined rounds, ``profile_dir`` and ``arena``."""
+    async and pipelined rounds, ``profile_dir``, ``mesh`` and ``arena``."""
     task = _resolve_task(task, data, hidden)
     rho, gamma = paper_schedules(batch_size)
     hp = constrained.ConstrainedHyperParams(tau=tau, c=c, rho=rho,
@@ -180,7 +186,7 @@ def run_fedsgd(data, part: Partition, *, batch_size: int, rounds: int,
     """E = 1 SGD baseline [3],[4] on the same objective as Algorithm 1,
     learning rate ``lr_a / t^lr_alpha``.  Other arguments as
     :func:`run_alg1`'s: cohorts, the hierarchical tree, compressors,
-    async and pipelined rounds, ``profile_dir`` and ``arena``."""
+    async and pipelined rounds, ``profile_dir``, ``mesh`` and ``arena``."""
     task = _resolve_task(task, data, hidden)
     hp = fedavg.SGDHyperParams(lr=sgd_learning_rate(lr_a, lr_alpha))
     alg = protocol.FedSGD(loss_fn=SumLoss(task), hp=hp, lam=lam)
@@ -207,7 +213,7 @@ def run_fedavg(data, part: Partition, *, batch_size: int, rounds: int,
     The local objective is the task's mean loss + λ‖ω‖²
     (:class:`repro_torch.fed.tasks.base.LocalObjective`).  Other arguments
     as :func:`run_alg1`'s: cohorts, the hierarchical tree, compressors,
-    async and pipelined rounds, ``profile_dir`` and ``arena``.
+    async and pipelined rounds, ``profile_dir``, ``mesh`` and ``arena``.
     """
     task = _resolve_task(task, data, hidden)
     hp = fedavg.SGDHyperParams(lr=sgd_learning_rate(lr_a, lr_alpha),

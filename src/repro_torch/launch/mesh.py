@@ -1,0 +1,248 @@
+"""The client mesh on a ``torch.distributed`` process group.
+
+The port of ``repro/launch/mesh.py``'s ``make_client_mesh``: a 1-D group
+of ranks over the federated-client axis.  The engine
+(:func:`repro_torch.fed.engine.run` with ``mesh=``) shards each round's
+cohort over the ranks, every rank running the same call (SPMD, as under
+``torchrun``), and :meth:`ClientMesh.psum` stands for the reference's
+``jax.lax.psum`` over ``"clients"``.
+
+The 2-D (groups, clients) mesh of the hierarchical tree
+(``make_group_mesh``) is not ported yet.
+
+:class:`LocalWorld` runs one function on D local processes, one
+rank each, in a process group of its own (a ``FileStore`` in a temporary
+directory): the tests run the sharded engine on the CPU with gloo this
+way, and ``chip_smoke.py`` runs two gloo ranks on one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import multiprocessing
+import os
+import queue as queue_mod
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import Device, resolve_device, tree
+
+_U32 = 1 << 32
+_I32_MIN = -(1 << 31)
+
+
+def _wrap_i32(v: int) -> int:
+    """An integer reduced mod 2^32 into int32's range."""
+    return (v - _I32_MIN) % _U32 + _I32_MIN
+
+
+@dataclasses.dataclass(eq=False)
+class ClientMesh:
+    """A 1-D client group: the process ``group`` (``None`` is the default
+    group), this process's ``rank`` of ``size``, the ``backend`` and the
+    ``device`` the rank's tensors live on.
+
+    ``int32_wraps`` says whether the backend's int32 sum wraps mod 2^32
+    (probed once by :func:`make_client_mesh` on a group of two or more
+    ranks); where it does not, :meth:`psum` sums int32 leaves exactly in
+    int64 and wraps the result.  ``psum_calls``, ``all_reduces`` and
+    ``psum_bytes`` count what :meth:`psum` did since the mesh was made
+    (or since the caller set them to 0)."""
+    group: Any
+    rank: int
+    size: int
+    backend: str
+    device: torch.device
+    int32_wraps: bool = True
+    psum_calls: int = 0
+    all_reduces: int = 0
+    psum_bytes: int = 0
+
+    def psum(self, values):
+        """The sum of ``values`` (a tree of tensors on :attr:`device`)
+        over the ranks, on every rank: one ``all_reduce(SUM)`` per dtype,
+        of one flat buffer that holds every leaf of that dtype.  int32
+        leaves sum in the ring Z_2^32, never in float."""
+        leaves = tree.leaves(values)
+        out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        by_dtype: dict = {}
+        for i, x in enumerate(leaves):
+            if x.device != self.device:
+                raise ValueError(f"psum: a leaf on {x.device}, the mesh's "
+                                 f"rank {self.rank} is on {self.device}")
+            by_dtype.setdefault(x.dtype, []).append(i)
+        for dtype, idx in by_dtype.items():
+            flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+            wide = dtype == torch.int32 and not self.int32_wraps
+            if wide:
+                flat = flat.to(torch.int64)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+            self.all_reduces += 1
+            self.psum_bytes += flat.numel() * flat.element_size()
+            if wide:
+                flat = (torch.remainder(flat - _I32_MIN, _U32)
+                        + _I32_MIN).to(torch.int32)
+            off = 0
+            for i in idx:
+                n = leaves[i].numel()
+                out[i] = flat[off:off + n].reshape(leaves[i].shape)
+                off += n
+        self.psum_calls += 1
+        return tree.unflatten(values, out)
+
+
+def _rank_card(dev: torch.device) -> torch.device:
+    """A bare ``cuda`` resolved to this rank's card: ``LOCAL_RANK``, as
+    ``torchrun`` sets it, else the global rank, modulo the cards."""
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def _probe_int32_wrap(group, size: int, dev: torch.device) -> bool:
+    """Whether the group's int32 sum wraps mod 2^32: every rank adds
+    2^31 − 1, which passes 2^31 on two or more ranks."""
+    big = (1 << 31) - 1
+    x = torch.full((1,), big, dtype=torch.int32, device=dev)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return int(x.item()) == _wrap_i32(size * big)
+
+
+def make_client_mesh(group=None, device: Device = None) -> ClientMesh:
+    """The 1-D client mesh over ``group`` (``None``: the default process
+    group, which the caller has initialized, e.g. under ``torchrun``).
+
+    ``device`` is the rank's device: ``cuda`` unless the caller asks for
+    the CPU; without a GPU and without ``device="cpu"`` it raises, as the
+    port's entry points do.  A bare ``cuda`` is this rank's card
+    (``LOCAL_RANK`` modulo the cards), made the current device.  The
+    backend is the group's own: nothing here falls back to another."""
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_client_mesh: no process group; call "
+            "torch.distributed.init_process_group first (torchrun sets "
+            "its address, rank and world size)")
+    dev = _rank_card(dev)
+    backend = str(dist.get_backend(group))
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"the nccl backend reduces CUDA tensors; the rank's "
+                         f"device is {dev}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    wraps = size == 1 or _probe_int32_wrap(group, size, dev)
+    return ClientMesh(group=group, rank=rank, size=size, backend=backend,
+                      device=dev, int32_wraps=wraps)
+
+
+def make_group_mesh(*args, **kwargs):
+    """The reference's 2-D (groups, clients) mesh of the hierarchical
+    tree: not ported yet (ROADMAP queue 1, item 4c)."""
+    del args, kwargs
+    raise NotImplementedError(
+        "make_group_mesh: the 2-D (groups, clients) mesh is not ported to "
+        "repro_torch yet (ROADMAP queue 1, item 4c)")
+
+
+# ---------------------------------------------------------------------------
+# a local world of D processes
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank: int, size: int, backend: str, store: str, fn, args,
+               results, timeout_s: float) -> None:
+    """One spawned rank, on one intra-op thread: join the world's
+    FileStore group, run ``fn(*args)``, put (rank, ok, result or
+    traceback) on ``results``."""
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            backend, store=dist.FileStore(store, size), rank=rank,
+            world_size=size, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(*args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except Exception:                        # reported to the parent
+        results.put((rank, False, traceback.format_exc()))
+
+
+class LocalWorld:
+    """D spawned processes, one rank each, of one ``torch.distributed``
+    group on a ``FileStore`` in a temporary directory (no TCP port), each
+    on one intra-op thread; daemons, so none outlives this process.  ``fn`` must be importable by its
+    module path, as ``multiprocessing``'s spawn method requires, and
+    return a picklable value (tensors on the CPU).  The collectives
+    time out after ``timeout_s``; :meth:`join` waits at most as long
+    for every rank, then stops every process and raises if a rank
+    failed or did not answer."""
+
+    def __init__(self, fn: Callable, size: int, *, backend: str,
+                 args: tuple = (), timeout_s: float = 300.0):
+        ctx = multiprocessing.get_context("spawn")
+        self.size, self.timeout_s = int(size), float(timeout_s)
+        self._tmp = tempfile.mkdtemp(prefix="repro_torch_world_")
+        self._results = ctx.Queue()
+        self._procs = [ctx.Process(
+            target=_rank_main,
+            args=(r, self.size, backend, os.path.join(self._tmp, "store"),
+                  fn, args, self._results, self.timeout_s),
+            name=f"repro_torch-rank{r}", daemon=True)
+            for r in range(self.size)]
+        for p in self._procs:
+            p.start()
+
+    def join(self) -> list:
+        """Every rank's result, in rank order."""
+        got: dict = {}
+        deadline = time.monotonic() + self.timeout_s
+        done = False
+        try:
+            while len(got) < self.size:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    late = sorted(set(range(self.size)) - set(got))
+                    raise TimeoutError(
+                        f"local world: ranks {late} did not answer within "
+                        f"{self.timeout_s:.0f} s")
+                try:
+                    rank, ok, out = self._results.get(timeout=min(left, 1.0))
+                except queue_mod.Empty:
+                    dead = [r for r, p in enumerate(self._procs)
+                            if r not in got and not p.is_alive()
+                            and p.exitcode not in (0, None)]
+                    if dead:
+                        raise RuntimeError(
+                            f"local world: rank {dead[0]} exited with code "
+                            f"{self._procs[dead[0]].exitcode}")
+                    continue
+                if not ok:
+                    raise RuntimeError(f"local world: rank {rank} failed:\n"
+                                       f"{out}")
+                got[rank] = out
+            done = True
+        finally:
+            self.close(grace_s=10.0 if done else 0.0)
+        return [got[r] for r in range(self.size)]
+
+    def close(self, grace_s: float = 0.0) -> None:
+        """Stop every process: each gets ``grace_s`` to exit, then is
+        terminated and, if need be, killed; remove the store's
+        directory."""
+        for p in self._procs:
+            p.join(timeout=grace_s)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+        shutil.rmtree(self._tmp, ignore_errors=True)

@@ -256,3 +256,46 @@ def test_rwkv_entry_points_refuse_the_cpu_by_default(no_gpu):
     assert hist.rounds == [1]
     ops.rwkv6_wkv(x, x, x, x + 0.5, u)
     assert rwkv6_scan.rwkv6_wkv_bh.launches == before
+
+
+def test_launch_subpackage_stands_alone():
+    # the import walk above reaches the client mesh and the arena, and
+    # their sources import neither jax nor the reference
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    check = _CHECK + "\nassert 'repro_torch.launch.mesh' in names\n" \
+        "assert 'repro_torch.fed.arena' in names\n"
+    out = subprocess.run([sys.executable, "-c", check], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    for f in (PKG / "launch" / "__init__.py", PKG / "launch" / "mesh.py",
+              PKG / "fed" / "arena.py"):
+        assert not _IMPORT.findall(f.read_text()), f
+
+
+def test_make_client_mesh_refuses_the_cpu_by_default(no_gpu, tmp_path):
+    import torch.distributed as dist
+    from repro_torch.launch import make_client_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_client_mesh()
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_client_mesh(device="cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_client_mesh()
+        mesh = make_client_mesh(device="cpu")
+        assert (mesh.rank, mesh.size, mesh.backend, mesh.device) \
+            == (0, 1, "gloo", torch.device("cpu"))
+        # a run on the mesh follows the mesh's device, the CPU asked for
+        data = synthetic.classification_dataset(40, 10, k=16, l=3)
+        part = partition.iid(40, 2)
+        p_m, h_m = runtime.run_alg1(data, part, batch_size=5, rounds=1,
+                                    hidden=4, secure=True, mesh=mesh)
+        p_n, h_n = runtime.run_alg1(data, part, batch_size=5, rounds=1,
+                                    hidden=4, secure=True, device="cpu")
+        assert h_m.metrics == h_n.metrics and mesh.psum_calls == 2
+        for a, b in zip(p_m.values(), p_n.values()):
+            assert a.device.type == "cpu" and torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
