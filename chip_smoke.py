@@ -156,22 +156,36 @@ last line):
    full-width LM path, the launches, the profiled round's launch time,
    the direct launches' time and the bound at that path's parameter
    count;
-9. drive the client-sharded synchronous round (``phase_client_mesh``):
-   in a one-rank NCCL group (a ``FileStore`` in a temporary directory),
+9. drive the client-sharded rounds (``phase_client_mesh``): first
+   ``masked_sum`` against its plain version bit for bit at a rank's
+   shard of the async paths, (5, 794, 128) at ``client_offset`` 5 of 10,
+   with the dropouts of three rounds of their trace; then in a one-rank
+   NCCL group (a ``FileStore`` in a temporary directory),
    ``mesh=make_client_mesh()`` on secure dense, ``topk(0.1, bits=8)`` +
    secure with arena ``"sharded"`` and ``"replicated"``, the secure
    sketch, FedAvg secure with top-k, ``secure(num_sampled=10)`` of 100
-   clients and ``secure(num_sampled=3)`` of 10, 20 rounds each, counters
-   set to 0 just before each run and read just after: each bit for bit
-   its ``mesh=None`` run on the card (weights, every metric, ``comm``),
-   the same launches, the predicted psum calls a round (``PERF.md``
-   §4); the vmapped upload over 2 x 5 slots against 10 on the card; then
-   two spawned gloo ranks sharing ``cuda:0`` on secure dense, the cohort
-   of 3 (padded to 4), the sketch and FedAvg with top-k: the ranks bit
+   clients and ``secure(num_sampled=3)`` of 10, and the participation
+   phase's async paths (secure, drop-stragglers, plain, FedAvg secure
+   with top-k, the secure sketch), ``pipeline=True`` secure and the
+   async run at the constant τ ≡ 1 trace, 20 rounds each, counters set
+   to 0 just before each run and read just after: each bit for bit its
+   ``mesh=None`` run on the card (weights, every metric, ``comm``), the
+   same launches (the ``alive`` ones as predicted), the predicted psum
+   calls a round (``PERF.md`` §4), and each async and pipelined path bit
+   for bit under arena ``"replicated"`` (the snapshot ring as a list)
+   against ``"sharded"`` (the packed ring, column-sharded); the vmapped
+   upload over 2 x 5 slots against 10 on the card; then two spawned gloo
+   ranks sharing ``cuda:0``: ``ring_psum_chunked`` bit for bit the psum
+   on the reference's mixed tree (int32 and f32 leaves on the card,
+   staged through host memory), then secure dense, the cohort of 3
+   (padded to 4), the sketch, FedAvg with top-k, async secure, pipelined
+   secure, async τ ≡ 1 secure and async FedAvg with top-k: the ranks bit
    for bit each other, cost within 5e-5 and accuracy within 2e-3 of
    ``mesh=None``, the masked sum launched per rank at (S_loc, R, 128)
-   with ``client_offset = rank·S_loc`` of S_pad; each path's round time,
-   device busy share and peak memory printed;
+   with ``client_offset = rank·S_loc`` of S_pad (with ``alive`` on the
+   async paths, their dropped slots the trace's), the psums and ring
+   calls a round as predicted, pipelined bit for bit async τ ≡ 1; each
+   path's round time, device busy share and peak memory printed;
 then print one ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2540,41 +2554,78 @@ def full_width_rows(rows, by_path, profiled, direct):
 
 # the client-sharded rounds (phase_client_mesh), at the paths' PERF.md §4
 # configurations, 20 rounds: (name, runtime entry, population, arguments,
-# arena, psum calls a round).  The psums: the combine (two on the
-# sketch's two phases), the home-sharded weight gather, and for top-k and
-# the sketch the residual rows' gather (home-sharded only) and their
-# replication
+# arena, psum calls a round on one rank, masked sums with alive a round).
+# The psums: the combine (two on the sketch's two phases), the
+# home-sharded weight gather, for top-k and the sketch the residual rows'
+# gather (home-sharded only) and their replication, and in async and
+# pipelined rounds the packed snapshot ring's rebuild (home-sharded only)
 def mesh_paths():
     from repro_torch.fed import aggregation, compression, sketch
+    from repro_torch.fed.staleness import ConstantDiscount, StalenessConfig
     alg1 = dict(batch_size=100, fused=True)
     fedavg = dict(local_steps=2, lr_a=2.0, lr_alpha=0.3, batch_size=50)
     topk8 = compression.topk(0.1, bits=8)
     sk = sketch.sketch(4, 1024, 0.02, keep=256)
+    k2 = StalenessConfig(max_staleness=2, delay_probs=ASYNC_PROBS)
+    k0 = StalenessConfig(max_staleness=0, delay_probs=ASYNC_PROBS)
+    tau1 = dict(staleness=StalenessConfig(max_staleness=1,
+                                          schedule=ConstantDiscount()),
+                staleness_trace=[[1] * CLIENTS] * ROUNDS)
     return [
         ("secure_dense", "run_alg1", "main", dict(alg1, secure=True),
-         "sharded", 2),
+         "sharded", 2, 0),
         ("topk8_secure", "run_alg1", "main",
-         dict(alg1, secure=True, compressor=topk8), "sharded", 4),
+         dict(alg1, secure=True, compressor=topk8), "sharded", 4, 0),
         ("topk8_secure_replicated", "run_alg1", "main",
-         dict(alg1, secure=True, compressor=topk8), "replicated", 2),
+         dict(alg1, secure=True, compressor=topk8), "replicated", 2, 0),
         ("sketch_secure", "run_alg1", "main",
-         dict(alg1, secure=True, compressor=sk), "sharded", 5),
+         dict(alg1, secure=True, compressor=sk), "sharded", 5, 0),
         ("fedavg_topk8_secure", "run_fedavg", "main",
          dict(fedavg, aggregation=aggregation.secure(), compressor=topk8),
-         "sharded", 4),
+         "sharded", 4, 0),
         ("sampled_secure", "run_alg1", "i100",
          dict(alg1, aggregation=aggregation.secure(num_sampled=10)),
-         "sharded", 2),
+         "sharded", 2, 0),
         ("secure3", "run_alg1", "main",
          dict(alg1, aggregation=aggregation.secure(num_sampled=3)),
-         "sharded", 2),
+         "sharded", 2, 0),
+        ("async_secure", "run_alg1", "main",
+         dict(alg1, secure=True, staleness=k2), "sharded", 3, 1),
+        ("drop_secure", "run_alg1", "main",
+         dict(alg1, secure=True, staleness=k0), "sharded", 3, 1),
+        ("async_plain", "run_alg1", "main", dict(alg1, staleness=k2),
+         "sharded", 3, 0),
+        ("async_fedavg_topk8_secure", "run_fedavg", "main",
+         dict(fedavg, aggregation=aggregation.secure(), compressor=topk8,
+              staleness=k2), "sharded", 5, 1),
+        ("async_sketch_secure", "run_alg1", "main",
+         dict(alg1, secure=True, compressor=sk, staleness=k2), "sharded", 6,
+         2),
+        ("pipeline_secure", "run_alg1", "main",
+         dict(alg1, secure=True, pipeline=True), "sharded", 3, 0),
+        ("tau1_secure", "run_alg1", "main", dict(alg1, secure=True, **tau1),
+         "sharded", 3, 1),
     ]
 
 
+# the async and pipelined paths, each also run with arena="replicated"
+# on the one-rank mesh (its psums a round then: the combines and the
+# residual rows' replication)
+RING_PATHS = {"async_secure": 1, "drop_secure": 1, "async_plain": 1,
+              "async_fedavg_topk8_secure": 2, "async_sketch_secure": 3,
+              "pipeline_secure": 1, "tau1_secure": 1}
 # the paths the two gloo ranks on one card run
 GLOO_PATHS = ("secure_dense", "secure3", "sketch_secure",
-              "fedavg_topk8_secure")
+              "fedavg_topk8_secure", "async_secure", "pipeline_secure",
+              "tau1_secure", "async_fedavg_topk8_secure")
 MESH_TIMEOUT_S = 600
+
+
+def gloo_collectives(name, per_round):
+    """(psums, chunked-ring calls) a round on two ranks: pipelined rounds
+    reduce the masked partial through the ring instead of a psum."""
+    return (per_round - 1, 1) if name.startswith("pipeline") \
+        else (per_round, 0)
 
 
 def path_bits(torch, params):
@@ -2596,12 +2647,44 @@ def profiled_busy(torch, run):
         / (h.wall_seconds * 1e6)
 
 
+def ring_tree(torch, rank):
+    """A rank's share of the reference's mixed tree on ``cuda:0``
+    (``tests/pipeline_engine_check.py::check_ring_psum``): int32 of
+    length 37·13 + 3 over the full range, f32, a small int32 leaf."""
+    g = torch.Generator().manual_seed(300 + rank)
+    return {"a": torch.randint(-2 ** 31, 2 ** 31, (37, 13), generator=g,
+                               dtype=torch.int64).to(torch.int32).cuda(),
+            "b": torch.randn(5, generator=g).cuda(),
+            "d": torch.randint(-100, 100, (3,), generator=g,
+                               dtype=torch.int64).to(torch.int32).cuda()}
+
+
+def ring_check(torch, mesh):
+    """``ring_psum_chunked`` against ``psum`` on the mixed tree on the
+    card, at 4, 3 and 7 pieces (484 int32 elements: even over 4, uneven
+    over 3 and 7): bits equal, and the ring's counts."""
+    x = ring_tree(torch, mesh.rank)
+    want = mesh.psum(x)
+    out = {}
+    for chunks in (4, 3, 7):
+        mesh.psum_calls = mesh.ring_calls = mesh.ring_bytes = 0
+        mesh.ring_staged_bytes = 0
+        got = mesh.ring_psum_chunked(x, chunks=chunks)
+        out[chunks] = {
+            "same_bits": all(torch.equal(got[k].view(torch.int32),
+                                         want[k].view(torch.int32))
+                             for k in x),
+            "counts": [mesh.ring_calls, mesh.psum_calls, mesh.ring_bytes,
+                       mesh.ring_staged_bytes]}
+    return out
+
+
 def mesh_rank_paths(names):
-    """One rank of the two-rank gloo world on ``cuda:0``: each path of
-    ``names`` on the client mesh, 20 rounds, with the masked sum's launch
-    shapes and offsets recorded; returns what the parent checks."""
+    """One rank of the two-rank gloo world on ``cuda:0``: the chunked
+    ring against the psum, then each path of ``names`` on the client
+    mesh, 20 rounds, with the masked sum's launch shapes, offsets and
+    dropped slots recorded; returns what the parent checks."""
     import torch
-    from repro_torch import tree
     from repro_torch.data import partition, synthetic
     from repro_torch.fed import runtime
     from repro_torch.kernels import compress as kc
@@ -2629,17 +2712,18 @@ def mesh_rank_paths(names):
         # the masked sum's kernel launches, as the wrapper makes them
         if name == "masked_sum":
             seen.append((list(rows.shape), int(client_offset),
-                         int(num_clients)))
+                         int(num_clients),
+                         None if alive is None else alive.clone()))
         return launch(fn, name, rows, scale_args, key0, key1, num_clients,
                       client_offset, alive, out)
 
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
            "device": str(mesh.device), "wraps": mesh.int32_wraps,
-           "paths": {}}
+           "ring": ring_check(torch, mesh), "paths": {}}
     sa._launch = recording
     try:
         for name in names:
-            _, entry, pkey, extra, arena, _ = paths[name]
+            _, entry, pkey, extra, arena, _, _ = paths[name]
 
             def run(entry=entry, pkey=pkey, extra=extra, arena=arena):
                 return getattr(runtime, entry)(
@@ -2649,6 +2733,7 @@ def mesh_rank_paths(names):
             reset_counts(kernels)
             seen.clear()
             mesh.psum_calls = mesh.all_reduces = mesh.psum_bytes = 0
+            mesh.ring_calls = mesh.ring_bytes = mesh.ring_staged_bytes = 0
             torch.cuda.reset_peak_memory_stats()
             p, h = run()
             d = h.as_dict()
@@ -2657,8 +2742,15 @@ def mesh_rank_paths(names):
                 "bits": [b.numpy() for b in path_bits(torch, p)],
                 "hist": d, "launches": {k: f.launches
                                         for k, f in kernels.items()},
-                "masked": list(seen), "psum_calls": mesh.psum_calls,
-                "psum_bytes": mesh.psum_bytes,
+                "alive_launches": sa.masked_sum_2d.launches_by_variant[
+                    "alive"],
+                "masked": [(s, o, n, None if a is None
+                            else int((a == 0).sum()))
+                           for s, o, n, a in seen],
+                "psum_calls": mesh.psum_calls,
+                "psum_bytes": mesh.psum_bytes, "ring_calls": mesh.ring_calls,
+                "ring_bytes": mesh.ring_bytes,
+                "ring_staged_bytes": mesh.ring_staged_bytes,
                 "round_ms": wall / ROUNDS * 1e3,
                 "peak_bytes": torch.cuda.max_memory_allocated(),
                 "busy": profiled_busy(torch, run)}
@@ -2712,19 +2804,62 @@ def upload_batch_witness(torch, data, params):
     return {"max_abs": gap, "entries_differing": differ, "entries": total}
 
 
+def shard_alive_parity(torch, sa):
+    """``masked_sum`` at the two-rank async path's shard: (5, 794, 128)
+    at ``client_offset`` 5 of 10, with the dropouts of the rounds of the
+    paths' trace that drop a slot on that rank and of one that drops
+    slots only on the other, against its plain version bit for bit."""
+    from repro_torch.data import partition
+    trace = partition.sample_staleness(CLIENTS, range(1, ROUNDS + 1), 0,
+                                       ASYNC_PROBS)
+    alive = trace <= 2
+    here = [t for t in range(ROUNDS) if not alive[t, 5:].all()][:2]
+    there = [t for t in range(ROUNDS)
+             if alive[t, 5:].all() and not alive[t].all()][:1]
+    if len(here) < 2 or not there:
+        raise AssertionError(f"trace: no rounds to hold the shard at: "
+                             f"{trace.tolist()}")
+    g = torch.Generator().manual_seed(7)
+    msgs = (torch.randn(5, 794, 128, generator=g) * 1e-3).cuda()
+    out = {}
+    for t in here + there:
+        a = torch.as_tensor(alive[t].astype("int32"), device="cuda")
+        got = sa.masked_sum_2d(msgs, 0x8BADF00D, 0x1234567,
+                               scale_bits=SCALE_BITS, num_clients=CLIENTS,
+                               client_offset=5, alive=a)
+        want = sa.masked_sum_plain(msgs, 0x8BADF00D, 0x1234567,
+                                   scale_bits=SCALE_BITS,
+                                   num_clients=CLIENTS, client_offset=5,
+                                   alive=a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"masked_sum at the shard, round {t + 1}'s "
+                                 "dropouts: kernel != plain")
+        out[t + 1] = [int(i) for i in (~alive[t]).nonzero()[0]]
+    log("masked_sum: kernel == plain bit for bit at (5, 794, 128), "
+        f"client_offset 5 of 10, dropped slots by round {json.dumps(out)}")
+    return out
+
+
 def phase_client_mesh(torch, kernels, data, parts, params, runtime, card):
-    """The client-sharded synchronous round on the card: a one-rank NCCL
-    group, each path bit for bit its ``mesh=None`` run with the same
-    launches and the predicted psums; then two gloo ranks on ``cuda:0``,
-    the ranks bit for bit each other and within 5e-5 of ``mesh=None``,
-    the masked sum launched at each rank's shard."""
+    """The client-sharded rounds on the card: the masked sum's ``alive``
+    path held at a rank's shard; a one-rank NCCL group, each path bit for
+    bit its ``mesh=None`` run with the same launches (the ``alive`` ones
+    as predicted) and the predicted psums, the async and pipelined paths
+    also bit for bit under ``arena="replicated"``; then two gloo ranks on
+    ``cuda:0``: the chunked ring bit for bit the psum, the ranks bit for
+    bit each other and within 5e-5 of ``mesh=None``, the masked sum
+    launched at each rank's shard (with ``alive`` on the async paths),
+    pipelined rounds bit for bit the async τ ≡ 1 run."""
     import datetime
     import tempfile
     import torch.distributed as dist
+    from repro_torch.kernels import secure_agg as sa
     from repro_torch.launch import LocalWorld, make_client_mesh
     torch.cuda.empty_cache()
+    results = {"shard_alive_parity": shard_alive_parity(torch, sa)}
     paths = {p[0]: p for p in mesh_paths()}
-    single, results = {}, {}
+    single = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
     dist.init_process_group(
         "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
@@ -2735,54 +2870,81 @@ def phase_client_mesh(torch, kernels, data, parts, params, runtime, card):
                                                             "cuda"):
             raise AssertionError(f"client mesh: {mesh}")
         # the int32 partials' exact round trip (one rank sums nothing: a
-        # sum across ranks wrapping needs two cards)
+        # sum across ranks wrapping needs two cards); on one rank the
+        # chunked ring is the psum
         ring = torch.tensor([2 ** 31 - 1, -2 ** 31, -1, 12345],
                             dtype=torch.int32, device=mesh.device)
-        if not torch.equal(mesh.psum({"q": ring})["q"], ring):
+        if not torch.equal(mesh.psum({"q": ring})["q"], ring) \
+                or not torch.equal(mesh.ring_psum_chunked({"q": ring})["q"],
+                                   ring) or mesh.ring_calls:
             raise AssertionError("nccl psum of int32 partials is not exact")
-        for name, entry, pkey, extra, arena, per_round in mesh_paths():
+        for name, entry, pkey, extra, arena, per_round, alive in \
+                mesh_paths():
             def run(**kw):
                 return getattr(runtime, entry)(
                     data, parts[pkey], rounds=ROUNDS, eval_every=10, seed=0,
                     params=params, **extra, **kw)
+
+            def counted(**kw):
+                """A mesh run with its launches and collectives counted."""
+                reset_counts(kernels)
+                mesh.psum_calls = mesh.all_reduces = mesh.psum_bytes = 0
+                mesh.ring_calls = 0
+                out = run(mesh=mesh, **kw)
+                got = {k: fn.launches for k, fn in kernels.items()}
+                got.update(variant_counts(kernels))
+                return out, got, mesh.psum_calls, mesh.psum_bytes
+
             reset_counts(kernels)
             p_n, h_n = run(device="cuda")
             want = {k: fn.launches for k, fn in kernels.items()}
             want.update(variant_counts(kernels))
             single[name] = (path_bits(torch, p_n), h_n)
-            reset_counts(kernels)
-            mesh.psum_calls = mesh.all_reduces = mesh.psum_bytes = 0
             torch.cuda.reset_peak_memory_stats()
-            p_m, h_m = run(mesh=mesh, arena=arena)
+            (p_m, h_m), got, calls, nbytes = counted(arena=arena)
             peak = torch.cuda.max_memory_allocated()
-            got = {k: fn.launches for k, fn in kernels.items()}
-            got.update(variant_counts(kernels))
-            calls, nbytes = mesh.psum_calls, mesh.psum_bytes
-            if got != want or not got["masked_sum"]:
+            if got != want or not got["masked_sum"] \
+                    and "plain" not in name:
                 raise AssertionError(f"mesh {name}: launches {got}, "
                                      f"mesh=None {want}")
-            if calls != per_round * ROUNDS:
+            if got["masked_sum_alive"] != alive * ROUNDS:
+                raise AssertionError(f"mesh {name}: {got['masked_sum_alive']}"
+                                     f" launches with alive, want {alive} a "
+                                     "round")
+            if calls != per_round * ROUNDS or mesh.ring_calls:
                 raise AssertionError(f"mesh {name}: {calls} psums, want "
                                      f"{per_round} a round")
-            same = all(torch.equal(a, b) for a, b in
-                       zip(path_bits(torch, p_m), single[name][0]))
-            for k in ("rounds", "metrics", "slack", "cum_uplink_bytes",
-                      "uplink_bytes_per_round", "downlink_bytes_per_round",
-                      "comm"):
-                same = same and getattr(h_m, k) == getattr(h_n, k)
-            if not same:
+            if not same_mesh_run(torch, p_m, h_m, single[name]):
                 raise AssertionError(f"mesh {name}: the one-rank nccl run is "
                                      "not mesh=None bit for bit")
-            busy = profiled_busy(torch, lambda: run(mesh=mesh, arena=arena))
-            results[f"nccl1_{name}"] = {
+            entry_out = {
                 "launches": got, "psums_per_round": per_round,
                 "psum_bytes_per_round": nbytes // ROUNDS,
                 "round_ms": h_m.wall_seconds / ROUNDS * 1e3,
                 "round_ms_mesh_none": h_n.wall_seconds / ROUNDS * 1e3,
-                "device_busy_share": busy, "peak_bytes": peak}
+                "device_busy_share": profiled_busy(
+                    torch, lambda: run(mesh=mesh, arena=arena)),
+                "peak_bytes": peak}
+            if name in RING_PATHS:
+                # the packed snapshot ring against the list of snapshots
+                (p_r, h_r), got_r, calls_r, bytes_r = counted(
+                    arena="replicated")
+                if got_r != want or calls_r != RING_PATHS[name] * ROUNDS \
+                        or not same_mesh_run(torch, p_r, h_r,
+                                             (path_bits(torch, p_m), h_m)):
+                    raise AssertionError(
+                        f"mesh {name}: arena replicated ({calls_r} psums, "
+                        f"launches {got_r}) is not sharded bit for bit")
+                entry_out.update(
+                    replicated_psums_per_round=RING_PATHS[name],
+                    replicated_psum_bytes_per_round=bytes_r // ROUNDS,
+                    replicated_round_ms=h_r.wall_seconds / ROUNDS * 1e3)
+                del p_r
+            results[f"nccl1_{name}"] = entry_out
+            also = " and arena replicated" if name in RING_PATHS else ""
             log(f"client mesh, one nccl rank, {name} (arena {arena}): bit "
-                f"for bit mesh=None, launches {got}, {per_round} psums a "
-                "round:", json.dumps(results[f"nccl1_{name}"]), f"on {card}")
+                f"for bit mesh=None{also}, {per_round} psums a round:",
+                json.dumps(entry_out), f"on {card}")
             del p_n, p_m
     finally:
         dist.destroy_process_group()
@@ -2802,9 +2964,19 @@ def phase_client_mesh(torch, kernels, data, parts, params, runtime, card):
             raise AssertionError(f"gloo rank {r['rank']}: {r['backend']}, "
                                  f"{r['size']} ranks on {r['device']}, "
                                  f"int32 wraps {r['wraps']}")
+        # one ring call a check, the f32 leaf through a psum; each piece
+        # staged through host memory both ways on a CUDA device
+        for chunks, chk in r["ring"].items():
+            if chk != {"same_bits": True,
+                       "counts": [1, 1, 4 * 484, 2 * 4 * 484]}:
+                raise AssertionError(f"gloo rank {r['rank']}: chunked ring "
+                                     f"at {chunks} pieces: {chk}")
+    log("chunked ring on two gloo ranks on cuda:0: bit for bit the psum on "
+        "the mixed tree at 4, 3 and 7 pieces:", json.dumps(ranks[0]["ring"]))
+    results["gloo2_ring"] = ranks[0]["ring"]
     p0, p1 = (r["paths"] for r in ranks)
     for name in GLOO_PATHS:
-        _, entry, pkey, extra, _, per_round = paths[name]
+        _, entry, pkey, extra, _, per_round, alive = paths[name]
         a, b = p0[name], p1[name]
         if not all((x == y).all() for x, y in zip(a["bits"], b["bits"])) \
                 or a["hist"] != b["hist"]:
@@ -2826,36 +2998,69 @@ def phase_client_mesh(torch, kernels, data, parts, params, runtime, card):
         s = CLIENTS if extra.get("aggregation") is None \
             else extra["aggregation"].cohort_size(CLIENTS)
         s_pad = -(-s // 2) * 2
+        psums, rings = gloo_collectives(name, per_round)
+        dropped = (h_n.comm.get("async") or {}).get("dropped_total", 0)
         for r, res in ((0, a), (1, b)):
             per = 2 if name == "sketch_secure" else 1
             if len(res["masked"]) != per * ROUNDS \
-                    or res["launches"]["masked_sum"] != per * ROUNDS:
+                    or res["launches"]["masked_sum"] != per * ROUNDS \
+                    or res["alive_launches"] != alive * ROUNDS:
                 raise AssertionError(f"gloo {name} rank {r}: masked sums "
-                                     f"{res['launches']}")
-            for shape, off, nc in res["masked"]:
+                                     f"{res['launches']}, with alive "
+                                     f"{res['alive_launches']}")
+            for shape, off, nc, drops in res["masked"]:
                 rows_ok = name == "sketch_secure" or shape[1:] == [794, 128]
                 if shape[0] != s_pad // 2 or off != r * s_pad // 2 \
-                        or nc != s_pad or not rows_ok:
+                        or nc != s_pad or not rows_ok \
+                        or (drops is None) != (alive == 0):
                     raise AssertionError(
                         f"gloo {name} rank {r}: masked sum at {shape}, "
-                        f"offset {off}, {nc} clients")
-            if res["psum_calls"] != per_round * ROUNDS:
+                        f"offset {off}, {nc} clients, dropped {drops}")
+            if sum(m[3] or 0 for m in res["masked"]) != dropped:
+                raise AssertionError(f"gloo {name} rank {r}: the launches "
+                                     f"dropped other than {dropped} slots")
+            if (res["psum_calls"], res["ring_calls"]) \
+                    != (psums * ROUNDS, rings * ROUNDS):
                 raise AssertionError(f"gloo {name} rank {r}: "
-                                     f"{res['psum_calls']} psums")
+                                     f"{res['psum_calls']} psums, "
+                                     f"{res['ring_calls']} ring calls")
         results[f"gloo2_{name}"] = {
             "cost_gap": gap, "accuracy_gap": acc, "weights_gap": w_gap,
             "bitwise_mesh_none": all((x == y.numpy()).all() for x, y in
                                      zip(a["bits"], bits_n)),
             "masked_sum_rank0": a["masked"][0], "masked_sum_rank1":
                 b["masked"][0], "launches": a["launches"],
-            "psums_per_round": per_round,
+            "alive_launches": a["alive_launches"],
+            "psums_per_round": psums, "ring_calls_per_round": rings,
             "psum_bytes_per_round": a["psum_bytes"] // ROUNDS,
+            "ring_bytes_per_round": a["ring_bytes"] // ROUNDS,
+            "ring_staged_bytes_per_round": a["ring_staged_bytes"] // ROUNDS,
             "round_ms": [a["round_ms"], b["round_ms"]],
             "device_busy_share": [a["busy"], b["busy"]],
             "peak_bytes": [a["peak_bytes"], b["peak_bytes"]]}
         log(f"client mesh, two gloo ranks on cuda:0, {name}: ranks bit for "
             "bit,", json.dumps(results[f"gloo2_{name}"]), f"on {card}")
+    # pipelined rounds are the async run at τ ≡ 1 on the mesh, bit for bit
+    pipe, tau1 = p0["pipeline_secure"], p0["tau1_secure"]
+    if not all((x == y).all() for x, y in zip(pipe["bits"], tau1["bits"])) \
+            or pipe["hist"]["metrics"] != tau1["hist"]["metrics"]:
+        raise AssertionError("gloo: pipeline_secure is not tau1_secure bit "
+                             "for bit")
+    log("client mesh, two gloo ranks: pipeline_secure == tau1_secure bit "
+        "for bit (weights, every metric)")
     return results
+
+
+def same_mesh_run(torch, p_m, h_m, single):
+    """A mesh run's weights and history equal ``single``'s (bits, History)
+    bit for bit."""
+    bits, h_n = single
+    same = all(torch.equal(a, b) for a, b in zip(path_bits(torch, p_m),
+                                                   bits))
+    for k in ("rounds", "metrics", "slack", "cum_uplink_bytes",
+              "uplink_bytes_per_round", "downlink_bytes_per_round", "comm"):
+        same = same and getattr(h_m, k) == getattr(h_n, k)
+    return same
 
 
 def main() -> int:

@@ -40,7 +40,7 @@ from repro_torch import tree
 
 Params = tree.Tree
 
-_ROUTABLE = (torch.float32, torch.int32)
+ROUTABLE = (torch.float32, torch.int32)
 
 
 class ArenaPlan(NamedTuple):
@@ -79,8 +79,8 @@ def shard_index(plan: ArenaPlan, mesh) -> int:
 
 def as_bits(x: torch.Tensor) -> torch.Tensor:
     """A 4-byte-dtype tensor reinterpreted as int32 (shape kept)."""
-    if x.dtype not in _ROUTABLE:
-        raise TypeError(f"only {_ROUTABLE} rows route losslessly, not "
+    if x.dtype not in ROUTABLE:
+        raise TypeError(f"only {ROUTABLE} rows route losslessly, not "
                         f"{x.dtype}")
     return x if x.dtype == torch.int32 else x.view(torch.int32)
 

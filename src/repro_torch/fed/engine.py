@@ -57,9 +57,9 @@ bound (on an H100 the device is busy 1.4–10.7% of the round loop,
 ``profile_dir`` traces the timed loop with ``torch.profiler``.
 
 ``mesh=`` (a :class:`repro_torch.launch.mesh.ClientMesh` over a
-``torch.distributed`` group) shards each synchronous round's cohort, as
-the reference's ``shard_map`` over ``"clients"`` does: the cohort is
-padded to a multiple of the D ranks with sentinel slots (id I, weight 0,
+``torch.distributed`` group) shards each round's cohort, as the
+reference's ``shard_map`` over ``"clients"`` does: the cohort is padded
+to a multiple of the D ranks with sentinel slots (id I, weight 0,
 compressed upload gated to 0, residual write dropped), every rank
 computes the cohort-wide weights and uploads its S_loc slots at cohort
 positions [rank·S_loc, (rank + 1)·S_loc), and the aggregate is
@@ -69,7 +69,16 @@ partials are int32 masked sums, so the aggregate, and each round's
 model, are the one-device ones bit for bit.  ``arena="sharded"`` homes
 the residual arena's rows and the weight vector on their clients' ranks
 (:mod:`repro_torch.fed.arena`), gathered and written back through psums
-of int32 bits; ``"replicated"`` keeps every row on every rank.
+of int32 bits; ``"replicated"`` keeps every row on every rank.  Async
+rounds on the mesh draw the trace at the unpadded S and pad it with
+τ = 0 (a sentinel is alive at weight 0); the combine's ``alive`` covers
+the padded cohort's positions.  Under ``arena="sharded"`` the snapshot
+ring is column-sharded too (:func:`repro_torch.fed.staleness.
+ring_meta`): each rank keeps a (K + 1, ⌈n/D⌉) int32 block and rebuilds
+the ring with one placed psum a round.  Pipelined rounds on the mesh
+reduce the message paths' partials (the sketch's phase 1 among them)
+with :meth:`~repro_torch.launch.mesh.ClientMesh.ring_psum_chunked`,
+the reference's chunked ring, which equals the psum bit for bit.
 
 The exact wire bytes of every round are recorded in the ledger.
 """
@@ -295,19 +304,21 @@ def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _sketched_round(compressor, aggregation, msgs, resid, seeds, key_words,
-                    dev, alive=None):
+                    dev, alive=None, keep=None, phase2=None):
     """The count-sketch's two phases (the reference's sketched branch):
     sketch every slot's message plus residual, combine the sketches under
     the round key, take the support from the aggregate, combine the
     slots' on-grid values at the support under ``fold_in(round key,
-    0x5EED)``, and debit each slot's residual by its own values.  With
-    ``alive`` (async rounds) a dropped slot's sketch and values are gated
-    to zero and both combines cancel its masks.  Returns (the k-sparse
+    0x5EED)`` (through ``phase2``, ``aggregation`` by default), and debit
+    each slot's residual by its own values.  ``keep`` (the slots' row
+    mask) gates a dropped slot's or a sentinel's sketch and values to
+    zero; with ``alive`` (async rounds, over the cohort's positions)
+    both combines cancel a dropped slot's masks.  Returns (the k-sparse
     update, new residuals)."""
     def gate(c):
-        if alive is None:
+        if keep is None:
             return c
-        return torch.where(_rows(alive != 0, c), c, torch.zeros_like(c))
+        return torch.where(_rows(keep, c), c, torch.zeros_like(c))
 
     inp = tree.map(lambda m, r: m.float() + r, msgs, resid)
     like = tree.map(lambda v: v[0], inp)
@@ -316,8 +327,8 @@ def _sketched_round(compressor, aggregation, msgs, resid, seeds, key_words,
         aggregation.combine_messages(sk, key_words, alive=alive,
                                      device=dev), like)
     vals = compressor.values(inp, support, seeds)
-    agg_v = aggregation.combine_messages(gate(vals), phase2_key(key_words),
-                                         alive=alive, device=dev)
+    agg_v = (phase2 or aggregation).combine_messages(
+        gate(vals), phase2_key(key_words), alive=alive, device=dev)
     return compressor.reassemble(agg_v, support, like), \
         compressor.update_residual(inp, support, vals)
 
@@ -327,18 +338,82 @@ class _MeshCombine:
     """A strategy's combine on a client mesh, the reference's 1-D mesh
     ``_combine``: ``finalize_combine`` of the psum of the ranks'
     ``partial_combine``s, each rank's slots at cohort positions
-    [offset, offset + S_loc) of the padded ``cohort_size``."""
+    [offset, offset + S_loc) of the padded ``cohort_size``; ``alive``
+    covers all of its positions.  ``chunked`` (pipelined rounds) reduces
+    through the mesh's chunked ring instead of the psum, bit for bit the
+    same sum."""
     aggregation: Any
     mesh: ClientMesh
     offset: int
     cohort_size: int
+    chunked: bool = False
 
     def combine_messages(self, wmsgs, key_words, *, alive=None,
                          device: Device = None):
         agg = self.aggregation
-        return agg.finalize_combine(self.mesh.psum(agg.partial_combine(
+        reduce = self.mesh.ring_psum_chunked if self.chunked \
+            else self.mesh.psum
+        return agg.finalize_combine(reduce(agg.partial_combine(
             wmsgs, key_words, self.offset, self.cohort_size, alive,
             device=device)))
+
+
+class _SnapshotRing:
+    """The async mode's last K + 1 (parameters, client state) snapshots,
+    newest at slot 0; rounds before the run see the initial point.
+
+    Replicated (``meta`` None): a list of parameter trees.  Column-sharded
+    (``meta``, a mesh under ``arena="sharded"``): the rank's (K + 1,
+    chunk) int32 block of the packed ring; :meth:`open`, on every rank
+    once a round, rebuilds the whole packed ring with one placed psum,
+    and :meth:`push` packs the new snapshot, shifts it in and keeps the
+    rank's block.  A slot read from the packed ring is copied out of it
+    into a fresh tensor, as a server step's output is, so both forms run
+    one trajectory bit for bit.  The client states stay a replicated
+    list."""
+
+    def __init__(self, params, cstate, depth: int, meta=None, mesh=None):
+        self.meta, self.mesh = meta, mesh
+        self.cstates = [cstate] * depth
+        self.full = None
+        if meta is None:
+            self.snaps = [params] * depth
+        else:
+            phist = tree.map(lambda p: p[None].expand((depth,) + p.shape),
+                             params)
+            self.block = staleness_mod.ring_localize(
+                staleness_mod.pack_ring(phist, meta), meta, mesh.rank)
+
+    def open(self) -> None:
+        if self.meta is not None:
+            self.full = staleness_mod.ring_unshard(
+                self.block, self.meta, self.mesh.rank, self.mesh.psum)
+
+    def params(self, k: int):
+        if self.meta is None:
+            return self.snaps[k]
+        return tree.map(torch.clone, staleness_mod.unpack_snapshot(
+            self.full, self.meta, k))
+
+    def stacked(self):
+        """Every slot's parameters, leaves (K + 1, …)."""
+        if self.meta is None:
+            return tree.map(lambda *h: torch.stack(h), *self.snaps)
+        return staleness_mod.unpack_ring(self.full, self.meta)
+
+    def cstate(self, k: int):
+        return self.cstates[k]
+
+    def push(self, params, cstate) -> None:
+        self.cstates = [cstate] + self.cstates[:-1]
+        if self.meta is None:
+            self.snaps = [params] + self.snaps[:-1]
+            return
+        new = staleness_mod.pack_snapshot(params, self.meta)
+        self.block = staleness_mod.ring_localize(
+            torch.cat([new[None], self.full[:-1]]), self.meta,
+            self.mesh.rank)
+        self.full = None
 
 
 def _pad_cohort(cohorts: np.ndarray, schedule: np.ndarray, num_clients: int,
@@ -356,12 +431,9 @@ def _pad_cohort(cohorts: np.ndarray, schedule: np.ndarray, num_clients: int,
     return cohorts, np.pad(schedule, widths)
 
 
-def _check_mesh(mesh, aggregation, staleness, staleness_trace,
-                pipeline) -> None:
+def _check_mesh(mesh, aggregation) -> None:
     """Refuse what the client-sharded round does not run: a mesh that is
-    not the 1-D client mesh, the tree on it, and the async and pipelined
-    modes on it (the sharded snapshot ring and the pipelined collective
-    are not ported yet)."""
+    not the 1-D client mesh, and the tree on it."""
     if mesh is None:
         return
     if not isinstance(mesh, ClientMesh):
@@ -374,15 +446,7 @@ def _check_mesh(mesh, aggregation, staleness, staleness_trace,
         raise ValueError(
             "HierarchicalAggregation shards over a 2-D (groups, clients) "
             "mesh, not the 1-D client mesh: a flat cohort shard cannot "
-            "host the tree's two reductions")
-    for name, on in (("staleness", staleness is not None),
-                     ("staleness_trace", staleness_trace is not None),
-                     ("pipeline", bool(pipeline))):
-        if on:
-            raise NotImplementedError(
-                f"mesh= with {name}=: the sharded async ring and the "
-                "pipelined ring collective are not ported to repro_torch "
-                "yet (ROADMAP queue 1, item 4c)")
+            "host the tree's two reductions (ROADMAP queue 1, item 4c)")
 
 
 def _run_device(mesh, device: Device) -> torch.device:
@@ -469,26 +533,29 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     uploads its S_loc = S_pad / D slots at cohort positions [rank·S_loc,
     (rank + 1)·S_loc) and takes the aggregate from one psum of the
     strategy's partials (int32 masked partials under secure aggregation,
-    so the aggregate is the one-device aggregate bit for bit); the
-    cohort is padded to a multiple of D with sentinel slots of weight 0.
-    Every rank returns the same parameters and :class:`History`.
-    ``arena`` places the population-resident state on the mesh:
-    ``"sharded"`` (the default with a mesh) homes each client's residual
-    row and population weight on one rank (:mod:`repro_torch.fed.arena`),
-    ``"replicated"`` keeps all of them on every rank; the two are bit for
-    bit one run.  Without a mesh ``arena`` is ignored, as in the
-    reference.  The mesh runs synchronous rounds of a flat strategy:
-    with the tree it raises ``ValueError``, with ``staleness=``,
-    ``staleness_trace=`` or ``pipeline=True`` ``NotImplementedError``.
-    Returns the final parameters (on ``device``) and the
-    :class:`History`.
+    so the aggregate is the one-device aggregate bit for bit; pipelined
+    rounds reduce the message paths' partials with the chunked ring
+    :meth:`~repro_torch.launch.mesh.ClientMesh.ring_psum_chunked`, the
+    same sum); the cohort is padded to a multiple of D with sentinel
+    slots of weight 0, and an async trace, drawn at the unpadded S as on
+    one device, with τ = 0.  Every rank returns the same parameters and
+    :class:`History`.  ``arena`` places the population-resident state on
+    the mesh: ``"sharded"`` (the default with a mesh) homes each client's
+    residual row and population weight on one rank
+    (:mod:`repro_torch.fed.arena`) and shards the async snapshot ring's
+    columns over the ranks, ``"replicated"`` keeps all of them on every
+    rank; the two are bit for bit one run.  Without a mesh ``arena`` is
+    ignored, as in the reference.  The mesh runs flat strategies: with
+    the tree it raises ``ValueError`` (the (groups, clients) mesh is
+    ROADMAP queue 1, item 4c).  Returns the final parameters (on
+    ``device``) and the :class:`History`.
     """
     if arena not in (None, "replicated", "sharded"):
         raise ValueError(
             f"arena={arena!r} not in (None, 'replicated', 'sharded')")
     aggregation = aggregation if aggregation is not None \
         else PlainAggregation()
-    _check_mesh(mesh, aggregation, staleness, staleness_trace, pipeline)
+    _check_mesh(mesh, aggregation)
     dev = _run_device(mesh, device)
     combine = algorithm.combine
     compressor = _check_compressor(compressor, aggregation)
@@ -530,8 +597,13 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
             plan = arena_mod.make_plan(num_clients, mesh)
             me = arena_mod.shard_index(plan, mesh)
     local = slice(offset, offset + schedule.shape[1])
-    combiner = aggregation if mesh is None \
-        else _MeshCombine(aggregation, mesh, offset, s_pad)
+    combiner = phase2 = aggregation
+    if mesh is not None:
+        combiner = _MeshCombine(aggregation, mesh, offset, s_pad,
+                                chunked=pipeline)
+        # the sketch's phase 2 keeps the psum, as the reference's
+        # pipelined consume does
+        phase2 = dataclasses.replace(combiner, chunked=False)
     cohorts_dev = torch.as_tensor(cohorts, device=dev)
     schedule = torch.as_tensor(schedule, device=dev)
     x_train = torch.as_tensor(data.x_train, device=dev)
@@ -559,25 +631,33 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
             kw64[:, :1], kw64[:, -1:], cohorts)[:, local], device=dev)
     if is_async:
         k_max = staleness.max_staleness
-        # τ = min(trace, K); τ > K drops the slot (discount 0, masks
-        # cancelled, residual kept)
-        tau_host = np.minimum(trace, k_max)
-        tau_dev = torch.as_tensor(tau_host, device=dev)
-        alive_dev = torch.as_tensor((trace <= k_max).astype(np.int32),
-                                    device=dev)
-        disc_dev = torch.where(alive_dev != 0, staleness.discount(tau_dev),
-                               0.0)
-        # the snapshot ring, newest first; rounds before the run see the
-        # initial point, so a delayed slot in round 1 replays against it
-        ring = [(params, algorithm.client_state(state))] * (k_max + 1)
-        # the sum-combine uploads read no state: they replay at the live one
-        has_cs = bool(tree.leaves(ring[0][1]))
         if pipeline:
             hist.comm["pipeline"] = {"enabled": True, "depth": 1,
                                      "extra_snapshot_slots": 1}
         else:
             hist.comm["async"] = _async_ledger(trace, k_max, aggregation,
                                                num_clients)
+        # τ = min(trace, K); τ > K drops the slot (discount 0, masks
+        # cancelled, residual kept).  The discounts cover the S live
+        # positions, τ and alive the padded cohort: a sentinel is τ = 0,
+        # alive at weight 0
+        tau_host = np.minimum(trace, k_max)
+        disc_dev = torch.where(
+            torch.as_tensor(trace <= k_max, device=dev),
+            staleness.discount(torch.as_tensor(tau_host, device=dev)), 0.0)
+        trace = np.pad(trace, [(0, 0), (0, s_pad - cohort)])
+        tau_host = np.minimum(trace, k_max)
+        tau_dev = torch.as_tensor(tau_host, device=dev)
+        alive_dev = torch.as_tensor((trace <= k_max).astype(np.int32),
+                                    device=dev)
+        # the snapshot ring; a delayed slot in round 1 replays against
+        # the initial point
+        meta = None if plan is None \
+            else staleness_mod.ring_meta(params, mesh.size)
+        ring = _SnapshotRing(params, algorithm.client_state(state),
+                             k_max + 1, meta, mesh)
+        # the sum-combine uploads read no state: they replay at the live one
+        has_cs = bool(tree.leaves(ring.cstate(0)))
 
     def weighted(msgs, rw):
         """λ'_i · m_i for each slot's leaf row."""
@@ -592,9 +672,9 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         if not is_async:
             return at(params, state)
         out = None
-        for k in np.unique(tau_host[t]):
-            out_k = at(ring[k][0], ring[k][1] if has_cs else state)
-            sel = tau_dev[t] == int(k)
+        for k in np.unique(tau_host[t, local]):
+            out_k = at(ring.params(k), ring.cstate(k) if has_cs else state)
+            sel = tau_dev[t, local] == int(k)
             out = out_k if out is None else tree.map(
                 lambda o, ok: torch.where(_rows(sel, o), ok, o), out, out_k)
         return out
@@ -605,7 +685,7 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         nonlocal resid_arena
         cohort_t = cohorts_dev[t]                    # (S_pad,), every rank
         idx_t = schedule[t]                  # (S_loc, B) or (S_loc, E, B)
-        live_full = keep = None
+        live_full = live_loc = keep = None
         if mesh is None:
             w_c = weights[cohort_t]
         else:
@@ -618,16 +698,22 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                 w_c = arena_mod.gather_rows(plan, weights, cohort_t, me,
                                             mesh.psum)
             w_c = torch.where(live_full, w_c, 0.0)
-            keep = live_full[local]
-        # the cohort-wide weights, the same on every rank, then the slice
-        # of this rank's slots
-        rw = aggregation.cohort_weights(w_c, combine, num_clients)[local]
-        alive = None
+            keep = live_loc = live_full[local]
+        # the cohort-wide weights, the same on every rank (async: the live
+        # positions' discounted, the pads' kept at 0), then the slice of
+        # this rank's slots
+        rw_full = aggregation.cohort_weights(w_c, combine, num_clients)
+        alive = alive_loc = None
         if is_async:
-            rw = staleness_mod.discount_reweight(rw, disc_dev[t])
+            rw_full = torch.cat([staleness_mod.discount_reweight(
+                rw_full[:cohort], disc_dev[t]), rw_full[cohort:]])
             if not pipeline:
+                # over the padded cohort's positions for the combine, the
+                # rank's slots for its gates
                 alive = alive_dev[t]
-                keep = alive != 0
+                alive_loc = alive[local] != 0
+                keep = alive_loc if keep is None else keep & alive_loc
+        rw = rw_full[local]
 
         def gate(c):
             """A slot's compressed upload zeroed where it never arrived
@@ -650,18 +736,18 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                     (bx, by, rw.repeat_interleave(idx_t.shape[1])))
                 return agg if mesh is None else mesh.psum(agg)
             agg = None
-            for k in np.unique(tau_host[t]):
-                wk = torch.where(tau_dev[t] == int(k), rw, 0.0)
+            for k in np.unique(tau_host[t, local]):
+                wk = torch.where(tau_dev[t, local] == int(k), rw, 0.0)
                 g = algorithm.client_upload(
-                    ring[k][0], state,
+                    ring.params(k), state,
                     (bx, by, wk.repeat_interleave(idx_t.shape[1])))
                 agg = g if agg is None else tree.map(torch.add, agg, g)
-            return agg
+            return agg if mesh is None else mesh.psum(agg)
         # the per-slot bases of mean-combine deltas: each slot's snapshot
         base = params
         if is_async and combine == "mean" and compressor is not None:
-            base = tree.map(lambda *h: torch.stack(h)[tau_dev[t]],
-                            *(r[0] for r in ring))
+            hist_p = ring.stacked()
+            base = tree.map(lambda h: h[tau_dev[t, local]], hist_p)
         if combine == "sum":
             ws = rw[:, None].expand(idx_t.shape)     # λ'_i per sample
             raw = vmapped((x_train[idx_t], y_train[idx_t], ws), t)
@@ -683,8 +769,9 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                 resid = tree.map(lambda a: a[cohort_t], resid_arena)
             elif plan is None:
                 # a sentinel reads zeros, as from the sharded dead row
-                resid = tree.map(lambda a: gate(
-                    a[cohort_t[local].clamp(max=num_clients - 1)]),
+                resid = tree.map(lambda a: torch.where(
+                    _rows(live_loc, a[:1]),
+                    a[cohort_t[local].clamp(max=num_clients - 1)], 0.0),
                     resid_arena)
             else:
                 resid = tree.map(lambda a: a[local], arena_mod.gather_rows(
@@ -700,16 +787,19 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                 msgs = tree.map(gate, msgs)
             agg, new_resid = _sketched_round(compressor, combiner, msgs,
                                              resid, seeds[t], keyw[t], dev,
-                                             alive)
+                                             alive, alive_loc, phase2)
             if combine == "mean":
                 if is_async:
                     # the deltas were taken against the slots' own
                     # snapshots: the update applies to ω^t + Σ λ'_i
-                    # (ω^{t−τ_i} − ω^t), an exact zero shift on an
-                    # all-zero trace (the where keeps −0.0 + x exact)
+                    # (ω^{t−τ_i} − ω^t), summed over the live cohort on
+                    # every rank; an exact zero shift on an all-zero
+                    # trace (the where keeps −0.0 + x exact)
+                    tau_live = tau_dev[t, :cohort]
                     shift = tree.map(
-                        lambda p, b: (_rows(rw, b) * (b - p[None])).sum(0),
-                        params, base)
+                        lambda p, h: (_rows(rw_full[:cohort], p[None])
+                                      * (h[tau_live] - p[None])).sum(0),
+                        params, hist_p)
                     agg = tree.map(
                         lambda sh, d: torch.where(sh == 0, d, sh + d),
                         shift, agg)
@@ -724,18 +814,18 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
             agg = combiner.combine_messages(msgs, keyw[t], alive=alive,
                                             device=dev)
         if resid_arena is not None:
-            write_back(new_resid, resid, cohort_t, live_full, alive)
+            write_back(new_resid, resid, cohort_t, live_full, alive_loc)
         return agg
 
-    def write_back(new_resid, resid, cohort_t, live_full, alive):
+    def write_back(new_resid, resid, cohort_t, live_full, alive_loc):
         """The cohort's new residual rows into the arena.  A dropped
         async slot keeps its row; on a mesh one psum replicates every
         rank's rows, then the live ones are written: all of them into the
         replicated arena, the rank's own into the home-sharded one."""
-        if alive is not None:
+        if alive_loc is not None:
             # a dropped slot applied nothing: its residual rides through
             new_resid = tree.map(lambda nr, od: torch.where(
-                _rows(alive != 0, nr), nr, od), new_resid, resid)
+                _rows(alive_loc, nr), nr, od), new_resid, resid)
         if mesh is None:
             for a, r in zip(tree.leaves(resid_arena),
                             tree.leaves(new_resid)):
@@ -754,10 +844,12 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     with _traced(profile_dir, dev):
         t0 = time.perf_counter()
         for t in range(rounds):
+            if is_async:
+                ring.open()
             params, state = algorithm.server_step(params, state,
                                                   aggregate(t), device=dev)
             if is_async:
-                ring = [(params, algorithm.client_state(state))] + ring[:-1]
+                ring.push(params, algorithm.client_state(state))
             if (t + 1) % eval_every == 0 or t + 1 == rounds:
                 slack = algorithm.round_metrics(state).get("slack")
                 if slack is None:   # a fill, not a copy the host waits on

@@ -77,15 +77,15 @@ def run(task, algorithm, data, part: Partition, *, batch_size: int,
 
     ``mesh`` (:func:`repro_torch.launch.make_client_mesh`, every rank of
     the group making the same call) shards each round's cohort over the
-    ranks, the aggregate one psum of their partials; it then runs on the
-    mesh rank's device.  ``arena`` must be ``None``, ``"replicated"`` or
-    ``"sharded"`` (the default with a mesh): where the population's
-    residual rows and weights live on the mesh; one device has nothing to
-    shard, so without a mesh it is ignored, as in the reference.  The
-    mesh runs synchronous rounds of a flat strategy: ``hierarchical(...)``
-    on it raises ``ValueError``, and ``staleness=``, ``staleness_trace=``
-    or ``pipeline=True`` with it raise ``NotImplementedError`` (ROADMAP
-    queue 1, item 4c).
+    ranks, the aggregate one psum of their partials (a chunked ring of
+    them in pipelined rounds); it then runs on the mesh rank's device.
+    ``arena`` must be ``None``, ``"replicated"`` or ``"sharded"`` (the
+    default with a mesh): where the population's residual rows and
+    weights, and the async snapshot ring, live on the mesh; one device
+    has nothing to shard, so without a mesh it is ignored, as in the
+    reference.  The mesh runs synchronous, async and pipelined rounds of
+    a flat strategy; ``hierarchical(...)`` on it raises ``ValueError``
+    (the (groups, clients) mesh is ROADMAP queue 1, item 4c).
     """
     return engine.run(algorithm, data, part, task=task,
                       batch_size=batch_size, rounds=rounds, params=params,

@@ -1,9 +1,8 @@
 """Bounded-staleness rounds: discount schedules, the mass-preserving
 reweight, and the host-side accounting of delay traces.
 
-The port of ``repro/fed/staleness.py`` without its mesh-sharded ring
-(``RingMeta`` and the pack / unpack helpers), which only the multi-device
-engine needs.  Every cohort slot of a round carries an integer delay τ
+The port of ``repro/fed/staleness.py``.  Every cohort slot of a round
+carries an integer delay τ
 from a seed-stable staleness trace
 (:func:`repro_torch.data.partition.sample_staleness`): slot i of round t
 uploads against the parameters of round t − τ_i, kept in a ring of the
@@ -17,14 +16,29 @@ The wall-clock model (:func:`round_times`) counts in no-straggler round
 units: a synchronous round waits for its slowest member, an async round
 takes unit time, and drop-stragglers takes unit time but discards every
 delayed upload.
+
+On a client mesh under ``arena="sharded"`` the ring of parameter
+snapshots is itself sharded over the ranks, so its resident bytes a rank
+are O((K + 1)/D · model): the snapshots are packed as int32 bits into
+(K + 1, n_pad) rows and each rank carries one (K + 1, chunk) column
+block (:class:`RingMeta`, :func:`pack_snapshot`, :func:`pack_ring`,
+:func:`unpack_ring`, :func:`unpack_snapshot`, :func:`ring_unshard`,
+:func:`ring_localize`).  Rebuilding the ring is a placed psum in which
+every column has one contributor, so it moves bits exactly and the
+sharded ring runs the replicated one bit for bit.  The client-state half
+of the ring stays replicated: it is empty for the sum-combine algorithms
+and a scalar counter for FedAvg.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch import tree
+from repro_torch.fed import arena as arena_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +165,95 @@ def dropped_per_round(trace, max_staleness: int) -> np.ndarray:
     charge."""
     return (np.asarray(trace) > int(max_staleness)).sum(axis=1) \
         .astype(np.int64)
+
+
+class RingMeta(NamedTuple):
+    """The static layout of the packed, column-sharded snapshot ring.
+
+    A parameter tree (the structure of ``like``) flattens, in leaf
+    order, into ``n`` 4-byte elements, as int32 bits, zero-padded to
+    ``chunk · shards``; rank r carries the (K + 1, chunk) column block
+    at r · chunk."""
+    like: Any                        # the tree's structure, leaves None
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    n: int                           # flat element count (before padding)
+    chunk: int                       # elements a rank
+    shards: int
+
+    @property
+    def padded(self) -> int:
+        return self.chunk * self.shards
+
+
+def ring_meta(params, num_shards: int) -> Optional[RingMeta]:
+    """The packed ring's layout for ``params`` over ``num_shards`` ranks,
+    or ``None`` when a leaf does not route as int32 bits (not a 4-byte
+    f32 or int32 leaf): the engine then keeps the replicated ring."""
+    leaves = tree.leaves(params)
+    if not leaves or any(x.dtype not in arena_mod.ROUTABLE for x in leaves):
+        return None
+    n = sum(x.numel() for x in leaves)
+    return RingMeta(tree.map(lambda x: None, params),
+                    tuple(tuple(x.shape) for x in leaves),
+                    tuple(x.dtype for x in leaves), n,
+                    -(-n // int(num_shards)), int(num_shards))
+
+
+def pack_snapshot(params, meta: RingMeta) -> torch.Tensor:
+    """One snapshot as its packed (n_pad,) int32 row (a bitcast, exact)."""
+    flat = torch.cat([arena_mod.as_bits(x).reshape(-1)
+                      for x in tree.leaves(params)])
+    return torch.nn.functional.pad(flat, (0, meta.padded - meta.n))
+
+
+def pack_ring(phist, meta: RingMeta) -> torch.Tensor:
+    """A replicated ring (leaves (K + 1, …)) as packed (K + 1, n_pad)
+    int32 rows."""
+    flat = torch.cat([arena_mod.as_bits(h).reshape(h.shape[0], -1)
+                      for h in tree.leaves(phist)], dim=1)
+    return torch.nn.functional.pad(flat, (0, meta.padded - meta.n))
+
+
+def _split_row(flat: torch.Tensor, meta: RingMeta, lead: Tuple[int, ...]):
+    out, off = [], 0
+    for shape, dtype in zip(meta.shapes, meta.dtypes):
+        size = int(np.prod(shape)) if shape else 1
+        part = flat[..., off:off + size].reshape(lead + shape)
+        out.append(arena_mod.from_bits(part, dtype))
+        off += size
+    return tree.unflatten(meta.like, out)
+
+
+def unpack_ring(packed: torch.Tensor, meta: RingMeta):
+    """Packed (K + 1, n_pad) rows as the ring's tree (leaves (K + 1, …)),
+    views of ``packed``."""
+    return _split_row(packed, meta, (packed.shape[0],))
+
+
+def unpack_snapshot(packed: torch.Tensor, meta: RingMeta, slot: int = 0):
+    """Ring slot ``slot`` of packed (K + 1, n_pad) rows as a parameter
+    tree, views of ``packed``."""
+    return _split_row(packed[slot], meta, ())
+
+
+def ring_unshard(local: torch.Tensor, meta: RingMeta, my_id: int,
+                 psum_fn: Callable) -> torch.Tensor:
+    """The whole packed ring from every rank's (K + 1, chunk) block: the
+    block placed at its column offset in a zero (K + 1, n_pad) buffer and
+    one psum, in which every column has one contributor (exact bit
+    movement)."""
+    buf = local.new_zeros((local.shape[0], meta.padded))
+    buf[:, my_id * meta.chunk:(my_id + 1) * meta.chunk] = local
+    return psum_fn(buf)
+
+
+def ring_localize(packed: torch.Tensor, meta: RingMeta,
+                  my_id: int) -> torch.Tensor:
+    """Rank ``my_id``'s (rows, chunk) column block of packed rows, a copy
+    that does not keep ``packed`` alive."""
+    lo = my_id * meta.chunk
+    return packed[:, lo:lo + meta.chunk].clone()
 
 
 def diurnal_delay_probs(rounds: int, max_delay: int = 4,

@@ -4,8 +4,10 @@ The port of ``repro/launch/mesh.py``'s ``make_client_mesh``: a 1-D group
 of ranks over the federated-client axis.  The engine
 (:func:`repro_torch.fed.engine.run` with ``mesh=``) shards each round's
 cohort over the ranks, every rank running the same call (SPMD, as under
-``torchrun``), and :meth:`ClientMesh.psum` stands for the reference's
-``jax.lax.psum`` over ``"clients"``.
+``torchrun``), :meth:`ClientMesh.psum` stands for the reference's
+``jax.lax.psum`` over ``"clients"`` and :meth:`ClientMesh.ring_psum_chunked`
+for its pipelined rounds' chunked ring (``repro/kernels/ops.py::
+ring_psum_chunked``).
 
 The 2-D (groups, clients) mesh of the hierarchical tree
 (``make_group_mesh``) is not ported yet.
@@ -53,7 +55,9 @@ class ClientMesh:
     ranks); where it does not, :meth:`psum` sums int32 leaves exactly in
     int64 and wraps the result.  ``psum_calls``, ``all_reduces`` and
     ``psum_bytes`` count what :meth:`psum` did since the mesh was made
-    (or since the caller set them to 0)."""
+    (or since the caller set them to 0); ``ring_calls``, ``ring_bytes``
+    (sent by this rank) and ``ring_staged_bytes`` (copied through host
+    memory) what :meth:`ring_psum_chunked`'s ring did."""
     group: Any
     rank: int
     size: int
@@ -63,6 +67,9 @@ class ClientMesh:
     psum_calls: int = 0
     all_reduces: int = 0
     psum_bytes: int = 0
+    ring_calls: int = 0
+    ring_bytes: int = 0
+    ring_staged_bytes: int = 0
 
     def psum(self, values):
         """The sum of ``values`` (a tree of tensors on :attr:`device`)
@@ -95,6 +102,75 @@ class ClientMesh:
                 off += n
         self.psum_calls += 1
         return tree.unflatten(values, out)
+
+    def ring_psum_chunked(self, values, chunks: int = 4):
+        """The sum of ``values`` over the ranks as a chunked ring, the
+        pipelined rounds' collective: the int32 leaves (masked Z_2^32
+        partials) go into one flat buffer, split into ``chunks`` pieces
+        at (j·n)//k, and each piece is reduced by D − 1 neighbour
+        exchanges (send to rank r + 1, receive from r − 1, ``acc +=
+        buf``).  int32 addition wraps mod 2^32, so the result is
+        :meth:`psum`'s bit for bit.  Other dtypes go through one
+        :meth:`psum` (float addition is not associative), and so does
+        everything on one rank.
+
+        gloo exchanges host tensors: on a CUDA device each piece is
+        staged through host memory, counted in ``ring_staged_bytes``.
+        A backend that cannot exchange raises."""
+        leaves = tree.leaves(values)
+        if self.size == 1 or not leaves:
+            return self.psum(values)
+        out: List[Optional[torch.Tensor]] = list(leaves)
+        ints = [i for i, x in enumerate(leaves) if x.dtype == torch.int32]
+        rest = [i for i, x in enumerate(leaves) if x.dtype != torch.int32]
+        if rest:
+            for i, x in zip(rest, self.psum(tuple(leaves[i] for i in rest))):
+                out[i] = x
+        if ints:
+            if any(leaves[i].device != self.device for i in ints):
+                raise ValueError(f"ring_psum_chunked: a leaf off the mesh's "
+                                 f"rank {self.rank} device {self.device}")
+            flat = torch.cat([leaves[i].reshape(-1) for i in ints])
+            n = flat.numel()
+            k = max(1, min(int(chunks), n))
+            bounds = [(j * n) // k for j in range(k + 1)]
+            agg = torch.cat([self._ring_reduce(flat[lo:hi])
+                             for lo, hi in zip(bounds, bounds[1:])])
+            off = 0
+            for i in ints:
+                size = leaves[i].numel()
+                out[i] = agg[off:off + size].reshape(leaves[i].shape)
+                off += size
+            self.ring_calls += 1
+        return tree.unflatten(values, out)
+
+    def _ring_reduce(self, piece: torch.Tensor) -> torch.Tensor:
+        """One piece summed over the ranks by D − 1 neighbour exchanges."""
+        staged = self.backend == "gloo" and self.device.type != "cpu"
+        nxt, prv = ((self.rank + d) % self.size for d in (1, -1))
+        if self.group is not None:
+            nxt, prv = (dist.get_global_rank(self.group, r)
+                        for r in (nxt, prv))
+        nbytes = piece.numel() * piece.element_size()
+        acc = piece.clone()
+        buf = piece
+        if staged:
+            buf = piece.cpu()
+            self.ring_staged_bytes += nbytes
+        for _ in range(self.size - 1):
+            got = torch.empty_like(buf)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, buf, nxt, self.group),
+                    dist.P2POp(dist.irecv, got, prv, self.group)]):
+                req.wait()
+            self.ring_bytes += nbytes
+            if staged:
+                acc += got.to(self.device)
+                self.ring_staged_bytes += nbytes
+            else:
+                acc += got
+            buf = got
+        return acc
 
 
 def _rank_card(dev: torch.device) -> torch.device:

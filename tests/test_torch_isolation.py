@@ -259,16 +259,18 @@ def test_rwkv_entry_points_refuse_the_cpu_by_default(no_gpu):
 
 
 def test_launch_subpackage_stands_alone():
-    # the import walk above reaches the client mesh and the arena, and
-    # their sources import neither jax nor the reference
+    # the import walk above reaches the client mesh, the arena and the
+    # snapshot ring, and their sources import neither jax nor the
+    # reference
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     check = _CHECK + "\nassert 'repro_torch.launch.mesh' in names\n" \
-        "assert 'repro_torch.fed.arena' in names\n"
+        "assert 'repro_torch.fed.arena' in names\n" \
+        "assert 'repro_torch.fed.staleness' in names\n"
     out = subprocess.run([sys.executable, "-c", check], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     for f in (PKG / "launch" / "__init__.py", PKG / "launch" / "mesh.py",
-              PKG / "fed" / "arena.py"):
+              PKG / "fed" / "arena.py", PKG / "fed" / "staleness.py"):
         assert not _IMPORT.findall(f.read_text()), f
 
 
@@ -297,5 +299,29 @@ def test_make_client_mesh_refuses_the_cpu_by_default(no_gpu, tmp_path):
         assert h_m.metrics == h_n.metrics and mesh.psum_calls == 2
         for a, b in zip(p_m.values(), p_n.values()):
             assert a.device.type == "cpu" and torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_mesh_runs_pipelined_rounds_through_psum(tmp_path):
+    # on one rank the chunked ring is the psum: a pipelined secure run is
+    # mesh=None's bit for bit, with the packed ring's rebuild, the weight
+    # gather and the combine one psum each a round and no ring call
+    import torch.distributed as dist
+    from repro_torch.launch import make_client_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_client_mesh(device="cpu")
+        data = synthetic.classification_dataset(40, 10, k=16, l=3)
+        part = partition.iid(40, 2)
+        kw = dict(batch_size=5, rounds=3, hidden=4, secure=True,
+                  pipeline=True)
+        p_m, h_m = runtime.run_alg1(data, part, mesh=mesh, **kw)
+        p_n, h_n = runtime.run_alg1(data, part, device="cpu", **kw)
+        assert h_m.metrics == h_n.metrics and h_m.comm == h_n.comm
+        assert (mesh.psum_calls, mesh.ring_calls) == (3 * 3, 0)
+        for a, b in zip(p_m.values(), p_n.values()):
+            assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()

@@ -1,14 +1,18 @@
-"""The client-sharded synchronous round of the port on a
-``torch.distributed`` group: two gloo ranks on the CPU (and one case on
-three), against the port's own ``mesh=None`` run and, for three cases,
-a live JAX run of the reference.
+"""The client-sharded rounds of the port on a ``torch.distributed``
+group, synchronous, async and pipelined: two gloo ranks on the CPU (and
+two cases on three), against the port's own ``mesh=None`` run and, for
+five cases, a live JAX run of the reference.
 
 One two-rank world runs every mesh case (``torch_mesh_cases.py``, a
 module that imports nothing of JAX or of the reference package; the
 ranks report the modules they loaded), a three-rank world the secure
-cohort of 10 padded to 12, and the test process computes the ``mesh=None``
-references and the JAX runs meanwhile.  Configurations: the reference's
-``tests/sharded_engine_check.py`` and ``tests/task_mesh_check.py``.
+cohort of 10 padded to 12, sync and async, and both worlds the chunked
+ring's checks; the test process computes the ``mesh=None`` references
+and the JAX runs meanwhile.  Configurations: the reference's
+``tests/sharded_engine_check.py``, ``tests/task_mesh_check.py``,
+``tests/async_engine_check.py`` (its trace: ``StalenessConfig(2,
+delay_probs=(0.5, 0.2, 0.15, 0.1, 0.05))``), ``tests/pipeline_engine_
+check.py`` and ``tests/sharded_arena_check.py``'s async cases.
 
 Held, with the reference's bounds where it states them:
 
@@ -35,7 +39,25 @@ Held, with the reference's bounds where it states them:
   ``test_torch_cohorts.py``'s tolerances: weights rtol 1e-4 / atol 2e-5
   (secure), atol 1e-3 (top-k: where the sides' deltas differ in their
   last bits the threshold can keep another entry), atol 2e-5 (sketch);
-  cost rtol 1e-5, accuracy atol 1e-6.
+  cost rtol 1e-5, accuracy atol 1e-6;
+* async and pipelined rounds, bit for bit: the zero trace on the mesh
+  is the synchronous mesh run (the seven cases of
+  ``async_engine_check.py``); under the nonzero trace every secure case
+  whose ranks hold two or more slots is the one-device run, with the
+  masked sum's ``alive`` path at both ranks' offsets, and the secure
+  cohort of 10 on three ranks (padded by two); the sharded ring (a
+  (K + 1, ⌈n/D⌉) int32 block a rank) is the replicated one; pipelined
+  rounds are the async run at τ ≡ 1 (``pipeline_engine_check.py``'s
+  flat cases, a replicated arena and a cohort of 5 padded to 6);
+  ``ClientMesh.ring_psum_chunked`` is the psum on the reference's mixed
+  tree at 4, 3 and 7 pieces, on two and three ranks;
+* async and pipelined rounds within the bounds above elsewhere, with
+  ``comm["async"]`` / ``comm["pipeline"]`` equal to one device's, the
+  psums and ring calls a round as ``PERF.md`` §4 predicts; Algorithm 2
+  and FedSGD in the round modes; alg1/secure and fedavg/topk async
+  against the reference's async ``mesh=None`` at
+  ``test_torch_async_runtime.py``'s tolerances; the small population's
+  three modes (the mesh once refused them) against ``mesh=None``.
 
 The test process computes its references on one intra-op thread, as
 the ranks run: another thread count can change a CPU product's last
@@ -43,7 +65,8 @@ bits.  Measured on the CPU (largest gap between the mesh and
 ``mesh=None``):
 float-summed paths 0 to 4.8e-7 in cost, the secure ones 0 (bit for
 bit); fedavg/topk's weights 2.8e-4 (a top-k threshold moved by the
-psum's reassociation), within the 1e-3 above against JAX.
+psum's reassociation), within the 1e-3 above against JAX.  Async and
+pipelined: cost 0 to 2.4e-7, weights 0 to 7.5e-8.
 """
 import jax
 import numpy as np
@@ -56,21 +79,32 @@ from repro.fed import aggregation as jagg
 from repro.fed import compression as jcomp
 from repro.fed import runtime as jrt
 from repro.fed import sketch as jsketch
+from repro.fed.staleness import StalenessConfig as JConfig
 from repro.mlpapp import model as jm
 import torch_mesh_cases as cases
 from repro_torch.fed import aggregation as tagg
 from repro_torch.fed import runtime as trt
-from repro_torch.fed.staleness import StalenessConfig
 from repro_torch.launch import ClientMesh, LocalWorld, make_group_mesh
 
 TWO = ([(n, None) for n in cases.ENGINE]
        + [(n, None) for n in ("alg1/sketch+secure", "alg1/identity", "I=7",
                               "I=7/topk")]
        + [(n, None) for n in cases.LM + cases.PAPER]
-       + [(n, "replicated") for n in cases.ARENA])
-THREE = [("alg1/secure", None)]
+       + [(n, "replicated") for n in cases.ARENA]
+       # the async and pipelined rounds (keyed with their mode)
+       + [(n, None, m) for n in cases.ASYNC for m in ("sync", "zero",
+                                                      "delay")]
+       + [("alg1/topk", None, "delay")]
+       + [(n, "replicated", "delay") for n in cases.ASYNC_ARENA]
+       + [(n, a, m) for n, a in cases.PIPELINE for m in ("pipeline", "tau1")]
+       + [(n, None, m) for n, m in cases.PAPER_MODES]
+       + [(n, None, m) for n in cases.SMALL for m in cases.SMALL_MODES])
+THREE = [("alg1/secure", None), ("alg1/secure", None, "delay")]
 REFERENCE = (cases.ENGINE + ["alg1/sketch+secure", "I=7"] + cases.LM
              + cases.PAPER)
+# the port's mesh=None runs of the round modes
+REFERENCE_MODES = ([(n, "delay") for n in cases.ASYNC] + cases.PAPER_MODES
+                   + [(n, m) for n in cases.SMALL for m in cases.SMALL_MODES])
 SECURE = ["alg1/secure", "alg1/topk8+secure", "alg1/secure_sampled3",
           "alg1/sketch+secure3", "alg1/sketch+secure", "alg2/secure",
           "fedsgd/secure"]
@@ -85,6 +119,13 @@ JAX = {
         "compressor": jsketch.sketch(rows=4, cols=512, fraction=0.02,
                                      keep=64)}, 0.0, 2e-5),
 }
+# the reference's async runs (the nonzero trace), from the same weights,
+# at test_torch_async_runtime.py's tolerances
+JAX_ASYNC = {
+    "alg1/secure": ("run_alg1", lambda: {"secure": True}, 2e-5),
+    "fedavg/topk": ("run_fedavg", lambda: dict(
+        cases.FEDAVG, compressor=jcomp.topk(0.3)), 1e-3),
+}
 
 
 @pytest.fixture(scope="module")
@@ -98,11 +139,13 @@ def world(p0):
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
     worlds = [LocalWorld(cases.rank_main, 2, backend="gloo",
-                         args=(TWO, p0), timeout_s=300),
+                         args=(TWO, p0, False, True), timeout_s=300),
               LocalWorld(cases.rank_main, 3, backend="gloo",
-                         args=(THREE, p0), timeout_s=300)]
+                         args=(THREE, p0, False, True), timeout_s=300)]
     try:
         ref = {n: cases.run_case(n, p0) for n in REFERENCE}
+        ref.update({(n, m): cases.run_case(n, p0, mode=m)
+                    for n, m in REFERENCE_MODES})
         data = synthetic.classification_dataset(n_train=2000, n_test=500,
                                                 seed=0)
         part = jpart.iid(2000, 10, seed=0)
@@ -110,6 +153,12 @@ def world(p0):
         ref_jax = {n: getattr(jrt, entry)(data, part, params=params,
                                           **cases.KW, **make())
                    for n, (entry, make, _, _) in JAX.items()}
+        delays = JConfig(max_staleness=2, delay_probs=cases.DELAYS)
+        ref_jax.update({
+            (n, "delay"): getattr(jrt, entry)(data, part, params=params,
+                                              **cases.KW_ASYNC, **make(),
+                                              staleness=delays)
+            for n, (entry, make, _) in JAX_ASYNC.items()})
         two, three = (w.join() for w in worlds)
     except BaseException:
         for w in worlds:
@@ -252,6 +301,184 @@ def test_mesh_tracks_the_reference(world, name):
 
 
 # ---------------------------------------------------------------------------
+# async and pipelined rounds on the mesh
+# ---------------------------------------------------------------------------
+
+ROUNDS = cases.KW_ASYNC["rounds"]
+# secure cases whose ranks hold two or more slots: bit for bit mesh=None
+ASYNC_BITWISE = ["alg1/secure", "alg1/topk8+secure"]
+# the masked sum's launches on rank r of D: (S_loc, offset, S_pad)
+SHARD = {(name, d): [(-(-s // d), r * -(-s // d), -(-s // d) * d)
+                     for r in range(d)]
+         for name, s in (("alg1/secure", 10), ("alg1/topk8+secure", 10),
+                         ("alg1/sketch0+secure", 10),
+                         ("alg1/secure_sampled5", 5)) for d in (2, 3)}
+
+
+def collectives(run, name, arena, mode, ranks=2):
+    psums, rings = cases.collectives_per_round(
+        name, arena or "sharded", mode, ranks)
+    assert run["psum_calls"] == psums * ROUNDS, (name, arena, mode)
+    assert run["ring_calls"] == rings * ROUNDS, (name, arena, mode)
+    assert run["ring_staged_bytes"] == 0
+
+
+@pytest.mark.parametrize("name", cases.ASYNC)
+def test_zero_trace_on_the_mesh_is_sync(world, name):
+    runs = world["two"][0]["runs"]
+    zero, sync = runs[(name, None, "zero")], runs[(name, None, "sync")]
+    assert same_params(zero["params"], sync["params"]), name
+    comm = dict(zero["hist"]["comm"])
+    assert comm.pop("async")["dropped_total"] == 0
+    assert dict(zero["hist"], comm=comm) == sync["hist"]
+    assert zero["hist"]["rounds"] == [2, 4, 6]
+    collectives(zero, name, None, "zero")
+    collectives(sync, name, None, "sync")
+
+
+@pytest.mark.parametrize("name", cases.ASYNC)
+def test_async_mesh_tracks_single_device(world, name):
+    got = [r["runs"][(name, None, "delay")] for r in world["two"]]
+    want = world["ref"][(name, "delay")]
+    assert got[0]["hist"]["comm"] == want["hist"]["comm"]
+    dropped = want["hist"]["comm"]["async"]["dropped_total"]
+    assert dropped > 0
+    cost, acc = gaps(got[0]["hist"], want["hist"])
+    assert cost < 5e-5, cost
+    assert acc < 2e-3, acc
+    if name in ASYNC_BITWISE:
+        assert same_params(got[0]["params"], want["params"]), name
+        assert got[0]["hist"] == want["hist"], name
+        # the masked sum's alive path at each rank's offset: every launch
+        # at its shard, the dropped slots over the cohort counted once a
+        # round on every rank
+        for r, run in enumerate(got):
+            shard = SHARD[(name, 2)][r]
+            assert [m[:3] for m in run["masked"]] == [shard] * ROUNDS
+            assert sum(m[3] for m in run["masked"]) == dropped
+    else:
+        assert all(r["masked"] == [] for r in got)
+    collectives(got[0], name, None, "delay")
+
+
+@pytest.mark.parametrize("name,mode", cases.PAPER_MODES,
+                         ids=[f"{n}-{m}" for n, m in cases.PAPER_MODES])
+def test_paper_algorithms_in_the_round_modes_on_the_mesh(world, name, mode):
+    # Algorithm 2's (value, gradient) upload async, plain (the bucketed
+    # super-batch) and masked; FedSGD pipelined through the chunked ring
+    got = world["two"][0]["runs"][(name, None, mode)]
+    want = world["ref"][(name, mode)]
+    assert got["hist"]["comm"] == want["hist"]["comm"]
+    cost, acc = gaps(got["hist"], want["hist"])
+    assert cost < 5e-5, cost
+    assert acc < 2e-3, acc
+    slack = np.abs(np.subtract(got["hist"]["slack"], want["hist"]["slack"]))
+    assert slack.max() < 5e-5, slack
+    if "secure" in name:
+        assert same_params(got["params"], want["params"]), name
+        assert got["hist"] == want["hist"], name
+    collectives(got, name, None, mode)
+
+
+@pytest.mark.parametrize("name", cases.ASYNC_ARENA)
+def test_sharded_ring_equals_replicated(world, name):
+    runs = world["two"][0]["runs"]
+    sh, rep = runs[(name, None, "delay")], runs[(name, "replicated",
+                                                  "delay")]
+    assert same_params(sh["params"], rep["params"]), name
+    assert sh["hist"] == rep["hist"], name
+    # each rank carries its (K + 1, ⌈n/D⌉) int32 column block of the ring
+    n = sum(x.size for x in sh["params"])
+    for r in world["two"]:
+        assert r["runs"][(name, None, "delay")]["blocks"] \
+            == [((3, -(-n // 2)), "torch.int32")]
+        assert r["runs"][(name, "replicated", "delay")]["blocks"] == []
+    collectives(sh, name, None, "delay")
+    collectives(rep, name, "replicated", "delay")
+    # the trace bit: async is not the synchronous run
+    if name == "alg1/plain":
+        sync = runs[(name, None, "sync")]
+        assert sh["hist"]["metrics"] != sync["hist"]["metrics"]
+
+
+@pytest.mark.parametrize("name,arena", cases.PIPELINE,
+                         ids=[f"{n}-{a or 'sharded'}"
+                              for n, a in cases.PIPELINE])
+def test_pipeline_is_async_tau1_on_the_mesh(world, name, arena):
+    for r in world["two"]:
+        pipe = r["runs"][(name, arena, "pipeline")]
+        tau1 = r["runs"][(name, arena, "tau1")]
+        assert same_params(pipe["params"], tau1["params"]), name
+        assert pipe["hist"]["metrics"] == tau1["hist"]["metrics"], name
+        comm = dict(pipe["hist"]["comm"])
+        assert comm.pop("pipeline") == {"enabled": True, "depth": 1,
+                                        "extra_snapshot_slots": 1}
+        assert comm == {k: v for k, v in tau1["hist"]["comm"].items()
+                        if k != "async"}
+        collectives(pipe, name, arena, "pipeline")
+        collectives(tau1, name, arena, "tau1")
+        if (name, 2) in SHARD:
+            shard = SHARD[(name, 2)][r["rank"]]
+            per = 2 if "sketch" in name else 1
+            # no alive on the pipelined launches; the τ ≡ 1 run's alive
+            # drops nothing
+            assert pipe["masked"] == [shard + (None,)] * (per * ROUNDS)
+            assert tau1["masked"] == [shard + (0,)] * (per * ROUNDS)
+            # the ring carries the int32 partial: the model's elements,
+            # the sketch's 4 x 512 buckets in its phase 1
+            elems = 4 * 512 if "sketch" in name \
+                else sum(x.size for x in pipe["params"])
+            assert pipe["ring_bytes"] == 4 * elems * ROUNDS
+
+
+@pytest.mark.parametrize("ranks", ["two", "three"])
+def test_ring_psum_chunked_is_psum(world, ranks):
+    size = len(world[ranks])
+    ins = [cases.ring_inputs(r) for r in range(size)]
+    ints = {k: sum(i[k].astype(np.int64) for i in ins) for k in ("a", "d")}
+    ints = {k: ((v + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+            for k, v in ints.items()}
+    n = ins[0]["a"].size + ins[0]["d"].size
+    for r in world[ranks]:
+        chk = r["ring"]
+        for k, want in ints.items():
+            np.testing.assert_array_equal(chk["psum"][k], want)
+        for chunks, got in chk["ring"].items():
+            for k in ("a", "b", "d"):
+                assert np.array_equal(bits(got["sum"][k]),
+                                      bits(chk["psum"][k])), (chunks, k)
+            # one ring call; the f32 leaf through one psum; each rank
+            # sends every int32 element D − 1 times, nothing staged
+            assert got["counts"] == (1, 1, 4 * n * (size - 1), 0), chunks
+
+
+def test_three_ranks_pad_the_async_cohort_by_two(world):
+    want = world["ref"][("alg1/secure", "delay")]
+    for r in world["three"]:
+        got = r["runs"][("alg1/secure", None, "delay")]
+        assert same_params(got["params"], want["params"])
+        assert got["hist"] == want["hist"]
+        shard = SHARD[("alg1/secure", 3)][r["rank"]]
+        assert [m[:3] for m in got["masked"]] == [shard] * ROUNDS
+        collectives(got, "alg1/secure", None, "delay", ranks=3)
+
+
+@pytest.mark.parametrize("name", list(JAX_ASYNC))
+def test_async_mesh_tracks_the_reference(world, name):
+    _, _, atol = JAX_ASYNC[name]
+    got = world["two"][0]["runs"][(name, None, "delay")]
+    pj, hj = world["jax"][(name, "delay")]
+    assert got["hist"]["rounds"] == hj.rounds
+    assert got["hist"]["comm"] == hj.comm
+    for g, w in zip(got["params"], pj):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=atol)
+    np.testing.assert_allclose(got["hist"]["train_cost"], hj.train_cost,
+                               rtol=1e-5)
+    np.testing.assert_allclose(got["hist"]["test_accuracy"],
+                               hj.test_accuracy, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
 # what the mesh refuses, checked before any collective
 # ---------------------------------------------------------------------------
 
@@ -270,16 +497,23 @@ def small():
     return data, jpart.iid(40, 4, seed=0)
 
 
-@pytest.mark.parametrize("kw", [
-    {"staleness": StalenessConfig(max_staleness=1)},
-    {"staleness_trace": np.zeros((1, 4), np.int64)},
-    {"pipeline": True}], ids=["staleness", "staleness_trace", "pipeline"])
+@pytest.mark.parametrize("mode", cases.SMALL_MODES)
 @pytest.mark.parametrize("entry", ["run_alg1", "run_fedavg"])
-def test_mesh_refuses_the_async_modes(small, fake_mesh, kw, entry):
-    data, part = small
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        getattr(trt, entry)(data, part, batch_size=5, rounds=1, hidden=4,
-                            mesh=fake_mesh, **kw)
+def test_mesh_refuses_the_async_modes(world, mode, entry):
+    """Named for the refusal it held while the mesh ran synchronous
+    rounds only: each mode (a drawn trace, a given one, pipelined rounds)
+    of each entry now runs on two ranks (the small population, S_loc =
+    2) and tracks its mesh=None run."""
+    name = {"run_alg1": "small/alg1", "run_fedavg": "small/fedavg"}[entry]
+    got = world["two"][0]["runs"][(name, None, mode)]
+    want = world["ref"][(name, mode)]
+    assert got["hist"]["rounds"] == want["hist"]["rounds"] == [1, 2, 3]
+    assert got["hist"]["comm"] == want["hist"]["comm"]
+    assert ("pipeline" if mode == "pipeline" else "async") \
+        in got["hist"]["comm"]
+    cost, acc = gaps(got["hist"], want["hist"])
+    assert cost < 5e-5, cost
+    assert acc < 2e-3, acc
 
 
 def test_mesh_refuses_the_tree(small, fake_mesh):

@@ -9,6 +9,13 @@ discount at τ = 0 and at a = 0, ``StalenessConfig``'s frozen fields, and
 1.0 at d ≡ 1 (the weights come back bit for bit), a dropped slot gets
 exactly 0, an all-dropped round zero weights.
 
+The packed snapshot ring (``RingMeta`` and its helpers), bit for bit
+against the reference's on the same ring: a params tree holding NaN
+payloads, −0.0 and an int32 leaf, over 1, 2 and 3 ranks (n = 41 pads
+to 42), the ranks' placed blocks summed as the psum would (one
+contributor a column); ``ring_meta`` refuses a leaf that does not route
+as int32 bits, as the reference refuses a non-4-byte one.
+
 Within tolerance: ``PolynomialDiscount`` at τ > 0 is f32 ``pow`` on both
 sides (XLA's and torch's), held to 1 ulp (measured over τ = 0 … 40:
 1 ulp at a = 0.5, equal at a = 1 and 2); ``discount_reweight`` sums its
@@ -142,3 +149,70 @@ def test_staleness_config_is_frozen_hashable_and_validated():
     for bad in (-0.5, True, "a"):
         with pytest.raises(ValueError, match="nonnegative"):
             tst.PolynomialDiscount(bad)
+
+
+def ring_params(depth: int):
+    """A ring of ``depth`` snapshots of a three-leaf tree (n = 41):
+    (depth, …) leaves with NaN payloads, −0.0 and an int32 leaf."""
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((depth, 4, 7)).astype(np.float32)
+    bits = w.view(np.uint32)
+    bits[0, 0, 0] = 0x7FC01234
+    bits[1, 2, 3] = 0x80000000
+    return {"b": rng.standard_normal((depth, 5)).astype(np.float32),
+            "k": rng.integers(-2 ** 31, 2 ** 31, (depth, 8)).astype(
+                np.int32),
+            "w": w}
+
+
+def _bits(a):
+    return np.asarray(a).view(np.uint32)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3])
+def test_packed_ring_matches_reference(shards):
+    phist = ring_params(3)
+    tp = {k: torch.as_tensor(v) for k, v in phist.items()}
+    jp = {k: jnp.asarray(v) for k, v in phist.items()}
+    snap0 = {k: v[0] for k, v in tp.items()}
+    meta = tst.ring_meta(snap0, shards)
+    jmeta = jst.ring_meta({k: v[0] for k, v in jp.items()}, shards)
+    assert (meta.n, meta.chunk, meta.shards) \
+        == (jmeta.n, jmeta.chunk, jmeta.shards) == (41, -(-41 // shards),
+                                                    shards)
+    packed = tst.pack_ring(tp, meta)
+    np.testing.assert_array_equal(_bits(packed.numpy()),
+                                  _bits(jst.pack_ring(jp, jmeta)))
+    np.testing.assert_array_equal(
+        _bits(tst.pack_snapshot(snap0, meta).numpy()),
+        _bits(jst.pack_snapshot({k: v[0] for k, v in jp.items()}, jmeta)))
+    # every rank's block placed and summed: the packed ring, exactly
+    blocks = [tst.ring_localize(packed, meta, r) for r in range(shards)]
+    for r, b in enumerate(blocks):
+        assert b.shape == (3, meta.chunk) and b.dtype == torch.int32
+        np.testing.assert_array_equal(
+            _bits(b.numpy()),
+            _bits(jst.ring_localize(jst.pack_ring(jp, jmeta), jmeta, r)))
+    contributions = [tst.ring_unshard(b, meta, r, lambda x: x)
+                     for r, b in enumerate(blocks)]
+    whole = tst.ring_unshard(blocks[0], meta, 0,
+                             lambda x: sum(contributions))
+    assert torch.equal(whole, packed)
+    for k, v in tst.unpack_ring(whole, meta).items():
+        assert v.dtype == tp[k].dtype
+        np.testing.assert_array_equal(_bits(v.numpy()), _bits(phist[k]))
+    for slot in range(3):
+        got = tst.unpack_snapshot(whole, meta, slot)
+        want = jst.unpack_snapshot(jst.pack_ring(jp, jmeta), jmeta, slot)
+        for k in phist:
+            np.testing.assert_array_equal(_bits(got[k].numpy()),
+                                          _bits(want[k]))
+
+
+def test_ring_meta_refuses_what_does_not_route():
+    assert tst.ring_meta({"h": torch.zeros(3, dtype=torch.float16)},
+                         2) is None
+    assert jst.ring_meta({"h": jnp.zeros(3, jnp.float16)}, 2) is None
+    assert tst.ring_meta({"d": torch.zeros(3, dtype=torch.float64),
+                          "w": torch.zeros(3)}, 2) is None
+    assert tst.ring_meta({"w": torch.zeros(3)}, 2).chunk == 2

@@ -8,9 +8,14 @@ reference package, so this module imports numpy, torch and
 ``tests/sharded_engine_check.py`` (2000 samples over 10 iid clients, B =
 10, 6 rounds, eval every 3 on 300 samples, seed 3; I = 7 with B = 5, 4
 rounds), ``tests/sharded_arena_check.py`` and ``tests/task_mesh_check.py``
-(the reduced dense LM and RWKV-6, secure with ``qsgd(8)``).  Every MLP
-case starts from the weights the caller passes (the reference's initial
-weights, carried as numpy arrays).
+(the reduced dense LM and RWKV-6, secure with ``qsgd(8)``), and for the
+async and pipelined rounds ``tests/async_engine_check.py`` and
+``tests/pipeline_engine_check.py`` (eval every 2).  Every MLP case on the
+10 clients starts from the weights the caller passes (the reference's
+initial weights, carried as numpy arrays).
+
+A run is keyed (case, arena) for a synchronous round at ``KW`` and
+(case, arena, mode) for a round mode of :data:`MODES` at ``KW_ASYNC``.
 """
 from __future__ import annotations
 
@@ -24,8 +29,9 @@ from repro_torch.data import partition, synthetic
 from repro_torch.fed import aggregation, compression, runtime
 from repro_torch.fed import arena as arena_mod
 from repro_torch.fed import sketch as fsk
+from repro_torch.fed import staleness
 from repro_torch.fed.tasks import rwkv6_task, transformer_task
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, secure_agg
 from repro_torch.launch import make_client_mesh
 from repro_torch.mlpapp import model as tm
 
@@ -34,6 +40,38 @@ KW7 = dict(batch_size=5, rounds=4, eval_every=2, eval_samples=200, seed=3)
 KW_LM = dict(batch_size=4, rounds=4, eval_every=2, eval_samples=64, seed=3,
              tau=2.0, secure=True)
 FEDAVG = dict(local_steps=2, lr_a=2.0)
+# the async and pipelined rounds' checks, and the small population the
+# mesh refused these modes on before they ran there
+KW_ASYNC = dict(KW, eval_every=2)
+KW_SMALL = dict(batch_size=5, rounds=3, eval_every=1, eval_samples=40,
+                seed=0, hidden=4)
+# the reference's nonzero trace (delays 3 and 4 drop at K = 2)
+DELAYS = (0.5, 0.2, 0.15, 0.1, 0.05)
+
+
+def _tau1(rounds, cohort):
+    """The constant τ ≡ 1 trace pipelined rounds run, as an async run."""
+    return {"staleness": staleness.StalenessConfig(
+        max_staleness=1, schedule=staleness.ConstantDiscount()),
+        "staleness_trace": np.ones((rounds, cohort), np.int64)}
+
+
+# mode -> the round's arguments, from (rounds, cohort size)
+MODES = {
+    "sync": lambda r, s: {},
+    "zero": lambda r, s: {
+        "staleness": staleness.StalenessConfig(max_staleness=2)},
+    "delay": lambda r, s: {"staleness": staleness.StalenessConfig(
+        max_staleness=2, delay_probs=DELAYS)},
+    "pipeline": lambda r, s: {"pipeline": True},
+    "tau1": _tau1,
+    # the small population's three modes: a drawn trace, a given one
+    "staleness": lambda r, s: {"staleness": staleness.StalenessConfig(
+        max_staleness=1, delay_probs=(0.4, 0.3, 0.2, 0.1))},
+    "staleness_trace": lambda r, s: {
+        "staleness": staleness.StalenessConfig(max_staleness=1),
+        "staleness_trace": np.arange(r * s).reshape(r, s) % 3},
+}
 
 
 def sketch():
@@ -82,6 +120,17 @@ CASES = {
                     lambda: {"limit_u": 0.4, "secure": True}),
     "fedsgd/secure": ("run_fedsgd", "i10", lambda: {
         "lr_a": 2.0, "aggregation": aggregation.secure()}),
+    # the async and pipelined checks' other cases: top-k alone, the
+    # sketch's defaults, a secure cohort of 5 (padded to 6 on two ranks),
+    # and the small population
+    "alg1/topk": ("run_alg1", "i10",
+                  lambda: {"compressor": compression.topk(0.3)}),
+    "alg1/sketch0+secure": ("run_alg1", "i10", lambda: {
+        "compressor": fsk.sketch(), "secure": True}),
+    "alg1/secure_sampled5": ("run_alg1", "i10", lambda: {
+        "aggregation": aggregation.secure(num_sampled=5)}),
+    "small/alg1": ("run_alg1", "small", lambda: {}),
+    "small/fedavg": ("run_fedavg", "small", lambda: dict(FEDAVG)),
     "lm/transformer": ("run_alg1", "transformer",
                        lambda: {"compressor": compression.qsgd(8)}),
     "lm/rwkv6": ("run_alg1", "rwkv6",
@@ -93,6 +142,21 @@ PAPER = ["alg2", "alg2/secure", "fedsgd/secure"]
 # sharded_arena_check.py's synchronous cases and its I = 7 top-k case
 ARENA = ["alg1/plain", "alg1/topk8+secure", "alg1/sketch+secure3",
          "fedavg/topk", "I=7/topk"]
+# async_engine_check.py's seven cases; sharded_arena_check.py's async
+# ones; pipeline_engine_check.py's flat cases, a replicated arena among
+# them, and its padded cohort
+ASYNC = ["alg1/plain", "alg1/secure", "alg1/sampled", "alg1/qsgd8",
+         "alg1/topk8+secure", "fedavg", "fedavg/topk"]
+ASYNC_ARENA = ["alg1/plain", "alg1/topk"]
+PIPELINE = [("alg1/plain", None), ("alg1/secure", None),
+            ("alg1/topk8+secure", None), ("alg1/sketch0+secure", None),
+            ("fedavg", None), ("alg1/topk8+secure", "replicated"),
+            ("alg1/secure_sampled5", None)]
+# Algorithm 2 and FedSGD in the round modes (the two others run above)
+PAPER_MODES = [("alg2", "delay"), ("alg2/secure", "delay"),
+               ("fedsgd/secure", "pipeline")]
+SMALL = ["small/alg1", "small/fedavg"]
+SMALL_MODES = ["staleness", "staleness_trace", "pipeline"]
 
 
 def psums_per_round(name: str, arena: str = "sharded") -> int:
@@ -110,6 +174,22 @@ def psums_per_round(name: str, arena: str = "sharded") -> int:
     return n + stateful
 
 
+def collectives_per_round(name: str, arena: str = "sharded",
+                          mode: str = "sync", ranks: int = 2) -> tuple:
+    """``PERF.md`` §4's (psum calls, chunked-ring calls) a round of a
+    round mode: the synchronous round's psums, the packed snapshot ring's
+    rebuild under the sharded arena, and in pipelined rounds on two or
+    more ranks the int32 partial of a secure message path (the sketch's
+    phase 1) through the ring instead of a psum."""
+    psums, rings = psums_per_round(name, arena), 0
+    if mode == "sync":
+        return psums, rings
+    psums += arena == "sharded"
+    if mode == "pipeline" and ranks > 1 and "secure" in name:
+        psums, rings = psums - 1, 1
+    return psums, rings
+
+
 def lm_task(name):
     make = transformer_task if name == "transformer" else rwkv6_task
     return make(seq_len=16, d_model=32, vocab=64)
@@ -121,6 +201,10 @@ def setting(population):
         task = lm_task(population)
         return (task.default_data(n_train=128, n_test=32, seed=0),
                 partition.iid(128, 4, seed=0), KW_LM, task)
+    if population == "small":
+        return (synthetic.classification_dataset(n_train=40, n_test=10,
+                                                 k=16, l=3, seed=0),
+                partition.iid(40, 4, seed=0), KW_SMALL, None)
     data = synthetic.classification_dataset(n_train=2000, n_test=500,
                                             seed=0)
     if population == "i7":
@@ -128,18 +212,34 @@ def setting(population):
     return data, partition.iid(2000, 10, seed=0), KW, None
 
 
-def run_case(name, p0, *, mesh=None, arena=None, **over) -> dict:
-    """One case on the CPU: the final weights (numpy, leaf order), the
-    history without its wall time, and the mesh's psum counts."""
+def cohort_of(name) -> int:
+    """The case's cohort size S."""
+    agg = CASES[name][2]().get("aggregation")
+    clients = setting(CASES[name][1])[1].num_clients
+    return clients if agg is None else agg.cohort_size(clients)
+
+
+def run_case(name, p0, *, mesh=None, arena=None, mode=None,
+             **over) -> dict:
+    """One case on the CPU, synchronous or in a round mode of
+    :data:`MODES`: the final weights (numpy, leaf order), the history
+    without its wall time, and the mesh's psum and ring counts."""
     entry, population, extra = CASES[name]
     data, part, kw, task = setting(population)
+    if mode is not None and population == "i10":
+        kw = KW_ASYNC
     kw = dict(kw, **extra(), **over)
-    if task is None:
+    if mode is not None:
+        kw.update(MODES[mode](kw["rounds"], cohort_of(name)))
+    if population == "small":
+        pass                                 # the port's own initial weights
+    elif task is None:
         kw["params"] = tm.params_from_numpy(p0, "cpu")
     else:
         kw["task"] = task
     if mesh is not None:
         mesh.psum_calls = mesh.all_reduces = mesh.psum_bytes = 0
+        mesh.ring_calls = mesh.ring_bytes = mesh.ring_staged_bytes = 0
         kw.update(mesh=mesh, arena=arena)
     else:
         kw["device"] = "cpu"
@@ -150,7 +250,9 @@ def run_case(name, p0, *, mesh=None, arena=None, **over) -> dict:
            "hist": h}
     if mesh is not None:
         out.update(psum_calls=mesh.psum_calls, all_reduces=mesh.all_reduces,
-                   psum_bytes=mesh.psum_bytes)
+                   psum_bytes=mesh.psum_bytes, ring_calls=mesh.ring_calls,
+                   ring_bytes=mesh.ring_bytes,
+                   ring_staged_bytes=mesh.ring_staged_bytes)
     return out
 
 
@@ -161,17 +263,51 @@ def foreign_modules():
                   if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 
 
-def rank_main(runs, p0, checks: bool = False) -> dict:
+def rank_main(runs, p0, checks: bool = False, ring: bool = False) -> dict:
     """A rank's entry: on the default group's client mesh, on the CPU,
-    the collective's checks (``checks``), then every (case, arena) of
-    ``runs``."""
+    the collective's checks (``checks``) and the chunked ring's
+    (``ring``), then every (case, arena) and
+    (case, arena, mode) of ``runs``, with the masked sum's launches
+    (local clients, offset, cohort, dropped slots) and the int32 ring
+    blocks the snapshot ring keeps (shape) recorded per run."""
     mesh = make_client_mesh(device="cpu")
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
            "wraps": mesh.int32_wraps}
     if checks:
         out["checks"] = collective_checks(mesh)
-    out["runs"] = {(name, arena): run_case(name, p0, mesh=mesh, arena=arena)
-                   for name, arena in runs}
+    if ring:
+        out["ring"] = ring_checks(mesh)
+    seen = {"masked": [], "blocks": []}
+    plain, localize = secure_agg.masked_sum_plain, staleness.ring_localize
+
+    def masked(msgs, key0, key1, *, client_offset=0, alive=None, **kw):
+        seen["masked"].append((msgs.shape[0], client_offset,
+                               kw["num_clients"], None if alive is None
+                               else int((alive == 0).sum())))
+        return plain(msgs, key0, key1, client_offset=client_offset,
+                     alive=alive, **kw)
+
+    def block(packed, meta, my_id):
+        got = localize(packed, meta, my_id)
+        seen["blocks"].append((tuple(got.shape), str(got.dtype)))
+        return got
+
+    secure_agg.masked_sum_plain, staleness.ring_localize = masked, block
+    out["runs"] = {}
+    try:
+        for key in runs:
+            name, arena, *mode = key
+            seen["masked"].clear()
+            seen["blocks"].clear()
+            run = run_case(name, p0, mesh=mesh, arena=arena,
+                           mode=mode[0] if mode else None)
+            if mode:
+                run.update(masked=list(seen["masked"]),
+                           blocks=sorted(set(seen["blocks"])))
+            out["runs"][key] = run
+    finally:
+        secure_agg.masked_sum_plain, staleness.ring_localize = plain, \
+            localize
     out["foreign"] = foreign_modules()
     return out
 
@@ -270,4 +406,35 @@ def collective_checks(mesh) -> dict:
     every = torch.arange(pop.shape[0])
     out["after_scatter"] = arena_mod.gather_rows(
         plan, local, every, mesh.rank, mesh.psum)["r"].numpy()
+    return out
+
+
+def ring_inputs(rank: int) -> dict:
+    """A rank's share of the reference's mixed tree
+    (``tests/pipeline_engine_check.py::check_ring_psum``): int32 of
+    length 37·13 + 3 over the full range, f32, and a small int32 leaf."""
+    rng = np.random.default_rng(200 + rank)
+    return {"a": rng.integers(-2 ** 31, 2 ** 31, (37, 13)).astype(np.int32),
+            "b": rng.standard_normal(5).astype(np.float32),
+            "d": rng.integers(-100, 100, 3).astype(np.int32)}
+
+
+# 484 int32 elements: even over 4 pieces, uneven over 3 and 7
+RING_CHUNKS = (4, 3, 7)
+
+
+def ring_checks(mesh) -> dict:
+    """``ring_psum_chunked`` beside ``psum`` on the mixed tree, at each
+    chunk count, with the counts each made."""
+    x = {k: torch.as_tensor(v) for k, v in ring_inputs(mesh.rank).items()}
+    mesh.psum_calls = mesh.ring_calls = mesh.ring_bytes = 0
+    out = {"psum": {k: v.numpy() for k, v in mesh.psum(x).items()},
+           "ring": {}}
+    for chunks in RING_CHUNKS:
+        mesh.psum_calls = mesh.ring_calls = mesh.ring_bytes = 0
+        got = mesh.ring_psum_chunked(x, chunks=chunks)
+        out["ring"][chunks] = {
+            "sum": {k: v.numpy() for k, v in got.items()},
+            "counts": (mesh.ring_calls, mesh.psum_calls, mesh.ring_bytes,
+                       mesh.ring_staged_bytes)}
     return out
