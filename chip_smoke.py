@@ -185,7 +185,21 @@ last line):
    with ``client_offset = rank·S_loc`` of S_pad (with ``alive`` on the
    async paths, their dropped slots the trace's), the psums and ring
    calls a round as predicted, pipelined bit for bit async τ ≡ 1; each
-   path's round time, device busy share and peak memory printed;
+   path's round time, device busy share and peak memory printed; then
+   the hierarchical tree on the (groups, clients) mesh
+   (``make_group_mesh``): a (1, 1) mesh of the NCCL rank on
+   ``hierarchical(secure(), 2)`` alone, with top-k, async (both arenas)
+   and pipelined, each bit for bit ``mesh=None`` with its launches, and
+   on G = 4 (12 slots uploaded against 10) within 5e-5 in cost; gloo
+   ranks on ``cuda:0`` at (2, 1) and (1, 2) (G = 4, async and pipelined
+   G = 2) and at (2, 2) (G = 4): the ranks bit for bit each other, within
+   5e-5 in cost and 1e-5 in weights of ``mesh=None``, the masked sum
+   launched G_loc times a round at each rank's member offset of M_pad
+   and the ring mode once at its group offset, the psums and ring calls
+   a round on each axis as predicted; the masked sum and its ring mode
+   are held bit for bit at a tile's shapes in the parity phases and
+   timed there (``group_shard``), and the ``{"kernels": [...]}`` rows of
+   both carry their launches on each group-mesh path;
 then print one ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -582,6 +596,14 @@ def phase_kernel_parity(torch, su, sa):
           "alignment", num_clients=CLIENTS, alive=alive)
     check(misaligned(torch, big), "(4, 4608, 128) one element past "
           "alignment", num_clients=4)
+    # the group mesh's level 1 at (1, 2): a rank's 2 members at
+    # member_offset 2 of a group's 4, with the group's whole member row
+    # of alive bits (a member dropped on the other rank, then on this one)
+    tile = randn(2, 794, 128, scale=1e-3)
+    for row in ([1, 0, 1, 1], [1, 1, 1, 0]):
+        check(tile, f"(2, 794, 128) at member_offset 2 of 4, alive {row}",
+              num_clients=4, client_offset=2,
+              alive=torch.tensor(row, device=dev))
     errs["compress"] = phase_compress_parity(torch, randn)
     errs["sketch_encode"] = phase_sketch_parity(torch, randn)
     return errs
@@ -1830,8 +1852,9 @@ def masked_us(torch, prof):
 def phase_ring_parity(torch, sa):
     """The masked sum's ring mode against its plain version on the card,
     bit for bit: the tree's level-2 shapes at the MLP's 794 rows (G = 2,
-    3, 16; both variants), dropouts, a group offset, 600 groups (the
-    table in chunks) and rows one element past alignment; the whole set
+    3, 16; both variants), dropouts, group offsets (5 of 16; 2 of 4, a
+    (2, 1) group mesh's tile), 600 groups (the table in chunks) and rows
+    one element past alignment; the whole set
     of groups sums to the plain int32 sum.  Returns the max abs error."""
     g = torch.Generator().manual_seed(5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1846,7 +1869,10 @@ def phase_ring_parity(torch, sa):
             (16, 16, 794, 0, None, False), (16, 16, 4608, 0, None, False),
             (16, 16, 794, 0, [1, 0] * 8, False), (3, 16, 794, 5, None, False),
             (3, 600, 4608, 0, None, False), (3, 600, 8, 0, None, False),
-            (16, 16, 794, 0, None, True)):
+            (16, 16, 794, 0, None, True),
+            # the group mesh's level 2 at (2, 1): a rank's 2 groups at
+            # group_offset 2 of 4
+            (2, 4, 794, 2, None, False)):
         q = rows(num, r)
         if shift:
             q = misaligned(torch, q)
@@ -2333,6 +2359,16 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                 msgs[5:8].contiguous(), CLIENTS, 5, OPS_PER_ROW)
             log("masked_sum at a shard of 3 of 10 clients at offset 5:",
                 json.dumps(rows[-1]["shard"]))
+            # a (1, 2) group mesh's level-1 tile: 2 of a group's 4
+            # members at offset 2
+            rows[-1]["group_shard"] = shard_timing(
+                torch, lambda q, k0, k1, **a: sa.masked_sum_2d(q, k0, k1,
+                                                               **a, **kq),
+                lambda q, k0, k1, **a: sa.masked_sum_plain(q, k0, k1, **a,
+                                                           **kq),
+                msgs[5:7].contiguous(), 4, 2, OPS_PER_ROW)
+            log("masked_sum at a group mesh's tile, 2 of 4 members at "
+                "offset 2:", json.dumps(rows[-1]["group_shard"]))
         if name.startswith("flash_attention"):
             rows[-1]["shape"] = list(
                 {"flash_attention": FLASH_PATH,
@@ -2492,6 +2528,10 @@ def ring_row(torch, sa, launches, by_path, err, full_width):
     shard = shard_timing(torch, sa.masked_ring_sum_2d,
                          sa.masked_ring_sum_plain, q[5:8].contiguous(),
                          shape[0], 5, OPS_PER_RING_ROW)
+    # a (2, 1) group mesh's level 2: 2 of 4 groups at offset 2
+    group_shard = shard_timing(torch, sa.masked_ring_sum_2d,
+                               sa.masked_ring_sum_plain, q[2:4].contiguous(),
+                               4, 2, OPS_PER_RING_ROW)
     row = {"name": "masked_ring_sum", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/secure_agg.cu",
            "replaces": "src/repro/kernels/secure_agg.py:233",
@@ -2510,11 +2550,15 @@ def ring_row(torch, sa, launches, by_path, err, full_width):
            "bound_parts_ms": parts, "shape": list(shape),
            "streams_needed": needed,
            "streams_run": shape[0] * (shape[0] - 1), "shard": shard,
+           "group_shard": group_shard,
            "full_width": {"llama3-8b": full_width}}
     log(f"masked_ring_sum: {row['ms'] * 1e3:.4f} us at {shape} against a "
         f"{bound * 1e3:.4f} us bound ({by}); at a shard of 3 of 16 groups "
         f"at offset 5: {shard['ms'] * 1e3:.4f} us against "
-        f"{shard['bound_ms'] * 1e3:.4f} us ({shard['bound_by']})")
+        f"{shard['bound_ms'] * 1e3:.4f} us ({shard['bound_by']}); at a "
+        f"group mesh's 2 of 4 groups at offset 2: "
+        f"{group_shard['ms'] * 1e3:.4f} us against "
+        f"{group_shard['bound_ms'] * 1e3:.4f} us ({group_shard['bound_by']})")
     return row
 
 
@@ -2685,24 +2729,11 @@ def mesh_rank_paths(names):
     mesh, 20 rounds, with the masked sum's launch shapes, offsets and
     dropped slots recorded; returns what the parent checks."""
     import torch
-    from repro_torch.data import partition, synthetic
     from repro_torch.fed import runtime
-    from repro_torch.kernels import compress as kc
     from repro_torch.kernels import secure_agg as sa
-    from repro_torch.kernels import sketch as ks
-    from repro_torch.kernels import ssca_update as su
     from repro_torch.launch import make_client_mesh
-    from repro_torch.mlpapp import model
-    torch.backends.cuda.matmul.allow_tf32 = False
+    data, parts, params, kernels = rank_inputs()
     mesh = make_client_mesh()
-    data = synthetic.classification_dataset(60000, 10000, seed=0)
-    parts = {"main": partition.iid(60000, CLIENTS, seed=0),
-             "i100": partition.iid(60000, 100, seed=0)}
-    params = model.init_params(torch.Generator().manual_seed(0), 784, 128,
-                               10)
-    kernels = {"ssca_update": su.ssca_update_2d,
-               "masked_sum": sa.masked_sum_2d, "compress": kc.compress_2d,
-               "sketch_encode": ks.sketch_encode}
     paths = {p[0]: p for p in mesh_paths()}
     launch = sa._launch
     seen = []
@@ -2850,7 +2881,10 @@ def phase_client_mesh(torch, kernels, data, parts, params, runtime, card):
     ``cuda:0``: the chunked ring bit for bit the psum, the ranks bit for
     bit each other and within 5e-5 of ``mesh=None``, the masked sum
     launched at each rank's shard (with ``alive`` on the async paths),
-    pipelined rounds bit for bit the async τ ≡ 1 run."""
+    pipelined rounds bit for bit the async τ ≡ 1 run.  Then the
+    hierarchical tree on the (groups, clients) mesh: on a (1, 1) mesh of
+    the NCCL rank (:func:`phase_group_mesh_nccl`), and on gloo ranks at
+    (2, 1), (1, 2) and (2, 2) (:func:`phase_group_mesh_gloo`)."""
     import datetime
     import tempfile
     import torch.distributed as dist
@@ -2946,6 +2980,11 @@ def phase_client_mesh(torch, kernels, data, parts, params, runtime, card):
                 f"for bit mesh=None{also}, {per_round} psums a round:",
                 json.dumps(entry_out), f"on {card}")
             del p_n, p_m
+        t0 = time.perf_counter()
+        single_group, got = phase_group_mesh_nccl(
+            torch, kernels, data, parts["main"], params, runtime, card)
+        results.update(got)
+        log(f"group mesh, one nccl rank: {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
     shutil.rmtree(tmp, ignore_errors=True)
@@ -3048,7 +3087,397 @@ def phase_client_mesh(torch, kernels, data, parts, params, runtime, card):
                              "for bit")
     log("client mesh, two gloo ranks: pipeline_secure == tau1_secure bit "
         "for bit (weights, every metric)")
+    results.update(phase_group_mesh_gloo(torch, single_group, card))
     return results
+
+# ---------------------------------------------------------------------------
+# the hierarchical tree on the (groups, clients) mesh
+# ---------------------------------------------------------------------------
+
+def group_mesh_paths():
+    """name -> (entry point, keyword arguments) of the tree's paths on
+    the group mesh: the MLP on the main path's 10 clients."""
+    from repro_torch.fed import aggregation, compression
+    from repro_torch.fed.staleness import StalenessConfig
+    alg1 = dict(batch_size=100, fused=True)
+
+    def hier(groups):
+        return aggregation.hierarchical(aggregation.secure(), groups)
+    k2 = StalenessConfig(max_staleness=2, delay_probs=ASYNC_PROBS)
+    return {
+        "hier2_secure": ("run_alg1", dict(alg1, aggregation=hier(2))),
+        "hier2_topk8_secure": ("run_alg1", dict(
+            alg1, aggregation=hier(2),
+            compressor=compression.topk(0.1, bits=8))),
+        "async_hier2_secure": ("run_alg1", dict(alg1, aggregation=hier(2),
+                                                staleness=k2)),
+        "pipeline_hier2_secure": ("run_alg1", dict(
+            alg1, aggregation=hier(2), pipeline=True)),
+        # G = 4 does not divide S = 10: the mesh uploads G·M_pad = 12
+        # slots where mesh=None uploads 10
+        "hier4_secure": ("run_alg1", dict(alg1, aggregation=hier(4))),
+    }
+
+
+# the one NCCL rank's (1, 1) paths, and those also run under arena
+# "replicated"; the gloo worlds' (layout, paths)
+NCCL_GROUP_PATHS = ("hier2_secure", "hier2_topk8_secure",
+                    "async_hier2_secure", "pipeline_hier2_secure",
+                    "hier4_secure")
+NCCL_GROUP_REPLICATED = ("async_hier2_secure",)
+GLOO_GROUP_PATHS = {2: [((2, 1), ("hier4_secure", "async_hier2_secure",
+                                  "pipeline_hier2_secure")),
+                        ((1, 2), ("hier4_secure", "async_hier2_secure",
+                                  "pipeline_hier2_secure"))],
+                    4: [((2, 2), ("hier4_secure",))]}
+AXES = ("whole", "groups", "clients")
+
+
+def group_collectives(name, layout, arena="sharded"):
+    """``PERF.md`` §4's (psum calls, chunked-ring calls) a round on each
+    axis of a (g, c) group mesh: on the whole mesh the weight gather
+    (sharded), a stateful compressor's residual gather (sharded) and
+    replication, and the snapshot ring's rebuild (async and pipelined,
+    sharded); on the groups and clients axes the combine's root and
+    level-1 reductions, through the chunked ring in pipelined rounds
+    where the axis has two or more ranks."""
+    sharded = arena == "sharded"
+    stateful = "topk" in name
+    rounds_async = "async" in name or "pipeline" in name
+    out = {"whole": (sharded + stateful * (1 + sharded)
+                     + (sharded and rounds_async), 0)}
+    for axis, size in zip(AXES[1:], layout):
+        ring = name.startswith("pipeline") and size > 1
+        out[axis] = (0, 1) if ring else (1, 0)
+    return out
+
+
+def axis_counts(mesh):
+    """Each axis's counters of a group mesh."""
+    return {name: {k: getattr(axis, k) for k in
+                   ("psum_calls", "psum_bytes", "ring_calls", "ring_bytes",
+                    "ring_staged_bytes")}
+            for name, axis in zip(AXES, mesh.axes())}
+
+
+def per_round(counts):
+    """(psum calls, ring calls) a round on each axis, or None where a
+    count is not a whole number of rounds."""
+    out = {}
+    for axis, c in counts.items():
+        if c["psum_calls"] % ROUNDS or c["ring_calls"] % ROUNDS:
+            return None
+        out[axis] = (c["psum_calls"] // ROUNDS, c["ring_calls"] // ROUNDS)
+    return out
+
+
+def tree_tile(name, layout):
+    """(G, G_loc, M_loc, M_pad) of a path's tile on a (g, c) mesh."""
+    groups = group_mesh_paths()[name][1]["aggregation"].groups
+    m = -(-CLIENTS // groups)
+    m_pad = -(-m // layout[1]) * layout[1]
+    return groups, groups // layout[0], m_pad // layout[1], m_pad
+
+
+def phase_group_mesh_nccl(torch, kernels, data, part, params, runtime,
+                          card):
+    """The tree on a (1, 1) group mesh of the one NCCL rank (the default
+    group is up): each path of :data:`NCCL_GROUP_PATHS` against its
+    ``mesh=None`` run, bit for bit with the same launches where the mesh
+    uploads as many slots (G | S), within 5e-5 in cost where it uploads
+    G·M_pad > S (bits reported), with the predicted collectives on each
+    axis; returns the ``mesh=None`` runs (bits, History)."""
+    from repro_torch.launch import make_group_mesh
+    mesh = make_group_mesh()
+    if (mesh.shape, mesh.backend, mesh.device.type) \
+            != ((1, 1), "nccl", "cuda"):
+        raise AssertionError(f"group mesh: {mesh}")
+    # NCCL makes a group's communicator at its first collective: one psum
+    # on each axis keeps that out of the first path's timed rounds
+    for axis in mesh.axes():
+        axis.psum(torch.zeros(1, device=mesh.device))
+    paths = group_mesh_paths()
+    single, results = {}, {}
+    for name in NCCL_GROUP_PATHS:
+        entry, extra = paths[name]
+
+        def run(**kw):
+            return getattr(runtime, entry)(data, part, rounds=ROUNDS,
+                                           eval_every=10, seed=0,
+                                           params=params, **extra, **kw)
+
+        def counted(**kw):
+            reset_counts(kernels)
+            mesh.reset_counts()
+            out = run(mesh=mesh, **kw)
+            got = {k: fn.launches for k, fn in kernels.items()}
+            got.update(variant_counts(kernels))
+            return out, got, axis_counts(mesh)
+
+        reset_counts(kernels)
+        p_n, h_n = run(device="cuda")
+        want = {k: fn.launches for k, fn in kernels.items()}
+        want.update(variant_counts(kernels))
+        single[name] = (path_bits(torch, p_n), h_n)
+        torch.cuda.reset_peak_memory_stats()
+        (p_m, h_m), got, counts = counted()
+        peak = torch.cuda.max_memory_allocated()
+        groups = tree_tile(name, (1, 1))[0]
+        alive = groups if name.startswith("async") else 0
+        if got != want or got["masked_sum"] != groups * ROUNDS \
+                or got["masked_ring_sum"] != ROUNDS \
+                or got["masked_sum_alive"] != alive * ROUNDS:
+            raise AssertionError(f"group mesh (1, 1) {name}: launches {got},"
+                                 f" mesh=None {want}")
+        rounds = per_round(counts)
+        if rounds != group_collectives(name, (1, 1)):
+            raise AssertionError(f"group mesh (1, 1) {name}: collectives "
+                                 f"{counts}, want a round "
+                                 f"{group_collectives(name, (1, 1))}")
+        bitwise = same_mesh_run(torch, p_m, h_m, single[name])
+        gap = max(abs(x - y) for x, y in zip(h_m.train_cost, h_n.train_cost))
+        w_gap = max(float((a.view(torch.float32) - b.view(torch.float32))
+                          .abs().max())
+                    for a, b in zip(path_bits(torch, p_m), single[name][0]))
+        if name == "hier4_secure":
+            if not gap < 5e-5 or h_m.comm != h_n.comm:
+                raise AssertionError(f"group mesh (1, 1) {name}: cost gap "
+                                     f"{gap} from mesh=None")
+        elif not bitwise:
+            raise AssertionError(f"group mesh (1, 1) {name}: not mesh=None "
+                                 "bit for bit")
+        entry_out = {
+            "launches": got, "collectives_per_round": rounds,
+            "psum_bytes_per_round": {a: c["psum_bytes"] // ROUNDS
+                                     for a, c in counts.items()},
+            "bitwise_mesh_none": bitwise, "cost_gap": gap,
+            "weights_gap": w_gap,
+            "round_ms": h_m.wall_seconds / ROUNDS * 1e3,
+            "round_ms_mesh_none": h_n.wall_seconds / ROUNDS * 1e3,
+            "device_busy_share": profiled_busy(torch, lambda: run(mesh=mesh)),
+            "peak_bytes": peak}
+        if name in NCCL_GROUP_REPLICATED:
+            (p_r, h_r), got_r, counts_r = counted(arena="replicated")
+            if got_r != want or per_round(counts_r) != group_collectives(
+                    name, (1, 1), "replicated") or not same_mesh_run(
+                    torch, p_r, h_r, (path_bits(torch, p_m), h_m)):
+                raise AssertionError(
+                    f"group mesh (1, 1) {name}: arena replicated "
+                    f"({counts_r}, launches {got_r}) is not sharded bit for "
+                    "bit")
+            entry_out.update(
+                replicated_collectives_per_round=per_round(counts_r),
+                replicated_round_ms=h_r.wall_seconds / ROUNDS * 1e3)
+            del p_r
+        results[f"group11_{name}"] = entry_out
+        log(f"group mesh (1, 1), one nccl rank, {name}:",
+            json.dumps(entry_out), f"on {card}")
+        del p_n, p_m
+    return single, results
+
+
+def group_mesh_rank_paths(plan):
+    """One rank of a gloo world on ``cuda:0``: for each (layout, names)
+    of ``plan`` a group mesh (every rank making each, in the same
+    order), then each path on it, 20 rounds, with the masked sum's and
+    the ring mode's launches (rows, offset, rows in all, dropped slots)
+    recorded; returns what the parent checks."""
+    import torch
+    from repro_torch.fed import runtime
+    from repro_torch.kernels import secure_agg as sa
+    from repro_torch.launch import make_group_mesh
+    data, parts, params, kernels = rank_inputs()
+    kernels["masked_ring_sum"] = sa.masked_ring_sum_2d
+    meshes = [make_group_mesh(*layout) for layout, _ in plan]
+    paths = group_mesh_paths()
+    launch = sa._launch
+    seen = []
+
+    def recording(fn, name, rows, scale_args, key0, key1, num_clients,
+                  client_offset, alive, out):
+        seen.append((name, list(rows.shape), int(client_offset),
+                     int(num_clients),
+                     None if alive is None else int((alive == 0).sum())))
+        return launch(fn, name, rows, scale_args, key0, key1, num_clients,
+                      client_offset, alive, out)
+
+    out = {"rank": meshes[0].rank, "device": str(meshes[0].device),
+           "meshes": {}, "paths": {}}
+    sa._launch = recording
+    try:
+        for (layout, names), mesh in zip(plan, meshes):
+            out["meshes"][layout] = {
+                "coords": mesh.coords, "backend": mesh.backend,
+                "axes": [(a.rank, a.size, a.int32_wraps)
+                         for a in mesh.axes()]}
+            for name in names:
+                entry, extra = paths[name]
+
+                def run(entry=entry, extra=extra, mesh=mesh):
+                    return getattr(runtime, entry)(
+                        data, parts["main"], rounds=ROUNDS, eval_every=10,
+                        seed=0, params=params, mesh=mesh, **extra)
+                run()                                   # warm-up
+                reset_counts(kernels)
+                mesh.reset_counts()
+                seen.clear()
+                torch.cuda.reset_peak_memory_stats()
+                p, h = run()
+                d = h.as_dict()
+                wall = d.pop("wall_seconds")
+                launches = {k: f.launches for k, f in kernels.items()}
+                launches.update(variant_counts(kernels))
+                out["paths"][(layout, name)] = {
+                    "bits": [b.numpy() for b in path_bits(torch, p)],
+                    "hist": d, "launches": launches, "calls": list(seen),
+                    "counts": axis_counts(mesh),
+                    "round_ms": wall / ROUNDS * 1e3,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "busy": profiled_busy(torch, run)}
+                del p
+    finally:
+        sa._launch = launch
+    return out
+
+
+def check_group_rank(name, layout, rank, res):
+    """One gloo rank's launches and collectives on a path: the masked sum
+    G_loc times a round at its tile's member offset of M_pad (with
+    ``alive`` on the async path), the ring mode once at its group
+    offset of G, and the predicted collectives on each axis."""
+    groups, g_loc, m_loc, m_pad = tree_tile(name, layout)
+    gi, ci = divmod(rank, layout[1])
+    masked = [c for c in res["calls"] if c[0] == "masked_sum"]
+    rings = [c for c in res["calls"] if c[0] == "masked_ring_sum"]
+    drops = name.startswith("async")
+    for _, shape, off, n, dropped in masked:
+        if (shape[0], shape[1:], off, n) != (m_loc, [794, 128], ci * m_loc,
+                                             m_pad) \
+                or (dropped is not None) != drops:
+            raise AssertionError(f"gloo {layout} {name} rank {rank}: masked "
+                                 f"sum at {shape}, offset {off} of {n}, "
+                                 f"dropped {dropped}")
+    for _, shape, off, n, dropped in rings:
+        if (shape[0], off, n, dropped) != (g_loc, gi * g_loc, groups, None):
+            raise AssertionError(f"gloo {layout} {name} rank {rank}: ring "
+                                 f"mode at {shape}, offset {off} of {n}")
+    lc = res["launches"]
+    if (len(masked), len(rings), lc["masked_sum"], lc["masked_ring_sum"],
+            lc["masked_sum_alive"]) != (g_loc * ROUNDS, ROUNDS,
+                                        g_loc * ROUNDS, ROUNDS,
+                                        g_loc * ROUNDS * drops):
+        raise AssertionError(f"gloo {layout} {name} rank {rank}: launches "
+                             f"{lc}, {len(masked)} masked sums and "
+                             f"{len(rings)} ring launches recorded")
+    if per_round(res["counts"]) != group_collectives(name, layout):
+        raise AssertionError(f"gloo {layout} {name} rank {rank}: "
+                             f"collectives {res['counts']}, want a round "
+                             f"{group_collectives(name, layout)}")
+    return masked[0], rings[0]
+
+
+def phase_group_mesh_gloo(torch, single, card):
+    """The tree on two gloo ranks at (2, 1) and (1, 2) and four at (2, 2),
+    all on ``cuda:0``: the ranks bit for bit each other, within 5e-5 in
+    cost and 1e-5 in weights of ``mesh=None``, the masked sum and the
+    ring mode launched at each rank's tile, the predicted collectives;
+    pipelined rounds (no ``alive``) beside the async ones."""
+    from repro_torch.launch import LocalWorld
+    results = {}
+    for size, plan in GLOO_GROUP_PATHS.items():
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = LocalWorld(group_mesh_rank_paths, size, backend="gloo",
+                           args=(plan,), timeout_s=MESH_TIMEOUT_S).join()
+        log(f"group mesh, {size} gloo ranks on cuda:0: "
+            f"{time.perf_counter() - t0:.1f} s with start-up")
+        for layout, names in plan:
+            for r, res in enumerate(ranks):
+                m = res["meshes"][layout]
+                want = [(r, size, True), (r // layout[1], layout[0], True),
+                        (r % layout[1], layout[1], True)]
+                if res["device"] != "cuda:0" or m["backend"] != "gloo" \
+                        or [tuple(a) for a in m["axes"]] != want:
+                    raise AssertionError(f"gloo {layout} rank {r}: {m}, on "
+                                         f"{res['device']}")
+            for name in names:
+                key = (layout, name)
+                a = ranks[0]["paths"][key]
+                for r, res in enumerate(ranks):
+                    b = res["paths"][key]
+                    if not all((x == y).all() for x, y in
+                               zip(a["bits"], b["bits"])) \
+                            or a["hist"] != b["hist"]:
+                        raise AssertionError(f"gloo {layout} {name}: rank "
+                                             f"{r} differs from rank 0")
+                shards = [check_group_rank(name, layout, r, res["paths"][key])
+                          for r, res in enumerate(ranks)]
+                bits_n, h_n = single[name]
+                gap = max(abs(x - y) for x, y in
+                          zip(a["hist"]["train_cost"], h_n.train_cost))
+                acc = max(abs(x - y) for x, y in
+                          zip(a["hist"]["test_accuracy"], h_n.test_accuracy))
+                w_gap = max(float((torch.from_numpy(x).view(torch.float32)
+                                   - y.view(torch.float32)).abs().max())
+                            for x, y in zip(a["bits"], bits_n))
+                if not gap < 5e-5 or not w_gap < 1e-5 or not acc < 2e-3 \
+                        or a["hist"]["comm"] != h_n.comm:
+                    raise AssertionError(
+                        f"gloo {layout} {name}: cost gap {gap}, weights gap "
+                        f"{w_gap}, accuracy gap {acc} from mesh=None")
+                entry = {
+                    "cost_gap": gap, "accuracy_gap": acc,
+                    "weights_gap": w_gap,
+                    "bitwise_mesh_none": all(
+                        (x == y.numpy()).all()
+                        for x, y in zip(a["bits"], bits_n)),
+                    "launches_rank0": a["launches"],
+                    "tiles": {r: {"masked_sum": list(m[1:]),
+                                  "ring": list(g[1:])}
+                              for r, (m, g) in enumerate(shards)},
+                    "collectives_per_round": per_round(a["counts"]),
+                    "psum_bytes_per_round": {
+                        ax: c["psum_bytes"] // ROUNDS
+                        for ax, c in a["counts"].items()},
+                    "ring_bytes_per_round": {
+                        ax: c["ring_bytes"] // ROUNDS
+                        for ax, c in a["counts"].items()},
+                    "ring_staged_bytes_per_round": {
+                        ax: c["ring_staged_bytes"] // ROUNDS
+                        for ax, c in a["counts"].items()},
+                    "round_ms": [res["paths"][key]["round_ms"]
+                                 for res in ranks],
+                    "device_busy_share": [res["paths"][key]["busy"]
+                                          for res in ranks],
+                    "peak_bytes": [res["paths"][key]["peak_bytes"]
+                                   for res in ranks]}
+                results[f"gloo{layout[0]}x{layout[1]}_{name}"] = entry
+                log(f"group mesh {layout}, {size} gloo ranks on cuda:0, "
+                    f"{name}: ranks bit for bit,", json.dumps(entry),
+                    f"on {card}")
+    return results
+
+
+def rank_inputs():
+    """A spawned rank's data, partitions, initial weights and the four MLP
+    kernels' wrappers: the main path's."""
+    import torch
+    from repro_torch.data import partition, synthetic
+    from repro_torch.kernels import compress as kc
+    from repro_torch.kernels import secure_agg as sa
+    from repro_torch.kernels import sketch as ks
+    from repro_torch.kernels import ssca_update as su
+    from repro_torch.mlpapp import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = synthetic.classification_dataset(60000, 10000, seed=0)
+    parts = {"main": partition.iid(60000, CLIENTS, seed=0),
+             "i100": partition.iid(60000, 100, seed=0)}
+    params = model.init_params(torch.Generator().manual_seed(0), 784, 128,
+                               10)
+    kernels = {"ssca_update": su.ssca_update_2d,
+               "masked_sum": sa.masked_sum_2d, "compress": kc.compress_2d,
+               "sketch_encode": ks.sketch_encode}
+    return data, parts, params, kernels
 
 
 def same_mesh_run(torch, p_m, h_m, single):
@@ -3194,8 +3623,18 @@ def main() -> int:
                          errs["masked_ring_sum"], ring_direct))
     full_width_rows(rows, by_path, profiled, direct)
     t0 = time.perf_counter()
-    phase_client_mesh(torch, kernels, data, parts, params, runtime, card)
+    mesh_results = phase_client_mesh(torch, kernels, data, parts, params,
+                                     runtime, card)
     log(f"client mesh phase: {time.perf_counter() - t0:.1f} s")
+    # the two modes' launches on each group-mesh path (rank 0 of a gloo
+    # world), beside the rows' totals over the one-device paths
+    for row in rows:
+        if row["name"] in ("masked_sum", "masked_ring_sum"):
+            row["group_mesh_launches"] = {
+                k: (v.get("launches") or v["launches_rank0"])[row["name"]]
+                for k, v in mesh_results.items()
+                if k.startswith(("group11_", "gloo2x1_", "gloo1x2_",
+                                 "gloo2x2_"))}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

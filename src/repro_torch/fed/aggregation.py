@@ -325,8 +325,8 @@ class HierarchicalAggregation:
 
     def tree_combine(self, grouped, key_words, *, group_offset: int = 0,
                      member_offset: int = 0, members: Optional[int] = None,
-                     num_groups: Optional[int] = None, alive=None,
-                     device: Device = None):
+                     num_groups: Optional[int] = None, reduce_members=None,
+                     reduce_groups=None, alive=None, device: Device = None):
         """The two-level combine over group-blocked messages:
         ``tree_merge(tree_local(…))``.
 
@@ -336,19 +336,25 @@ class HierarchicalAggregation:
         M_loc) of ``members``.  ``alive`` (optional (G_loc, members) 0/1
         rows) cancels a dropped member's masks inside its own group's
         level-1 combine; edge aggregators never drop, so level 2 needs
-        none.  Returns the pre-finalize aggregate: for a secure inner the
-        flat (R, 128) int32 root (:func:`repro_torch.kernels.ops.
-        secure_group_sums` layout), otherwise the tree of sums.
+        none.  ``reduce_members`` and ``reduce_groups`` (the mesh's sums
+        over its clients and groups axes, ``None`` where every member or
+        group is local) complete the group sums and the root
+        (:meth:`tree_merge`).  Returns the pre-finalize aggregate: for a
+        secure inner the flat (R, 128) int32 root (:func:`repro_torch.
+        kernels.ops.secure_group_sums` layout), otherwise the tree of
+        sums.
 
         The levels stay two calls, as in the reference, whose pipelined
-        and mesh engines reduce over the member and group axes between
-        them."""
+        engine runs level 1 in the produce half of a round and the
+        reductions in the next round's consume."""
         level1 = self.tree_local(grouped, key_words,
                                  group_offset=group_offset,
                                  member_offset=member_offset,
                                  members=members, alive=alive, device=device)
         return self.tree_merge(level1, key_words, group_offset=group_offset,
-                               num_groups=num_groups, device=device)
+                               num_groups=num_groups,
+                               reduce_members=reduce_members,
+                               reduce_groups=reduce_groups, device=device)
 
     def tree_local(self, grouped, key_words, *, group_offset: int = 0,
                    member_offset: int = 0, members: Optional[int] = None,
@@ -375,17 +381,27 @@ class HierarchicalAggregation:
         return tree.map(lambda *xs: torch.stack(xs), *parts)
 
     def tree_merge(self, level1, key_words, *, group_offset: int = 0,
-                   num_groups: Optional[int] = None, device: Device = None):
-        """Level 2: the local group partials merged, masked in the
-        Z_{2^32} ring for a secure inner's flat int32 buffer and a plain
-        sum for a linear inner's float tree; the same pre-finalize
-        contract as ``partial_combine``."""
+                   num_groups: Optional[int] = None, reduce_members=None,
+                   reduce_groups=None, device: Device = None):
+        """Levels 1½ and 2: ``reduce_members`` completes the group sums
+        over the members held elsewhere, the local group partials are
+        merged, masked in the Z_{2^32} ring for a secure inner's flat
+        int32 buffer and a plain sum for a linear inner's float tree, and
+        ``reduce_groups`` completes the root over the groups held
+        elsewhere; the same pre-finalize contract as
+        ``partial_combine``."""
         ng = self.groups if num_groups is None else int(num_groups)
+        if reduce_members is not None:
+            level1 = reduce_members(level1)
         if isinstance(level1, torch.Tensor) and level1.dtype == torch.int32:
-            return _kops.secure_ring_partial_sum(
+            partial = _kops.secure_ring_partial_sum(
                 level1, key_words, group_offset=group_offset,
                 num_groups=ng, device=device)
-        return _sum_clients(level1)
+        else:
+            partial = _sum_clients(level1)
+        if reduce_groups is not None:
+            partial = reduce_groups(partial)
+        return partial
 
     def _group(self, wmsgs, cohort: int):
         """(S, …) leaves → (G, M, …): the cohort axis zero-padded to G·M

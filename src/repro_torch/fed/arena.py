@@ -1,7 +1,8 @@
 """Home-rank sharding of the population-resident (I, …) state.
 
-The port of ``repro/fed/arena.py`` for the 1-D client mesh
-(:mod:`repro_torch.launch.mesh`).  Under ``arena="sharded"`` (the
+The port of ``repro/fed/arena.py`` for the 1-D client mesh and the 2-D
+(groups, clients) mesh (:mod:`repro_torch.launch.mesh`; on the latter D
+is g·c and a rank's index its flattened, groups-major rank).  Under ``arena="sharded"`` (the
 default whenever a mesh is set) each client's row of the error-feedback
 residual arena and of the population weight vector lives on one rank,
 so resident bytes per rank scale as O(I/D · model):
@@ -26,9 +27,7 @@ so resident bytes per rank scale as O(I/D · model):
 
 The helpers take the rank and the reduction as arguments (``my_id``,
 ``psum_fn``), so the tests can emulate D ranks in one process, summing
-the ranks' contributions with plain addition.  The reference's 2-D
-mesh helper (``replicate_rows_2d``) waits for that mesh (ROADMAP queue
-1, item 4c).
+the ranks' contributions with plain addition.
 """
 from __future__ import annotations
 
@@ -56,7 +55,8 @@ class ArenaPlan(NamedTuple):
 
 
 def make_plan(num_clients: int, mesh) -> ArenaPlan:
-    """The plan of an I-client population over ``mesh``'s ranks."""
+    """The plan of an I-client population over ``mesh``'s ranks (all g·c
+    of a group mesh)."""
     d = int(mesh.size)
     return ArenaPlan(int(num_clients), -(-(int(num_clients) + 1) // d), d)
 
@@ -70,7 +70,7 @@ def address(plan: ArenaPlan, cids: torch.Tensor) -> Tuple[torch.Tensor,
 
 def shard_index(plan: ArenaPlan, mesh) -> int:
     """This rank's index along the arena's sharded dim: its rank in the
-    1-D mesh the plan was made for."""
+    mesh the plan was made for (groups-major on the group mesh)."""
     if int(mesh.size) != plan.num_shards:
         raise ValueError(f"a plan over {plan.num_shards} ranks on a mesh of "
                          f"{mesh.size}")
@@ -141,6 +141,30 @@ def replicate_rows(rows: Params, length: int, offset: int,
 
     summed = psum_fn(tree.map(place, rows))
     return tree.map(lambda b, u: from_bits(b, u.dtype), summed, rows)
+
+
+def replicate_rows_2d(rows: Params, grid: Tuple[int, int],
+                      tile: Tuple[int, int], tile_offset: Tuple[int, int],
+                      psum_fn: Callable) -> Params:
+    """The whole flattened (G·M_pad, …) cohort-row block on every rank of
+    the (groups, clients) mesh, from each rank's (G_loc·M_loc, …) tile of
+    the (G, M_pad) ``grid`` at ``tile_offset``: the bits placed in a zero
+    grid and merged by one psum over the whole mesh, one contributor per
+    row."""
+    g_tot, m_pad = grid
+    g_loc, m_loc = tile
+    g_off, m_off = tile_offset
+
+    def place(u):
+        bits = as_bits(u).reshape((g_loc, m_loc) + tuple(u.shape[1:]))
+        buf = bits.new_zeros((g_tot, m_pad) + tuple(bits.shape[2:]))
+        buf[g_off:g_off + g_loc, m_off:m_off + m_loc] = bits
+        return buf
+
+    summed = psum_fn(tree.map(place, rows))
+    return tree.map(lambda b, u: from_bits(
+        b.reshape((g_tot * m_pad,) + tuple(b.shape[2:])), u.dtype),
+        summed, rows)
 
 
 def scatter_rows(plan: ArenaPlan, local: Params, rows: Params,

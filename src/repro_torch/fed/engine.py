@@ -1,5 +1,6 @@
-"""The federated engine, cohort-native, with async rounds, on one device
-or client-sharded over a 1-D mesh of ranks.
+"""The federated engine, cohort-native, with async rounds, on one device,
+client-sharded over a 1-D mesh of ranks or tiled over the hierarchical
+tree's 2-D (groups, clients) mesh.
 
 The port of ``repro/fed/engine.py``'s round body, without scan.  Per
 run:
@@ -80,6 +81,21 @@ reduce the message paths' partials (the sketch's phase 1 among them)
 with :meth:`~repro_torch.launch.mesh.ClientMesh.ring_psum_chunked`,
 the reference's chunked ring, which equals the psum bit for bit.
 
+``mesh=`` a :class:`repro_torch.launch.mesh.GroupMesh` of (g, c) ranks
+runs the hierarchical tree as the reference's 2-D mesh does: the
+cohort is blocked into G groups of M (the last group's tail padded when
+G ∤ S) and the member axis padded to M_pad = ⌈M/c⌉·c; each rank uploads
+its (G/g, M_pad/c) tile of slots, runs level 1 on it (the masked sum of
+each local group at the tile's member offset, over the group's full
+member row of ``alive``), completes the group sums over the clients
+axis, merges its groups (the masked sum's ring mode at the tile's group
+offset) and completes the root over the groups axis; pipelined rounds
+take both axes through their chunked rings.  The cohort-wide weights
+are formed over the S slots in cohort order, as on one device, and
+placed at their padded positions.  The arena, the residual rows
+(replicated by one placed psum of the tiles) and the snapshot ring shard
+over all g·c ranks, groups-major.
+
 The exact wire bytes of every round are recorded in the ledger.
 """
 from __future__ import annotations
@@ -89,7 +105,7 @@ import dataclasses
 import os
 import time
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -105,7 +121,8 @@ from repro_torch.fed import staleness as staleness_mod
 from repro_torch.fed.aggregation import PlainAggregation
 from repro_torch.fed.keys import phase2_key, round_keys
 from repro_torch.kernels.compress import client_stream_seed
-from repro_torch.launch.mesh import ClientMesh
+from repro_torch.kernels.ops import unflatten
+from repro_torch.launch.mesh import ClientMesh, GroupMesh
 
 
 _MLP_METRICS = ("train_cost", "test_accuracy", "sparsity")
@@ -358,6 +375,56 @@ class _MeshCombine:
             device=device)))
 
 
+class _Tile(NamedTuple):
+    """A rank's tile of the round's (G, M_pad) grid on the group mesh:
+    groups [g_off, g_off + g_loc) and member positions [m_off, m_off +
+    m_loc)."""
+    groups: int
+    m_pad: int
+    g_loc: int
+    m_loc: int
+    g_off: int
+    m_off: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _GroupMeshCombine:
+    """The tree's combine on the (groups, clients) mesh, the reference's
+    2-D mesh ``_combine``: ``tree_local`` over the rank's (g_loc, m_loc)
+    ``tile`` of slots, the group sums completed over the clients axis,
+    the local groups merged (by the masked sum's ring mode for a secure
+    inner), the root completed over the groups axis, then
+    ``finalize_combine``.  ``alive`` covers the padded cohort's (G·M_pad)
+    positions; each local group cancels its dropped members' masks over
+    its full member row.  ``chunked`` (pipelined rounds) reduces both
+    axes through their chunked rings instead of the psums."""
+    aggregation: Any
+    mesh: GroupMesh
+    tile: _Tile
+    chunked: bool = False
+
+    def combine_messages(self, wmsgs, key_words, *, alive=None,
+                         device: Device = None):
+        if isinstance(wmsgs, torch.Tensor):          # the sketch's phases
+            return self.combine_messages({"m": wmsgs}, key_words,
+                                         alive=alive, device=device)["m"]
+        agg, tl = self.aggregation, self.tile
+        rows = None if alive is None else alive.reshape(
+            tl.groups, tl.m_pad)[tl.g_off:tl.g_off + tl.g_loc]
+        members, groups = (
+            axis.ring_psum_chunked if self.chunked else axis.psum
+            for axis in (self.mesh.clients, self.mesh.groups))
+        partial = agg.tree_combine(
+            tree.map(lambda x: x.reshape((tl.g_loc, tl.m_loc) + x.shape[1:]),
+                     wmsgs),
+            key_words, group_offset=tl.g_off, member_offset=tl.m_off,
+            members=tl.m_pad, num_groups=tl.groups, reduce_members=members,
+            reduce_groups=groups, alive=rows, device=device)
+        if isinstance(partial, torch.Tensor):   # a secure inner's flat root
+            partial = unflatten(partial, tree.map(lambda v: v[0], wmsgs))
+        return agg.finalize_combine(partial)
+
+
 class _SnapshotRing:
     """The async mode's last K + 1 (parameters, client state) snapshots,
     newest at slot 0; rounds before the run see the initial point.
@@ -416,37 +483,100 @@ class _SnapshotRing:
         self.full = None
 
 
-def _pad_cohort(cohorts: np.ndarray, schedule: np.ndarray, num_clients: int,
-                ranks: int) -> tuple:
-    """The cohort padded to a multiple of the mesh's ``ranks`` with the
-    sentinel id I (zero round weight, gated upload, write-back dropped)
-    and batch index 0, so any (S, D) runs, S = 1 on two ranks included."""
-    pad = (-cohorts.shape[1]) % ranks
-    if not pad:
-        return cohorts, schedule
-    rounds = cohorts.shape[0]
-    cohorts = np.concatenate(
-        [cohorts, np.full((rounds, pad), num_clients, cohorts.dtype)], 1)
-    widths = [(0, 0), (0, pad)] + [(0, 0)] * (schedule.ndim - 2)
-    return cohorts, np.pad(schedule, widths)
+class _Layout(NamedTuple):
+    """Where a mesh puts a round's S cohort slots: ``slot_of`` (P,) maps
+    each of the P padded positions to its cohort slot, S for a sentinel
+    pad (id I, zero round weight, gated upload, write-back dropped);
+    ``local`` holds the rank's positions (a slice on the client mesh,
+    the tile's positions row-major on the group mesh), ``tile`` the
+    group mesh's :class:`_Tile` (``None`` on the client mesh)."""
+    slot_of: np.ndarray
+    local: Any
+    tile: Optional[_Tile] = None
+
+    def pad(self, rows: np.ndarray, fill) -> np.ndarray:
+        """(T, S, …) host rows at the P padded positions, ``fill`` at
+        the pads."""
+        ext = np.full(rows.shape[:1] + (1,) + rows.shape[2:], fill,
+                      rows.dtype)
+        return np.concatenate([rows, ext], 1)[:, self.slot_of]
+
+    def live_positions(self, cohort: int) -> np.ndarray:
+        """(S,): the padded position of each cohort slot."""
+        pos = np.empty(cohort, np.int64)
+        live = self.slot_of < cohort
+        pos[self.slot_of[live]] = np.nonzero(live)[0]
+        return pos
+
+
+def _cohort_layout(mesh, cohort: int, groups) -> _Layout:
+    """The padded cohort of a mesh run.  On the client mesh the S slots
+    are padded to a multiple of the D ranks at the end, so any (S, D)
+    runs (S = 1 on two ranks included), and a rank holds a contiguous
+    slice.  On the (g, c) group mesh the reference's ``_block_schedule``:
+    the cohort, already group-permuted, is blocked into G groups of M =
+    ⌈S/G⌉ (the last group's tail padded when G ∤ S) and the member axis
+    padded to M_pad = ⌈M/c⌉·c, so position g·M_pad + j holds slot g·M + j;
+    a rank holds the (G/g, M_pad/c) tile at its coordinates."""
+    if isinstance(mesh, GroupMesh):
+        g_shards, c_shards = mesh.shape
+        gi, ci = mesh.coords
+        m = -(-cohort // groups)
+        m_pad = -(-m // c_shards) * c_shards
+        j = np.arange(m_pad)[None, :]
+        slot = np.arange(groups)[:, None] * m + j
+        slot_of = np.where((j < m) & (slot < cohort), slot, cohort)
+        tile = _Tile(groups, m_pad, groups // g_shards, m_pad // c_shards,
+                     gi * (groups // g_shards), ci * (m_pad // c_shards))
+        local = ((tile.g_off + np.arange(tile.g_loc))[:, None] * m_pad
+                 + tile.m_off + np.arange(tile.m_loc)[None, :]).reshape(-1)
+        return _Layout(slot_of.reshape(-1), local, tile)
+    width = -(-cohort // mesh.size) * mesh.size
+    s_loc = width // mesh.size
+    return _Layout(np.minimum(np.arange(width), cohort),
+                   slice(mesh.rank * s_loc, (mesh.rank + 1) * s_loc))
+
+
+def _staged_schedule(schedule: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The rank's batch schedule on the device, contiguous: a batch
+    gathered through a strided index keeps the index's strides, and the
+    card's matrix products can round strided and contiguous operands
+    differently, so one device and every mesh layout (whose padding and
+    tiling reorder the host array's strides) gather from one layout."""
+    return torch.as_tensor(np.ascontiguousarray(schedule), device=dev)
 
 
 def _check_mesh(mesh, aggregation) -> None:
-    """Refuse what the client-sharded round does not run: a mesh that is
-    not the 1-D client mesh, and the tree on it."""
+    """Refuse what the sharded rounds do not run: a mesh that is neither
+    the 1-D client mesh nor the (groups, clients) mesh, the tree on the
+    client mesh, a flat strategy on the group mesh, and a tree whose G
+    the groups axis does not divide."""
     if mesh is None:
+        return
+    groups = getattr(aggregation, "groups", None)
+    if isinstance(mesh, GroupMesh):
+        if groups is None:
+            raise ValueError(
+                "a (groups, clients) mesh needs a HierarchicalAggregation: "
+                "flat strategies shard over the 1-D client mesh of "
+                "repro_torch.launch.make_client_mesh")
+        if int(groups) % mesh.shape[0]:
+            raise ValueError(
+                f"groups={int(groups)} must be a multiple of the mesh's "
+                f"groups axis ({mesh.shape[0]} shards): a group cannot span "
+                "the axis its level-2 combine reduces over")
         return
     if not isinstance(mesh, ClientMesh):
         raise NotImplementedError(
-            f"mesh={mesh!r}: only the 1-D client mesh of "
-            "repro_torch.launch.make_client_mesh is ported; other meshes, "
-            "the (groups, clients) mesh among them, wait for ROADMAP "
-            "queue 1, item 4c")
-    if getattr(aggregation, "groups", None) is not None:
+            f"mesh={mesh!r}: the port runs the 1-D client mesh "
+            "(repro_torch.launch.make_client_mesh) and the 2-D (groups, "
+            "clients) mesh (make_group_mesh), no other mesh")
+    if groups is not None:
         raise ValueError(
             "HierarchicalAggregation shards over a 2-D (groups, clients) "
-            "mesh, not the 1-D client mesh: a flat cohort shard cannot "
-            "host the tree's two reductions (ROADMAP queue 1, item 4c)")
+            "mesh (repro_torch.launch.make_group_mesh), not the 1-D client "
+            "mesh: a flat cohort shard cannot host the tree's two "
+            "reductions")
 
 
 def _run_device(mesh, device: Device) -> torch.device:
@@ -545,10 +675,15 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
     (:mod:`repro_torch.fed.arena`) and shards the async snapshot ring's
     columns over the ranks, ``"replicated"`` keeps all of them on every
     rank; the two are bit for bit one run.  Without a mesh ``arena`` is
-    ignored, as in the reference.  The mesh runs flat strategies: with
-    the tree it raises ``ValueError`` (the (groups, clients) mesh is
-    ROADMAP queue 1, item 4c).  Returns the final parameters (on
-    ``device``) and the :class:`History`.
+    ignored, as in the reference.  The client mesh runs flat strategies
+    (with the tree it raises ``ValueError``); the hierarchical tree runs
+    on a :class:`repro_torch.launch.mesh.GroupMesh` (``make_group_mesh(g,
+    c)``, g dividing G; a flat strategy on it raises ``ValueError``):
+    each rank uploads its (G/g, M_pad/c) tile of the blocked cohort and
+    the level-1 and level-2 partials are reduced over the clients and
+    groups axes (int32 masked partials for a secure inner, so the run is
+    the one-device tree's bit for bit).  Returns the final parameters
+    (on ``device``) and the :class:`History`.
     """
     if arena not in (None, "replicated", "sharded"):
         raise ValueError(
@@ -585,27 +720,36 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
             max_staleness=1, schedule=staleness_mod.ConstantDiscount())
         trace = np.ones((rounds, cohort), np.int64)
     is_async = trace is not None
-    # the rank's cohort slots: all S without a mesh
-    s_pad, offset, plan, me = cohort, 0, None, None
+    # the rank's cohort positions (``local`` on the host, ``local_t`` on
+    # the device): all S without a mesh
+    s_pad, plan, me = cohort, None, None
+    local = local_t = slice(0, cohort)
+    combiner = phase2 = aggregation
     if mesh is not None:
-        cohorts, schedule = _pad_cohort(cohorts, schedule, num_clients,
-                                        mesh.size)
-        s_pad = cohorts.shape[1]
-        offset = mesh.rank * (s_pad // mesh.size)
-        schedule = schedule[:, offset:offset + s_pad // mesh.size]
+        layout = _cohort_layout(mesh, cohort,
+                                getattr(aggregation, "groups", None))
+        cohorts = layout.pad(cohorts, num_clients)
+        local = layout.local
+        schedule = layout.pad(schedule, 0)[:, local]
+        s_pad = len(layout.slot_of)
+        local_t = local if layout.tile is None \
+            else torch.as_tensor(local, device=dev)
+        # the cohort slots' positions, for the cohort-wide weights
+        pos_of = torch.as_tensor(layout.live_positions(cohort), device=dev)
         if (arena or "sharded") == "sharded":
             plan = arena_mod.make_plan(num_clients, mesh)
             me = arena_mod.shard_index(plan, mesh)
-    local = slice(offset, offset + schedule.shape[1])
-    combiner = phase2 = aggregation
-    if mesh is not None:
-        combiner = _MeshCombine(aggregation, mesh, offset, s_pad,
-                                chunked=pipeline)
+        if layout.tile is None:
+            combiner = _MeshCombine(aggregation, mesh, local.start, s_pad,
+                                    chunked=pipeline)
+        else:
+            combiner = _GroupMeshCombine(aggregation, mesh, layout.tile,
+                                         chunked=pipeline)
         # the sketch's phase 2 keeps the psum, as the reference's
         # pipelined consume does
         phase2 = dataclasses.replace(combiner, chunked=False)
     cohorts_dev = torch.as_tensor(cohorts, device=dev)
-    schedule = torch.as_tensor(schedule, device=dev)
+    schedule = _staged_schedule(schedule, dev)
     x_train = torch.as_tensor(data.x_train, device=dev)
     y_train = torch.as_tensor(data.y_train, device=dev)
     weights = torch.as_tensor(algorithm.client_weights(part, batch_size),
@@ -638,15 +782,15 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
             hist.comm["async"] = _async_ledger(trace, k_max, aggregation,
                                                num_clients)
         # τ = min(trace, K); τ > K drops the slot (discount 0, masks
-        # cancelled, residual kept).  The discounts cover the S live
-        # positions, τ and alive the padded cohort: a sentinel is τ = 0,
-        # alive at weight 0
-        tau_host = np.minimum(trace, k_max)
-        disc_dev = torch.where(
-            torch.as_tensor(trace <= k_max, device=dev),
-            staleness.discount(torch.as_tensor(tau_host, device=dev)), 0.0)
-        trace = np.pad(trace, [(0, 0), (0, s_pad - cohort)])
-        tau_host = np.minimum(trace, k_max)
+        # cancelled, residual kept).  The discounts cover the S cohort
+        # slots, alive the padded cohort's positions and τ the rank's: a
+        # sentinel is τ = 0, alive at weight 0
+        tau_live = torch.as_tensor(np.minimum(trace, k_max), device=dev)
+        disc_dev = torch.where(torch.as_tensor(trace <= k_max, device=dev),
+                               staleness.discount(tau_live), 0.0)
+        if mesh is not None:
+            trace = layout.pad(trace, 0)
+        tau_host = np.minimum(trace, k_max)[:, local]
         tau_dev = torch.as_tensor(tau_host, device=dev)
         alive_dev = torch.as_tensor((trace <= k_max).astype(np.int32),
                                     device=dev)
@@ -672,9 +816,9 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         if not is_async:
             return at(params, state)
         out = None
-        for k in np.unique(tau_host[t, local]):
+        for k in np.unique(tau_host[t]):
             out_k = at(ring.params(k), ring.cstate(k) if has_cs else state)
-            sel = tau_dev[t, local] == int(k)
+            sel = tau_dev[t] == int(k)
             out = out_k if out is None else tree.map(
                 lambda o, ok: torch.where(_rows(sel, o), ok, o), out, out_k)
         return out
@@ -689,31 +833,33 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         if mesh is None:
             w_c = weights[cohort_t]
         else:
-            # sentinel pads (id I) get weight 0: the replicated gather
-            # clamps them, the home-sharded one reads their dead row
+            # the S slots' weights out of the padded cohort's (the
+            # sentinel pads, id I, clamped in the replicated gather, read
+            # their dead row in the home-sharded one)
             live_full = cohort_t < num_clients
             if plan is None:
                 w_c = weights[cohort_t.clamp(max=num_clients - 1)]
             else:
                 w_c = arena_mod.gather_rows(plan, weights, cohort_t, me,
                                             mesh.psum)
-            w_c = torch.where(live_full, w_c, 0.0)
-            keep = live_loc = live_full[local]
-        # the cohort-wide weights, the same on every rank (async: the live
-        # positions' discounted, the pads' kept at 0), then the slice of
-        # this rank's slots
-        rw_full = aggregation.cohort_weights(w_c, combine, num_clients)
-        alive = alive_loc = None
+            w_c = w_c[pos_of]
+            keep = live_loc = live_full[local_t]
+        # the cohort-wide weights over the S slots in cohort order, as on
+        # one device, on every rank (async: discounted); on a mesh placed
+        # at their padded positions, the pads at 0; then the rank's slots
+        rw_live = aggregation.cohort_weights(w_c, combine, num_clients)
         if is_async:
-            rw_full = torch.cat([staleness_mod.discount_reweight(
-                rw_full[:cohort], disc_dev[t]), rw_full[cohort:]])
-            if not pipeline:
-                # over the padded cohort's positions for the combine, the
-                # rank's slots for its gates
-                alive = alive_dev[t]
-                alive_loc = alive[local] != 0
-                keep = alive_loc if keep is None else keep & alive_loc
-        rw = rw_full[local]
+            rw_live = staleness_mod.discount_reweight(rw_live, disc_dev[t])
+        rw_full = rw_live if mesh is None else \
+            rw_live.new_zeros(s_pad).index_copy_(0, pos_of, rw_live)
+        alive = alive_loc = None
+        if is_async and not pipeline:
+            # over the padded cohort's positions for the combine, the
+            # rank's slots for its gates
+            alive = alive_dev[t]
+            alive_loc = alive[local_t] != 0
+            keep = alive_loc if keep is None else keep & alive_loc
+        rw = rw_full[local_t]
 
         def gate(c):
             """A slot's compressed upload zeroed where it never arrived
@@ -736,8 +882,8 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                     (bx, by, rw.repeat_interleave(idx_t.shape[1])))
                 return agg if mesh is None else mesh.psum(agg)
             agg = None
-            for k in np.unique(tau_host[t, local]):
-                wk = torch.where(tau_dev[t, local] == int(k), rw, 0.0)
+            for k in np.unique(tau_host[t]):
+                wk = torch.where(tau_dev[t] == int(k), rw, 0.0)
                 g = algorithm.client_upload(
                     ring.params(k), state,
                     (bx, by, wk.repeat_interleave(idx_t.shape[1])))
@@ -747,7 +893,7 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
         base = params
         if is_async and combine == "mean" and compressor is not None:
             hist_p = ring.stacked()
-            base = tree.map(lambda h: h[tau_dev[t, local]], hist_p)
+            base = tree.map(lambda h: h[tau_dev[t]], hist_p)
         if combine == "sum":
             ws = rw[:, None].expand(idx_t.shape)     # λ'_i per sample
             raw = vmapped((x_train[idx_t], y_train[idx_t], ws), t)
@@ -771,10 +917,10 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                 # a sentinel reads zeros, as from the sharded dead row
                 resid = tree.map(lambda a: torch.where(
                     _rows(live_loc, a[:1]),
-                    a[cohort_t[local].clamp(max=num_clients - 1)], 0.0),
+                    a[cohort_t[local_t].clamp(max=num_clients - 1)], 0.0),
                     resid_arena)
             else:
-                resid = tree.map(lambda a: a[local], arena_mod.gather_rows(
+                resid = tree.map(lambda a: a[local_t], arena_mod.gather_rows(
                     plan, resid_arena, cohort_t, me, mesh.psum))
         if getattr(compressor, "sketched", False):
             # λ' is applied before the encode (the bucket values must
@@ -792,13 +938,12 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                 if is_async:
                     # the deltas were taken against the slots' own
                     # snapshots: the update applies to ω^t + Σ λ'_i
-                    # (ω^{t−τ_i} − ω^t), summed over the live cohort on
-                    # every rank; an exact zero shift on an all-zero
+                    # (ω^{t−τ_i} − ω^t), summed over the S cohort slots
+                    # on every rank; an exact zero shift on an all-zero
                     # trace (the where keeps −0.0 + x exact)
-                    tau_live = tau_dev[t, :cohort]
                     shift = tree.map(
-                        lambda p, h: (_rows(rw_full[:cohort], p[None])
-                                      * (h[tau_live] - p[None])).sum(0),
+                        lambda p, h: (_rows(rw_live, p[None])
+                                      * (h[tau_live[t]] - p[None])).sum(0),
                         params, hist_p)
                     agg = tree.map(
                         lambda sh, d: torch.where(sh == 0, d, sh + d),
@@ -831,14 +976,20 @@ def run(algorithm, data, part: Partition, *, task, batch_size: int,
                             tree.leaves(new_resid)):
                 a[cohort_t] = r
             return
-        rows = arena_mod.replicate_rows(new_resid, s_pad, offset, mesh.psum)
+        tl = layout.tile
+        if tl is None:
+            rows = arena_mod.replicate_rows(new_resid, s_pad,
+                                            layout.local.start, mesh.psum)
+        else:
+            rows = arena_mod.replicate_rows_2d(
+                new_resid, (tl.groups, tl.m_pad), (tl.g_loc, tl.m_loc),
+                (tl.g_off, tl.m_off), mesh.psum)
         if plan is not None:
             arena_mod.scatter_rows(plan, resid_arena, rows, cohort_t,
                                    live_full, me)
             return
-        # the live slots are the first S positions, the pads the last
         for a, r in zip(tree.leaves(resid_arena), tree.leaves(rows)):
-            a[cohort_t[:cohort]] = r[:cohort]
+            a[cohort_t[pos_of]] = r[pos_of]
 
     evals = []
     with _traced(profile_dir, dev):

@@ -17,7 +17,9 @@ participation (``sampled(S)``, ``secure(num_sampled=S)``), synchronous,
 async (``staleness=``) or pipelined (``pipeline=True``) rounds and
 optionally compressed or sketched uploads, on one device or, with
 ``mesh=`` (:func:`repro_torch.launch.make_client_mesh`), with the cohort
-sharded over the ranks of a ``torch.distributed`` group.  The
+sharded over the ranks of a ``torch.distributed`` group, or the tree's
+(groups, members) grid tiled over a 2-D mesh of them
+(:func:`repro_torch.launch.make_group_mesh`).  The
 mini-batch schedule is shared across the sum-combine algorithms (same
 seed ⇒ same sample draws), so convergence comparisons are paired;
 FedAvg draws its local steps under their own ids.
@@ -83,9 +85,12 @@ def run(task, algorithm, data, part: Partition, *, batch_size: int,
     default with a mesh): where the population's residual rows and
     weights, and the async snapshot ring, live on the mesh; one device
     has nothing to shard, so without a mesh it is ignored, as in the
-    reference.  The mesh runs synchronous, async and pipelined rounds of
-    a flat strategy; ``hierarchical(...)`` on it raises ``ValueError``
-    (the (groups, clients) mesh is ROADMAP queue 1, item 4c).
+    reference.  The client mesh runs synchronous, async and pipelined
+    rounds of a flat strategy (``hierarchical(...)`` on it raises
+    ``ValueError``); ``mesh=make_group_mesh(g, c)`` runs them for the
+    tree (g dividing its G), each rank a (G/g, M_pad/c) tile of the
+    blocked cohort, the level-1 sums completed over the clients axis and
+    the root over the groups axis.
     """
     return engine.run(algorithm, data, part, task=task,
                       batch_size=batch_size, rounds=rounds, params=params,

@@ -1,4 +1,5 @@
-"""The client mesh on a ``torch.distributed`` process group.
+"""The client mesh and the (groups, clients) mesh on ``torch.distributed``
+process groups.
 
 The port of ``repro/launch/mesh.py``'s ``make_client_mesh``: a 1-D group
 of ranks over the federated-client axis.  The engine
@@ -9,13 +10,17 @@ cohort over the ranks, every rank running the same call (SPMD, as under
 for its pipelined rounds' chunked ring (``repro/kernels/ops.py::
 ring_psum_chunked``).
 
-The 2-D (groups, clients) mesh of the hierarchical tree
-(``make_group_mesh``) is not ported yet.
+:func:`make_group_mesh` is the port of the reference's 2-D ``("groups",
+"clients")`` mesh of the hierarchical tree: a :class:`GroupMesh` of g·c
+ranks, groups-major, whose ``clients`` and ``groups`` axes are client
+meshes on ``torch.distributed`` subgroups (a group row, a client column)
+and whose whole-mesh :meth:`GroupMesh.psum` serves the population arena
+and the snapshot ring.
 
 :class:`LocalWorld` runs one function on D local processes, one
 rank each, in a process group of its own (a ``FileStore`` in a temporary
 directory): the tests run the sharded engine on the CPU with gloo this
-way, and ``chip_smoke.py`` runs two gloo ranks on one card.
+way, and ``chip_smoke.py`` runs two and four gloo ranks on one card.
 """
 from __future__ import annotations
 
@@ -70,6 +75,11 @@ class ClientMesh:
     ring_calls: int = 0
     ring_bytes: int = 0
     ring_staged_bytes: int = 0
+
+    def reset_counts(self) -> None:
+        """Set every counter to 0."""
+        self.psum_calls = self.all_reduces = self.psum_bytes = 0
+        self.ring_calls = self.ring_bytes = self.ring_staged_bytes = 0
 
     def psum(self, values):
         """The sum of ``values`` (a tree of tensors on :attr:`device`)
@@ -219,13 +229,118 @@ def make_client_mesh(group=None, device: Device = None) -> ClientMesh:
                       device=dev, int32_wraps=wraps)
 
 
-def make_group_mesh(*args, **kwargs):
-    """The reference's 2-D (groups, clients) mesh of the hierarchical
-    tree: not ported yet (ROADMAP queue 1, item 4c)."""
-    del args, kwargs
-    raise NotImplementedError(
-        "make_group_mesh: the 2-D (groups, clients) mesh is not ported to "
-        "repro_torch yet (ROADMAP queue 1, item 4c)")
+_COUNTERS = ("psum_calls", "all_reduces", "psum_bytes", "ring_calls",
+             "ring_bytes", "ring_staged_bytes")
+
+
+@dataclasses.dataclass(eq=False)
+class GroupMesh:
+    """The 2-D (groups, clients) mesh of the hierarchical tree: g·c ranks
+    of a process group, groups-major (rank = gi·c + ci, the reference's
+    flattened ``("groups", "clients")`` order).
+
+    ``clients`` is the client mesh of this rank's group row (the c ranks
+    gi·c … gi·c + c − 1: level 1 of the tree completes its group sums
+    over it), ``groups`` the one of its client column (the g ranks
+    ci, c + ci, …: level 2 completes the root over it), and ``whole``
+    the one of the parent group, whose :meth:`psum` routes the
+    population arena's rows and the snapshot ring.  ``shape`` is
+    (g, c), ``coords`` this rank's (gi, ci).  Each counter of
+    :class:`ClientMesh` reads here as its sum over the three."""
+    whole: ClientMesh
+    groups: ClientMesh
+    clients: ClientMesh
+    shape: tuple
+
+    @property
+    def rank(self) -> int:
+        return self.whole.rank
+
+    @property
+    def size(self) -> int:
+        return self.whole.size
+
+    @property
+    def device(self) -> torch.device:
+        return self.whole.device
+
+    @property
+    def backend(self) -> str:
+        return self.whole.backend
+
+    @property
+    def coords(self) -> tuple:
+        return divmod(self.whole.rank, self.shape[1])
+
+    def axes(self) -> tuple:
+        """The client meshes of the whole mesh, the groups axis and the
+        clients axis."""
+        return self.whole, self.groups, self.clients
+
+    def psum(self, values):
+        """The sum of ``values`` over every rank of the mesh."""
+        return self.whole.psum(values)
+
+    def reset_counts(self) -> None:
+        """Set every counter of every axis to 0."""
+        for axis in self.axes():
+            axis.reset_counts()
+
+
+def _summed(name: str) -> property:
+    return property(lambda self: sum(getattr(axis, name)
+                                     for axis in self.axes()),
+                    doc=f"``{name}`` summed over the mesh's three client "
+                        "meshes (read only: :meth:`reset_counts` zeroes "
+                        "them).")
+
+
+for _name in _COUNTERS:
+    setattr(GroupMesh, _name, _summed(_name))
+
+
+def make_group_mesh(group_shards: int = 0, client_shards: int = 1,
+                    group=None, device: Device = None) -> GroupMesh:
+    """The 2-D (groups, clients) mesh over the ranks of ``group`` (``None``:
+    the default process group): ``group_shards`` × ``client_shards``
+    ranks, ``group_shards=0`` spending the whole group on the groups
+    axis.  It creates one subgroup for each group row and one for each
+    client column, on the parent's backend, every process all of them
+    and in the same order: ``torch.distributed.new_group`` is collective
+    over the default group, members or not, so every process of the job
+    makes the call (one that skips a subgroup leaves the others
+    waiting).  It probes the int32 wrap on each axis of two or more
+    ranks.  ``device`` and the backend follow :func:`make_client_mesh`:
+    nothing falls back to another backend, mesh or device.  Raises
+    without a process group, and where the group's size is not
+    ``group_shards · client_shards``."""
+    resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_group_mesh: no process group; call "
+            "torch.distributed.init_process_group first (torchrun sets "
+            "its address, rank and world size)")
+    world = dist.get_world_size(group)
+    c = int(client_shards)
+    if c < 1 or int(group_shards) < 0:
+        raise ValueError(f"make_group_mesh({group_shards}, {client_shards}):"
+                         " shard counts must be positive (0 groups: all)")
+    g = int(group_shards) or max(1, world // c)
+    if g * c != world:
+        raise ValueError(f"make_group_mesh: a ({g}, {c}) mesh needs {g * c} "
+                         f"ranks, the process group has {world}")
+    whole = make_client_mesh(group, device)
+    gi, ci = divmod(whole.rank, c)
+    ranks = list(range(world)) if group is None \
+        else dist.get_process_group_ranks(group)
+    rows = [dist.new_group([ranks[i * c + j] for j in range(c)],
+                           backend=whole.backend) for i in range(g)]
+    cols = [dist.new_group([ranks[i * c + j] for i in range(g)],
+                           backend=whole.backend) for j in range(c)]
+    groups = make_client_mesh(cols[ci], whole.device)
+    clients = make_client_mesh(rows[gi], whole.device)
+    return GroupMesh(whole=whole, groups=groups, clients=clients,
+                     shape=(g, c))
 
 
 # ---------------------------------------------------------------------------

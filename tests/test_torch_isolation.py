@@ -4,8 +4,11 @@
   ``repro`` module, and no source file of the port (nor
   ``chip_smoke.py``) imports them.
 * Without a GPU, ``run_alg1``, ``run_alg2``, ``run_fedsgd``,
-  ``run_fedavg``, ``run`` and the kernel wrappers raise unless the
-  caller passes ``device="cpu"``.
+  ``run_fedavg``, ``run``, the kernel wrappers and the meshes raise
+  unless the caller passes ``device="cpu"``.
+* The cases modules the spawned mesh ranks import
+  (``tests/torch_mesh_cases.py``, ``tests/torch_group_mesh_cases.py``)
+  load neither.
 """
 import os
 import re
@@ -323,5 +326,60 @@ def test_one_rank_mesh_runs_pipelined_rounds_through_psum(tmp_path):
         assert (mesh.psum_calls, mesh.ring_calls) == (3 * 3, 0)
         for a, b in zip(p_m.values(), p_n.values()):
             assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+_CASES_CHECK = r"""
+import sys
+import torch_mesh_cases, torch_group_mesh_cases
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+"""
+
+
+def test_mesh_cases_modules_stand_alone():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    out = subprocess.run([sys.executable, "-c", _CASES_CHECK], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    for name in ("torch_mesh_cases.py", "torch_group_mesh_cases.py"):
+        assert not _IMPORT.findall((ROOT / "tests" / name).read_text())
+
+
+def test_make_group_mesh_refuses_the_cpu_by_default(no_gpu, tmp_path):
+    # a (1, 1) mesh on one gloo rank: each axis a subgroup of one, the
+    # tree's run mesh=None's bit for bit with one psum a round on each
+    # of the three (the weight gather, the group sums, the root)
+    import torch.distributed as dist
+    from repro_torch.launch import make_group_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_group_mesh()
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_group_mesh(device="cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_group_mesh(1, 1)
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            make_group_mesh(2, 1, device="cpu")
+        mesh = make_group_mesh(device="cpu")
+        assert (mesh.shape, mesh.coords, mesh.size, mesh.backend,
+                mesh.device) == ((1, 1), (0, 0), 1, "gloo",
+                                 torch.device("cpu"))
+        data = synthetic.classification_dataset(40, 10, k=16, l=3)
+        part = partition.iid(40, 4)
+        kw = dict(batch_size=5, rounds=3, hidden=4,
+                  aggregation=aggregation.hierarchical(groups=2))
+        p_m, h_m = runtime.run_alg1(data, part, mesh=mesh, **kw)
+        p_n, h_n = runtime.run_alg1(data, part, device="cpu", **kw)
+        assert h_m.metrics == h_n.metrics and h_m.comm == h_n.comm
+        assert [a.psum_calls for a in mesh.axes()] == [3, 3, 3]
+        assert mesh.psum_calls == 9 and mesh.ring_calls == 0
+        for a, b in zip(p_m.values(), p_n.values()):
+            assert a.device.type == "cpu" and torch.equal(a, b)
     finally:
         dist.destroy_process_group()

@@ -529,8 +529,8 @@ def test_mesh_refuses_other_meshes_and_devices(small, fake_mesh):
     with pytest.raises(NotImplementedError, match="mesh"):
         trt.run_alg1(data, part, batch_size=5, rounds=1, hidden=4,
                      mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        make_group_mesh(2, 1)
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_group_mesh(2, 1, device="cpu")
     with pytest.raises(ValueError, match="runs on cpu"):
         trt.run_alg1(data, part, batch_size=5, rounds=1, hidden=4,
                      mesh=fake_mesh, device="cuda")
