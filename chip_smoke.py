@@ -15,13 +15,15 @@ last line):
    fewer operations a stream than the bound below counts;
 2. hold every kernel against its plain PyTorch version on the card, at
    the paths' shapes and at edge shapes, each launch counted on the
-   variant its wrapper's launch plan names: ``ssca_update`` (also on
-   views one element past 16-byte alignment) and ``compress`` (both round
-   every f32 operation separately), ``masked_sum`` (``rowsplit`` under
-   one wave of the card, ``vec`` past it, misaligned views, which the
-   wrapper copies; dropouts, a client offset, 600 clients whose streams
-   pass one shared-memory table, one client's masked upload at
-   ``client_offset = i``, Algorithm 2's upload at (10, 795, 128)) and
+   variant its wrapper's launch plan names: ``ssca_update`` (both
+   variants, ``beta`` and the β-less ``lambda0``, at (794, 128), (13, 128)
+   and on views one element past 16-byte alignment) and ``compress``
+   (both round every f32 operation separately), ``masked_sum``
+   (``rowsplit`` under one wave of the card, ``vec`` past it, misaligned
+   views, which the wrapper copies; dropouts, a client offset, 600
+   clients whose streams pass one shared-memory table, one client's
+   masked upload at ``client_offset = i``, Algorithm 2's upload at (10,
+   795, 128)) and
    ``sketch_encode`` (ring arithmetic; at the path's 4 x 1024 sketch and
    at 8 x 16,384) bit for bit; ``flash_attention``
    to stated tolerances: its bf16 (wgmma) kernel, which rounds P to bf16
@@ -109,7 +111,10 @@ last line):
    2 layers of width 64) secure and fused on the card for 5 rounds,
    counters set to 0 just before and read just after, and hold it to
    the port's CPU run of the same configuration; then the same for
-   RWKV-6 (``rwkv6_task()``: rwkv6-7b cut to 2 layers of width 64);
+   RWKV-6 (``rwkv6_task()``: rwkv6-7b cut to 2 layers of width 64); the
+   LM paths run λ = 0, so their server update launches only ``lambda0``
+   and keeps no β, where every MLP Algorithm-1 path (λ = 1e-5) launches
+   only ``beta`` (``check_ssca_variants``);
 6. drive the LM path at the full width of llama3-8b (2 of its 32
    layers): ``run_alg1(secure=True, fused=True, tau=2, lam=0)`` on 256
    Zipf token documents of 1,024 tokens over 4 iid clients, B = 2, 4
@@ -119,21 +124,25 @@ last line):
    variant; the small LM's f32 ones all the tf32x3 variant), finite costs, the
    first cost within [ln V − 1, ln V + 3], the ledger against
    ``round_bytes`` computed from the parameter shapes; print the round
-   time, the peak device memory and the device time by kind and busy
-   share of one more round under ``torch.profiler``; then the same for
+   time, the peak device memory and the device time by kind (the
+   update's kernel, and the largest entries of "other") and busy share
+   of one more round under ``torch.profiler``, and the "other" and
+   device-to-device copy time of two more rounds with every tree copied
+   and read in place (``copies_saved``); then the same for
    rwkv6-7b at full width (2 of its 32 layers), whose WKV scan launches
    its tensor-core kernel once per layer per forward; and rwkv6-7b's path once more at τ = 2,
    8 and 32 with the cost read after each of its 4 rounds (finite
    costs), to tell the step size from the port in the cost's rise;
-7. time ``masked_sum`` (I = 4) and ``ssca_update`` directly at both
-   full-width LM paths' widths, once those paths have freed their
-   memory: the median of 5 eager launches after 2 warm-ups, from CUDA
-   events, each output checked (the aggregate against Σ quantize(m_i),
-   the update against its plain version bit for bit), and the ring mode
-   (G = 2 group rows) at llama3-8b's width the same way, checked against
-   the int32 sum; then run the main
-   path once more under ``torch.profiler`` and print the device time by
-   kind and the device's busy share of the round loop;
+7. time ``masked_sum`` (I = 4) and both ``ssca_update`` variants
+   directly at both full-width LM paths' widths, once those paths have
+   freed their memory: the median of 5 eager launches after 2 warm-ups,
+   from CUDA events, each output checked (the aggregate against
+   Σ quantize(m_i), the update against its plain version bit for bit),
+   and the ring mode (G = 2 group rows) at llama3-8b's width the same
+   way, checked against the int32 sum; then run the main path once more
+   under ``torch.profiler`` and print the device time by kind, the
+   device's busy share of the round loop and the host's kernel
+   launches, copies and fills a round, also with every tree copied;
 8. time each kernel and its plain version on the paths' shapes (CUDA
    events around the replay of a CUDA graph of 50 calls, so the host's
    launch overhead does not gate the device), and, for flash attention,
@@ -142,8 +151,10 @@ last line):
    wgmma variant at the LM path's shape, with its achieved TFLOP/s, and
    the tf32x3 variant at the small LM's and at llama3-8b's attention in
    f32 (``flash_attention_f32_wide``, SDPA's backend named); the launch
-   floor, an empty kernel's graph replay, beside ``ssca_update``,
-   ``masked_sum`` and ``sketch_encode`` at the MLP shape; each row gives
+   floor, an empty kernel's graph replay, beside ``ssca_update`` (its
+   ``beta`` variant; ``ssca_update_lambda0`` has a row of its own, each
+   bound by its own bytes), ``masked_sum`` and ``sketch_encode`` at the
+   MLP shape; each row gives
    its bound's parts (bytes, and each kind of operation at its rate; the
    masked sum's count only the streams its output needs,
    ``streams_needed``: none where every row is local), the
@@ -152,10 +163,10 @@ last line):
    (16, 794, 128) int32, and at llama3-8b's width, and both rows a
    ``shard`` timing where the streams are real (3 of 10 clients, 3 of
    16 groups, at offset 5),
-   and the ``masked_sum`` and ``ssca_update`` rows, for each
-   full-width LM path, the launches, the profiled round's launch time,
-   the direct launches' time and the bound at that path's parameter
-   count;
+   and the ``masked_sum`` and both ``ssca_update`` rows, for each
+   full-width LM path, the launches, the profiled round's launch time
+   (``lambda0`` only: those paths run λ = 0), the direct launches' time
+   and the bound at that path's parameter count;
 9. drive the client-sharded rounds (``phase_client_mesh``): first
    ``masked_sum`` against its plain version bit for bit at a rank's
    shard of the async paths, (5, 794, 128) at ``client_offset`` 5 of 10,
@@ -205,6 +216,7 @@ then print one ``{"kernels": [...]}`` line, then the result line
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -252,8 +264,9 @@ RATES = {"int32": INT32_OPS_PER_S, "int32_alu": INT32_ALU_OPS_PER_S,
 OPS_PER_STREAM = 5 + 3 + 4 + 1
 ALU_OPS_PER_STREAM = 5 + 3
 OPS_PER_ROW = 3
-# f32 operations per element of the fused SSCA update
-FLOPS_SSCA = 14
+# f32 operations per element of the fused SSCA update, by variant: lin'
+# 5, β' 3, ω̄ 3 (with λβ') or 1, ω' 3
+FLOPS_SSCA = {"beta": 14, "lambda0": 9}
 # one PRF word at a counter: the counter add, the xors with the two seed
 # words and two murmur3 finalizers of 8, then the word's conversion to f32
 OPS_PRF_WORD = 1 + 2 + 2 * 8 + 1
@@ -446,16 +459,18 @@ FULL_WIDTH = {"lm_full_width": LM_PARAMS, "rwkv_full_width": RWKV_PARAMS}
 
 
 def server_kernels_full_width(torch, su, sa):
-    """``masked_sum`` (I = 4 clients) and ``ssca_update`` at each
-    full-width LM path's padded parameter count, timed directly: the
-    median of 5 eager launches after 2 warm-ups, from CUDA events.  Each
-    output is checked: the aggregate against Σ_i quantize(m_i) and the
-    update against its plain version, bit for bit (in slices of 2^20
-    rows).  Buffers: 19.2 GB for llama3-8b's masked sum, 26.9 GB for its
-    update."""
+    """``masked_sum`` (I = 4 clients) and both ``ssca_update`` variants
+    (``beta`` at λ = 1e-5, ``lambda0`` at λ = 0) at each full-width LM
+    path's padded parameter count, timed directly: the median of 5 eager
+    launches after 2 warm-ups, from CUDA events.  Each output is checked:
+    the aggregate against Σ_i quantize(m_i) and the update against its
+    plain version, bit for bit (in slices of 2^20 rows).  Buffers: 19.2 GB
+    for llama3-8b's masked sum, 26.9 GB for its update (beta; 19.2 GB
+    lambda0)."""
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(3)
     sc = torch.tensor([0.5, 0.6, 0.1, 1e-5], device="cuda")
+    sc0 = torch.tensor([0.5, 0.6, 0.1, 0.0], device="cuda")
     for path, n_params in FULL_WIDTH.items():
         rows = -(-n_params // 128)
         msgs = torch.randn(LM_CLIENTS, rows, 128, device="cuda",
@@ -473,19 +488,25 @@ def server_kernels_full_width(torch, su, sa):
         torch.cuda.empty_cache()
         ins = [torch.randn(rows, 128, device="cuda", generator=gen)
                for _ in range(4)]
-        ms_upd = eager_ms(lambda: su.ssca_update_2d(*ins, sc))
-        got = su.ssca_update_2d(*ins, sc)
-        for r0 in range(0, rows, 1 << 20):
-            part = [x[r0:r0 + (1 << 20)] for x in ins]
-            want = su.ssca_update_plain(*part, sc)
-            if not all(torch.equal(a[r0:r0 + (1 << 20)], b)
-                       for a, b in zip(got, want)):
-                raise AssertionError(f"ssca_update at {path}'s width "
-                                     f"differs from plain at rows {r0}+")
-        del ins, got, want
+        out[path] = {"rows": rows, "masked_sum_ms": ms_sum}
+        for variant in su.VARIANTS:
+            if variant == "lambda0":
+                ins[3] = None
+            scalars = sc0 if variant == "lambda0" else sc
+            out[path][f"{SSCA_ROW[variant]}_ms"] = eager_ms(
+                lambda: su.ssca_update_2d(*ins, scalars))
+            got = su.ssca_update_2d(*ins, scalars)
+            for r0 in range(0, rows, 1 << 20):
+                part = [None if x is None else x[r0:r0 + (1 << 20)]
+                        for x in ins]
+                ssca_check(torch, [None if a is None else a[r0:r0 + (1 << 20)]
+                                   for a in got],
+                           su.ssca_update_plain(*part, scalars),
+                           f"{variant} at {path}'s width, rows {r0}+")
+            del got
+            torch.cuda.empty_cache()
+        del ins
         torch.cuda.empty_cache()
-        out[path] = {"rows": rows, "masked_sum_ms": ms_sum,
-                     "ssca_update_ms": ms_upd}
     return out
 
 
@@ -514,20 +535,26 @@ def phase_kernel_parity(torch, su, sa):
     errs = {}
     sc = torch.tensor([0.9 / 7 ** 0.3, 0.9 / 7 ** 0.35, 0.1, 1e-5],
                       device=dev)
-    # the paths' shape, a small one, views one element past alignment
-    for rows, shift in ((794, False), (13, False), (794, True)):
+    sc0 = torch.tensor([0.9 / 7 ** 0.3, 0.9 / 7 ** 0.35, 0.1, 0.0],
+                       device=dev)
+    # both variants (lambda0: no β, λ = 0) at the paths' shape, a small
+    # one, views one element past alignment
+    for variant, rows, shift in ((v, r, s) for v in su.VARIANTS
+                                 for r, s in ((794, False), (13, False),
+                                              (794, True))):
         ins = [randn(rows, 128) for _ in range(4)]
         if shift:
             ins = [misaligned(torch, x) for x in ins]
-        got = su.ssca_update_2d(*ins, sc)
-        want = su.ssca_update_plain(*ins, sc)
-        torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"ssca_update differs at R={rows}: {err}")
-        errs.setdefault("ssca_update", err)
-        log(f"ssca_update: kernel == plain bit for bit at R={rows}"
-            f"{' one element past alignment' if shift else ''}")
+        if variant == "lambda0":
+            ins[3] = None
+        scalars = sc0 if variant == "lambda0" else sc
+        got = on_variant(su.ssca_update_2d, variant,
+                         lambda: su.ssca_update_2d(*ins, scalars))
+        err = ssca_check(torch, got, su.ssca_update_plain(*ins, scalars),
+                         f"{variant} at R={rows}")
+        errs.setdefault(SSCA_ROW[variant], err)
+        log(f"ssca_update ({variant}): kernel == plain bit for bit at "
+            f"R={rows}{' one element past alignment' if shift else ''}")
 
     key0, key1 = 0x8BADF00D, 0x1234567
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -607,6 +634,26 @@ def phase_kernel_parity(torch, su, sa):
     errs["compress"] = phase_compress_parity(torch, randn)
     errs["sketch_encode"] = phase_sketch_parity(torch, randn)
     return errs
+
+
+# the {"kernels": [...]} row of each ssca_update variant
+SSCA_ROW = {"beta": "ssca_update", "lambda0": "ssca_update_lambda0"}
+
+
+def ssca_check(torch, got, want, what):
+    """An ssca_update launch's outputs against its plain version's, bit
+    for bit (a −0 told from +0); returns the max abs difference."""
+    torch.cuda.synchronize()
+    if [a is None for a in got] != [b is None for b in want]:
+        raise AssertionError(f"ssca_update: {what}: outputs {got} against "
+                             "the plain version's")
+    pairs = [(a, b) for a, b in zip(got, want) if b is not None]
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in pairs):
+        raise AssertionError(f"ssca_update differs from plain: {what}, "
+                             f"max abs difference {err}")
+    return err
 
 
 def misaligned(torch, t):
@@ -979,7 +1026,8 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
                  "masked_sum": rounds})
     want[variant] = want[layer_kernel]
     from repro_torch import tree
-    want.update(server_variants(torch, tree.numel(p_gpu), 4, rounds))
+    want.update(server_variants(torch, tree.numel(p_gpu), 4, rounds,
+                                "lambda0"))
     log(f"{name}: launches over {rounds} rounds: {launches}")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -1000,16 +1048,21 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
     return launches
 
 
-def server_variants(torch, n_params, clients, rounds):
-    """The launches of each variant of ``masked_sum`` in ``rounds``
-    secure rounds of ``clients`` clients at ``n_params`` parameters
-    (padded to whole rows of 128), from its wrapper's launch plan."""
+def server_variants(torch, n_params, clients, rounds, ssca_variant):
+    """The launches of each variant of the server kernels in ``rounds``
+    secure Algorithm-1 rounds of ``clients`` clients at ``n_params``
+    parameters (padded to whole rows of 128): ``masked_sum``'s from its
+    wrapper's launch plan, ``ssca_update``'s all on ``ssca_variant``
+    (``lambda0`` at λ = 0, else ``beta``)."""
     from repro_torch.kernels import secure_agg as sa
+    from repro_torch.kernels import ssca_update as su
     n = -(-n_params // 128) * 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     want = {f"masked_sum_{v}": 0 for v in sa.VARIANTS}
     want[f"masked_sum_{sa.launch_plan(n, clients, clients, sms)[0]}"] = \
         rounds
+    want.update({f"ssca_update_{v}": rounds if v == ssca_variant else 0
+                 for v in su.VARIANTS})
     return want
 
 
@@ -1068,7 +1121,8 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     want.update({layer_kernel: LM_LAYERS * (LM_ROUNDS + 2 * n_evals),
                  "ssca_update": LM_ROUNDS, "masked_sum": LM_ROUNDS})
     want[variant] = want[layer_kernel]
-    want.update(server_variants(torch, n_params, LM_CLIENTS, LM_ROUNDS))
+    want.update(server_variants(torch, n_params, LM_CLIENTS, LM_ROUNDS,
+                                "lambda0"))
     log(f"{name}: launches over {LM_ROUNDS} rounds: {launches}")
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
@@ -1121,6 +1175,12 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
         "device_busy_share_of_round_loop":
             busy / (h_prof.wall_seconds * 1e6),
         "largest_other_us": top_other, "largest_host_self_us": host}))
+    torch.cuda.empty_cache()
+    # that round is a run's first, whose params and lin come from the
+    # init and are copied; two rounds show the second's in-place reads
+    log(f"{name}: two profiled rounds, every tree copied against in "
+        "place:", json.dumps(copies_saved(torch, lambda: runtime.run_alg1(
+            data, part, params=init(), rounds=2, **kw))))
     torch.cuda.empty_cache()
     return launches, us
 
@@ -2125,15 +2185,26 @@ def phase_hier16_s512(torch, kernels, data, part, runtime, tree, aggregation,
 
 def phase_profile(torch, data, part, params, runtime):
     """Where the main path's round time goes: the same run once more
-    under ``torch.profiler``, device activity summed by kind.  The
-    profiler slows the host, so the busy share it gives is a lower
-    bound."""
+    under ``torch.profiler``, device activity summed by kind, and the
+    host's CUDA calls a round.  The profiler slows the host, so the busy
+    share it gives is a lower bound.  Then the calls once more with
+    ``ops.flat_buffer`` made to find nothing, so the update copies every
+    tree as it did before it read flat state in place: the difference is
+    the copies that reading in place saves."""
     from torch.profiler import ProfilerActivity, profile
     kw = dict(batch_size=100, rounds=ROUNDS, eval_every=10, seed=0,
               secure=True, fused=True, params=params)
+    with every_tree_copied(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p_copy, _ = runtime.run_alg1(data, part, device="cuda", **kw)
+    copying = host_calls_per_round(prof, ROUNDS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, hist = runtime.run_alg1(data, part, device="cuda", **kw)
+        p_flat, hist = runtime.run_alg1(data, part, device="cuda", **kw)
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(p_flat.values(), p_copy.values())):
+        raise AssertionError("the main path with every tree copied is not "
+                             "the in-place run bit for bit")
     us = {"staging_htod": 0.0, "masked_sum": 0.0, "ssca_update": 0.0,
           "other": 0.0}
     for e in prof.events():
@@ -2147,8 +2218,60 @@ def phase_profile(torch, data, part, params, runtime):
     out = {"rounds": ROUNDS, "profiled_wall_ms": hist.wall_seconds * 1e3,
            "device_us": us,
            "device_busy_share_of_round_loop":
-               loop_us / (hist.wall_seconds * 1e6)}
+               loop_us / (hist.wall_seconds * 1e6),
+           "host_calls_per_round": host_calls_per_round(prof, ROUNDS),
+           "host_calls_per_round_every_tree_copied": copying}
     log("profile (round loop under torch.profiler):", json.dumps(out))
+
+
+@contextlib.contextmanager
+def every_tree_copied():
+    """``ops.flat_buffer`` made to find nothing, so the fused update
+    copies every tree into a padded buffer, as it did before it read
+    flat state in place: the same bits, more copies."""
+    from repro_torch.kernels import ops
+    flat_buffer = ops.flat_buffer
+    ops.flat_buffer = lambda tree: None
+    try:
+        yield
+    finally:
+        ops.flat_buffer = flat_buffer
+
+
+def copies_saved(torch, run):
+    """Device time (µs) of ``run`` under ``torch.profiler`` with every
+    tree copied and reading in place: "other" and its device-to-device
+    copies."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for mode in ("every_tree_copied", "in_place"):
+        with (every_tree_copied() if mode == "every_tree_copied"
+              else contextlib.nullcontext()), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            run()
+        us, _ = device_us_by_kind(torch, prof)
+        out[mode] = {"other_us": us["other"], "memcpy_dtod_us": sum(
+            e.time_range.elapsed_us() for e in prof.events()
+            if e.name.startswith("Memcpy DtoD"))}
+    return out
+
+
+# the host's calls that put work on the card: kernel launches, and the
+# copies and fills the runtime issues without a kernel
+HOST_CALLS = {"kernel_launches": ("cudaLaunchKernel", "cuLaunchKernel"),
+              "memcpy": ("cudaMemcpyAsync",), "memset": ("cudaMemsetAsync",)}
+
+
+def host_calls_per_round(prof, rounds):
+    """The host's CUDA calls of a profiled run by kind, divided by its
+    rounds (the run's set-up and eval included)."""
+    counts = dict.fromkeys(HOST_CALLS, 0)
+    for e in prof.events():
+        for kind, names in HOST_CALLS.items():
+            if e.name.startswith(names):
+                counts[kind] += 1
+    return {k: n / rounds for k, n in counts.items()}
 
 
 def wkv_work(n, s, h, d):
@@ -2204,10 +2327,11 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     w, lin, grad, beta = (torch.randn(794, 128, generator=g).to(dev)
                           for _ in range(4))
     sc = torch.tensor([0.5, 0.6, 0.1, 1e-5], device=dev)
+    sc0 = torch.tensor([0.5, 0.6, 0.1, 0.0], device=dev)
     msgs = (torch.randn(CLIENTS, 794, 128, generator=g) * 1e-3).to(dev)
     kq = dict(scale_bits=SCALE_BITS)
     kw = dict(kq, num_clients=CLIENTS)
-    ssca_bytes = (7 * n + 4) * 4
+    ssca_bytes = {v: ssca_bytes_of(v, n) for v in su.VARIANTS}
     # the masked sum: every client local at offset 0, so its output needs
     # no stream (streams_needed)
     ms_bytes = (CLIENTS * n + n) * 4
@@ -2274,14 +2398,21 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     # the small LM's shape and a timing row at FLASH_F32_WIDE, a width no
     # path runs in f32, whose launches are 0
     launch_key = {"flash_attention": "flash_attention_wgmma",
-                  "rwkv6_wkv": "rwkv6_wkv_mma"}
+                  "rwkv6_wkv": "rwkv6_wkv_mma",
+                  "ssca_update": "ssca_update_beta"}
     timing_only = {"flash_attention_f32_wide"}
     for name, src, replaces, kern, plain, library, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
              "src/repro/kernels/ssca_update.py:54",
              lambda: su.ssca_update_2d(w, lin, grad, beta, sc),
              lambda: su.ssca_update_plain(w, lin, grad, beta, sc), None,
-             ssca_bytes, {"f32": FLOPS_SSCA * n}),
+             ssca_bytes["beta"], {"f32": FLOPS_SSCA["beta"] * n}),
+            ("ssca_update_lambda0",
+             "src/repro_torch/kernels/csrc/ssca_update.cu",
+             "src/repro/kernels/ssca_update.py:54",
+             lambda: su.ssca_update_2d(w, lin, grad, None, sc0),
+             lambda: su.ssca_update_plain(w, lin, grad, None, sc0), None,
+             ssca_bytes["lambda0"], {"f32": FLOPS_SSCA["lambda0"] * n}),
             ("masked_sum", "src/repro_torch/kernels/csrc/secure_agg.cu",
              "src/repro/kernels/secure_agg.py:346",
              lambda: sa.masked_sum_2d(msgs, 1, 2, **kw),
@@ -2345,6 +2476,11 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if library is None else time_ms(library),
             "bound_parts_ms": parts})
+        if name.startswith("ssca_update"):
+            rows[-1]["variant"] = next(v for v, r in SSCA_ROW.items()
+                                       if r == name)
+            rows[-1]["launches_by_variant"] = {
+                v: launches[f"ssca_update_{v}"] for v in su.VARIANTS}
         if name == "masked_sum":
             rows[-1]["launches_by_variant"] = {
                 v: launches[f"masked_sum_{v}"]
@@ -2404,14 +2540,15 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
         log(f"{name}: {time_ms(kern, graph=False):.4f} ms a call when "
             "launched eagerly from Python (wrapper overhead included)")
     floor = launch_floor_ms(torch)
+    small = ("ssca_update", "ssca_update_lambda0", "masked_sum",
+             "sketch_encode", "flash_attention_tf32x3")
     for row in rows:
-        if row["name"] in ("masked_sum", "ssca_update", "sketch_encode",
-                           "flash_attention_tf32x3"):
+        if row["name"] in small:
             row["launch_floor_ms"] = floor
     log(f"launch floor: {floor * 1e3:.4f} us a launch of an empty kernel "
-        f"(graph replay), beside ssca_update {rows[0]['ms'] * 1e3:.4f} us, "
-        f"masked_sum {rows[1]['ms'] * 1e3:.4f} us and sketch_encode "
-        f"{rows[3]['ms'] * 1e3:.4f} us at the MLP shape")
+        "(graph replay), beside", ", ".join(
+            f"{r['name']} {r['ms'] * 1e3:.4f} us" for r in rows
+            if r["name"] in small[:4]), "at the MLP shape")
     log(f"rwkv6_wkv bound at (N, S, H, D) = {WKV_PATH}: "
         f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes ({w_bytes} B), "
         f"{w_ops['tf32'] / TF32_FLOPS_PER_S * 1e3:.4f} ms by products "
@@ -2562,14 +2699,23 @@ def ring_row(torch, sa, launches, by_path, err, full_width):
     return row
 
 
+def ssca_bytes_of(variant, n):
+    """The bytes an ``ssca_update`` variant must move over n elements:
+    each input read once, each output written once, and the 4 scalars
+    (beta: w, lin, g, β in and w', lin', β' out; lambda0: w, lin, g in and
+    w', lin' out)."""
+    return ((7 if variant == "beta" else 5) * n + 4) * 4
+
+
 def full_width_rows(rows, by_path, profiled, direct):
     """The server-side kernels at the full-width LM paths' shapes: the
-    ``masked_sum`` and ``ssca_update`` rows gain, for each path, the
-    launches, the device time of the profiled round's one launch, the
-    time of :func:`server_kernels_full_width`'s direct launches, and the
-    bound at that path's padded parameter count (I = 4 clients)."""
+    ``masked_sum`` and both ``ssca_update`` rows gain, for each path, the
+    launches, the device time of the profiled round's one launch (the
+    λ = 0 paths launch only ``lambda0``, so the ``beta`` row has none),
+    the time of :func:`server_kernels_full_width`'s direct launches, and
+    the bound at that path's padded parameter count (I = 4 clients)."""
     for row in rows:
-        if row["name"] not in ("masked_sum", "ssca_update"):
+        if row["name"] not in ("masked_sum", *SSCA_ROW.values()):
             continue
         row["full_width"] = {}
         for path, n in FULL_WIDTH.items():
@@ -2579,14 +2725,19 @@ def full_width_rows(rows, by_path, profiled, direct):
                     LM_CLIENTS, 0, LM_CLIENTS), OPS_PER_ROW)
                 nbytes = (LM_CLIENTS * n + n) * 4
                 ops_ms = max(v for k, v in parts.items() if k != "bytes")
+                launches = by_path[path]["masked_sum"]
+                kind = "masked_sum"
             else:
-                nbytes = (7 * n + 4) * 4
-                ops_ms = FLOPS_SSCA * n / FP32_FLOPS_PER_S * 1e3
+                nbytes = ssca_bytes_of(row["variant"], n)
+                ops_ms = FLOPS_SSCA[row["variant"]] * n / FP32_FLOPS_PER_S \
+                    * 1e3
+                launches = by_path[path][f"ssca_update_{row['variant']}"]
+                kind = "ssca_update"
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             row["full_width"][path] = {
                 "elements": n,
-                "launches": by_path[path][row["name"]],
-                "ms": profiled[path][row["name"]] / 1e3,
+                "launches": launches,
+                "ms": profiled[path][kind] / 1e3 if launches else None,
                 "direct_ms": direct[path][f"{row['name']}_ms"],
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2771,8 +2922,9 @@ def mesh_rank_paths(names):
             wall = d.pop("wall_seconds")
             out["paths"][name] = {
                 "bits": [b.numpy() for b in path_bits(torch, p)],
-                "hist": d, "launches": {k: f.launches
-                                        for k, f in kernels.items()},
+                "hist": d, "launches": {
+                    **{k: f.launches for k, f in kernels.items()},
+                    **variant_counts(kernels)},
                 "alive_launches": sa.masked_sum_2d.launches_by_variant[
                     "alive"],
                 "masked": [(s, o, n, None if a is None
@@ -3480,6 +3632,26 @@ def rank_inputs():
     return data, parts, params, kernels
 
 
+# the paths at λ = 0, whose server update launches the β-less variant;
+# every other Algorithm-1 path runs λ = 1e-5 and launches ``beta``
+LAMBDA0_PATHS = ("lm_small", "lm_full_width", "rwkv_small",
+                 "rwkv_full_width")
+
+
+def check_ssca_variants(by_path):
+    """Each path's ``ssca_update`` launches all on its variant: ``lambda0``
+    on the λ = 0 LM paths, ``beta`` elsewhere."""
+    for name, got in by_path.items():
+        want = "lambda0" if name in LAMBDA0_PATHS else "beta"
+        other = "beta" if want == "lambda0" else "lambda0"
+        if got.get(f"ssca_update_{want}") != got["ssca_update"] \
+                or got.get(f"ssca_update_{other}") != 0:
+            raise AssertionError(f"{name}: ssca_update launches {got}, want "
+                                 f"all {got['ssca_update']} on {want}")
+    log(f"ssca_update launches on their variant on {len(by_path)} paths "
+        f"(lambda0: {[k for k in by_path if k in LAMBDA0_PATHS]})")
+
+
 def same_mesh_run(torch, p_m, h_m, single):
     """A mesh run's weights and history equal ``single``'s (bits, History)
     bit for bit."""
@@ -3607,14 +3779,15 @@ def main() -> int:
         torch, kernels, runtime, card, "rwkv_full", "rwkv6-7b", RWKV_PARAMS,
         "rwkv6_wkv", "rwkv6_wkv_mma")
     phase_tau_witness(torch, runtime, "rwkv_full", "rwkv6-7b")
+    check_ssca_variants(by_path)
     total = {k: sum(p.get(k, 0) for p in by_path.values())
              for k in [*kernels, *variant_counts(kernels)]}
     log(f"launches over all paths: {total}")
 
     direct = server_kernels_full_width(torch, su, sa)
-    log("masked_sum and ssca_update at the full-width LM paths' widths, "
-        "direct launches, checked against Σ quantize(m_i) and the plain "
-        "update:", json.dumps(direct))
+    log("masked_sum and ssca_update (beta, lambda0) at the full-width LM "
+        "paths' widths, direct launches, checked against Σ quantize(m_i) "
+        "and the plain update:", json.dumps(direct))
     ring_direct = ring_full_width(torch, sa)
     phase_profile(torch, data, part, params, runtime)
     rows = phase_timing(torch, su, sa, kc, ks, fa, rw, total, by_path, errs,
@@ -3626,6 +3799,9 @@ def main() -> int:
     mesh_results = phase_client_mesh(torch, kernels, data, parts, params,
                                      runtime, card)
     log(f"client mesh phase: {time.perf_counter() - t0:.1f} s")
+    check_ssca_variants({k: v.get("launches") or v["launches_rank0"]
+                         for k, v in mesh_results.items()
+                         if v.get("launches") or v.get("launches_rank0")})
     # the two modes' launches on each group-mesh path (rank 0 of a gloo
     # world), beside the rows' totals over the one-device paths
     for row in rows:

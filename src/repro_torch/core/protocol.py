@@ -92,7 +92,9 @@ class SSCAUnconstrained(_Base):
     fused: bool = False
 
     def init_state(self, params):
-        return ssca.init(params)
+        """The surrogate state; β only where λ > 0 reads it, as the
+        reference's LM trainer keeps it."""
+        return ssca.init(params, with_beta=bool(self.hp.lam))
 
     def client_upload(self, params, state, batch):
         """∇ loss_fn at ``params``, through ``vjp`` with

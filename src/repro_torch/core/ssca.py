@@ -14,7 +14,7 @@ params.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,13 +37,15 @@ class SSCAState(NamedTuple):
 
     step: int                  # t, starts at 1
     lin: Params                # lin^t — EMA of (ĝ − 2τω)
-    beta: Params               # β^t — EMA of ω (only consumed when λ > 0)
+    beta: Optional[Params]     # β^t — EMA of ω (only consumed when λ > 0)
 
 
-def init(params: Params) -> SSCAState:
-    return SSCAState(step=1,
-                     lin=tree.map(torch.zeros_like, params),
-                     beta=tree.map(torch.zeros_like, params))
+def init(params: Params, with_beta: bool = True) -> SSCAState:
+    """``with_beta=False`` (λ = 0 objectives) skips the β buffer — saves one
+    model-sized state tensor for large-scale LM training."""
+    beta = tree.map(torch.zeros_like, params) if with_beta else None
+    return SSCAState(step=1, lin=tree.map(torch.zeros_like, params),
+                     beta=beta)
 
 
 def ema(old: Params, new: Params, rho) -> Params:
@@ -66,8 +68,12 @@ def server_update(state: SSCAState, params: Params, grad_agg: Params,
 
     ``grad_agg`` is the aggregated ĝ^t.  ``fused=True`` runs the whole
     update as one launch of the fused kernel (:mod:`repro_torch.kernels.
-    ssca_update`); ``device`` is passed to its wrapper.  β advances only
-    when λ > 0, on both paths.
+    ssca_update`: its ``lambda0`` variant at λ = 0, which reads no β);
+    ``device`` is passed to its wrapper.  β advances only when λ > 0 and
+    ``state.beta`` is not None, on both paths.  Without β (``init(params,
+    with_beta=False)``) the fused update at λ > 0 runs on a zero β and
+    discards β', as the reference's does; the unfused one raises, where
+    the reference's fails.
     """
     rho = hp.rho(state.step)
     gamma = hp.gamma(state.step)
@@ -80,6 +86,9 @@ def server_update(state: SSCAState, params: Params, grad_agg: Params,
                               beta=beta if hp.lam else state.beta)
         return new_params, new_state
 
+    if hp.lam and state.beta is None:
+        raise ValueError("the unfused update at lam > 0 needs the beta "
+                         "state: init(params, with_beta=True)")
     lin = ema(state.lin,
               tree.map(lambda g, w: g - 2.0 * hp.tau * w, grad_agg, params),
               rho)

@@ -55,6 +55,30 @@ def flatten_padded(tree: Params, lead: int = 0) -> torch.Tensor:
     return buf.reshape(*lead_shape, -1, LANES)
 
 
+def flat_buffer(tree: Params) -> Optional[torch.Tensor]:
+    """The contiguous f32 (R, 128) buffer, R = ⌈n/128⌉, whose first n
+    elements ``tree``'s leaves tile, in leaf order, as consecutive
+    contiguous f32 views, or None if they do not.  :func:`unflatten` of
+    such a buffer gives such leaves, so the buffer stands in for
+    :func:`flatten_padded` of the tree without a copy (its pad elements
+    are whatever the buffer holds there)."""
+    xs = _tree.leaves(tree)
+    first = xs[0]
+    off = first.storage_offset()
+    for x in xs:
+        if x.dtype != torch.float32 or not x.is_contiguous() \
+                or x.device != first.device or x.storage_offset() != off \
+                or x.untyped_storage().data_ptr() \
+                != first.untyped_storage().data_ptr():
+            return None
+        off += x.numel()
+    rows = -(-(off - first.storage_offset()) // LANES)
+    if (first.storage_offset() + rows * LANES) * 4 \
+            > first.untyped_storage().nbytes():
+        return None
+    return first.as_strided((rows, LANES), (LANES, 1))
+
+
 def pad_lanes(flat: torch.Tensor) -> torch.Tensor:
     """Zero-pad the last dim to a multiple of 128 and split it into
     (R, 128)."""
@@ -78,19 +102,36 @@ def unflatten(flat: torch.Tensor, like: Params, lead: int = 0) -> Params:
     return _tree.unflatten(like, out)
 
 
-def ssca_update(params: Params, lin: Params, grads: Params, beta: Params, *,
-                rho, gamma, tau: float, lam: float = 0.0,
-                device: Device = None):
+def ssca_update(params: Params, lin: Params, grads: Params,
+                beta: Optional[Params], *, rho, gamma, tau: float,
+                lam: float = 0.0, device: Device = None):
     """Fused Algorithm-1 server update over a whole parameter tree: one
     kernel launch.  ``rho``/``gamma`` are f32 scalars (0-d tensors or
-    floats).  Returns (params', lin', β')."""
+    floats).  Returns (params', lin', β'), each a view of a fresh buffer.
+
+    At ``lam == 0`` it launches the ``lambda0`` variant, which neither
+    reads nor writes β: β' is None, whatever ``beta`` is.  At λ > 0 it
+    launches the ``beta`` variant; ``beta=None`` there runs it on zeros
+    and discards β', as the reference's fused update does without β.  A
+    tree that already tiles one padded buffer (:func:`flat_buffer`: from
+    the second round on, params, lin and β, the previous launch's
+    outputs) goes to the kernel as that buffer, without a copy.
+    """
     dev = _tree.leaves(params)[0].device
     scalars = torch.stack([torch.as_tensor(v, dtype=torch.float32)
                            for v in (rho, gamma, tau, lam)]).to(dev)
-    w, l, g, b = (flatten_padded(t) for t in (params, lin, grads, beta))
+
+    def flat(tree):
+        buf = flat_buffer(tree)
+        return flatten_padded(tree) if buf is None else buf
+
+    w, l, g = flat(params), flat(lin), flat(grads)
+    b = None
+    if lam:
+        b = torch.zeros_like(w) if beta is None else flat(beta)
     w2, l2, b2 = _su.ssca_update_2d(w, l, g, b, scalars, device=device)
-    return unflatten(w2, params), unflatten(l2, params), \
-        unflatten(b2, params)
+    b2 = None if beta is None or b2 is None else unflatten(b2, params)
+    return unflatten(w2, params), unflatten(l2, params), b2
 
 
 def secure_quant_sum(wmsgs: Params, key_words, *, scale_bits: int,

@@ -7,7 +7,8 @@ that has only the port's dependencies:
     PYTHONPATH=src python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
 
 Tolerances: none for the four integer and update kernels.  The SSCA
-and compress kernels round every f32 operation separately, in the plain
+kernel (both variants, ``beta`` and the β-less ``lambda0``) and the
+compress kernel round every f32 operation separately, in the plain
 version's order (no FMA contraction), and the masked sum and the sketch
 encode are ring arithmetic: all must equal their plain versions bit for
 bit (NaN compared as NaN), the masked sum on both variants its launch
@@ -70,11 +71,20 @@ def _shifted(t):
 
 
 def _ssca_equal_plain(ins, sc):
-    before = su.ssca_update_2d.launches
+    """The kernel against the plain version, bit for bit (a −0 told from
+    +0), the launch counted on its variant: ``lambda0`` for β = None."""
+    variant = "lambda0" if ins[3] is None else "beta"
+    before = dict(su.ssca_update_2d.launches_by_variant)
+    launches = su.ssca_update_2d.launches
     got = su.ssca_update_2d(*ins, sc)
-    assert su.ssca_update_2d.launches == before + 1
+    before[variant] += 1
+    assert su.ssca_update_2d.launches == launches + 1
+    assert su.ssca_update_2d.launches_by_variant == before
     for a, b in zip(got, su.ssca_update_plain(*ins, sc)):
-        assert torch.equal(a, b)
+        if b is None:
+            assert a is None
+        else:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("rows", [1, 13, 794, 4099])
@@ -92,6 +102,18 @@ def test_ssca_kernel_takes_misaligned_views(dev, rows):
     ins = [ins[0], *(_shifted(x) for x in ins[1:])]
     sc = torch.tensor([0.37, 0.81, 0.1, 1e-3], device=dev)
     _ssca_equal_plain(ins, sc)
+
+
+@pytest.mark.parametrize("rows,shift", [(794, False), (13, False),
+                                        (794, True)])
+def test_ssca_lambda0_kernel_equals_plain(dev, rows, shift):
+    """The β-less variant (λ = 0) at the MLP's rows, a small shape and
+    views one element past alignment."""
+    ins = [_randn(dev, rows, 128, seed=s) for s in range(3)]
+    if shift:
+        ins = [_shifted(x) for x in ins]
+    sc = torch.tensor([0.37, 0.81, 0.1, 0.0], device=dev)
+    _ssca_equal_plain([*ins, None], sc)
 
 
 def _masked_sum_equal_plain(msgs, variant, **kw):
