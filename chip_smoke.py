@@ -133,6 +133,30 @@ last line):
    its tensor-core kernel once per layer per forward; and rwkv6-7b's path once more at τ = 2,
    8 and 32 with the cost read after each of its 4 rounds (finite
    costs), to tell the step size from the port in the cost's rise;
+   then the launch entry points (``phase_launch``), counters set to 0
+   before each part and read after: ``launch.serve.serve_batch`` (no
+   kernel launched; logits within 1e-4 of the largest of the CPU's,
+   TF32 off; the tokens equal, or parted first at a near-tie) and one
+   ``launch.steps.make_train_step`` (one ``lambda0`` launch; loss and
+   parameters within 1e-5 of the CPU's) on the reduced llama3-8b and
+   rwkv6-7b; llama3-8b and rwkv6-7b at full width (2 of 32 layers)
+   serving 8 ``synth_requests`` in batches of 4 (prompt 128, 32 new
+   tokens): no launch in the decode loop, the decode logits against a
+   teacher-forced ``forward`` over prompt and generated tokens and
+   ``make_prefill_step`` against the decode at the last prompt token,
+   within 2e-2 of the largest |logit|, the layer kernel (bf16 flash,
+   WKV) once a layer a forward; llama3-8b at ``decode_window=64`` (finite,
+   its first 64 positions within the same bound of the full cache's);
+   the prefill and decode step times, tokens/s, peak memory and the
+   decode step's byte floor, and a short batch (32 steps) profiled: a
+   step's device time by kind, busy share and host CUDA calls; then
+   ``launch/train.py``'s defaults at
+   llama3-8b (2 layers, batch 8, seq 128): 4 steps (the first loss
+   within [ln V − 1, ln V + 3], one ``lambda0`` launch a step), a
+   checkpoint of the parameters and SSCA's lin after step 2 saved and
+   restored in a temporary directory (removed after; seconds and bytes
+   printed), and the resumed steps 3–4 bit for bit the uninterrupted
+   ones;
 7. time ``masked_sum`` (I = 4) and both ``ssca_update`` variants
    directly at both full-width LM paths' widths, once those paths have
    freed their memory: the median of 5 eager launches after 2 warm-ups,
@@ -1210,6 +1234,391 @@ def phase_tau_witness(torch, runtime, name, arch):
         torch.cuda.empty_cache()
     log(f"{name}: train cost after rounds 1..{LM_ROUNDS} by tau:",
         json.dumps(costs))
+
+
+# the launch entry points (launch/serve.py, launch/steps.py, ckpt/io.py)
+# at full width: 8 requests in batches of 4, a 128-token prompt and 32
+# new tokens; the train step at launch/train.py's defaults, 4 steps with a
+# checkpoint after step 2
+SERVE_REQUESTS = 8
+SERVE_BATCH = 4
+SERVE_PROMPT = 128
+SERVE_NEW = 32
+SERVE_WINDOW = 64
+TRAIN_BATCH = 8
+TRAIN_SEQ = 128
+TRAIN_STEPS = 4
+TRAIN_CKPT_AT = 2
+# the decode logits against the teacher-forced forward (the reference's
+# own bound, tests/test_models_smoke.py), a share of the largest |logit|
+DECODE_VS_FORWARD = 2e-2
+# the small width's decode on the card against the CPU's, a share of the
+# largest |logit|: the f32 GEMMs (TF32 off) sum in other orders
+SMALL_DECODE = 1e-4
+LAYER_KERNEL = {"llama3-8b": ("flash_attention", "flash_attention_wgmma"),
+                "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma")}
+SMALL_KERNEL = {"llama3-8b": ("flash_attention", "flash_attention_tf32x3"),
+                "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma")}
+
+
+def counts(kernels):
+    """Every kernel's launches since the last reset, also by variant."""
+    return {**{k: fn.launches for k, fn in kernels.items()},
+            **variant_counts(kernels)}
+
+
+def want_counts(kernels, **launches):
+    """The counts a path should show: ``launches`` by name, else 0."""
+    want = {k: 0 for k in counts(kernels)}
+    want.update(launches)
+    return want
+
+
+def check_counts(kernels, what, want):
+    got = counts(kernels)
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return got
+
+
+def first_split_near_tie(torch, gen_a, gen_b, record, prompt_len, bound,
+                         vocab, what):
+    """Tokens of two greedy runs agree, or part first where the run that
+    ``record`` logged had its top two logits within ``bound``."""
+    import numpy as np
+    if np.array_equal(gen_a, gen_b):
+        return
+    b, j = min(zip(*np.nonzero(gen_a != gen_b)), key=lambda bj: bj[1])
+    top = torch.topk(record[prompt_len - 1 + j][b, 0, :vocab], 2).values
+    margin = float(top[0] - top[1])
+    log(f"{what}: tokens part at request {b}, step {j}: top-2 margin "
+        f"{margin:.3e} against the bound {bound:.3e}")
+    if not margin <= bound:
+        raise AssertionError(f"{what}: tokens differ at a margin {margin}")
+
+
+def launch_small(torch, kernels, card, arch, dev="cuda"):
+    """The reduced ``arch`` (f32) on the card against the port's CPU run:
+    ``serve_batch`` (no kernel launched; logits within SMALL_DECODE of
+    the largest, the tokens equal but for a near-tie) and one
+    ``make_train_step`` (one ``lambda0`` launch, the layer kernel once a
+    layer; loss rtol 1e-5, parameters within 1e-5 of the CPU's)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.core import ssca
+    from repro_torch.launch import serve, steps, train
+    from repro_torch.models import build_model
+    model = build_model(reduced(get_config(arch)))
+    cfg = model.cfg
+    p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    p_dev = tree.map(lambda w: w.to(dev), p_cpu)
+    reqs = serve.synth_requests(4, cfg, 16, 16, seed=0)
+    reset_counts(kernels)
+    rec_dev, rec_cpu = [], []
+    gen_dev, _, _ = serve.serve_batch(model, p_dev, reqs, record=rec_dev)
+    serve_counts = check_counts(kernels, f"serve_small {arch}",
+                                want_counts(kernels))
+    gen_cpu, _, _ = serve.serve_batch(model, p_cpu, reqs, record=rec_cpu)
+    got = torch.cat(rec_dev, dim=1).cpu()
+    want = torch.cat(rec_cpu, dim=1)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    log(f"serve_small {arch}: card vs CPU decode logits max abs {err:.3e} "
+        f"(largest |logit| {scale:.3e}, bound {SMALL_DECODE} of it); "
+        f"tokens equal: {bool((gen_dev == gen_cpu).all())}; on {card}")
+    if not err <= SMALL_DECODE * scale:
+        raise AssertionError(f"serve_small {arch}: card vs CPU {err}")
+    first_split_near_tie(torch, gen_dev, gen_cpu, rec_cpu, 16,
+                         SMALL_DECODE * scale, cfg.vocab_size,
+                         f"serve_small {arch}")
+
+    step = steps.make_train_step(model, ssca.SSCAHyperParams(tau=2.0))
+    batch = next(train.batch_stream(cfg, 8, 32, device="cpu"))
+    reset_counts(kernels)
+    q_dev, s_dev, m_dev = step(p_dev, ssca.init(p_dev, with_beta=False),
+                               {"tokens": batch["tokens"].to(dev)})
+    name, variant = SMALL_KERNEL[arch]
+    train_counts = check_counts(kernels, f"train_small {arch}", want_counts(
+        kernels, ssca_update=1, ssca_update_lambda0=1,
+        **{name: cfg.num_layers, variant: cfg.num_layers}))
+    q_cpu, _, m_cpu = step(p_cpu, ssca.init(p_cpu, with_beta=False), batch)
+    loss_rel = abs(float(m_dev["loss"]) - float(m_cpu["loss"])) \
+        / abs(float(m_cpu["loss"]))
+    w_err = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(tree.leaves(q_dev), tree.leaves(q_cpu)))
+    log(f"train_small {arch}: card vs CPU loss rel {loss_rel:.3e}, "
+        f"parameters max abs {w_err:.3e} on {card}; launches "
+        f"{train_counts}")
+    if not (loss_rel <= 1e-5 and w_err <= 1e-5):
+        raise AssertionError(f"train_small {arch}: card vs CPU {loss_rel}, "
+                             f"{w_err}")
+    return serve_counts, train_counts
+
+
+def decode_floor_ms(cfg, params):
+    """The least time of one full-width decode step: the f32 layer
+    weights read, their bf16 cast written and read again, and the f32
+    embedding table read (the lookup and the tied unembedding), over the
+    card's memory rate; the KV cache and activations are left out."""
+    n_layers = sum(w.numel() for w in params["blocks"].values())
+    nbytes = n_layers * (4 + 2 + 2) + params["embed"].numel() * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def decode_profile(torch, model, params, batch):
+    """``batch`` served once more under ``torch.profiler``, its prompts
+    cut to 16 tokens and 16 new (32 decode steps): a step's host wall
+    time, its device time by kind, the device's busy share, the largest
+    "other" kernels and the host's CUDA calls a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    short = [serve.Request(r.prompt[:16], 16) for r in batch]
+    steps = 32
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.serve_batch(model, params, short)
+        wall = time.perf_counter() - t0
+    us, top = device_us_by_kind(torch, prof)
+    busy = sum(v for k, v in us.items() if k != "staging_htod")
+    return {"wall_ms_per_step": wall * 1e3 / steps,
+            "device_us_per_step": {k: v / steps for k, v in us.items()},
+            "device_busy_share": busy / (wall * 1e6),
+            "largest_other_us": top,
+            "host_calls_per_step": host_calls_per_round(prof, steps)}
+
+
+def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
+    """``arch`` at full width, 2 of its layers, serving SERVE_REQUESTS
+    synthetic requests in batches of SERVE_BATCH: no hand-written kernel
+    in the decode loop; the decode logits against a teacher-forced
+    ``forward`` over prompt and generated tokens and ``make_prefill_step``
+    against the decode at the last prompt token, within
+    DECODE_VS_FORWARD of the largest |logit|, the layer kernel once a
+    layer a forward; on llama3-8b a ring buffer of SERVE_WINDOW slots:
+    finite, and its first SERVE_WINDOW positions within the same bound
+    of the full cache's.  Returns the launches of each part over its
+    batches: ``decode`` (the decode loops), ``check`` (the forwards and
+    prefill steps) and, on llama3-8b, ``ring``."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), num_layers=LM_LAYERS)
+    if cut is not None:
+        cfg = cut(cfg)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    reqs = serve.synth_requests(SERVE_REQUESTS, cfg, SERVE_PROMPT, SERVE_NEW)
+    # warm-up: the first steps at these shapes pick the GEMM kernels
+    serve.serve_batch(model, params, [serve.Request(r.prompt[:8], 4)
+                                      for r in reqs[:SERVE_BATCH]])
+    name, variant = LAYER_KERNEL[arch]
+    prefill = steps.make_prefill_step(model)
+    by_part = {"decode": want_counts(kernels), "check": want_counts(kernels)}
+    stats = []
+    for i in range(0, SERVE_REQUESTS, SERVE_BATCH):
+        batch = reqs[i:i + SERVE_BATCH]
+        record = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        gen, t_prefill, t_decode = serve.serve_batch(model, params, batch,
+                                                     record=record)
+        check_counts(kernels, f"serve {arch} decode loop",
+                     want_counts(kernels))
+        peak = torch.cuda.max_memory_allocated()
+        prompt = torch.as_tensor(np.stack([r.prompt for r in batch]),
+                                 device=dev)
+        tokens = torch.cat([prompt, torch.as_tensor(gen, device=dev)], 1)
+        reset_counts(kernels)
+        full = model.forward(params, {"tokens": tokens})
+        last = prefill(params, {"tokens": prompt})
+        got = check_counts(
+            kernels, f"serve {arch} forward and prefill", want_counts(
+                kernels, **{name: 2 * cfg.num_layers,
+                            variant: 2 * cfg.num_layers}))
+        by_part["check"] = {k: n + got[k]
+                            for k, n in by_part["check"].items()}
+        dec = torch.cat(record, dim=1)
+        scale = float(full.abs().max())
+        err = float((dec - full).abs().max())
+        err_pre = float((last - record[SERVE_PROMPT - 1][:, 0]).abs().max())
+        stats.append({"prefill_s": t_prefill, "decode_s": t_decode,
+                      "peak_bytes": peak, "decode_vs_forward": err,
+                      "prefill_step_vs_decode": err_pre,
+                      "largest_logit": scale})
+        if not (err <= DECODE_VS_FORWARD * scale
+                and err_pre <= DECODE_VS_FORWARD * scale
+                and bool(torch.isfinite(dec).all())):
+            raise AssertionError(f"serve {arch}: decode vs forward {err}, "
+                                 f"prefill step {err_pre}, scale {scale}")
+        if i == 0:
+            first = (batch, dec)
+        del full, dec, record
+    floor_ms, floor_bytes = decode_floor_ms(cfg, params)
+    profiled = decode_profile(torch, model, params, reqs[:SERVE_BATCH])
+    b = SERVE_BATCH
+    step_ms = [s["decode_s"] / SERVE_NEW * 1e3 for s in stats]
+    log(f"serve {arch} (2 of 32 layers, {SERVE_REQUESTS} requests in "
+        f"batches of {b}, prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens) "
+        f"on {card}:", json.dumps({
+            "cache_filling_prefill_s": [s["prefill_s"] for s in stats],
+            "prefill_tokens_per_s": [b * SERVE_PROMPT / s["prefill_s"]
+                                     for s in stats],
+            "decode_step_ms": step_ms,
+            "decode_tokens_per_s": [b * SERVE_NEW / s["decode_s"]
+                                    for s in stats],
+            "decode_step_floor_ms": floor_ms,
+            "decode_step_floor_bytes": floor_bytes,
+            "peak_device_bytes": [s["peak_bytes"] for s in stats],
+            "decode_vs_forward_max_abs": [s["decode_vs_forward"]
+                                          for s in stats],
+            "prefill_step_vs_decode_max_abs": [s["prefill_step_vs_decode"]
+                                               for s in stats],
+            "largest_logit": [s["largest_logit"] for s in stats],
+            "profiled_short_batch": profiled}))
+    if arch == "llama3-8b":
+        batch, dec = first
+        ring = build_model(cfg, decode_window=SERVE_WINDOW)
+        record = []
+        reset_counts(kernels)
+        serve.serve_batch(ring, params, batch, record=record)
+        by_part["ring"] = check_counts(
+            kernels, f"serve {arch} ring decode loop", want_counts(kernels))
+        got = torch.cat(record, dim=1)
+        err = float((got[:, :SERVE_WINDOW] - dec[:, :SERVE_WINDOW])
+                    .abs().max())
+        scale = float(dec[:, :SERVE_WINDOW].abs().max())
+        log(f"serve {arch} decode_window={SERVE_WINDOW}: every logit finite "
+            f"{bool(torch.isfinite(got).all())}; first {SERVE_WINDOW} "
+            f"positions vs the full cache max abs {err:.3e} (largest "
+            f"|logit| {scale:.3e}, bound {DECODE_VS_FORWARD} of it)")
+        if not (bool(torch.isfinite(got).all())
+                and err <= DECODE_VS_FORWARD * scale):
+            raise AssertionError(f"serve {arch} ring buffer: {err}")
+        del got, record
+    del params, first
+    torch.cuda.empty_cache()
+    return by_part
+
+
+def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
+                      cut=None):
+    """``launch/train.py``'s defaults (batch 8, seq 128, τ = 2, the
+    reference's schedules) at ``arch``'s full width, 2 of its layers:
+    TRAIN_STEPS steps of ``make_train_step`` (one ``lambda0`` launch a
+    step, the layer kernel once a layer), a checkpoint of the parameters
+    and SSCA's lin after step TRAIN_CKPT_AT in a temporary directory
+    (removed after), restored and run to the end again: the resumed
+    steps equal the uninterrupted ones bit for bit."""
+    import dataclasses
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.ckpt import io as ckpt_io
+    from repro_torch.configs import get_config
+    from repro_torch.core import ssca
+    from repro_torch.core.schedules import PowerLaw
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), num_layers=LM_LAYERS)
+    if cut is not None:
+        cfg = cut(cfg)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    hp = ssca.SSCAHyperParams(tau=2.0, rho=PowerLaw(0.9, 0.3),
+                              gamma=PowerLaw(0.9, 0.35))
+    step_fn = steps.make_train_step(model, hp)
+    state = ssca.init(params, with_beta=False)
+    stream = train.batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    name, variant = LAYER_KERNEL[arch]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    losses, times, ckpt = [], [], None
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        for t in range(1, TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batches[t - 1])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            if t == TRAIN_CKPT_AT:
+                t0 = time.perf_counter()
+                nbytes = ckpt_io.save(root / f"step_{t}",
+                                      {"params": params,
+                                       "ssca_lin": state.lin}, step=t)
+                save_s = time.perf_counter() - t0
+        launches = check_counts(kernels, f"train {arch}", want_counts(
+            kernels, ssca_update=TRAIN_STEPS,
+            ssca_update_lambda0=TRAIN_STEPS,
+            **{name: TRAIN_STEPS * cfg.num_layers,
+               variant: TRAIN_STEPS * cfg.num_layers}))
+        peak = torch.cuda.max_memory_allocated()
+        whole = tree.leaves(params)
+        t0 = time.perf_counter()
+        restored, meta = ckpt_io.restore(ckpt_io.latest(root), device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params
+    start = meta["step"]
+    params = restored["params"]
+    state = ssca.init(params, with_beta=False)._replace(
+        step=start + 1, lin=restored["ssca_lin"])
+    del restored
+    resumed = []
+    for t in range(start + 1, TRAIN_STEPS + 1):
+        params, state, metrics = step_fn(params, state, batches[t - 1])
+        resumed.append(float(metrics["loss"]))
+    same = resumed == losses[start:] and all(
+        torch.equal(a, b) for a, b in zip(tree.leaves(params), whole))
+    ln_v = math.log(cfg.vocab_size)
+    log(f"train {arch} (2 of 32 layers, batch {TRAIN_BATCH}, seq "
+        f"{TRAIN_SEQ}, tau 2) on {card}:", json.dumps({
+            "losses": losses, "ln_V": ln_v, "step_s": times,
+            "peak_device_bytes": peak, "checkpoint_bytes": nbytes,
+            "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+            "resumed_losses": resumed, "resumed_bit_for_bit": same,
+            "launches": launches}))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {arch}: losses not finite: {losses}")
+    if not ln_v - 1 <= losses[0] <= ln_v + 3:
+        raise AssertionError(f"train {arch}: first loss {losses[0]} outside "
+                             "[ln V - 1, ln V + 3]")
+    if not same:
+        raise AssertionError(f"train {arch}: the resumed steps differ from "
+                             f"the uninterrupted ones")
+    del params, state, whole
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_launch(torch, kernels, card):
+    """The launch entry points: the small width against the CPU, then
+    serving and the train step at full width.  Returns each path's
+    launches for the ``{"kernels": [...]}`` line."""
+    t0 = time.perf_counter()
+    by_path = {}
+    for arch, short in (("llama3-8b", "llama"), ("rwkv6-7b", "rwkv")):
+        by_path[f"serve_small_{short}"], by_path[f"train_small_{short}"] = \
+            launch_small(torch, kernels, card, arch)
+    for arch, short in (("llama3-8b", "llama"), ("rwkv6-7b", "rwkv")):
+        parts = launch_full_serve(torch, kernels, card, arch)
+        by_path[f"serve_{short}_full_decode"] = parts["decode"]
+        by_path[f"serve_{short}_full_forward"] = parts["check"]
+        if "ring" in parts:
+            by_path[f"serve_{short}_full_ring"] = parts["ring"]
+    by_path["train_llama_full"] = launch_full_train(torch, kernels, card)
+    log(f"launch phase: {time.perf_counter() - t0:.1f} s")
+    return by_path
 
 
 def phase_main_path(torch, su, sa, data, part, params, runtime):
@@ -3635,7 +4044,8 @@ def rank_inputs():
 # the paths at λ = 0, whose server update launches the β-less variant;
 # every other Algorithm-1 path runs λ = 1e-5 and launches ``beta``
 LAMBDA0_PATHS = ("lm_small", "lm_full_width", "rwkv_small",
-                 "rwkv_full_width")
+                 "rwkv_full_width", "train_small_llama", "train_small_rwkv",
+                 "train_llama_full")
 
 
 def check_ssca_variants(by_path):
@@ -3779,6 +4189,7 @@ def main() -> int:
         torch, kernels, runtime, card, "rwkv_full", "rwkv6-7b", RWKV_PARAMS,
         "rwkv6_wkv", "rwkv6_wkv_mma")
     phase_tau_witness(torch, runtime, "rwkv_full", "rwkv6-7b")
+    by_path.update(phase_launch(torch, kernels, card))
     check_ssca_variants(by_path)
     total = {k: sum(p.get(k, 0) for p in by_path.values())
              for k in [*kernels, *variant_counts(kernels)]}

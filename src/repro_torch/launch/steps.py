@@ -1,0 +1,99 @@
+"""Train and serve step factories: the paper's technique on one model.
+
+The port of ``repro/launch/steps.py``.  ``make_train_step`` is one round
+of Algorithm 1 on an LM: the mean-loss gradient over the batch is the
+aggregated client message ĝ^t (with every client holding N/I samples the
+paper's weights N_i/(B·N) reduce to the uniform mean over the batch),
+and the SSCA server update (recursions (14)/(15), closed form (16)/(17),
+move (4)) runs as one launch of the fused kernel
+(:func:`repro_torch.core.ssca.server_update` with ``fused=True``: its
+``lambda0`` variant at the default λ = 0).  ``make_sgd_train_step`` is
+the FedSGD baseline on the same batch; ``make_prefill_step`` and
+``make_decode_step`` are the serving path.
+
+Each step follows its tensors' device: the kernels for CUDA tensors,
+their plain versions for CPU ones, which the caller placed there.  The
+reference jit-compiles each factory's function; the port runs it
+eagerly.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core import autodiff, ssca
+from repro_torch.core.schedules import PowerLaw
+from repro_torch.models.transformer import Model
+
+
+def _device(params) -> torch.device:
+    return tree.leaves(params)[0].device
+
+
+def make_train_step(model: Model,
+                    hp: Optional[ssca.SSCAHyperParams] = None,
+                    microbatches: int = 1):
+    """One Algorithm-1 round, ``(params, state, batch) → (params', state',
+    {"loss", "kkt_residual"})``.  ``microbatches > 1`` accumulates the
+    message ĝ over that many equal slices of the batch's leading axis
+    (the same math: eq. (2) is a sum), in a Python loop where the
+    reference scans, summing from zero in the reference's order."""
+    hp = hp or ssca.SSCAHyperParams(tau=0.1, lam=0.0,
+                                    rho=PowerLaw(0.9, 0.3),
+                                    gamma=PowerLaw(0.9, 0.35))
+
+    def train_step(params, state: ssca.SSCAState, batch):
+        if microbatches == 1:
+            loss, grads = autodiff.value_and_grad(model.loss, params, batch)
+        else:
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=_device(params))
+            grads = tree.map(torch.zeros_like, params)
+            for i in range(microbatches):
+                part = {k: v.narrow(0, i * (v.shape[0] // microbatches),
+                                    v.shape[0] // microbatches)
+                        for k, v in batch.items()}
+                li, gi = autodiff.value_and_grad(model.loss, params, part)
+                loss = loss + li
+                grads = tree.map(torch.add, grads, gi)
+            loss = loss / microbatches
+            grads = tree.map(lambda g: g / microbatches, grads)
+        new_params, new_state = ssca.server_update(
+            state, params, grads, hp, fused=True, device=_device(params))
+        metrics = {"loss": loss, "kkt_residual": ssca.kkt_residual(grads)}
+        return new_params, new_state, metrics
+
+    return train_step
+
+
+def make_sgd_train_step(model: Model, lr: Optional[PowerLaw] = None):
+    """The FedSGD step, ``(params, step, batch) → (params', step + 1,
+    {"loss"})`` with ``step`` a 0-d int32 tensor counted from 1 and the
+    rate ``lr(step)``."""
+    lr = lr or PowerLaw(0.1, 0.5)
+
+    def train_step(params, step, batch):
+        loss, grads = autodiff.value_and_grad(model.loss, params, batch)
+        r = lr(step.float()).to(_device(params))
+        new_params = tree.map(lambda w, g: w - r * g, params, grads)
+        return new_params, step + 1, {"loss": loss}
+
+    return train_step
+
+
+def make_prefill_step(model: Model):
+    """``(params, batch) → (B, padded_vocab)`` logits of the last position
+    of ``model.forward`` (the flash or the WKV kernel on the card)."""
+    def prefill_step(params, batch):
+        return model.forward(params, batch)[:, -1, :]
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    """``(params, state, batch) → (logits, state')``: one token of
+    ``batch["tokens"]`` (B, 1) through ``model.decode_step``."""
+    def decode_step(params, state, batch):
+        return model.decode_step(params, state, batch["tokens"])
+    return decode_step

@@ -64,3 +64,16 @@ def embed(tokens, table):
 def unembed(x, table):
     """Tied unembedding in f32: logits = x · Eᵀ."""
     return x.float() @ table.float().T
+
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):
+    """Token-level cross-entropy in f32 over the whole last axis (the
+    padded vocabulary), as a mean over tokens; labels are int ids.
+    ``z_loss`` adds z · logsumexp² per token."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return torch.mean(loss)

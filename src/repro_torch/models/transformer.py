@@ -3,8 +3,8 @@
 The port of ``repro/models/transformer.py``'s llama-style GQA decoder
 (llama3-8b, yi-9b, granite-8b; granite-34b with its GELU MLP) and its
 attention-free RWKV-6 stack (rwkv6-7b: time mix and channel mix,
-:mod:`repro_torch.models.rwkv6`).  ``build_model(cfg)`` returns a
-:class:`Model` with
+:mod:`repro_torch.models.rwkv6`).  ``build_model(cfg, decode_window=0)``
+returns a :class:`Model` with
 
 * ``init(generator, device)`` — the layer-stacked parameter tree
   ``{"blocks": {...}, "embed", "final_norm"}``, every block leaf
@@ -13,18 +13,25 @@ attention-free RWKV-6 stack (rwkv6-7b: time mix and channel mix,
   …, wv`` (ssm);
 * ``forward(params, batch)`` — the (B, S, padded_vocab) f32 logits;
 * ``forward_with_aux(params, batch)`` — the logits and the auxiliary
-  losses (none for this family).
+  losses (none for these families);
+* ``loss(params, batch)`` — next-token cross-entropy, f32;
+* ``init_decode(batch_size, max_len, device)`` — the decode state: a KV
+  cache a layer (dense; a ring buffer of ``decode_window`` slots when it
+  is > 0) or the WKV state and two token shifts a layer (ssm);
+* ``decode_step(params, state, tokens)`` — one token with the cached
+  state, the caches written in place.
 
 The reference scans the stacked blocks under ``jax.checkpoint``; the port
 casts the stacked leaves to the activation dtype (``_cast``), runs a
 Python loop over the layers, and keeps activations for the backward (no
-rematerialisation).  Other families raise
+rematerialisation).  Decode casts them at every step too, as the
+reference's scan body does.  Other families raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -109,24 +116,73 @@ def _attn_block(cfg, p, x, positions):
     return x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
 
 
-def _rwkv_block(cfg, p, x, positions):
-    """Time mix then channel mix, each on the RMS-normed stream, from a
-    zero state (``positions`` unused: RWKV has none)."""
+def _attn_decode(cfg, p, x, k_cache, v_cache, length, *, window: int = 0):
+    """One-token attention block against a layer's cache, x (B, 1, D);
+    the cache's slot ``length % C`` is written in place."""
+    b = x.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xn = layers.rms_norm(x, p["attn_norm"])
+    pos = length[None]                  # absolute position of this token
+    q = layers.apply_rope((xn @ p["wq"]).reshape(b, 1, h, hd), pos)
+    k = layers.apply_rope((xn @ p["wk"]).reshape(b, 1, kvh, hd), pos)
+    v = (xn @ p["wv"]).reshape(b, 1, kvh, hd)
+    cache = attention.cache_update(
+        attention.KVCache(k_cache, v_cache, length), k, v)
+    o = attention.decode_attend(q, cache, window=window)
+    x = x + o.reshape(b, 1, h * hd) @ p["wo"]
+    return x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
+
+
+def _rwkv_block(cfg, p, x, state=None, cm_shift=None, *,
+                decode: bool = False):
+    """Time mix then channel mix, each on the RMS-normed stream, from
+    ``state`` and ``cm_shift`` (zero when None).  Returns (x, the time
+    mix's new ``RWKVState``, the channel mix's new shift)."""
+    y, new_state = rwkv6.time_mix(p, layers.rms_norm(x, p["tm_norm"]),
+                                  state, cfg.rwkv_heads, decode=decode)
+    x = x + y
+    y, new_cm_shift = rwkv6.channel_mix(p, layers.rms_norm(x, p["cm_norm"]),
+                                        cm_shift)
+    return x + y, new_state, new_cm_shift
+
+
+def _rwkv_seq_block(cfg, p, x, positions):
+    """The sequence forward's block, from a zero state (``positions``
+    unused: RWKV has none)."""
     del positions
-    x = x + rwkv6.time_mix(p, layers.rms_norm(x, p["tm_norm"]),
-                           cfg.rwkv_heads)
-    return x + rwkv6.channel_mix(p, layers.rms_norm(x, p["cm_norm"]))
+    return _rwkv_block(cfg, p, x)[0]
 
 
 # per ported family: (block shapes, block apply)
 _FAMILY = {"dense": (_block_shapes, _attn_block),
-           "ssm": (_rwkv_shapes, _rwkv_block)}
+           "ssm": (_rwkv_shapes, _rwkv_seq_block)}
 PORTED_FAMILIES = tuple(_FAMILY)
+
+
+class DecodeState(NamedTuple):
+    """Per-family decode state; the fields a family does not use hold an
+    empty (0,) f32 tensor.  ``kv_k``/``kv_v``: (L, B, C, Hkv, hd) in the
+    activation dtype (dense); ``rec_h``: the WKV states (L, B, H, hd, hd)
+    f32 and ``rec_conv``: the time mix's and the channel mix's shifts
+    (L, 2, B, D) in the activation dtype (ssm); ``cross_k``/``cross_v``
+    (the encoder-decoder family's) stay empty."""
+    length: torch.Tensor      # () int32: tokens written so far
+    kv_k: torch.Tensor
+    kv_v: torch.Tensor
+    rec_h: torch.Tensor
+    rec_conv: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+
+def _empty(device):
+    return torch.zeros((0,), dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    decode_window: int = 0    # 0 = full cache; > 0 = ring buffer (long ctx)
 
     def init(self, generator: torch.Generator, device: Device = None):
         """Random parameters drawn from ``generator`` on its own device,
@@ -173,13 +229,89 @@ class Model:
         x = layers.rms_norm(x, params["final_norm"])
         return layers.unembed(x, params["embed"]), []
 
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy over the padded vocabulary, f32."""
+        logits, aux = self.forward_with_aux(params, batch)
+        tokens = batch["tokens"]
+        ce = layers.softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+        if aux:
+            ce = ce + self.cfg.router_aux_weight * aux[0] \
+                / self.cfg.num_layers
+        return ce
 
-def build_model(cfg: ModelConfig) -> Model:
+    def _n_attn_layers(self) -> int:
+        return self.cfg.num_layers if self.cfg.family == "dense" else 0
+
+    def init_decode(self, batch_size: int, max_len: int,
+                    device: Device = None) -> DecodeState:
+        """Zero caches on ``device`` (``cuda`` unless the caller asks for
+        the CPU).  Dense: a KV cache of ``max_len`` slots a layer, or a
+        ring buffer of ``min(decode_window, max_len)``; ssm: the O(1)
+        recurrent state."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        n_attn = self._n_attn_layers()
+        cap = min(self.decode_window, max_len) if self.decode_window \
+            else max_len
+        dt = cfg.adtype
+        kv_shape = (n_attn, batch_size, cap, cfg.num_kv_heads, cfg.head_dim)
+        kv_k = torch.zeros(kv_shape, dtype=dt, device=dev) if n_attn \
+            else _empty(dev)
+        kv_v = torch.zeros(kv_shape, dtype=dt, device=dev) if n_attn \
+            else _empty(dev)
+        rec_h = rec_conv = _empty(dev)
+        if cfg.family == "ssm":
+            hd = cfg.d_model // cfg.rwkv_heads
+            rec_h = torch.zeros((cfg.num_layers, batch_size, cfg.rwkv_heads,
+                                 hd, hd), dtype=torch.float32, device=dev)
+            # shift states: one for the time mix, one for the channel mix
+            rec_conv = torch.zeros((cfg.num_layers, 2, batch_size,
+                                    cfg.d_model), dtype=dt, device=dev)
+        return DecodeState(
+            length=torch.zeros((), dtype=torch.int32, device=dev),
+            kv_k=kv_k, kv_v=kv_v, rec_h=rec_h, rec_conv=rec_conv,
+            cross_k=_empty(dev), cross_v=_empty(dev))
+
+    @torch.no_grad()
+    def decode_step(self, params, state: DecodeState, tokens):
+        """One token for every sequence of the batch, tokens (B, 1) →
+        ((B, 1, padded_vocab) f32 logits, the next state).
+
+        The returned state shares ``state``'s buffers: each layer's KV
+        cache takes the token's k and v at slot ``length % C``
+        (``index_copy_``, no copy of the cache), and the WKV states and
+        shifts are overwritten; only ``length`` is a new tensor, one
+        device scalar for the batch, so the step never syncs with the
+        host.  Clone a state to keep it.  Runs without autograd."""
+        cfg = self.cfg
+        x = layers.embed(tokens, params["embed"]).to(cfg.adtype)  # (B, 1, D)
+        length = state.length
+        blocks = self._cast(params["blocks"])
+        per_layer = zip(*(w.unbind(0) for w in blocks.values()))
+        for i, ws in enumerate(per_layer):
+            p = dict(zip(blocks, ws))
+            if cfg.family == "dense":
+                x = _attn_decode(cfg, p, x, state.kv_k[i], state.kv_v[i],
+                                 length, window=self.decode_window)
+            else:
+                st = rwkv6.RWKVState(wkv=state.rec_h[i],
+                                     shift=state.rec_conv[i, 0])
+                x, st, cm = _rwkv_block(cfg, p, x, st, state.rec_conv[i, 1],
+                                        decode=True)
+                state.rec_h[i].copy_(st.wkv)
+                state.rec_conv[i, 0].copy_(st.shift)
+                state.rec_conv[i, 1].copy_(cm)
+        x = layers.rms_norm(x, params["final_norm"])
+        logits = layers.unembed(x, params["embed"])
+        return logits, state._replace(length=length + 1)
+
+
+def build_model(cfg: ModelConfig, *, decode_window: int = 0) -> Model:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"build_model: the {cfg.family!r} family ({cfg.name}) is not "
             "ported to repro_torch yet (ROADMAP.md, queue 1 item 5)")
-    return Model(cfg=cfg)
+    return Model(cfg=cfg, decode_window=decode_window)
 
 
 def params_from_numpy(arrays: Any, device: Device = None):
@@ -194,3 +326,31 @@ def params_from_numpy(arrays: Any, device: Device = None):
 def params_to_numpy(params) -> Dict[str, Any]:
     """The port's parameter tree → the same tree of numpy arrays."""
     return tree.map(lambda w: w.detach().float().cpu().numpy(), params)
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    """A numpy array → a tensor of its dtype; a bfloat16 array (numpy's
+    ``ml_dtypes`` extension, what JAX hands out) becomes a bfloat16
+    tensor through its 16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def decode_state_from_numpy(state: Any, device: Device = None) -> DecodeState:
+    """A decode state of arrays (any object with ``DecodeState``'s fields,
+    e.g. the reference's as numpy) → a :class:`DecodeState` of tensors on
+    ``device``, each field in its own dtype (int32 length, f32, bf16)."""
+    dev = resolve_device(device)
+    return DecodeState(*(_to_tensor(getattr(state, f), dev)
+                         for f in DecodeState._fields))
+
+
+def decode_state_to_numpy(state: DecodeState) -> DecodeState:
+    """The port's decode state → the same fields as numpy arrays; bf16
+    fields come back as f32 (exact), numpy having no bfloat16."""
+    return DecodeState(*(
+        x.detach().cpu().float().numpy() if x.dtype == torch.bfloat16
+        else x.detach().cpu().numpy() for x in state))

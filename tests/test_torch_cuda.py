@@ -25,7 +25,10 @@ plain version's.  The
 WKV kernel sums the plain version's chunked form on the tensor cores, each
 f32 operand split into two TF32 parts (tests/test_torch_rwkv6_scan.py
 emulates it): within 1e-5 of the plain version's largest |o|.  The LM
-runs on the card are held to their CPU runs as the MLP runs are.
+runs on the card are held to their CPU runs as the MLP runs are; so are
+the reduced LMs' decode (no hand-written kernel: within 1e-4 of the
+largest |logit|, TF32 off) and ``launch.steps.make_train_step`` (one
+``lambda0`` launch a step; parameters within 1e-5 of the CPU's).
 """
 import numpy as np
 import pytest
@@ -764,3 +767,59 @@ def test_rwkv_run_alg1_on_card_tracks_cpu(dev):
     for a, b in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
                                    atol=1e-4)
+
+
+def _reduced_lm(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import build_model
+    model = build_model(reduced(get_config(arch)))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    return model, params
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b"])
+def test_reduced_decode_on_card_tracks_cpu(dev, arch):
+    """12 decode steps of the reduced model (f32) on the card against the
+    CPU: logits within 1e-4 of the largest |logit| (TF32 off), and no
+    hand-written kernel launched."""
+    model, params = _reduced_lm(arch)
+    tok = torch.randint(0, 512, (2, 12),
+                        generator=torch.Generator().manual_seed(1))
+    s_gpu = model.init_decode(2, 12, device=dev)
+    s_cpu = model.init_decode(2, 12, device="cpu")
+    p_gpu = tree.map(lambda w: w.to(dev), params)
+    launches = (fa.flash_attention_bhsd.launches, rw.rwkv6_wkv_bh.launches,
+                su.ssca_update_2d.launches)
+    for t in range(12):
+        l_gpu, s_gpu = model.decode_step(p_gpu, s_gpu, tok[:, t:t + 1].to(dev))
+        l_cpu, s_cpu = model.decode_step(params, s_cpu, tok[:, t:t + 1])
+        err = float((l_gpu.cpu() - l_cpu).abs().max())
+        assert err <= 1e-4 * float(l_cpu.abs().max()), (t, err)
+    assert int(s_gpu.length) == 12
+    assert (fa.flash_attention_bhsd.launches, rw.rwkv6_wkv_bh.launches,
+            su.ssca_update_2d.launches) == launches
+
+
+def test_train_step_on_card_launches_lambda0(dev):
+    from repro_torch.core import ssca
+    from repro_torch.launch import steps, train
+    model, params = _reduced_lm("llama3-8b")
+    step = steps.make_train_step(model, ssca.SSCAHyperParams(tau=2.0))
+    batch = next(train.batch_stream(model.cfg, 4, 32, device="cpu"))
+    p_gpu = tree.map(lambda w: w.to(dev), params)
+    before = dict(su.ssca_update_2d.launches_by_variant)
+    q_gpu, s_gpu, m_gpu = step(p_gpu, ssca.init(p_gpu, with_beta=False),
+                               {"tokens": batch["tokens"].to(dev)})
+    torch.cuda.synchronize()
+    after = su.ssca_update_2d.launches_by_variant
+    assert (after["lambda0"] - before["lambda0"],
+            after["beta"] - before["beta"]) == (1, 0)
+    q_cpu, s_cpu, m_cpu = step(params, ssca.init(params, with_beta=False),
+                               batch)
+    assert s_gpu.step == s_cpu.step == 2 and s_gpu.beta is None
+    np.testing.assert_allclose(float(m_gpu["loss"]), float(m_cpu["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(tree.leaves(q_gpu), tree.leaves(q_cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-5)

@@ -4,8 +4,10 @@
   ``repro`` module, and no source file of the port (nor
   ``chip_smoke.py``) imports them.
 * Without a GPU, ``run_alg1``, ``run_alg2``, ``run_fedsgd``,
-  ``run_fedavg``, ``run``, the kernel wrappers and the meshes raise
-  unless the caller passes ``device="cpu"``.
+  ``run_fedavg``, ``run``, the kernel wrappers, the meshes, the serving
+  and training launchers (``launch.serve.main``, ``launch.train.main``),
+  ``Model.init_decode`` and ``ckpt.io.restore`` raise unless the caller
+  passes ``device="cpu"`` (``--device cpu``).
 * The cases modules the spawned mesh ranks import
   (``tests/torch_mesh_cases.py``, ``tests/torch_group_mesh_cases.py``)
   load neither.
@@ -64,7 +66,8 @@ def test_sources_import_no_jax_or_reference():
     assert {"transformer.py", "attention.py", "layers.py", "tree.py",
             "flash_attention.py", "llama3_8b.py", "rwkv6.py",
             "rwkv6_scan.py", "constrained.py", "fedavg.py", "autodiff.py",
-            "optimizers.py", "closed_form.py"} <= {f.name for f in files}
+            "optimizers.py", "closed_form.py", "serve.py", "steps.py",
+            "train.py", "io.py"} <= {f.name for f in files}
     for f in files:
         hits = _IMPORT.findall(f.read_text())
         assert not hits, (f, hits)
@@ -268,7 +271,9 @@ def test_launch_subpackage_stands_alone():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     check = _CHECK + "\nassert 'repro_torch.launch.mesh' in names\n" \
         "assert 'repro_torch.fed.arena' in names\n" \
-        "assert 'repro_torch.fed.staleness' in names\n"
+        "assert 'repro_torch.fed.staleness' in names\n" \
+        "assert {'repro_torch.launch.serve', 'repro_torch.launch.steps', " \
+        "'repro_torch.launch.train', 'repro_torch.ckpt.io'} <= set(names)\n"
     out = subprocess.run([sys.executable, "-c", check], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -383,3 +388,37 @@ def test_make_group_mesh_refuses_the_cpu_by_default(no_gpu, tmp_path):
             assert a.device.type == "cpu" and torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+def test_launch_entry_points_refuse_the_cpu_by_default(no_gpu, tmp_path,
+                                                       capsys):
+    # serve.main, train.main and Model.init_decode raise without a card
+    # unless the CPU is asked for; then they run there
+    from repro_torch.ckpt import io as ckpt_io
+    from repro_torch.launch import serve, train
+    small = ["--arch", "llama3-8b", "--requests", "1", "--batch", "1",
+             "--prompt-len", "2", "--max-new", "2"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(small + ["--device", "cuda"])
+    steps = ["--arch", "rwkv6-7b", "--steps", "1", "--batch", "2", "--seq",
+             "8"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(steps)
+    model = build_model(transformer_task(seq_len=8, d_model=32,
+                                         vocab=32).cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_decode(1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt_io.restore(tmp_path)
+    launches = flash_attention.flash_attention_bhsd.launches
+    (gen, _, _), = serve.main(small + ["--device", "cpu"])
+    assert gen.shape == (1, 2)
+    params, losses = train.main(steps + ["--device", "cpu"])
+    assert len(losses) == 1 and params["embed"].device.type == "cpu"
+    state = model.init_decode(1, 4, device="cpu")
+    assert state.kv_k.device.type == "cpu" and state.length.dtype \
+        == torch.int32
+    assert flash_attention.flash_attention_bhsd.launches == launches
+    assert "device=cpu" in capsys.readouterr().out

@@ -141,15 +141,19 @@ def test_time_mix_and_channel_mix_match_reference(s):
     state = jrwkv6.RWKVState(wkv=jnp.zeros((2, 4, 8, 8)),
                              shift=jnp.zeros((2, 32)))
     want, _ = jrwkv6.time_mix(lj, jnp.asarray(x), state, 4)
-    got = rwkv6.time_mix(lt, torch.as_tensor(x), 4)
+    got, new_state = rwkv6.time_mix(lt, torch.as_tensor(x), None, 4)
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+    # the sequence path returns no WKV state, and the shift it carries on
+    assert new_state.wkv is None
+    assert torch.equal(new_state.shift, torch.as_tensor(x[:, -1]))
     want, _ = jrwkv6.channel_mix(lj, jnp.asarray(x), jnp.zeros((2, 32)))
-    got = rwkv6.channel_mix(lt, torch.as_tensor(x))
+    got, shift = rwkv6.channel_mix(lt, torch.as_tensor(x))
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+    assert torch.equal(shift, torch.as_tensor(x[:, -1]))
 
 
 def test_chunk64_overflow_of_the_reference():
@@ -191,7 +195,8 @@ def test_chunk64_overflow_of_the_reference():
                              shift=jnp.zeros((1, 32)))
     ref_y, _ = jrwkv6.time_mix(lj, jnp.asarray(x), state, 4)
     assert np.isnan(np.asarray(ref_y)).any()
-    assert torch.isfinite(rwkv6.time_mix(lt, torch.as_tensor(x), 4)).all()
+    assert torch.isfinite(
+        rwkv6.time_mix(lt, torch.as_tensor(x), None, 4)[0]).all()
 
 
 def test_forward_matches_reference_f32():
@@ -255,14 +260,22 @@ def test_at_the_reference_init_the_wkv_gets_no_gradient():
 
 
 def test_decode_and_carried_state_raise():
+    # decode is ported (tests/test_torch_launch.py); what still raises: a
+    # nonzero carried WKV state over S > 1 tokens (the WKV kernel starts
+    # from zero, as the reference's Pallas kernel does) and decode of
+    # more than one token
     _, _, _, pt = _pair()
     lt = {k: v[0] for k, v in pt["blocks"].items()}
     x = torch.zeros(1, 4, 32)
+    shift = torch.zeros(1, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rwkv6.time_mix(lt, x, 4, decode=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rwkv6.time_mix(lt, x, 4, state=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rwkv6.channel_mix(lt, x, torch.zeros(1, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rwkv6.wkv_step()
+        rwkv6.time_mix(lt, x, rwkv6.RWKVState(torch.ones(1, 4, 8, 8),
+                                              shift), 4)
+    with pytest.raises(ValueError, match="one token"):
+        rwkv6.time_mix(lt, x, None, 4, decode=True)
+    # a zero carried state runs the sequence path, as None does
+    y0, _ = rwkv6.time_mix(lt, x + 1, rwkv6.RWKVState(
+        torch.zeros(1, 4, 8, 8), shift), 4)
+    assert torch.equal(y0, rwkv6.time_mix(lt, x + 1, None, 4)[0])
+    y, sh = rwkv6.channel_mix(lt, x + 1, shift + 2)
+    assert torch.equal(sh, x[:, -1] + 1) and y.shape == x.shape
