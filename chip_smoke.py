@@ -12,7 +12,9 @@ last line):
    registers, spill bytes and shared memory at every head dim, the WKV
    kernel's at each of its instances and the masked sum's, and the masked
    sum's stream loop in SASS by pipe (``cuobjdump``), which must issue no
-   fewer operations a stream than the bound below counts;
+   fewer operations a stream than the bound below counts (the flash
+   kernels' attributes for the causal and the banded instance of each
+   head dim: 16–256 on wgmma, 16–128 on tf32x3);
 2. hold every kernel against its plain PyTorch version on the card, at
    the paths' shapes and at edge shapes, each launch counted on the
    variant its wrapper's launch plan names: ``ssca_update`` (both
@@ -33,7 +35,15 @@ last line):
    300 and 1024; G = 1, 4, 8 and 48), with SDPA's error against the
    same f64 softmax printed for the record; its f32 (3xTF32) kernel
    within 2e-5 of the plain version (S = 1, 77 and 300, Dh 16, 64 and
-   128, the small LM's shape and llama3-8b's attention in f32);
+   128, the small LM's shape and llama3-8b's attention in f32); then the
+   hybrid's instances (``phase_flash_band_parity``): the wgmma kernel at
+   head dim 256 on the hybrid path's (4, 1024, 16, 1, 256) at window
+   2048 (the path's; it covers S, so the causal instance runs, and its
+   output equals window 0's bit for bit), 256 and 0, each to
+   ``bf16_error_check``'s bound against the f64 softmax of its band,
+   and the tf32x3 kernel's band within 2e-5 of the plain version at
+   hybrid_small's (16, 32, 4, 1, 16) and at (4, 32, 4, 1, 16) (window
+   16) and (2, 130, 4, 1, 64) (window 40);
    ``rwkv6_wkv`` to a stated tolerance (the kernel sums the plain
    version's chunked form on the tensor cores, each f32 operand split
    into two TF32 parts), each call counted on its variant, at the RWKV
@@ -133,13 +143,26 @@ last line):
    its tensor-core kernel once per layer per forward; and rwkv6-7b's path once more at τ = 2,
    8 and 32 with the cost read after each of its 4 rounds (finite
    costs), to tell the step size from the port in the cost's rise;
+   then the hybrid family: ``transformer_task("recurrentgemma-9b")``
+   (3 layers of width 64, window 16) and its 5-layer cut (a unit and a
+   recurrent tail of 2) as the small LM runs, against their CPU runs, the
+   f32 flash kernel's band launched once a forward (one attention
+   layer); and recurrentgemma-9b at full width, 3 of its 38 layers
+   (n = 1,705,054,208), I = 2, B = 2, S = 1,024, τ = 8, eval every
+   round, 4 rounds: the wgmma kernel's head-dim-256 instance once a
+   forward, the costs after each round and τ printed, the first cost
+   within [ln V − 1, ln V + 3], the ledger, the round time, the peak and
+   a profiled round;
    then the launch entry points (``phase_launch``), counters set to 0
    before each part and read after: ``launch.serve.serve_batch`` (no
    kernel launched; logits within 1e-4 of the largest of the CPU's,
    TF32 off; the tokens equal, or parted first at a near-tie) and one
    ``launch.steps.make_train_step`` (one ``lambda0`` launch; loss and
    parameters within 1e-5 of the CPU's) on the reduced llama3-8b and
-   rwkv6-7b; llama3-8b and rwkv6-7b at full width (2 of 32 layers)
+   rwkv6-7b, and the reduced recurrentgemma-9b at 3 and 5 layers (16
+   prompt and 16 new tokens: decode past its window of 16);
+   llama3-8b and rwkv6-7b at full width (2 of 32 layers), and
+   recurrentgemma-9b (3 of 38),
    serving 8 ``synth_requests`` in batches of 4 (prompt 128, 32 new
    tokens): no launch in the decode loop, the decode logits against a
    teacher-forced ``forward`` over prompt and generated tokens and
@@ -151,7 +174,8 @@ last line):
    decode step's byte floor, and a short batch (32 steps) profiled: a
    step's device time by kind, busy share and host CUDA calls; then
    ``launch/train.py``'s defaults at
-   llama3-8b (2 layers, batch 8, seq 128): 4 steps (the first loss
+   llama3-8b (2 layers, batch 8, seq 128) and recurrentgemma-9b (3
+   layers; a 13.6 GB checkpoint): 4 steps (the first loss
    within [ln V − 1, ln V + 3], one ``lambda0`` launch a step), a
    checkpoint of the parameters and SSCA's lin after step 2 saved and
    restored in a temporary directory (removed after; seconds and bytes
@@ -174,7 +198,13 @@ last line):
    never calls it; no single PyTorch call computes the WKV scan): the
    wgmma variant at the LM path's shape, with its achieved TFLOP/s, and
    the tf32x3 variant at the small LM's and at llama3-8b's attention in
-   f32 (``flash_attention_f32_wide``, SDPA's backend named); the launch
+   f32 (``flash_attention_f32_wide``, SDPA's backend named), the wgmma
+   variant at head dim 256 on the hybrid path's shape at window 2048
+   (``flash_attention_hd256``, the causal pairs) and at window 256
+   (``flash_attention_hd256_band``, timing only: SDPA takes the band as
+   a boolean mask), and the tf32x3 band at hybrid_small's shape
+   (``flash_attention_tf32x3_band``); each flash row counts the
+   launches of its instance's paths (the hybrid's apart); the launch
    floor, an empty kernel's graph replay, beside ``ssca_update`` (its
    ``beta`` variant; ``ssca_update_lambda0`` has a row of its own, each
    bound by its own bytes), ``masked_sum`` and ``sketch_encode`` at the
@@ -349,10 +379,41 @@ RWKV_PARAMS = 705_802_240
 # the WKV scan's shape on that path (N, S, H, D): the 4 clients' 2
 # sequences folded into N
 WKV_PATH = (LM_CLIENTS * LM_BATCH, LM_SEQ, 64, 64)
+# the hybrid at full width: recurrentgemma-9b cut to one unit, 3 of its
+# 38 layers (two RG-LRU blocks, then local attention), on the LM path's
+# data, batch and rounds at I = 2 clients (I = 4 would pass 80 GB), eval
+# every round; tau = 8, where rwkv6-7b's witness cost falls (tau = 2
+# diverges there, PERF.md §4)
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_LAYERS = 3
+HYBRID_CLIENTS = 2
+HYBRID_TAU = 8.0
+HYBRID_PARAMS = 1_705_054_208
+# its attention at that path (B, S, H, Hkv, Dh): the 2 clients' 2
+# sequences folded into the batch, 16 heads of 256 on one kv head; its
+# local window (2048) covers S, so the wgmma kernel's causal instance
+# runs; and a window inside S at that shape, the banded instance, timed
+FLASH_HYBRID = (HYBRID_CLIENTS * LM_BATCH, LM_SEQ, 16, 1, 256)
+HYBRID_WINDOW = 2048
+FLASH_BAND = 256
+# the f32 kernel's band: hybrid_small's attention (4 clients' 4
+# sequences of 32 tokens, 4 heads of 16 on one kv head, window 16), and
+# two edge shapes, (shape, window)
+FLASH_F32_BAND = ((16, 32, 4, 1, 16), 16)
+FLASH_F32_BAND_EDGES = [((4, 32, 4, 1, 16), 16), ((2, 130, 4, 1, 64), 40)]
+
+
+# the card's name and power limit (nvidia-smi), once main has read them
+CARD = None
 
 
 def log(*args):
-    print(*args, flush=True)
+    """Print a line; once the card is known, with its name and power
+    limit beside the line's numbers, unless the line names it already."""
+    text = " ".join(str(a) for a in args)
+    if CARD and CARD not in text:
+        text = f"{text} [{CARD}]"
+    print(text, flush=True)
 
 
 def time_ms(fn, iters=50, repeats=7, graph=True):
@@ -904,6 +965,76 @@ def phase_flash_parity(torch):
     return path_err, f32_err, stats
 
 
+def phase_flash_band_parity(torch, card):
+    """The flash kernels' hybrid instances on the card, each call counted
+    on its variant.  The wgmma kernel at head dim 256, at the hybrid
+    path's shape FLASH_HYBRID, at window 2048 (the path's: it covers S,
+    so the causal instance runs), FLASH_BAND and 0, each held by
+    ``bf16_error_check`` to the f64 softmax of its band; the window-2048
+    output must equal the causal one bit for bit.  Then the tf32x3
+    kernel's banded instance within 2e-5 of the plain version, whose
+    einsums sum in another order than the kernel's online softmax, at
+    hybrid_small's shape and two edges.  Returns the max abs differences
+    from the plain version by ``{"kernels": [...]}`` row, and the bf16
+    check's numbers by window."""
+    from repro_torch.kernels import flash_attention as fa
+    errs, stats, outs = {}, {}, {}
+
+    def counted(variant, call):
+        before = dict(fa.flash_attention_bhsd.launches_by_variant)
+        got = call()
+        torch.cuda.synchronize()
+        before[variant] += 1
+        if fa.flash_attention_bhsd.launches_by_variant != before:
+            raise AssertionError(f"flash_attention did not launch its "
+                                 f"{variant} kernel once")
+        return got
+
+    q, k, v = flash_inputs(torch, *FLASH_HYBRID, torch.bfloat16)
+    for window in (HYBRID_WINDOW, FLASH_BAND, 0):
+        got = counted("wgmma", lambda: fa.flash_attention_bhsd(
+            q, k, v, window=window))
+        band = window if window < FLASH_HYBRID[1] else 0
+        ok, ratio, rms_got, rms_plain = fa.bf16_error_check(q, k, v, got,
+                                                            band)
+        err = float((got.float() - fa.flash_attention_plain(q, k, v, band)
+                     .float()).abs().max())
+        stats[window] = {"max_error_over_bound": ratio,
+                         "rms_error_vs_f64": rms_got,
+                         "plain_rms_error_vs_f64": rms_plain,
+                         "max_abs_from_plain": err}
+        name = f"(B, S, H, Hkv, Dh) = {FLASH_HYBRID}, bf16, window {window}"
+        log(f"flash_attention (wgmma): at {name}: {json.dumps(stats[window])}"
+            f" on {card}")
+        if not ok:
+            raise AssertionError(f"flash_attention (wgmma) outside its "
+                                 f"tolerance at {name}: {stats[window]}")
+        outs[window] = got
+    if not torch.equal(outs[HYBRID_WINDOW], outs[0]):
+        raise AssertionError(f"flash_attention (wgmma) at window "
+                             f"{HYBRID_WINDOW} >= S differs from the causal "
+                             "output")
+    log(f"flash_attention (wgmma): window {HYBRID_WINDOW} equals window 0 "
+        "bit for bit")
+    errs["flash_attention_hd256"] = stats[HYBRID_WINDOW]["max_abs_from_plain"]
+    errs["flash_attention_hd256_band"] = \
+        stats[FLASH_BAND]["max_abs_from_plain"]
+    del q, k, v, outs
+    for shape, window in [FLASH_F32_BAND] + FLASH_F32_BAND_EDGES:
+        x = flash_inputs(torch, *shape, torch.float32)
+        got = counted("tf32x3", lambda: fa.flash_attention_bhsd(
+            *x, window=window))
+        err = float((got - fa.flash_attention_plain(*x, window)).abs().max())
+        name = f"(B, S, H, Hkv, Dh) = {shape}, f32, window {window}"
+        log(f"flash_attention (tf32x3): max abs {err:.3e} from plain at "
+            f"{name} on {card}")
+        if not (err <= 2e-5 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"flash_attention (tf32x3) outside its "
+                                 f"tolerance at {name}: {err}")
+        errs.setdefault("flash_attention_tf32x3_band", err)
+    return errs, stats
+
+
 def wkv_inputs(torch, n, s, h, d, dtype, lw=None, per_seq=False, seed=0):
     """r, k, v (N(0, 1) in ``dtype``), the f32 log-decay and the f32 bonus
     on the card.  The log-decay is ``lw`` everywhere, or drawn as the
@@ -1031,8 +1162,9 @@ def lm_bf16_forward(torch):
 def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
                    variant):
     """A small LM on the card against the port's CPU run, 5 rounds, with
-    counted launches: ``layer_kernel`` once per layer per forward, each
-    launch on ``variant``; returns the launches, also by variant."""
+    counted launches: ``layer_kernel`` once per layer that launches it
+    (``kernel_layers``) per forward, each launch on ``variant``; returns
+    the launches, also by variant."""
     from repro_torch.data import partition
     data = task.default_data(n_train=96, n_test=24, seed=0)
     part = partition.iid(96, 4, seed=0)
@@ -1045,8 +1177,10 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
     launches = {k: fn.launches for k, fn in kernels.items()}
     launches.update(variant_counts(kernels))
     want = {k: 0 for k in launches}
-    # 2 layers x (one upload forward for all clients + 2 eval forwards)
-    want.update({layer_kernel: 2 * 3 * rounds, "ssca_update": rounds,
+    # kernel layers x (one upload forward for all clients + 2 eval
+    # forwards)
+    want.update({layer_kernel: kernel_layers(task.cfg) * 3 * rounds,
+                 "ssca_update": rounds,
                  "masked_sum": rounds})
     want[variant] = want[layer_kernel]
     from repro_torch import tree
@@ -1090,23 +1224,29 @@ def server_variants(torch, n_params, clients, rounds, ssca_variant):
     return want
 
 
-def lm_full_width(arch):
-    """The LM task at ``arch``'s full width, 2 layers, and its data."""
+def lm_full_width(arch, layers=LM_LAYERS):
+    """The LM task at ``arch``'s full width, cut to ``layers`` layers, and
+    its data."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.fed.tasks import LMTask
-    cfg = dataclasses.replace(get_config(arch), num_layers=LM_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     task = LMTask(cfg=cfg, seq_len=LM_SEQ)
     data = task.default_data(n_train=256, n_test=8, seed=0)
     return task, data
 
 
 def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
-                  layer_kernel, variant):
-    """An LM path at ``arch``'s full width on the card, with counted
-    launches: ``layer_kernel`` once per layer per forward, each launch on
-    ``variant``; returns the launches, also by variant, and the device
-    time by kind of one profiled round."""
+                  layer_kernel, variant, layers=LM_LAYERS,
+                  clients=LM_CLIENTS, tau=2.0, eval_every=LM_EVAL_EVERY,
+                  profile_copies=True):
+    """An LM path at ``arch``'s full width, cut to ``layers`` layers, on
+    the card over ``clients`` clients at ``tau``, with counted launches:
+    ``layer_kernel`` once per layer that launches it (``kernel_layers``)
+    per forward, each launch on ``variant``; returns the launches, also
+    by variant, and the device time by kind of one profiled round.
+    ``profile_copies``: two more rounds profiled with every tree copied
+    and read in place (``copies_saved``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
     from repro_torch.core import protocol, ssca
@@ -1114,8 +1254,8 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     from repro_torch.fed import aggregation, compression
     from repro_torch.fed.tasks import SumLoss
     t0 = time.perf_counter()
-    task, data = lm_full_width(arch)
-    part = partition.iid(len(data.x_train), LM_CLIENTS, seed=0)
+    task, data = lm_full_width(arch, layers)
+    part = partition.iid(len(data.x_train), clients, seed=0)
     log(f"{name}: data {data.x_train.shape} train, {data.x_test.shape} "
         f"test, vocab {task.cfg.vocab_size} "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1124,8 +1264,8 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
         gen = torch.Generator(device="cuda").manual_seed(0)
         return task.init_params(gen)
 
-    kw = dict(task=task, batch_size=LM_BATCH, eval_every=LM_EVAL_EVERY,
-              eval_samples=8, seed=0, secure=True, fused=True, tau=2.0,
+    kw = dict(task=task, batch_size=LM_BATCH, eval_every=eval_every,
+              eval_samples=8, seed=0, secure=True, fused=True, tau=tau,
               lam=0.0, device="cuda")
     # warm-up: the first round at these shapes picks the GEMM kernels
     t0 = time.perf_counter()
@@ -1141,11 +1281,12 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     launches.update(variant_counts(kernels))
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in launches}
-    n_evals = LM_ROUNDS // LM_EVAL_EVERY
-    want.update({layer_kernel: LM_LAYERS * (LM_ROUNDS + 2 * n_evals),
+    n_evals = LM_ROUNDS // eval_every
+    want.update({layer_kernel: kernel_layers(task.cfg)
+                 * (LM_ROUNDS + 2 * n_evals),
                  "ssca_update": LM_ROUNDS, "masked_sum": LM_ROUNDS})
     want[variant] = want[layer_kernel]
-    want.update(server_variants(torch, n_params, LM_CLIENTS, LM_ROUNDS,
+    want.update(server_variants(torch, n_params, clients, LM_ROUNDS,
                                 "lambda0"))
     log(f"{name}: launches over {LM_ROUNDS} rounds: {launches}")
     if launches != want:
@@ -1153,8 +1294,9 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     n = tree.numel(params)
     cost = hist.train_cost
     ln_v = math.log(task.cfg.vocab_size)
-    log(f"{name}: {n} parameters; train cost {cost}, test accuracy "
-        f"{hist.test_accuracy} (ln V = {ln_v:.4f})")
+    log(f"{name}: {n} parameters; tau {tau}; train cost {cost} after "
+        f"rounds {hist.rounds}, test accuracy {hist.test_accuracy} "
+        f"(ln V = {ln_v:.4f}) on {card}")
     if n != n_params:
         raise AssertionError(f"{name}: {n} parameters, want {n_params}")
     if not all(math.isfinite(c) for c in cost + hist.test_accuracy):
@@ -1166,19 +1308,19 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     shapes = tree.map(lambda w: torch.empty(w.shape, dtype=w.dtype,
                                             device="meta"), params)
     alg = protocol.SSCAUnconstrained(
-        loss_fn=SumLoss(task), hp=ssca.SSCAHyperParams(tau=2.0, lam=0.0))
+        loss_fn=SumLoss(task), hp=ssca.SSCAHyperParams(tau=tau, lam=0.0))
     ledger = compression.round_bytes(alg, aggregation.secure(), None, shapes,
-                                     LM_CLIENTS)
-    want_up = LM_CLIENTS * (4 * n_params + 4 * (LM_CLIENTS - 1))
+                                     clients)
+    want_up = clients * (4 * n_params + 4 * (clients - 1))
     if not hist.uplink_bytes_per_round == ledger.uplink_total == want_up:
         raise AssertionError(f"{name}: ledger {hist.uplink_bytes_per_round}"
                              f" B uplink, round_bytes {ledger.uplink_total},"
                              f" want {want_up}")
     log(f"{name}: ledger {hist.uplink_bytes_per_round} uplink bytes per "
-        f"round = {LM_CLIENTS} x (4 x {n_params} + 4 x {LM_CLIENTS - 1})")
+        f"round = {clients} x (4 x {n_params} + 4 x {clients - 1})")
     round_s = hist.wall_seconds / LM_ROUNDS
-    log(f"{name}: round time {round_s * 1e3:.1f} ms (I={LM_CLIENTS}, "
-        f"B={LM_BATCH}, S={LM_SEQ}, eval every {LM_EVAL_EVERY} rounds "
+    log(f"{name}: round time {round_s * 1e3:.1f} ms (I={clients}, "
+        f"B={LM_BATCH}, S={LM_SEQ}, eval every {eval_every} rounds "
         f"included), peak device memory {peak / 2 ** 30:.2f} GiB "
         f"({peak} B) on {card}")
     del params
@@ -1194,18 +1336,20 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     # where the host spends the round, for the device's idle share
     host = sorted(((e.key[:60], e.self_cpu_time_total)
                    for e in prof.key_averages()), key=lambda kv: -kv[1])[:6]
-    log(f"{name}: profile of one round:", json.dumps({
+    log(f"{name}: profile of one round on {card}:", json.dumps({
         "profiled_wall_ms": h_prof.wall_seconds * 1e3, "device_us": us,
         "device_busy_share_of_round_loop":
             busy / (h_prof.wall_seconds * 1e6),
         "largest_other_us": top_other, "largest_host_self_us": host}))
     torch.cuda.empty_cache()
-    # that round is a run's first, whose params and lin come from the
-    # init and are copied; two rounds show the second's in-place reads
-    log(f"{name}: two profiled rounds, every tree copied against in "
-        "place:", json.dumps(copies_saved(torch, lambda: runtime.run_alg1(
-            data, part, params=init(), rounds=2, **kw))))
-    torch.cuda.empty_cache()
+    if profile_copies:
+        # that round is a run's first, whose params and lin come from the
+        # init and are copied; two rounds show the second's in-place reads
+        log(f"{name}: two profiled rounds, every tree copied against in "
+            f"place, on {card}:", json.dumps(copies_saved(
+                torch, lambda: runtime.run_alg1(
+                    data, part, params=init(), rounds=2, **kw))))
+        torch.cuda.empty_cache()
     return launches, us
 
 
@@ -1256,9 +1400,20 @@ DECODE_VS_FORWARD = 2e-2
 # largest |logit|: the f32 GEMMs (TF32 off) sum in other orders
 SMALL_DECODE = 1e-4
 LAYER_KERNEL = {"llama3-8b": ("flash_attention", "flash_attention_wgmma"),
-                "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma")}
+                "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma"),
+                HYBRID_ARCH: ("flash_attention", "flash_attention_wgmma")}
 SMALL_KERNEL = {"llama3-8b": ("flash_attention", "flash_attention_tf32x3"),
-                "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma")}
+                "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma"),
+                HYBRID_ARCH: ("flash_attention", "flash_attention_tf32x3")}
+
+
+def kernel_layers(cfg):
+    """The layers of ``cfg`` that launch the layer kernel once a forward:
+    every layer, but for the hybrid only its attention layers."""
+    if cfg.family == "hybrid":
+        unit = cfg.pattern_recurrent + cfg.pattern_attn
+        return cfg.num_layers // unit * cfg.pattern_attn
+    return cfg.num_layers
 
 
 def counts(kernels):
@@ -1297,41 +1452,44 @@ def first_split_near_tie(torch, gen_a, gen_b, record, prompt_len, bound,
         raise AssertionError(f"{what}: tokens differ at a margin {margin}")
 
 
-def launch_small(torch, kernels, card, arch, dev="cuda"):
-    """The reduced ``arch`` (f32) on the card against the port's CPU run:
-    ``serve_batch`` (no kernel launched; logits within SMALL_DECODE of
-    the largest, the tokens equal but for a near-tie) and one
-    ``make_train_step`` (one ``lambda0`` launch, the layer kernel once a
-    layer; loss rtol 1e-5, parameters within 1e-5 of the CPU's)."""
+def launch_small(torch, kernels, card, arch, dev="cuda", layers=2):
+    """The reduced ``arch`` (f32, ``layers`` layers) on the card against
+    the port's CPU run: ``serve_batch`` of 16 prompt and 16 new tokens
+    (no kernel launched; logits within SMALL_DECODE of the largest, the
+    tokens equal but for a near-tie; past the hybrid's window of 16) and
+    one ``make_train_step`` (one ``lambda0`` launch, the layer kernel
+    once a layer that launches it; loss rtol 1e-5, parameters within
+    1e-5 of the CPU's)."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
     from repro_torch.core import ssca
     from repro_torch.launch import serve, steps, train
     from repro_torch.models import build_model
-    model = build_model(reduced(get_config(arch)))
+    model = build_model(reduced(get_config(arch), layers=layers))
     cfg = model.cfg
+    what = f"{arch} ({cfg.num_layers} layers)"
     p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
     p_dev = tree.map(lambda w: w.to(dev), p_cpu)
     reqs = serve.synth_requests(4, cfg, 16, 16, seed=0)
     reset_counts(kernels)
     rec_dev, rec_cpu = [], []
     gen_dev, _, _ = serve.serve_batch(model, p_dev, reqs, record=rec_dev)
-    serve_counts = check_counts(kernels, f"serve_small {arch}",
+    serve_counts = check_counts(kernels, f"serve_small {what}",
                                 want_counts(kernels))
     gen_cpu, _, _ = serve.serve_batch(model, p_cpu, reqs, record=rec_cpu)
     got = torch.cat(rec_dev, dim=1).cpu()
     want = torch.cat(rec_cpu, dim=1)
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    log(f"serve_small {arch}: card vs CPU decode logits max abs {err:.3e} "
+    log(f"serve_small {what}: card vs CPU decode logits max abs {err:.3e} "
         f"(largest |logit| {scale:.3e}, bound {SMALL_DECODE} of it); "
         f"tokens equal: {bool((gen_dev == gen_cpu).all())}; on {card}")
     if not err <= SMALL_DECODE * scale:
-        raise AssertionError(f"serve_small {arch}: card vs CPU {err}")
+        raise AssertionError(f"serve_small {what}: card vs CPU {err}")
     first_split_near_tie(torch, gen_dev, gen_cpu, rec_cpu, 16,
                          SMALL_DECODE * scale, cfg.vocab_size,
-                         f"serve_small {arch}")
+                         f"serve_small {what}")
 
     step = steps.make_train_step(model, ssca.SSCAHyperParams(tau=2.0))
     batch = next(train.batch_stream(cfg, 8, 32, device="cpu"))
@@ -1339,19 +1497,20 @@ def launch_small(torch, kernels, card, arch, dev="cuda"):
     q_dev, s_dev, m_dev = step(p_dev, ssca.init(p_dev, with_beta=False),
                                {"tokens": batch["tokens"].to(dev)})
     name, variant = SMALL_KERNEL[arch]
-    train_counts = check_counts(kernels, f"train_small {arch}", want_counts(
+    n_k = kernel_layers(cfg)
+    train_counts = check_counts(kernels, f"train_small {what}", want_counts(
         kernels, ssca_update=1, ssca_update_lambda0=1,
-        **{name: cfg.num_layers, variant: cfg.num_layers}))
+        **{name: n_k, variant: n_k}))
     q_cpu, _, m_cpu = step(p_cpu, ssca.init(p_cpu, with_beta=False), batch)
     loss_rel = abs(float(m_dev["loss"]) - float(m_cpu["loss"])) \
         / abs(float(m_cpu["loss"]))
     w_err = max(float((a.cpu() - b).abs().max())
                 for a, b in zip(tree.leaves(q_dev), tree.leaves(q_cpu)))
-    log(f"train_small {arch}: card vs CPU loss rel {loss_rel:.3e}, "
+    log(f"train_small {what}: card vs CPU loss rel {loss_rel:.3e}, "
         f"parameters max abs {w_err:.3e} on {card}; launches "
         f"{train_counts}")
     if not (loss_rel <= 1e-5 and w_err <= 1e-5):
-        raise AssertionError(f"train_small {arch}: card vs CPU {loss_rel}, "
+        raise AssertionError(f"train_small {what}: card vs CPU {loss_rel}, "
                              f"{w_err}")
     return serve_counts, train_counts
 
@@ -1361,7 +1520,8 @@ def decode_floor_ms(cfg, params):
     weights read, their bf16 cast written and read again, and the f32
     embedding table read (the lookup and the tied unembedding), over the
     card's memory rate; the KV cache and activations are left out."""
-    n_layers = sum(w.numel() for w in params["blocks"].values())
+    n_layers = sum(w.numel() for key in ("blocks", "tail")
+                   for w in params.get(key, {}).values())
     nbytes = n_layers * (4 + 2 + 2) + params["embed"].numel() * 4
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
@@ -1391,7 +1551,8 @@ def decode_profile(torch, model, params, batch):
 
 
 def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
-    """``arch`` at full width, 2 of its layers, serving SERVE_REQUESTS
+    """``arch`` at full width, 2 of its layers (or as ``cut`` cuts its
+    config), serving SERVE_REQUESTS
     synthetic requests in batches of SERVE_BATCH: no hand-written kernel
     in the decode loop; the decode logits against a teacher-forced
     ``forward`` over prompt and generated tokens and ``make_prefill_step``
@@ -1407,9 +1568,11 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, steps
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config(arch), num_layers=LM_LAYERS)
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, num_layers=LM_LAYERS)
     if cut is not None:
         cfg = cut(cfg)
+    n_k = kernel_layers(cfg)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
@@ -1439,8 +1602,7 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
         last = prefill(params, {"tokens": prompt})
         got = check_counts(
             kernels, f"serve {arch} forward and prefill", want_counts(
-                kernels, **{name: 2 * cfg.num_layers,
-                            variant: 2 * cfg.num_layers}))
+                kernels, **{name: 2 * n_k, variant: 2 * n_k}))
         by_part["check"] = {k: n + got[k]
                             for k, n in by_part["check"].items()}
         dec = torch.cat(record, dim=1)
@@ -1463,9 +1625,9 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
     profiled = decode_profile(torch, model, params, reqs[:SERVE_BATCH])
     b = SERVE_BATCH
     step_ms = [s["decode_s"] / SERVE_NEW * 1e3 for s in stats]
-    log(f"serve {arch} (2 of 32 layers, {SERVE_REQUESTS} requests in "
-        f"batches of {b}, prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens) "
-        f"on {card}:", json.dumps({
+    log(f"serve {arch} ({cfg.num_layers} of {published.num_layers} layers, "
+        f"{SERVE_REQUESTS} requests in batches of {b}, prompt "
+        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens) on {card}:", json.dumps({
             "cache_filling_prefill_s": [s["prefill_s"] for s in stats],
             "prefill_tokens_per_s": [b * SERVE_PROMPT / s["prefill_s"]
                                      for s in stats],
@@ -1509,7 +1671,8 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
 def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
                       cut=None):
     """``launch/train.py``'s defaults (batch 8, seq 128, τ = 2, the
-    reference's schedules) at ``arch``'s full width, 2 of its layers:
+    reference's schedules) at ``arch``'s full width, 2 of its layers (or
+    as ``cut`` cuts its config):
     TRAIN_STEPS steps of ``make_train_step`` (one ``lambda0`` launch a
     step, the layer kernel once a layer), a checkpoint of the parameters
     and SSCA's lin after step TRAIN_CKPT_AT in a temporary directory
@@ -1524,9 +1687,11 @@ def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
     from repro_torch.core.schedules import PowerLaw
     from repro_torch.launch import steps, train
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config(arch), num_layers=LM_LAYERS)
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, num_layers=LM_LAYERS)
     if cut is not None:
         cfg = cut(cfg)
+    n_k = kernel_layers(cfg)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
@@ -1558,8 +1723,7 @@ def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
         launches = check_counts(kernels, f"train {arch}", want_counts(
             kernels, ssca_update=TRAIN_STEPS,
             ssca_update_lambda0=TRAIN_STEPS,
-            **{name: TRAIN_STEPS * cfg.num_layers,
-               variant: TRAIN_STEPS * cfg.num_layers}))
+            **{name: TRAIN_STEPS * n_k, variant: TRAIN_STEPS * n_k}))
         peak = torch.cuda.max_memory_allocated()
         whole = tree.leaves(params)
         t0 = time.perf_counter()
@@ -1581,8 +1745,9 @@ def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
     same = resumed == losses[start:] and all(
         torch.equal(a, b) for a, b in zip(tree.leaves(params), whole))
     ln_v = math.log(cfg.vocab_size)
-    log(f"train {arch} (2 of 32 layers, batch {TRAIN_BATCH}, seq "
-        f"{TRAIN_SEQ}, tau 2) on {card}:", json.dumps({
+    log(f"train {arch} ({cfg.num_layers} of {published.num_layers} layers, "
+        f"batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, tau 2) on {card}:",
+        json.dumps({
             "losses": losses, "ln_V": ln_v, "step_s": times,
             "peak_device_bytes": peak, "checkpoint_bytes": nbytes,
             "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
@@ -1605,18 +1770,27 @@ def phase_launch(torch, kernels, card):
     """The launch entry points: the small width against the CPU, then
     serving and the train step at full width.  Returns each path's
     launches for the ``{"kernels": [...]}`` line."""
+    import dataclasses
     t0 = time.perf_counter()
     by_path = {}
-    for arch, short in (("llama3-8b", "llama"), ("rwkv6-7b", "rwkv")):
+    for arch, short, layers in (("llama3-8b", "llama", 2),
+                                ("rwkv6-7b", "rwkv", 2),
+                                (HYBRID_ARCH, "hybrid", 3),
+                                (HYBRID_ARCH, "hybrid_tail", 5)):
         by_path[f"serve_small_{short}"], by_path[f"train_small_{short}"] = \
-            launch_small(torch, kernels, card, arch)
-    for arch, short in (("llama3-8b", "llama"), ("rwkv6-7b", "rwkv")):
-        parts = launch_full_serve(torch, kernels, card, arch)
+            launch_small(torch, kernels, card, arch, layers=layers)
+    hybrid_cut = lambda c: dataclasses.replace(c, num_layers=HYBRID_LAYERS)
+    for arch, short, cut in (("llama3-8b", "llama", None),
+                             ("rwkv6-7b", "rwkv", None),
+                             (HYBRID_ARCH, "hybrid", hybrid_cut)):
+        parts = launch_full_serve(torch, kernels, card, arch, cut=cut)
         by_path[f"serve_{short}_full_decode"] = parts["decode"]
         by_path[f"serve_{short}_full_forward"] = parts["check"]
         if "ring" in parts:
             by_path[f"serve_{short}_full_ring"] = parts["ring"]
     by_path["train_llama_full"] = launch_full_train(torch, kernels, card)
+    by_path["train_hybrid_full"] = launch_full_train(
+        torch, kernels, card, HYBRID_ARCH, cut=hybrid_cut)
     log(f"launch phase: {time.perf_counter() - t0:.1f} s")
     return by_path
 
@@ -2728,8 +2902,24 @@ def sdpa_backend(torch, lib_inputs, enable_gqa=True):
         *lib_inputs, is_causal=True, enable_gqa=enable_gqa)).name
 
 
+def band_pairs(s, window=0):
+    """(query, visible key) pairs of one (batch row, head) at sequence
+    length ``s``: query i sees min(i + 1, window) keys (all i + 1 without
+    a window)."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+# the paths whose flash launches are the hybrid's instances (head dim
+# 256 on the wgmma kernel, the band on the tf32x3 one): the flash rows
+# count their launches apart
+def hybrid_path(name):
+    return "hybrid" in name
+
+
 def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
-                 flash_stats):
+                 flash_stats, band_stats):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     n = 794 * 128
@@ -2778,13 +2968,13 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     # FLOPs take either f32 FMAs at the SIMT peak or three TF32 passes at
     # the tensor cores' rate, and the least time is the faster route
     # (the three passes, at a third of 495 TFLOP/s, against 67)
-    def flash_work(b, s, h, hkv, dh, dtype, seed):
+    def flash_work(b, s, h, hkv, dh, dtype, seed, window=0):
         x = flash_inputs(torch, b, s, h, hkv, dh, dtype, seed=seed)
         nbytes = x[0].element_size() * (2 * x[0].numel() + 2 * x[1].numel())
         # the library's layout is (B, H, S, Dh): transposed once, outside
         # the timed call
         lib = tuple(t.transpose(1, 2).contiguous() for t in x)
-        return x, lib, nbytes, 2 * 2 * dh * b * h * s * (s + 1) // 2
+        return x, lib, nbytes, 2 * 2 * dh * b * h * band_pairs(s, window)
 
     def f32_route(flops):
         kind = min(("f32", "tf32x3"), key=lambda k: flops / RATES[k])
@@ -2795,6 +2985,19 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                                                2)
     wx, wlib, fw_bytes, fw_flops = flash_work(*FLASH_F32_WIDE, torch.float32,
                                               2)
+    # the hybrid's: head dim 256 at its path's shape (window 2048 >= S:
+    # the causal pairs), the same inputs at FLASH_BAND (the band's pairs),
+    # and the f32 band at hybrid_small's shape; the library takes the
+    # band as a boolean mask (True: attend)
+    hx, hlib, fh_bytes, fh_flops = flash_work(*FLASH_HYBRID, torch.bfloat16,
+                                              2)
+    fb_flops = 2 * 2 * FLASH_HYBRID[4] * FLASH_HYBRID[0] * FLASH_HYBRID[2] \
+        * band_pairs(FLASH_HYBRID[1], FLASH_BAND)
+    hmask = fa.band_mask(FLASH_HYBRID[1], FLASH_BAND, "cuda")
+    f32_band_shape, f32_band = FLASH_F32_BAND
+    bx, blib, fbs_bytes, fbs_flops = flash_work(*f32_band_shape,
+                                                torch.float32, 2, f32_band)
+    bmask = fa.band_mask(f32_band_shape[1], f32_band, "cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_backends = {"flash_attention_tf32x3": sdpa_backend(torch, slib),
                      "flash_attention_f32_wide": sdpa_backend(torch, wlib)}
@@ -2807,9 +3010,28 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     # the small LM's shape and a timing row at FLASH_F32_WIDE, a width no
     # path runs in f32, whose launches are 0
     launch_key = {"flash_attention": "flash_attention_wgmma",
+                  "flash_attention_hd256": "flash_attention_wgmma",
+                  "flash_attention_tf32x3_band": "flash_attention_tf32x3",
                   "rwkv6_wkv": "rwkv6_wkv_mma",
                   "ssca_update": "ssca_update_beta"}
-    timing_only = {"flash_attention_f32_wide"}
+    timing_only = {"flash_attention_f32_wide", "flash_attention_hd256_band"}
+    # the flash rows split their variant's launches by path: the hybrid's
+    # instances on its rows, the others' on theirs
+    path_of_row = {"flash_attention": lambda p: not hybrid_path(p),
+                   "flash_attention_tf32x3": lambda p: not hybrid_path(p),
+                   "flash_attention_hd256": hybrid_path,
+                   "flash_attention_tf32x3_band": hybrid_path}
+
+    def row_launches(name):
+        if name in timing_only:
+            return 0, {}
+        key = launch_key.get(name, name)
+        if name not in path_of_row:
+            return launches[key], {p: v.get(key, 0)
+                                   for p, v in by_path.items()}
+        per = {p: v.get(key, 0) for p, v in by_path.items()
+               if path_of_row[name](p)}
+        return sum(per.values()), per
     for name, src, replaces, kern, plain, library, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
              "src/repro/kernels/ssca_update.py:54",
@@ -2858,6 +3080,27 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
              lambda: fa.flash_attention_plain(*wx),
              lambda: sdpa(*wlib, is_causal=True, enable_gqa=True),
              fw_bytes, f32_route(fw_flops)),
+            ("flash_attention_hd256",
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention.py:78",
+             lambda: fa.flash_attention_bhsd(*hx, window=HYBRID_WINDOW),
+             lambda: fa.flash_attention_plain(*hx),
+             lambda: sdpa(*hlib, is_causal=True, enable_gqa=True),
+             fh_bytes, {"bf16": fh_flops}),
+            ("flash_attention_hd256_band",
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention.py:78",
+             lambda: fa.flash_attention_bhsd(*hx, window=FLASH_BAND),
+             lambda: fa.flash_attention_plain(*hx, FLASH_BAND),
+             lambda: sdpa(*hlib, attn_mask=hmask, enable_gqa=True),
+             fh_bytes, {"bf16": fb_flops}),
+            ("flash_attention_tf32x3_band",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:78",
+             lambda: fa.flash_attention_bhsd(*bx, window=f32_band),
+             lambda: fa.flash_attention_plain(*bx, f32_band),
+             lambda: sdpa(*blib, attn_mask=bmask, enable_gqa=True),
+             fbs_bytes, f32_route(fbs_flops)),
             ("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_scan_sm90.cu",
              "src/repro/kernels/rwkv6_scan.py:71",
              lambda: rw.rwkv6_wkv_bh(*wkx), lambda: rw.wkv_plain(*wkx),
@@ -2871,14 +3114,12 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
         parts.update({k: v / RATES[k] * 1e3 for k, v in ops.items()})
         bytes_ms = parts["bytes"]
         ops_ms = max(v for k, v in parts.items() if k != "bytes")
+        n_launches, per_path = row_launches(name)
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": (0 if name in timing_only
-                         else launches[launch_key.get(name, name)]),
-            "launches_by_path": ({} if name in timing_only else
-                                 {p: v.get(launch_key.get(name, name), 0)
-                                  for p, v in by_path.items()}),
+            "launches": n_launches,
+            "launches_by_path": per_path,
             "max_abs_err": errs[name], "ms": time_ms(kern),
             "plain_ms": time_ms(plain, iters=5, repeats=3),
             "bound_ms": max(bytes_ms, ops_ms),
@@ -2917,8 +3158,15 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
         if name.startswith("flash_attention"):
             rows[-1]["shape"] = list(
                 {"flash_attention": FLASH_PATH,
-                 "flash_attention_tf32x3": FLASH_SMALL}.get(name,
-                                                            FLASH_F32_WIDE))
+                 "flash_attention_tf32x3": FLASH_SMALL,
+                 "flash_attention_hd256": FLASH_HYBRID,
+                 "flash_attention_hd256_band": FLASH_HYBRID,
+                 "flash_attention_tf32x3_band": f32_band_shape}.get(
+                     name, FLASH_F32_WIDE))
+            rows[-1]["window"] = {"flash_attention_hd256": HYBRID_WINDOW,
+                                  "flash_attention_hd256_band": FLASH_BAND,
+                                  "flash_attention_tf32x3_band": f32_band
+                                  }.get(name, 0)
             rows[-1]["achieved_tflops"] = sum(ops.values()) \
                 / (rows[-1]["ms"] * 1e-3) / 1e12
         if name in sdpa_backends:
@@ -2941,6 +3189,10 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
             del rep
         if name == "flash_attention":
             rows[-1]["bf16_check"] = flash_stats
+        if name == "flash_attention_hd256":
+            rows[-1]["bf16_check"] = band_stats[HYBRID_WINDOW]
+        if name == "flash_attention_hd256_band":
+            rows[-1]["bf16_check"] = band_stats[FLASH_BAND]
         if name == "rwkv6_wkv":
             rows[-1]["shape"] = list(WKV_PATH)
             rows[-1]["launches_by_variant"] = {
@@ -2950,7 +3202,8 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
             "launched eagerly from Python (wrapper overhead included)")
     floor = launch_floor_ms(torch)
     small = ("ssca_update", "ssca_update_lambda0", "masked_sum",
-             "sketch_encode", "flash_attention_tf32x3")
+             "sketch_encode", "flash_attention_tf32x3",
+             "flash_attention_tf32x3_band")
     for row in rows:
         if row["name"] in small:
             row["launch_floor_ms"] = floor
@@ -4045,7 +4298,9 @@ def rank_inputs():
 # every other Algorithm-1 path runs λ = 1e-5 and launches ``beta``
 LAMBDA0_PATHS = ("lm_small", "lm_full_width", "rwkv_small",
                  "rwkv_full_width", "train_small_llama", "train_small_rwkv",
-                 "train_llama_full")
+                 "train_llama_full", "hybrid_small", "hybrid_small_tail",
+                 "hybrid_full_width", "train_small_hybrid",
+                 "train_small_hybrid_tail", "train_hybrid_full")
 
 
 def check_ssca_variants(by_path):
@@ -4075,6 +4330,7 @@ def same_mesh_run(torch, p_m, h_m, single):
 
 
 def main() -> int:
+    global CARD
     # the full-width LM path allocates and frees many tensors of 4-8 GB;
     # growable segments keep the freed ones reusable (set before CUDA
     # starts)
@@ -4106,14 +4362,19 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+    CARD = card
     log(card)
     t0 = time.perf_counter()
     build.load()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s)")
     log("flash_attention (registers a thread, spill bytes a thread, shared "
-        "bytes a block) by head dim:", json.dumps(
-            {dh: fa.kernel_attributes(dh) for dh in fa.HEAD_DIMS}))
+        "bytes a block) by head dim, causal and banded instances:",
+        json.dumps({f"{dh}{' band' if band else ''}":
+                    fa.kernel_attributes(dh, band)
+                    for dh in sorted({d for dims in fa.HEAD_DIMS.values()
+                                      for d in dims})
+                    for band in (False, True)}))
     log("rwkv6_wkv (registers a thread, spill bytes a thread, shared bytes "
         "a block) by instance:", json.dumps(rw.kernel_attributes()))
     log("masked_sum (registers a thread, spill bytes a thread, shared bytes "
@@ -4124,6 +4385,8 @@ def main() -> int:
     errs["flash_attention"], f32_err, flash_stats = phase_flash_parity(torch)
     errs["flash_attention_tf32x3"] = f32_err[FLASH_SMALL]
     errs["flash_attention_f32_wide"] = f32_err[FLASH_F32_WIDE]
+    band_errs, band_stats = phase_flash_band_parity(torch, card)
+    errs.update(band_errs)
     errs["rwkv6_wkv"] = phase_wkv_parity(torch)
 
     t0 = time.perf_counter()
@@ -4189,6 +4452,21 @@ def main() -> int:
         torch, kernels, runtime, card, "rwkv_full", "rwkv6-7b", RWKV_PARAMS,
         "rwkv6_wkv", "rwkv6_wkv_mma")
     phase_tau_witness(torch, runtime, "rwkv_full", "rwkv6-7b")
+    # the hybrid: one attention layer a forward, the f32 band at small
+    # width, the wgmma kernel's head-dim-256 instance at full width
+    t0 = time.perf_counter()
+    for name, layers in (("hybrid_small", 3), ("hybrid_small_tail", 5)):
+        by_path[name] = phase_lm_small(
+            torch, kernels, runtime, name,
+            transformer_task(HYBRID_ARCH, layers=layers), "flash_attention",
+            "flash_attention_tf32x3")
+    by_path["hybrid_full_width"], profiled["hybrid_full_width"] = \
+        phase_lm_full(torch, kernels, runtime, card, "hybrid_full",
+                      HYBRID_ARCH, HYBRID_PARAMS, "flash_attention",
+                      "flash_attention_wgmma", layers=HYBRID_LAYERS,
+                      clients=HYBRID_CLIENTS, tau=HYBRID_TAU, eval_every=1,
+                      profile_copies=False)
+    log(f"hybrid phase: {time.perf_counter() - t0:.1f} s")
     by_path.update(phase_launch(torch, kernels, card))
     check_ssca_variants(by_path)
     total = {k: sum(p.get(k, 0) for p in by_path.values())
@@ -4202,7 +4480,7 @@ def main() -> int:
     ring_direct = ring_full_width(torch, sa)
     phase_profile(torch, data, part, params, runtime)
     rows = phase_timing(torch, su, sa, kc, ks, fa, rw, total, by_path, errs,
-                        flash_stats)
+                        flash_stats, band_stats)
     rows.append(ring_row(torch, sa, total, by_path,
                          errs["masked_ring_sum"], ring_direct))
     full_width_rows(rows, by_path, profiled, direct)

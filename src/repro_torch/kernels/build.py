@@ -118,11 +118,12 @@ def load() -> ctypes.CDLL:
                                           p]
     cdll.sketch_encode_launch.restype = i32
     for fn in (cdll.flash_attention_launch, cdll.flash_attention_sm90_launch):
-        fn.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, ctypes.c_float,
+                       i32, p]
         fn.restype = i32
     for fn in (cdll.flash_attention_attributes,
                cdll.flash_attention_sm90_attributes):
-        fn.argtypes = [i32, ctypes.POINTER(i32)]
+        fn.argtypes = [i32, i32, ctypes.POINTER(i32)]
         fn.restype = None
     cdll.rwkv6_wkv_sm90_launch.argtypes = [p, p, p, p, p, p, i32, i32, i32,
                                            i32, i64, i32, p]

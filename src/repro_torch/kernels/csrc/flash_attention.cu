@@ -1,13 +1,17 @@
 // Causal flash attention with grouped-query heads (GQA), f32 q/k/v on the
-// tensor cores: every product a 3xTF32 mma.sync.
+// tensor cores: every product a 3xTF32 mma.sync; with an optional
+// sliding window.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_bhsd and the head
-// mapping of its wrapper src/repro/kernels/ops.py::flash_attention.  For
+// mapping of its wrapper src/repro/kernels/ops.py::flash_attention; with
+// window > 0, also the band of the reference model's
+// src/repro/models/attention.py::attend(window=), which runs in XLA.  For
 // each batch row b, query head h (kv head hk = h / (H / Hkv)) and query
-// position i:
+// position i, over the visible keys j <= i (and, with window > 0,
+// j > i - window):
 //
-//   out[b, i, h, :] = sum_{j <= i} softmax_j(scale * q[b,i,h,:] . k[b,j,hk,:])
+//   out[b, i, h, :] = sum_j softmax_j(scale * q[b,i,h,:] . k[b,j,hk,:])
 //                     * v[b, j, hk, :]
 //
 // with f32 scores, probabilities and accumulators; q/k/v and out are f32,
@@ -55,9 +59,17 @@
 // cores' TF32 rate on Hopper, and the splits and the softmax issue beside
 // it; wgmma (m64nNk8, B from shared memory, asynchronous) is the route
 // to the rest.
-// Ragged S: query rows past S load as zero and are not stored; the first
-// tile holds key 0, which every row sees, so the running max is finite
-// from then on and masked scores add exp2(-inf) = 0.
+// Ragged S: query rows past S load as zero and are not stored; without a
+// window the first tile holds key 0, which every row sees, so the running
+// max is finite from then on and masked scores add exp2(-inf) = 0.
+// The band (window > 0): the block walks the tiles from the one holding
+// key q0 - window + 1 (q0 its first row); a warp skips a tile wholly below
+// its first row's band, and masks the tiles that cross its last row's
+// lower edge as it masks the diagonal one.  A row may then see no key of
+// its first tile: its running max stays -inf, and the softmax takes 0 as
+// its base there, so such scores add exp2(-inf) = 0 and not NaN.  The
+// band is a template flag: the causal instance (kBand false) carries none
+// of its code, and keeps its registers.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -85,13 +97,13 @@ struct Layout {
   }
 };
 
-template <int D>
+template <int D, bool kBand>
 __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ out, int seq, int heads,
-                           int kv_heads, float scale) {
+                           int kv_heads, float scale, int window) {
   using L = Layout<D>;
   constexpr int kKS = L::kKS, kVS = L::kVS;
   constexpr int kGroups = D / 16;   // 16-dim groups of q and k
@@ -115,6 +127,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
   float* ob = out + (int64_t)b * seq * q_pos + (int64_t)h * D;
 
   const int tiles = (min(q0 + rows_block, seq) - 1) / kKeys + 1;
+  // the band's first tile: the one holding key q0 - window + 1
+  const int t_first = kBand && q0 >= window ? (q0 - window + 1) / kKeys : 0;
   const int w0 = q0 + 16 * warp;   // the warp's first row
   const int w_last = w0 + 15;
   const int r0 = w0 + g, r1 = r0 + 8;   // this thread's two rows
@@ -137,7 +151,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
-  stage(0);
+  stage(t_first);
 
   // this thread's q (rows r0 and r1, dims 16 j + 4 t4 .. + 3 of each
   // group j) as A fragments, kept in shared memory for want of registers:
@@ -166,12 +180,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
   float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows r0, r1
   float l0 = 0.0f, l1 = 0.0f;             // this thread's part of the sums
 
-  for (int t = 0; t < tiles; ++t) {
+  for (int t = t_first; t < tiles; ++t) {
     stage(t + 1);
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();   // tile t has landed for every thread
     const int n0 = t * kKeys;
-    if (n0 <= w_last && w0 < seq) {
+    // the warp's rows see keys up to w_last and, with a window, from
+    // w0 - window + 1
+    if (n0 <= w_last && w0 < seq &&
+        (!kBand || n0 + kKeys - 1 > w0 - window)) {
       const float* ks = kv0 + (t & 1) * L::kStage;
       const float* vs = ks + kKeys * kKS;
 
@@ -220,8 +237,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
       }
 
       // scale (times log2 e, for exp2), the causal mask on the diagonal
-      // tile, the row max over the quad
+      // tile and the band's on a tile across its lower edge, the row max
+      // over the quad
       const bool diag = n0 + kKeys - 1 > w0;
+      const bool edge = kBand && n0 <= w_last - window;
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < kKeyTiles; ++nt) {
@@ -230,8 +249,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
           const int key = n0 + 8 * nt + 2 * t4 + e;
           const float x0 = s[nt][e] * scale_log2;
           const float x1 = s[nt][2 + e] * scale_log2;
-          s[nt][e] = diag && key > r0 ? -INFINITY : x0;
-          s[nt][2 + e] = diag && key > r1 ? -INFINITY : x1;
+          s[nt][e] = (diag && key > r0) || (edge && key <= r0 - window)
+                         ? -INFINITY
+                         : x0;
+          s[nt][2 + e] = (diag && key > r1) || (edge && key <= r1 - window)
+                             ? -INFINITY
+                             : x1;
           mx0 = fmaxf(mx0, s[nt][e]);
           mx1 = fmaxf(mx1, s[nt][2 + e]);
         }
@@ -242,7 +265,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
       const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+      // the softmax's base: the running max, or 0 for a row that has
+      // seen no key yet (only under a band)
+      const float b0 = kBand && mn0 == -INFINITY ? 0.0f : mn0;
+      const float b1 = kBand && mn1 == -INFINITY ? 0.0f : mn1;
+      const float alpha0 = exp2f(m0 - b0), alpha1 = exp2f(m1 - b1);
       m0 = mn0;
       m1 = mn1;
       float sum0 = 0.0f, sum1 = 0.0f;
@@ -250,8 +277,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
       for (int nt = 0; nt < kKeyTiles; ++nt) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          s[nt][e] = exp2f(s[nt][e] - mn0);
-          s[nt][2 + e] = exp2f(s[nt][2 + e] - mn1);
+          s[nt][e] = exp2f(s[nt][e] - b0);
+          s[nt][2 + e] = exp2f(s[nt][2 + e] - b1);
           sum0 += s[nt][e];
           sum1 += s[nt][2 + e];
         }
@@ -316,10 +343,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int seq, int heads, int kv_heads, float scale,
-                   cudaStream_t stream) {
+template <int D, bool kBand>
+cudaError_t launch_instance(const void* q, const void* k, const void* v,
+                            void* out, int batch, int seq, int heads,
+                            int kv_heads, float scale, int window,
+                            cudaStream_t stream) {
   const int warps = min(kMaxWarps, (seq + 15) / 16);
   const size_t smem = Layout<D>::smem(warps);
   // above 48 KB a block's dynamic shared memory must be allowed first;
@@ -328,7 +356,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<D>,
+        flash_attention_kernel<D, kBand>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)Layout<D>::smem(kMaxWarps));
     if (e != cudaSuccess) return e;
@@ -336,17 +364,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   const int rows = 16 * warps;
   const dim3 grid((seq + rows - 1) / rows, heads, batch);
-  flash_attention_kernel<D><<<grid, 32 * warps, smem, stream>>>(
+  flash_attention_kernel<D, kBand><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), seq, heads,
-      kv_heads, scale);
+      kv_heads, scale, window);
   return cudaGetLastError();
 }
 
+// the causal instance without a window, the banded one with
 template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int batch, int seq, int heads, int kv_heads, float scale,
+                   int window, cudaStream_t stream) {
+  return window > 0 ? launch_instance<D, true>(q, k, v, out, batch, seq,
+                                                heads, kv_heads, scale,
+                                                window, stream)
+                    : launch_instance<D, false>(q, k, v, out, batch, seq,
+                                                 heads, kv_heads, scale, 0,
+                                                 stream);
+}
+
+template <int D, bool kBand>
 void attributes(int* out) {
   cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, flash_attention_kernel<D>) != cudaSuccess) {
+  if (cudaFuncGetAttributes(&a, flash_attention_kernel<D, kBand>) !=
+      cudaSuccess) {
     out[0] = out[1] = out[2] = -1;
     return;
   }
@@ -359,44 +401,53 @@ void attributes(int* out) {
 
 // q/out: device (batch, seq, heads, head_dim), k/v: device (batch, seq,
 // kv_heads, head_dim), contiguous f32 at 16-byte aligned addresses;
-// kv_heads divides heads; head_dim is 16, 32, 64 or 128.  Launches on
-// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for a
-// head_dim or head count the kernel does not take).
+// kv_heads divides heads; head_dim is 16, 32, 64 or 128 (256 has no
+// instance: its two K/V stages alone take 256 KB of shared memory);
+// window >= 0 (0: causal only; else key j is visible to query i iff
+// i - window < j <= i).  Launches on `stream`; returns cudaGetLastError()
+// (cudaErrorInvalidValue for a head_dim, head count or window the kernel
+// does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int seq, int heads, int kv_heads,
-                                      int head_dim, float scale,
+                                      int head_dim, float scale, int window,
                                       void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads) return (int)cudaErrorInvalidValue;
+  if (kv_heads <= 0 || heads % kv_heads || window < 0)
+    return (int)cudaErrorInvalidValue;
   if (batch == 0 || seq == 0 || heads == 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   switch (head_dim) {
     case 16:
       return (int)launch<16>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, s);
+                             scale, window, s);
     case 32:
       return (int)launch<32>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, s);
+                             scale, window, s);
     case 64:
       return (int)launch<64>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, s);
+                             scale, window, s);
     case 128:
       return (int)launch<128>(q, k, v, out, batch, seq, heads, kv_heads,
-                              scale, s);
+                              scale, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // registers a thread, local (spill) bytes a thread and dynamic shared
-// bytes a block of the instance for head_dim, into out[0..2] (-1 each for
-// a head_dim without an instance)
-extern "C" void flash_attention_attributes(int head_dim, int* out) {
-  switch (head_dim) {
-    case 16: return attributes<16>(out);
-    case 32: return attributes<32>(out);
-    case 64: return attributes<64>(out);
-    case 128: return attributes<128>(out);
+// bytes a block of the instance for head_dim, causal (band 0) or banded
+// (band 1), into out[0..2] (-1 each for a head_dim without an instance)
+extern "C" void flash_attention_attributes(int head_dim, int band,
+                                           int* out) {
+  switch (head_dim * 2 + (band != 0)) {
+    case 32: return attributes<16, false>(out);
+    case 33: return attributes<16, true>(out);
+    case 64: return attributes<32, false>(out);
+    case 65: return attributes<32, true>(out);
+    case 128: return attributes<64, false>(out);
+    case 129: return attributes<64, true>(out);
+    case 256: return attributes<128, false>(out);
+    case 257: return attributes<128, true>(out);
     default: out[0] = out[1] = out[2] = -1;
   }
 }

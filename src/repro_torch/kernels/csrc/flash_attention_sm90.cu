@@ -1,14 +1,17 @@
 // Causal flash attention with grouped-query heads (GQA), bf16 q/k/v on
-// Hopper's tensor cores.
+// Hopper's tensor cores, with an optional sliding window.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py:78 (flash_attention_bhsd) and the
 // head mapping of its wrapper src/repro/kernels/ops.py::flash_attention,
 // for bf16 inputs (f32 inputs go to the 3xTF32 kernel of
-// flash_attention.cu).  For each batch row b, query head h (kv head
-// hk = h / (H / Hkv)) and query position i:
+// flash_attention.cu); with window > 0, also the band of the reference
+// model's src/repro/models/attention.py::attend(window=), which runs in
+// XLA.  For each batch row b, query head h (kv head hk = h / (H / Hkv))
+// and query position i, over the visible keys j <= i (and, with
+// window > 0, j > i - window):
 //
-//   out[b, i, h, :] = sum_{j <= i} softmax_j(scale * q[b,i,h,:] . k[b,j,hk,:])
+//   out[b, i, h, :] = sum_j softmax_j(scale * q[b,i,h,:] . k[b,j,hk,:])
 //                     * v[b, j, hk, :]
 //
 // with f32 scores, softmax statistics and accumulators, in the model's
@@ -56,6 +59,24 @@
 //   diagonal is masked, and tiles wholly above it are never loaded.
 //   GQA needs no packing: all of K and V at the path shape (33.5 MB) fits
 //   the 50 MB L2, and consecutive items are heads of one kv group.
+// * the band (window > 0): an item loads only the key tiles from the one
+//   holding key q0 - window + 1 (q0 its first row) up to the diagonal;
+//   the tiles that cross the band's lower edge are masked as the diagonal
+//   one is.  An item's cost is its number of in-band tiles, which does
+//   not fall as its query tile moves later, so the longest-first order
+//   stays the order of the query tiles, last first;
+// * head dim 256 (recurrentgemma-9b) takes tiles of its own (Tile<256>):
+//   at 128 x 128 tiles its Q, staged O and two K/V stages would need 384
+//   KB of shared memory, past the 227 KB a block may take, and two
+//   consumer warpgroups' O (64 x 256 f32, 128 registers a thread) beside
+//   S and P would pass the 168 registers a thread of a 384-thread block.
+//   So one consumer warpgroup takes 64 query rows against tiles of 64
+//   keys, in a block of 256 threads (255 registers a thread, no
+//   setmaxnreg): Q 32 KB, O 32 KB, K and V 2 x 2 x 32 KB, 192 KB; four
+//   64-column TMA boxes span Dh at the 128-byte swizzle.  It issues half
+//   the wgmma of the 128-row tiles a block, a simple instance first.
+// The band is a template flag: the causal instances (kBand false) carry
+// none of its code, and keep their registers.
 // Not done: FA3's overlap of a warpgroup's softmax with its own next
 // Q.K^T, and its ping-pong turns between the two warpgroups.  Both keep S,
 // O and P live at once, and ptxas allocates one register count for the
@@ -72,16 +93,20 @@
 
 namespace {
 
-constexpr int kBlockM = 128;     // query rows a block
-constexpr int kBlockN = 128;     // keys a K/V tile
 constexpr int kWgRows = 64;      // query rows a consumer warpgroup
 constexpr int kStages = 2;       // K/V ring depth
-constexpr int kThreads = 384;    // producer warpgroup + 2 consumer warpgroups
-constexpr int kConsumerWarps = 8;
 
-// Per head dim: TMA box width, swizzle and the wgmma descriptor fields.
+// Per head dim: the block's shape, TMA box width, swizzle and the wgmma
+// descriptor fields.  Dh <= 128: two consumer warpgroups, 128 query rows
+// and 128-key tiles; Dh 256: one, 64 and 64.  kBlockM = kBlockN, so an
+// item's last tile is its diagonal one.
 template <int D>
 struct Tile {
+  static constexpr int kConsumers = D > 128 ? 1 : 2;  // consumer warpgroups
+  static constexpr int kBlockM = kWgRows * kConsumers;   // query rows a block
+  static constexpr int kBlockN = kBlockM;                // keys a K/V tile
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerWarps = 4 * kConsumers;
   static constexpr int kBoxCols = D < 64 ? D : 64;   // columns a TMA box
   static constexpr int kBoxes = D / kBoxCols;        // boxes across Dh
   static constexpr int kRowBytes = 2 * kBoxCols;     // = the swizzle span
@@ -225,17 +250,37 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
       "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
       "%58, %59, %60, %61, %62, %63"
 
-// S (64 x 128, f32) = Q (64 x 16) . K^T (16 x 128) (+ S when scale_d),
-// both operands from shared memory, K-major.
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" L64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : R64(d, 0)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+#define R128(d, i) R64(d, i), R64(d, i + 64)
+#define L128                                                              \
+  L64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, " \
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "   \
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, " \
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "  \
+      "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "  \
+      "%125, %126, %127"
+
+// S (64 x N, f32) = Q (64 x 16) . K^T (16 x N) (+ S when scale_d), both
+// operands from shared memory, K-major.
+template <int N>
+struct WgmmaQK;
+
+#define WGMMA_QK(N, LIST, OUTS, DA, DB, SCALE)                            \
+  template <>                                                             \
+  struct WgmmaQK<N> {                                                     \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],         \
+                                               uint64_t da, uint64_t db,  \
+                                               int scale_d) {             \
+      asm volatile(                                                       \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"              \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"    \
+          LIST "}, " DA ", " DB ", p, 1, 1, 0, 0;\n}\n"                    \
+          : OUTS                                                          \
+          : "l"(da), "l"(db), "r"(scale_d));                              \
+    }                                                                     \
+  };
+
+WGMMA_QK(64, L32, R32(d, 0), "%32", "%33", "%34")
+WGMMA_QK(128, L64, R64(d, 0), "%64", "%65", "%66")
 
 // O (64 x N, f32) += P (64 x 16, bf16 pairs in registers) . V (16 x N),
 // V from shared memory, MN-major (transpose bit set).
@@ -261,6 +306,7 @@ WGMMA_PV(16, L8, R8(d, 0), "%8, %9, %10, %11", "%12", "%13")
 WGMMA_PV(32, L16, R16(d, 0), "%16, %17, %18, %19", "%20", "%21")
 WGMMA_PV(64, L32, R32(d, 0), "%32, %33, %34, %35", "%36", "%37")
 WGMMA_PV(128, L64, R64(d, 0), "%64, %65, %66, %67", "%68", "%69")
+WGMMA_PV(256, L128, R128(d, 0), "%128, %129, %130, %131", "%132", "%133")
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -275,9 +321,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ---- the kernel -----------------------------------------------------------
 
-// A work item is 128 query rows of one (query head, batch row).  Items
-// are numbered longest first: every (head, batch row) of the last query
-// tile, then of the one before, and so on.
+// A work item is kBlockM query rows of one (query head, batch row).
+// Items are numbered longest first: every (head, batch row) of the last
+// query tile, then of the one before, and so on.
 struct Item {
   int m_tile, h, b;
   __device__ __forceinline__ Item(int idx, int n_m, int heads, int batch)
@@ -286,18 +332,27 @@ struct Item {
         b(idx / heads % batch) {}
 };
 
+// The first key tile of an item whose rows start at q0: the one holding
+// key q0 - window + 1 (0 without a band).
+template <int D, bool kBand>
+__device__ __forceinline__ int first_tile(int q0, int window) {
+  return kBand && q0 >= window ? (q0 - window + 1) / Tile<D>::kBlockN : 0;
+}
+
 // q_map / out_map: bf16 (Dh, H, S, B), boxes of (kBoxCols, 1, 64, 1);
-// k_map / v_map: bf16 (Dh, Hkv, S, B), boxes of (kBoxCols, 1, 128, 1).
+// k_map / v_map: bf16 (Dh, Hkv, S, B), boxes of (kBoxCols, 1, kBlockN, 1).
 // A persistent grid: block i takes items i, i + gridDim.x, ...
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, bool kBand>
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
     flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
                                 const __grid_constant__ CUtensorMap out_map,
                                 int seq, int heads, int batch, int group,
-                                float scale) {
+                                float scale, int window) {
   using T = Tile<D>;
+  constexpr int kBlockM = T::kBlockM, kBlockN = T::kBlockN;
+  constexpr int kConsumerWarps = T::kConsumerWarps;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -329,9 +384,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (wg == 0) {
     // ---- producer: one thread issues every TMA load.  The K/V ring runs
-    // on across items, and the next item's Q loads as soon as both
-    // consumer warpgroups have issued their last S = Q . K^T ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    // on across items, and the next item's Q loads as soon as every
+    // consumer warpgroup has issued its last S = Q . K^T ----
+    if constexpr (T::kConsumers == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       int ring = 0;   // K/V tiles loaded so far
       for (int idx = blockIdx.x, n = 0; idx < n_items;
@@ -340,12 +396,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int hk = w.h / group;
         mbar_wait(q_free, (n & 1) ^ 1);
         mbar_expect_tx(q_full, T::kQBytes);
-        for (int half = 0; half < 2; ++half)
+        for (int half = 0; half < T::kConsumers; ++half)
           for (int bx = 0; bx < T::kBoxes; ++bx)
             tma_load(q_s + bx * T::kQBox + half * kWgRows * T::kRowBytes,
                      &q_map, q_full, bx * T::kBoxCols, w.h,
                      w.m_tile * kBlockM + half * kWgRows, w.b);
-        for (int it = 0; it <= w.m_tile; ++it, ++ring) {
+        for (int it = first_tile<D, kBand>(w.m_tile * kBlockM, window);
+             it <= w.m_tile; ++it, ++ring) {
           const int st = ring % kStages;
           mbar_wait(kv_free(st), ((ring / kStages) & 1) ^ 1);
           mbar_expect_tx(k_full(st), T::kKVBytes);
@@ -362,7 +419,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     // ---- consumers: warpgroup c takes query rows 64 c .. 64 c + 63 of
     // each item ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (T::kConsumers == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int c = wg - 1;
     const int t = threadIdx.x % 128;
     const int warp = t / 32;
@@ -377,7 +435,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int idx = blockIdx.x, n = 0; idx < n_items; idx += gridDim.x, ++n) {
       const Item w(idx, n_m, heads, batch);
       const int q0 = w.m_tile * kBlockM;
-      const int n_tiles = w.m_tile + 1;   // key tiles up to the diagonal
+      // key tiles from the band's first up to the diagonal
+      const int t0 = first_tile<D, kBand>(q0, window);
+      // tiles at or below this one cross the band's lower edge: they
+      // hold a key at or below the last row's minus the window
+      const int low = q0 + kBlockM - 1 - window;
+      const int edge = kBand && low >= 0 ? low / kBlockN : -1;
       float o[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
@@ -385,44 +448,51 @@ __global__ void __launch_bounds__(kThreads, 1)
       float l[2] = {0.0f, 0.0f};   // this thread's share of the row sums
 
       mbar_wait(q_full, n & 1);
-      for (int it = 0; it < n_tiles; ++it, ++ring) {
+      for (int it = t0; it <= w.m_tile; ++it, ++ring) {
         const int st = ring % kStages;
         const uint32_t ph = (ring / kStages) & 1;
 
         // S = Q . K^T over Dh / 16 k-steps
-        float s[64];
+        float s[kBlockN / 2];
         mbar_wait(k_full(st), ph);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int bx = kk * 16 / T::kBoxCols;
           const int off = (kk * 16 % T::kBoxCols) * 2;
-          wgmma_qk(s,
-                   smem_desc(q_wg + bx * T::kQBox + off, 16,
-                             8 * T::kRowBytes, T::kLayout),
-                   smem_desc(k_s + st * T::kKVBytes + bx * T::kKVBox + off,
-                             16, 8 * T::kRowBytes, T::kLayout),
-                   kk > 0);
+          WgmmaQK<kBlockN>::run(
+              s,
+              smem_desc(q_wg + bx * T::kQBox + off, 16, 8 * T::kRowBytes,
+                        T::kLayout),
+              smem_desc(k_s + st * T::kKVBytes + bx * T::kKVBox + off, 16,
+                        8 * T::kRowBytes, T::kLayout),
+              kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(s);
 
-        if (it == n_tiles - 1) {
+        if (it == w.m_tile) {
           // the last S of this item is in: Q may take the next item's
           __syncwarp();
           if (lane == 0) mbar_arrive(q_free);
-          // the tile on the diagonal: keys past the row, or past S, are out
+        }
+        if (it == w.m_tile || it <= edge) {
+          // the tile on the diagonal, or across the band's lower edge:
+          // keys past the row, past S, or window or more before the row
+          // are out
           const int n0 = it * kBlockN;
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < kBlockN / 8; ++j)
 #pragma unroll
             for (int i = 0; i < 2; ++i)
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int key = n0 + 8 * j + 2 * (lane % 4) + e;
                 const int row = q0 + row0 + 8 * i;
-                if (key > row || key >= seq) s[4 * j + 2 * i + e] = -INFINITY;
+                if (key > row || key >= seq ||
+                    (kBand && key <= row - window))
+                  s[4 * j + 2 * i + e] = -INFINITY;
               }
         }
 
@@ -431,19 +501,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < 2; ++i) {
           float mx = m[i];
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < kBlockN / 8; ++j)
             mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          // key 0 is visible to every row, so mx is finite from the first
-          // tile on; the guard keeps a row with no visible key at
+          // without a window key 0 is visible to every row, so mx is
+          // finite from the first tile on; with one, a row may see no key
+          // of its item's first tiles: the guard keeps such a row at
           // exp2(-inf) = 0 rather than NaN
           const float base = mx == -INFINITY ? 0.0f : mx * sl2;
           const float alpha = exp2_approx(m[i] * sl2 - base);
           m[i] = mx;
           float sum = 0.0f;
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < kBlockN / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const float p =
@@ -461,11 +532,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
         // P in bf16: the S fragment of keys 16 kk .. 16 kk + 15 is the A
         // fragment of the k-step kk
-        uint32_t p[32];
+        uint32_t p[kBlockN / 4];
 #pragma unroll
-        for (int r = 0; r < 32; ++r) p[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
+        for (int r = 0; r < kBlockN / 4; ++r)
+          p[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
 
-        // O += P . V over 128 / 16 k-steps
+        // O += P . V over kBlockN / 16 k-steps
         mbar_wait(v_full(st), ph);
         fence_regs(o);
         fence_regs(p);
@@ -576,10 +648,11 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int seq, int heads, int kv_heads, float scale,
-                   cudaStream_t stream) {
+template <int D, bool kBand>
+cudaError_t launch_instance(const void* q, const void* k, const void* v,
+                            void* out, int batch, int seq, int heads,
+                            int kv_heads, float scale, int window,
+                            cudaStream_t stream) {
   using T = Tile<D>;
   // above 48 KB a block's dynamic shared memory must be allowed first;
   // once per instance, so that no attribute call falls inside a CUDA
@@ -593,7 +666,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount,
                                  dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_attention_kernel_sm90<D>,
+      e = cudaFuncSetAttribute(flash_attention_kernel_sm90<D, kBand>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                T::kSmem);
     if (e != cudaSuccess) return e;
@@ -604,22 +677,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   // the encode is host arithmetic only, safe inside a graph capture
   CUtensorMap qm, km, vm, om;
   if (!encode<D>(fn, &qm, q, batch, seq, heads, kWgRows) ||
-      !encode<D>(fn, &km, k, batch, seq, kv_heads, kBlockN) ||
-      !encode<D>(fn, &vm, v, batch, seq, kv_heads, kBlockN) ||
+      !encode<D>(fn, &km, k, batch, seq, kv_heads, T::kBlockN) ||
+      !encode<D>(fn, &vm, v, batch, seq, kv_heads, T::kBlockN) ||
       !encode<D>(fn, &om, out, batch, seq, heads, kWgRows))
     return cudaErrorInvalidValue;
   // one block per SM (a block fills one), each walking the items
-  const int items = (seq + kBlockM - 1) / kBlockM * heads * batch;
+  const int items = (seq + T::kBlockM - 1) / T::kBlockM * heads * batch;
   const int grid = items < sm_count ? items : sm_count;
-  flash_attention_kernel_sm90<D><<<grid, kThreads, T::kSmem, stream>>>(
-      qm, km, vm, om, seq, heads, batch, heads / kv_heads, scale);
+  flash_attention_kernel_sm90<D, kBand>
+      <<<grid, T::kThreads, T::kSmem, stream>>>(
+          qm, km, vm, om, seq, heads, batch, heads / kv_heads, scale, window);
   return cudaGetLastError();
 }
 
+// the causal instance without a window, the banded one with
 template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int batch, int seq, int heads, int kv_heads, float scale,
+                   int window, cudaStream_t stream) {
+  return window > 0 ? launch_instance<D, true>(q, k, v, out, batch, seq,
+                                                heads, kv_heads, scale,
+                                                window, stream)
+                    : launch_instance<D, false>(q, k, v, out, batch, seq,
+                                                 heads, kv_heads, scale, 0,
+                                                 stream);
+}
+
+template <int D, bool kBand>
 void attributes(int* out) {
   cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, flash_attention_kernel_sm90<D>) !=
+  if (cudaFuncGetAttributes(&a, flash_attention_kernel_sm90<D, kBand>) !=
       cudaSuccess) {
     out[0] = out[1] = out[2] = -1;
     return;
@@ -633,7 +720,9 @@ void attributes(int* out) {
 
 // q/out: device (batch, seq, heads, head_dim), k/v: device (batch, seq,
 // kv_heads, head_dim), contiguous bf16, 16-byte aligned; kv_heads divides
-// heads; head_dim is 16, 32, 64 or 128.  Launches on `stream`; returns
+// heads; head_dim is 16, 32, 64, 128 or 256; window >= 0 (0: causal
+// only; else key j is visible to query i iff i - window < j <= i).
+// Launches on `stream`; returns
 // cudaGetLastError() (cudaErrorInvalidValue for shapes the kernel does
 // not take or maps that cuTensorMapEncodeTiled refuses,
 // cudaErrorNotSupported where libcuda has no cuTensorMapEncodeTiled).
@@ -641,39 +730,50 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* out,
                                            int batch, int seq, int heads,
                                            int kv_heads, int head_dim,
-                                           float scale, void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads ||
-      (int64_t)((seq + kBlockM - 1) / kBlockM) * heads * batch > INT32_MAX)
+                                           float scale, int window,
+                                           void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads || window < 0 ||
+      (int64_t)((seq + kWgRows - 1) / kWgRows) * heads * batch > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || seq == 0 || heads == 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   switch (head_dim) {
     case 16:
       return (int)launch<16>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, s);
+                             scale, window, s);
     case 32:
       return (int)launch<32>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, s);
+                             scale, window, s);
     case 64:
       return (int)launch<64>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, s);
+                             scale, window, s);
     case 128:
       return (int)launch<128>(q, k, v, out, batch, seq, heads, kv_heads,
-                              scale, s);
+                              scale, window, s);
+    case 256:
+      return (int)launch<256>(q, k, v, out, batch, seq, heads, kv_heads,
+                              scale, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // registers a thread, local (spill) bytes a thread and dynamic shared
-// bytes a block of the instance for head_dim, into out[0..2] (-1 each for
-// a head_dim without an instance)
-extern "C" void flash_attention_sm90_attributes(int head_dim, int* out) {
-  switch (head_dim) {
-    case 16: return attributes<16>(out);
-    case 32: return attributes<32>(out);
-    case 64: return attributes<64>(out);
-    case 128: return attributes<128>(out);
+// bytes a block of the instance for head_dim, causal (band 0) or banded
+// (band 1), into out[0..2] (-1 each for a head_dim without an instance)
+extern "C" void flash_attention_sm90_attributes(int head_dim, int band,
+                                                int* out) {
+  switch (head_dim * 2 + (band != 0)) {
+    case 32: return attributes<16, false>(out);
+    case 33: return attributes<16, true>(out);
+    case 64: return attributes<32, false>(out);
+    case 65: return attributes<32, true>(out);
+    case 128: return attributes<64, false>(out);
+    case 129: return attributes<64, true>(out);
+    case 256: return attributes<128, false>(out);
+    case 257: return attributes<128, true>(out);
+    case 512: return attributes<256, false>(out);
+    case 513: return attributes<256, true>(out);
     default: out[0] = out[1] = out[2] = -1;
   }
 }

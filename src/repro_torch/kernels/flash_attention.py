@@ -1,5 +1,5 @@
-"""Causal flash attention: the kernel wrapper, its plain version and the
-autograd op.
+"""Causal flash attention, with an optional sliding window: the kernel
+wrapper, its plain version and the autograd op.
 
 The port of ``repro/kernels/flash_attention.py::flash_attention_bhsd``
 and of the GQA wrapper ``repro/kernels/ops.py::flash_attention``: causal
@@ -9,6 +9,13 @@ head dim to 128 lanes, transposes to (B·H, S, D) and broadcasts k/v G-fold
 over each group of G = H / Hkv query heads; the port's kernel reads the
 model's (B, S, H, Dh) q and un-repeated (B, S, Hkv, Dh) k/v in place:
 query head h reads kv head h // G.
+
+``window`` > 0 keeps a sliding band: key j is visible to query i iff
+``j <= i`` and ``j > i − window``, the mask of the reference model's
+``repro/models/attention.py::attend(window=)`` (the hybrid family's local
+attention, which the reference runs in XLA; its Pallas kernel is causal
+only).  A window of at least S is the causal case, and the wrapper
+passes 0 for it.
 
 On a CUDA tensor :func:`flash_attention_bhsd` launches a hand-written
 kernel, chosen by dtype (a dispatch, not a fallback: a failed build or
@@ -24,6 +31,11 @@ launch raises):
   hi + lo and summed in three passes (``csrc/tf32x3.cuh``; one pass would
   break it), within 2e-5 of the plain version.
 
+``HEAD_DIMS`` gives each variant's template instances: head dim 256
+(recurrentgemma-9b) has a wgmma instance only.  The f32 kernel's K and V
+stages at 256 (64 keys × 256 × 4 B, double-buffered: 256 KB) pass the
+227 KB of shared memory a block may take, and no path runs f32 at 256.
+
 On a CPU tensor it runs :func:`flash_attention_plain`, the materialised
 f32 softmax.
 
@@ -35,7 +47,7 @@ f32 softmax.
 * its ``vmap`` rule folds the vmapped dim (the engine's client dim under
   ``vmap(grad(upload))``) into the batch, so one launch serves every
   client: a ctypes launch on ``data_ptr()`` could not see a batched
-  tensor.
+  tensor.  ``window`` rides along as a plain integer.
 """
 from __future__ import annotations
 
@@ -46,20 +58,30 @@ import torch
 from repro_torch import Device, on_cuda
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)     # the kernels' template instances
+# each variant's template instances
+HEAD_DIMS = {"wgmma": (16, 32, 64, 128, 256), "tf32x3": (16, 32, 64, 128)}
 # the kernel each dtype launches, and its launch entry point
 VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 _ENTRY = {"wgmma": "flash_attention_sm90", "tf32x3": "flash_attention"}
 
 
-def _grouped(q, k, v):
+def band_mask(s, window=0, device=None):
+    """(S, S) bool, query rows by key columns: key j visible to query i
+    iff j <= i and, with ``window`` > 0, j > i − window."""
+    mask = torch.ones(s, s, dtype=torch.bool, device=device).tril()
+    if window:
+        mask &= torch.ones_like(mask).triu(1 - window)
+    return mask
+
+
+def _grouped(q, k, v, window=0):
     """f32 (B, S, Hkv, G, Dh) q and (B, S, Hkv, Dh) k/v, the scale and the
-    causal mask, for the plain versions."""
+    mask, for the plain versions."""
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     qf = q.float().reshape(b, s, hkv, h // hkv, dh)
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    return qf, k.float(), v.float(), dh ** -0.5, mask
+    return qf, k.float(), v.float(), dh ** -0.5, band_mask(s, window,
+                                                           q.device)
 
 
 def _probs(qf, kf, scale, mask):
@@ -68,19 +90,20 @@ def _probs(qf, kf, scale, mask):
     return torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
 
 
-def flash_attention_plain(q, k, v):
-    """The plain PyTorch version: the materialised f32 causal softmax.
-    q (B, S, H, Dh), k/v (B, S, Hkv, Dh) → (B, S, H, Dh) in q's dtype."""
-    qf, kf, vf, scale, mask = _grouped(q, k, v)
+def flash_attention_plain(q, k, v, window=0):
+    """The plain PyTorch version: the materialised f32 causal softmax,
+    banded by ``window`` > 0.  q (B, S, H, Dh), k/v (B, S, Hkv, Dh) →
+    (B, S, H, Dh) in q's dtype."""
+    qf, kf, vf, scale, mask = _grouped(q, k, v, window)
     o = torch.einsum("bhgqk,bkhd->bqhgd", _probs(qf, kf, scale, mask), vf)
     return o.reshape(q.shape).to(q.dtype)
 
 
-def flash_attention_backward_plain(q, k, v, do):
+def flash_attention_backward_plain(q, k, v, do, window=0):
     """(dq, dk, dv) of :func:`flash_attention_plain` at ``do``, in f32
     from P recomputed, cast to the inputs' dtypes; dk and dv summed over
     each group of query heads sharing a kv head."""
-    qf, kf, vf, scale, mask = _grouped(q, k, v)
+    qf, kf, vf, scale, mask = _grouped(q, k, v, window)
     p = _probs(qf, kf, scale, mask)
     dof = do.float().reshape(qf.shape)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
@@ -91,9 +114,10 @@ def flash_attention_backward_plain(q, k, v, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def bf16_error_check(q, k, v, got):
+def bf16_error_check(q, k, v, got, window=0):
     """Hold a bf16 attention output ``got`` to the f64 softmax of the same
-    bf16 inputs; returns ``(ok, max_ratio, rms_kernel, rms_plain)``.
+    bf16 inputs, banded by ``window`` > 0; returns ``(ok, max_ratio,
+    rms_kernel, rms_plain)``.
 
     With o64 and p_j the float64 output and probabilities, computed one
     (batch row, kv head) at a time to bound memory:
@@ -111,8 +135,8 @@ def bf16_error_check(q, k, v, got):
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     g = h // hkv
-    plain = flash_attention_plain(q, k, v)
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    plain = flash_attention_plain(q, k, v, window)
+    mask = band_mask(s, window, q.device)
     max_ratio, se_got, se_plain = 0.0, 0.0, 0.0
     for bi in range(b):
         for hk in range(hkv):
@@ -138,15 +162,18 @@ def bf16_error_check(q, k, v, got):
     return ok, max_ratio, rms_got, rms_plain
 
 
-def kernel_attributes(head_dim: int) -> dict:
-    """Each variant's ``(registers a thread, local (spill) bytes a thread,
-    dynamic shared bytes a block)`` at ``head_dim``, from
-    ``cudaFuncGetAttributes``."""
+def kernel_attributes(head_dim: int, band: bool = False) -> dict:
+    """``(registers a thread, local (spill) bytes a thread, dynamic shared
+    bytes a block)`` at ``head_dim`` of each variant with an instance
+    there, from ``cudaFuncGetAttributes``: the causal instance, or with
+    ``band`` the one a window > 0 launches."""
     lib = build.load()
     out = {}
     for variant, entry in _ENTRY.items():
+        if head_dim not in HEAD_DIMS[variant]:
+            continue
         vals = (ctypes.c_int * 3)()
-        getattr(lib, f"{entry}_attributes")(head_dim, vals)
+        getattr(lib, f"{entry}_attributes")(head_dim, int(band), vals)
         out[variant] = tuple(vals)
     return out
 
@@ -158,9 +185,12 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def flash_attention_bhsd(q, k, v, *, device: Device = None):
+def flash_attention_bhsd(q, k, v, *, window: int = 0,
+                         device: Device = None):
     """Causal GQA attention: q (B, S, H, Dh), k/v (B, S, Hkv, Dh), one
-    dtype (f32 or bf16) and device → (B, S, H, Dh) in q's dtype.
+    dtype (f32 or bf16) and device → (B, S, H, Dh) in q's dtype; with
+    ``window`` > 0 a query sees only the ``window`` keys ending at its
+    own position (``window`` >= S is the causal case, and passes 0).
 
     A CPU tensor goes to :func:`flash_attention_plain` (only with
     ``device="cpu"``); a CUDA tensor launches the kernel of its dtype's
@@ -177,25 +207,33 @@ def flash_attention_bhsd(q, k, v, *, device: Device = None):
             f"flash_attention takes q (B, S, H, Dh) and k/v (B, S, Hkv, Dh) "
             f"with Hkv dividing H, got {tuple(q.shape)}, {tuple(k.shape)}, "
             f"{tuple(v.shape)}")
-    if not on_cuda(q, device):
-        return flash_attention_plain(q, k, v)
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got "
+                         f"{window}")
     b, s, h, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {dh}")
+    window = 0 if window >= s else int(window)
+    if not on_cuda(q, device):
+        return flash_attention_plain(q, k, v, window)
     if q.dtype not in VARIANTS:
         raise ValueError(f"flash_attention kernel takes f32 or bf16, got "
                          f"{q.dtype}")
+    variant = VARIANTS[q.dtype]
+    if dh not in HEAD_DIMS[variant]:
+        detail = (": its K/V stages at 256 (64 keys x 256 x 4 B, "
+                  "double-buffered, 256 KB) pass the 227 KB of shared "
+                  "memory a block may take" if dh == 256 else "")
+        raise ValueError(
+            f"flash_attention: the {variant} kernel ({q.dtype}) has no "
+            f"head_dim {dh} instance (it has {HEAD_DIMS[variant]}){detail}")
     for x in (k, v):
         if x.dtype != q.dtype or x.device != q.device:
             raise ValueError("q, k and v must share one dtype and device")
     q, k, v = (_aligned(x) for x in (q, k, v))
     out = torch.empty_like(q)
-    variant = VARIANTS[q.dtype]
     launch = getattr(build.load(), f"{_ENTRY[variant]}_launch")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, s, h, k.shape[2], dh, dh ** -0.5, stream)
+                    b, s, h, k.shape[2], dh, dh ** -0.5, window, stream)
     build.check(status, f"flash_attention ({variant})")
     flash_attention_bhsd.launches += 1
     flash_attention_bhsd.launches_by_variant[variant] += 1
@@ -209,29 +247,32 @@ flash_attention_bhsd.launches_by_variant = dict.fromkeys(_ENTRY, 0)
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention_bhsd` with a plain backward and a vmap rule
     that folds the vmapped dim into the batch (one launch for all
-    clients).  Routes by where q lies: the model's device is the caller's
-    choice, made when the parameters were placed."""
+    clients); ``window`` is a plain integer, not a tensor.  Routes by
+    where q lies: the model's device is the caller's choice, made when
+    the parameters were placed."""
 
     @staticmethod
-    def forward(q, k, v):
-        return flash_attention_bhsd(q, k, v, device=q.device)
+    def forward(q, k, v, window):
+        return flash_attention_bhsd(q, k, v, window=window, device=q.device)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
+        ctx.save_for_backward(*inputs[:3])
+        ctx.window = inputs[3]
 
     @staticmethod
     def backward(ctx, do):
-        return flash_attention_backward_plain(*ctx.saved_tensors, do)
+        return (*flash_attention_backward_plain(*ctx.saved_tensors, do,
+                                                ctx.window), None)
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v):
+    def vmap(info, in_dims, q, k, v, window):
         n = info.batch_size
 
         def fold(x, dim):
             x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
             return x.reshape(n * x.shape[1], *x.shape[2:])
 
-        out = FlashAttention.apply(*(fold(x, d)
-                                     for x, d in zip((q, k, v), in_dims)))
+        out = FlashAttention.apply(*(fold(x, d) for x, d in
+                                     zip((q, k, v), in_dims[:3])), window)
         return out.reshape(n, -1, *out.shape[1:]), 0

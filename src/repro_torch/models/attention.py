@@ -1,5 +1,6 @@
-"""Attention: causal GQA with RoPE applied by the caller, for the training
-forward, and single-token decode against a KV cache.
+"""Attention: causal GQA with RoPE applied by the caller, with an
+optional sliding window, for the training forward, and single-token
+decode against a KV cache.
 
 The port of ``repro/models/attention.py``.  Two paths:
 
@@ -7,7 +8,10 @@ The port of ``repro/models/attention.py``.  Two paths:
   paths for it (full scores for short sequences, a query-chunked scan
   above 1,024 tokens); the port has one, the flash-attention op
   (:func:`repro_torch.kernels.ops.flash_attention`), which takes any S
-  and never materialises the (S, S) scores on the card.
+  and never materialises the (S, S) scores on the card.  ``window`` > 0
+  is the hybrid family's local attention: query i sees keys
+  i − window < j <= i, and the kernels skip the key tiles below the
+  band.
 * ``decode_attend`` — one query against a (possibly ring-buffered)
   :class:`KVCache`, in plain PyTorch as the reference's is plain XLA: the
   scores of one token against C cached keys are a (B, H, C) product.
@@ -25,8 +29,7 @@ bf16 product returns bf16, so ``decode_attend`` upcasts q and k first,
 which is exact.
 
 Shapes: q (B, S, H, Dh); k/v (B, S, Hkv, Dh) with H a multiple of Hkv.
-Sliding windows and non-causal attention in ``attend`` are not ported
-yet (the decode path takes a window).
+Non-causal attention (the encoder-decoder family's) is not ported.
 """
 from __future__ import annotations
 
@@ -40,13 +43,14 @@ NEG_INF = -3e4  # representable in bf16 too
 
 
 def attend(q, k, v, *, causal: bool = True, window: int = 0):
-    """Causal softmax attention, scaled by Dh^-½ → (B, S, H, Dh)."""
-    if not causal or window:
+    """Causal softmax attention, scaled by Dh^-½, banded to the last
+    ``window`` keys when ``window`` > 0 → (B, S, H, Dh)."""
+    if not causal:
         raise NotImplementedError(
-            "attend: non-causal and sliding-window attention are not "
-            "ported to repro_torch's training forward yet (decode takes a "
-            "window: decode_attend; see ROADMAP.md, queue 1)")
-    return ops.flash_attention(q, k, v)
+            "attend: non-causal attention (the audio family's encoder and "
+            "cross attention) is not ported to repro_torch yet (see "
+            "ROADMAP.md, queue 1)")
+    return ops.flash_attention(q, k, v, window=window)
 
 
 class KVCache(NamedTuple):

@@ -1,31 +1,41 @@
-"""The LM model zoo: the ``dense`` and ``ssm`` families of the reference's.
+"""The LM model zoo: the ``dense``, ``ssm`` and ``hybrid`` families of the
+reference's.
 
 The port of ``repro/models/transformer.py``'s llama-style GQA decoder
-(llama3-8b, yi-9b, granite-8b; granite-34b with its GELU MLP) and its
+(llama3-8b, yi-9b, granite-8b; granite-34b with its GELU MLP), its
 attention-free RWKV-6 stack (rwkv6-7b: time mix and channel mix,
-:mod:`repro_torch.models.rwkv6`).  ``build_model(cfg, decode_window=0)``
-returns a :class:`Model` with
+:mod:`repro_torch.models.rwkv6`) and Griffin's hybrid (recurrentgemma-9b:
+a unit of ``pattern_recurrent`` RG-LRU blocks, :mod:`repro_torch.models.
+rglru`, then ``pattern_attn`` local-attention blocks at
+``window=local_window``, repeated; leftover layers a recurrent tail).
+``build_model(cfg, decode_window=0)`` returns a :class:`Model` with
 
 * ``init(generator, device)`` — the layer-stacked parameter tree
   ``{"blocks": {...}, "embed", "final_norm"}``, every block leaf
   ``(num_layers, …)``: ``attn_norm, ffn_norm, wq, wk, wv, wo, <ffn>``
   (dense) or the time-mix and channel-mix leaves ``bonus, ck, cm_norm,
-  …, wv`` (ssm);
+  …, wv`` (ssm); the hybrid's leaves are ``(n_units, …)``, the recurrent
+  blocks' prefixed ``r{r}_`` and the attention blocks' ``a{a}_``, beside
+  ``"tail"``, the recurrent leaves ``(L mod unit, …)``, when the unit
+  does not divide L;
 * ``forward(params, batch)`` — the (B, S, padded_vocab) f32 logits;
 * ``forward_with_aux(params, batch)`` — the logits and the auxiliary
   losses (none for these families);
 * ``loss(params, batch)`` — next-token cross-entropy, f32;
 * ``init_decode(batch_size, max_len, device)`` — the decode state: a KV
   cache a layer (dense; a ring buffer of ``decode_window`` slots when it
-  is > 0) or the WKV state and two token shifts a layer (ssm);
+  is > 0), the WKV state and two token shifts a layer (ssm), or a ring
+  of ``min(local_window, max_len)`` slots an attention layer and the
+  RG-LRU state and conv context a recurrent layer (hybrid);
 * ``decode_step(params, state, tokens)`` — one token with the cached
   state, the caches written in place.
 
 The reference scans the stacked blocks under ``jax.checkpoint``; the port
 casts the stacked leaves to the activation dtype (``_cast``), runs a
-Python loop over the layers, and keeps activations for the backward (no
+Python loop over the layers (the hybrid's over its units, each unit its
+blocks in order), and keeps activations for the backward (no
 rematerialisation).  Decode casts them at every step too, as the
-reference's scan body does.  Other families raise
+reference's scan body does.  Other families (moe, vlm, audio) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -35,10 +45,11 @@ from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import Device, resolve_device, tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, rwkv6
+from repro_torch.models import attention, layers, rglru, rwkv6
 
 
 def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -69,8 +80,37 @@ def _rwkv_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
             "ck": (d, f), "cv": (f, d), "cr": (d, d)}
 
 
-# constant initial values, by name (every other leaf is drawn)
-_FILL = {"decay_base": -1.0, "bonus": 0.0, "ln_w": 0.0, "ln_b": 0.0}
+def _recurrent_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Per-layer parameter shapes of one Griffin recurrent block: the
+    branch and gate projections, the temporal conv, the RG-LRU's gates
+    (``w_ri``, r and i side by side) and Λ, the output projection, then
+    the FFN."""
+    d = cfg.d_model
+    return {"rec_norm": (d,),
+            "wx": (d, d), "wgate": (d, d), "w_ri": (d, 2 * d),
+            "conv_w": (cfg.conv_width, d), "lam": (d,), "w_out": (d, d),
+            "ffn_norm": (d,),
+            **_ffn_shapes(cfg)}
+
+
+def _unit_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """One hybrid unit's shapes: the recurrent blocks' prefixed ``r{r}_``,
+    the attention blocks' ``a{a}_``."""
+    shapes = {}
+    for r in range(cfg.pattern_recurrent):
+        shapes.update({f"r{r}_{k}": v
+                       for k, v in _recurrent_shapes(cfg).items()})
+    for a in range(cfg.pattern_attn):
+        shapes.update({f"a{a}_{k}": v for k, v in _block_shapes(cfg).items()})
+    return shapes
+
+
+# constant initial values, by name (every other leaf is drawn).  Λ is 0.7
+# where the leaf is named ``lam``: the tail's; the units' carry a prefix
+# (``r0_lam``) and are drawn, as in the reference, whose init matches the
+# bare name too
+_FILL = {"decay_base": -1.0, "bonus": 0.0, "ln_w": 0.0, "ln_b": 0.0,
+         "lam": 0.7}
 
 
 def _init_stacked(generator, n: int, shapes: Dict[str, tuple], dtype,
@@ -98,7 +138,7 @@ def _ffn_apply(cfg, p, x):
     return layers.gelu_mlp(x, p["wi"], p["b_i"], p["wo2"], p["b_o"])
 
 
-def _attn_apply(cfg, p, x, positions):
+def _attn_apply(cfg, p, x, positions, *, window: int = 0):
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = layers.rms_norm(x, p["attn_norm"])
@@ -107,13 +147,59 @@ def _attn_apply(cfg, p, x, positions):
     v = (xn @ p["wv"]).reshape(b, s, kvh, hd)
     q = layers.apply_rope(q, positions)
     k = layers.apply_rope(k, positions)
-    o = attention.attend(q, k, v, causal=True)
+    o = attention.attend(q, k, v, causal=True, window=window)
     return x + o.reshape(b, s, h * hd) @ p["wo"]
 
 
-def _attn_block(cfg, p, x, positions):
-    x = _attn_apply(cfg, p, x, positions)
+def _attn_block(cfg, p, x, positions, *, window: int = 0):
+    x = _attn_apply(cfg, p, x, positions, window=window)
     return x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
+
+
+def _recurrent_block(cfg, p, x, *, h0=None, conv_state=None,
+                     decode: bool = False):
+    """Griffin's recurrent block: the branch x·Wx through the temporal
+    conv and the RG-LRU, gated by gelu(x·Wgate) (tanh), projected by
+    ``w_out``; then the FFN.  ``decode``: one token (x (B, 1, D)) from
+    the state ``h0`` (B, D) f32 and ``conv_state`` (B, T − 1, D).
+    Returns (x, the RG-LRU's last h, the conv's new context)."""
+    xn = layers.rms_norm(x, p["rec_norm"])
+    branch = xn @ p["wx"]
+    gate = F.gelu(xn @ p["wgate"], approximate="tanh")
+    branch, conv_state = rglru.temporal_conv(branch, p["conv_w"],
+                                             conv_state)
+    r, i = torch.sigmoid(branch @ p["w_ri"]).chunk(2, dim=-1)
+    if decode:
+        y, h = rglru.rg_lru_step(branch[:, 0], r[:, 0], i[:, 0], p["lam"],
+                                 h0)
+        y = y[:, None]
+    else:
+        y, h = rglru.rg_lru(branch, r, i, p["lam"], h0)
+    x = x + (y * gate) @ p["w_out"]
+    return (x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"])), h,
+            conv_state)
+
+
+def _prefixed(p, prefix):
+    """The leaves of ``p`` named ``prefix…``, the prefix cut off."""
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _hybrid_unit(cfg, p, x, positions):
+    """One hybrid unit of the sequence forward: its recurrent blocks from
+    a zero state, then its attention blocks at ``local_window``."""
+    for r in range(cfg.pattern_recurrent):
+        x = _recurrent_block(cfg, _prefixed(p, f"r{r}_"), x)[0]
+    for a in range(cfg.pattern_attn):
+        x = _attn_block(cfg, _prefixed(p, f"a{a}_"), x, positions,
+                        window=cfg.local_window)
+    return x
+
+
+def _recurrent_seq_block(cfg, p, x, positions):
+    """A tail layer of the sequence forward (``positions`` unused)."""
+    del positions
+    return _recurrent_block(cfg, p, x)[0]
 
 
 def _attn_decode(cfg, p, x, k_cache, v_cache, length, *, window: int = 0):
@@ -153,19 +239,44 @@ def _rwkv_seq_block(cfg, p, x, positions):
     return _rwkv_block(cfg, p, x)[0]
 
 
-# per ported family: (block shapes, block apply)
+def _hybrid_counts(cfg: ModelConfig):
+    """(units, tail layers) of a hybrid config."""
+    unit = cfg.pattern_recurrent + cfg.pattern_attn
+    return cfg.num_layers // unit, cfg.num_layers % unit
+
+
+def _stacks(cfg: ModelConfig):
+    """The family's layer stacks in forward order: (parameter key, stack
+    depth, per-layer shapes, the sequence forward's layer apply).  One
+    stack of L blocks for dense and ssm; the hybrid's units, then its
+    recurrent tail when the unit does not divide L."""
+    if cfg.family == "hybrid":
+        units, tail = _hybrid_counts(cfg)
+        stacks = [("blocks", units, _unit_shapes(cfg), _hybrid_unit)]
+        if tail:
+            stacks.append(("tail", tail, _recurrent_shapes(cfg),
+                           _recurrent_seq_block))
+        return stacks
+    shapes, apply = _FAMILY[cfg.family]
+    return [("blocks", cfg.num_layers, shapes(cfg), apply)]
+
+
+# per family of one stack: (block shapes, block apply)
 _FAMILY = {"dense": (_block_shapes, _attn_block),
            "ssm": (_rwkv_shapes, _rwkv_seq_block)}
-PORTED_FAMILIES = tuple(_FAMILY)
+PORTED_FAMILIES = (*_FAMILY, "hybrid")
 
 
 class DecodeState(NamedTuple):
     """Per-family decode state; the fields a family does not use hold an
     empty (0,) f32 tensor.  ``kv_k``/``kv_v``: (L, B, C, Hkv, hd) in the
-    activation dtype (dense); ``rec_h``: the WKV states (L, B, H, hd, hd)
-    f32 and ``rec_conv``: the time mix's and the channel mix's shifts
-    (L, 2, B, D) in the activation dtype (ssm); ``cross_k``/``cross_v``
-    (the encoder-decoder family's) stay empty."""
+    activation dtype (dense; the hybrid's attention layers, unit-major);
+    ``rec_h``: the WKV states (L, B, H, hd, hd) f32 and ``rec_conv``: the
+    time mix's and the channel mix's shifts (L, 2, B, D) in the
+    activation dtype (ssm), or the RG-LRU states (n_rec, B, D) f32 and
+    conv contexts (n_rec, B, T − 1, D) in the activation dtype of the
+    hybrid's recurrent layers, the units' (unit-major) then the tail's;
+    ``cross_k``/``cross_v`` (the encoder-decoder family's) stay empty."""
     length: torch.Tensor      # () int32: tokens written so far
     kv_k: torch.Tensor
     kv_v: torch.Tensor
@@ -193,20 +304,27 @@ class Model:
         cfg = self.cfg
         dev = resolve_device(device)
         dt = cfg.pdtype
-        return {
-            "blocks": _init_stacked(generator, cfg.num_layers,
-                                    _FAMILY[cfg.family][0](cfg), dt, dev),
-            "embed": layers.normal(generator,
-                                   (cfg.padded_vocab, cfg.d_model), 0.02,
-                                   dt, dev),
-            "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=dev),
-        }
+        params = {key: _init_stacked(generator, n, shapes, dt, dev)
+                  for key, n, shapes, _ in _stacks(cfg)}
+        params["embed"] = layers.normal(
+            generator, (cfg.padded_vocab, cfg.d_model), 0.02, dt, dev)
+        params["final_norm"] = torch.zeros(cfg.d_model, dtype=dt, device=dev)
+        return params
 
     def _cast(self, p):
         """Block leaves in the activation dtype (norm weights are upcast
         again inside ``rms_norm``), as the reference's scan body casts
         each layer's slice."""
         return {k: w.to(self.cfg.adtype) for k, w in p.items()}
+
+    def _layers(self, stack):
+        """Each layer's leaves of a stack, cast: one cast and one unbind
+        per stacked leaf, whose backward stacks the layers' gradients
+        once, where indexing w[i] layer by layer would zero-fill a whole
+        (L, …) gradient per layer and sum them."""
+        stack = self._cast(stack)
+        return [dict(zip(stack, ws))
+                for ws in zip(*(w.unbind(0) for w in stack.values()))]
 
     def forward(self, params, batch) -> torch.Tensor:
         """Full-sequence logits (auxiliary losses discarded)."""
@@ -218,14 +336,9 @@ class Model:
         cfg = self.cfg
         x = layers.embed(batch["tokens"], params["embed"]).to(cfg.adtype)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        # one cast and one unbind per stacked leaf: their backward stacks
-        # the layers' gradients once, where indexing w[i] layer by layer
-        # would zero-fill a whole (L, …) gradient per layer and sum them
-        blocks = self._cast(params["blocks"])
-        per_layer = zip(*(w.unbind(0) for w in blocks.values()))
-        block = _FAMILY[cfg.family][1]
-        for ws in per_layer:
-            x = block(cfg, dict(zip(blocks, ws)), x, positions)
+        for key, _, _, block in _stacks(cfg):
+            for p in self._layers(params[key]):
+                x = block(cfg, p, x, positions)
         x = layers.rms_norm(x, params["final_norm"])
         return layers.unembed(x, params["embed"]), []
 
@@ -240,19 +353,29 @@ class Model:
         return ce
 
     def _n_attn_layers(self) -> int:
-        return self.cfg.num_layers if self.cfg.family == "dense" else 0
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return _hybrid_counts(cfg)[0] * cfg.pattern_attn
+        return cfg.num_layers if cfg.family == "dense" else 0
 
     def init_decode(self, batch_size: int, max_len: int,
                     device: Device = None) -> DecodeState:
         """Zero caches on ``device`` (``cuda`` unless the caller asks for
         the CPU).  Dense: a KV cache of ``max_len`` slots a layer, or a
         ring buffer of ``min(decode_window, max_len)``; ssm: the O(1)
-        recurrent state."""
+        recurrent state; hybrid: a ring of ``min(local_window, max_len)``
+        slots an attention layer (``decode_window`` unused, as in the
+        reference) and the RG-LRU state and conv context a recurrent
+        layer."""
         cfg = self.cfg
         dev = resolve_device(device)
         n_attn = self._n_attn_layers()
-        cap = min(self.decode_window, max_len) if self.decode_window \
-            else max_len
+        if cfg.family == "hybrid":
+            cap = min(cfg.local_window, max_len)
+        elif self.decode_window:
+            cap = min(self.decode_window, max_len)
+        else:
+            cap = max_len
         dt = cfg.adtype
         kv_shape = (n_attn, batch_size, cap, cfg.num_kv_heads, cfg.head_dim)
         kv_k = torch.zeros(kv_shape, dtype=dt, device=dev) if n_attn \
@@ -267,6 +390,12 @@ class Model:
             # shift states: one for the time mix, one for the channel mix
             rec_conv = torch.zeros((cfg.num_layers, 2, batch_size,
                                     cfg.d_model), dtype=dt, device=dev)
+        if cfg.family == "hybrid":
+            n_rec = cfg.num_layers - n_attn
+            rec_h = torch.zeros((n_rec, batch_size, cfg.d_model),
+                                dtype=torch.float32, device=dev)
+            rec_conv = torch.zeros((n_rec, batch_size, cfg.conv_width - 1,
+                                    cfg.d_model), dtype=dt, device=dev)
         return DecodeState(
             length=torch.zeros((), dtype=torch.int32, device=dev),
             kv_k=kv_k, kv_v=kv_v, rec_h=rec_h, rec_conv=rec_conv,
@@ -279,31 +408,64 @@ class Model:
 
         The returned state shares ``state``'s buffers: each layer's KV
         cache takes the token's k and v at slot ``length % C``
-        (``index_copy_``, no copy of the cache), and the WKV states and
-        shifts are overwritten; only ``length`` is a new tensor, one
-        device scalar for the batch, so the step never syncs with the
-        host.  Clone a state to keep it.  Runs without autograd."""
+        (``index_copy_``, no copy of the cache), and the WKV and RG-LRU
+        states, shifts and conv contexts are overwritten; only ``length``
+        is a new tensor, one device scalar for the batch, so the step
+        never syncs with the host.  Clone a state to keep it.  Runs
+        without autograd."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"]).to(cfg.adtype)  # (B, 1, D)
-        length = state.length
-        blocks = self._cast(params["blocks"])
-        per_layer = zip(*(w.unbind(0) for w in blocks.values()))
-        for i, ws in enumerate(per_layer):
-            p = dict(zip(blocks, ws))
-            if cfg.family == "dense":
-                x = _attn_decode(cfg, p, x, state.kv_k[i], state.kv_v[i],
-                                 length, window=self.decode_window)
-            else:
-                st = rwkv6.RWKVState(wkv=state.rec_h[i],
-                                     shift=state.rec_conv[i, 0])
-                x, st, cm = _rwkv_block(cfg, p, x, st, state.rec_conv[i, 1],
-                                        decode=True)
-                state.rec_h[i].copy_(st.wkv)
-                state.rec_conv[i, 0].copy_(st.shift)
-                state.rec_conv[i, 1].copy_(cm)
+        x = {"dense": self._dense_decode, "ssm": self._ssm_decode,
+             "hybrid": self._hybrid_decode}[cfg.family](params, state, x)
         x = layers.rms_norm(x, params["final_norm"])
         logits = layers.unembed(x, params["embed"])
-        return logits, state._replace(length=length + 1)
+        return logits, state._replace(length=state.length + 1)
+
+    def _dense_decode(self, params, state: DecodeState, x):
+        for i, p in enumerate(self._layers(params["blocks"])):
+            x = _attn_decode(self.cfg, p, x, state.kv_k[i], state.kv_v[i],
+                             state.length, window=self.decode_window)
+        return x
+
+    def _ssm_decode(self, params, state: DecodeState, x):
+        for i, p in enumerate(self._layers(params["blocks"])):
+            st = rwkv6.RWKVState(wkv=state.rec_h[i],
+                                 shift=state.rec_conv[i, 0])
+            x, st, cm = _rwkv_block(self.cfg, p, x, st, state.rec_conv[i, 1],
+                                    decode=True)
+            state.rec_h[i].copy_(st.wkv)
+            state.rec_conv[i, 0].copy_(st.shift)
+            state.rec_conv[i, 1].copy_(cm)
+        return x
+
+    def _hybrid_decode(self, params, state: DecodeState, x):
+        """The hybrid's layers for one token: each unit's recurrent blocks
+        from their RG-LRU state and conv context, then its attention
+        blocks against their ring of ``local_window`` slots; then the
+        tail.  Every state is written in place."""
+        cfg = self.cfg
+        rec, att = iter(range(len(state.rec_h))), iter(range(len(state.kv_k)))
+
+        def recurrent(p, x):
+            j = next(rec)
+            x, h, conv = _recurrent_block(cfg, p, x, h0=state.rec_h[j],
+                                          conv_state=state.rec_conv[j],
+                                          decode=True)
+            state.rec_h[j].copy_(h)
+            state.rec_conv[j].copy_(conv)
+            return x
+
+        for p in self._layers(params["blocks"]):
+            for r in range(cfg.pattern_recurrent):
+                x = recurrent(_prefixed(p, f"r{r}_"), x)
+            for a in range(cfg.pattern_attn):
+                j = next(att)
+                x = _attn_decode(cfg, _prefixed(p, f"a{a}_"), x,
+                                 state.kv_k[j], state.kv_v[j], state.length,
+                                 window=cfg.local_window)
+        for p in self._layers(params["tail"]) if "tail" in params else ():
+            x = recurrent(p, x)
+        return x
 
 
 def build_model(cfg: ModelConfig, *, decode_window: int = 0) -> Model:

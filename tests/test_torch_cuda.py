@@ -27,8 +27,10 @@ f32 operand split into two TF32 parts (tests/test_torch_rwkv6_scan.py
 emulates it): within 1e-5 of the plain version's largest |o|.  The LM
 runs on the card are held to their CPU runs as the MLP runs are; so are
 the reduced LMs' decode (no hand-written kernel: within 1e-4 of the
-largest |logit|, TF32 off) and ``launch.steps.make_train_step`` (one
-``lambda0`` launch a step; parameters within 1e-5 of the CPU's).
+largest |logit|, TF32 off; the hybrid's past its window of 16) and
+``launch.steps.make_train_step`` (one ``lambda0`` launch a step;
+parameters within 1e-5 of the CPU's).  Both flash kernels take a sliding
+window, held to the same bounds against the banded plain version.
 """
 import numpy as np
 import pytest
@@ -607,6 +609,68 @@ def test_flash_attention_kernel_matches_plain(dev, shape):
         assert ok, (ratio, rms_got, rms_plain)
 
 
+# sliding windows (b, s, h, hkv, dh, dtype, window): inside a tile, across
+# tile edges, a window of 1, and head dim 256 (wgmma only) at the hybrid
+# path's shape
+FLASH_WINDOWS = [(4, 32, 4, 1, 16, "f32", 16), (2, 130, 4, 1, 64, "f32", 40),
+                 (3, 77, 8, 1, 64, "f32", 5), (2, 300, 8, 2, 128, "f32", 64),
+                 (2, 40, 4, 2, 32, "f32", 1), (2, 300, 8, 1, 64, "bf16", 129),
+                 (2, 77, 4, 4, 16, "bf16", 3), (2, 129, 4, 1, 256, "bf16", 64),
+                 (1, 65, 16, 1, 256, "bf16", 0), (2, 300, 4, 2, 256, "bf16", 40),
+                 (4, 1024, 16, 1, 256, "bf16", 256)]
+
+
+@pytest.mark.parametrize("shape", FLASH_WINDOWS,
+                         ids=[str(s) for s in FLASH_WINDOWS])
+def test_flash_attention_window_kernel_matches_plain(dev, shape):
+    b, s, h, hkv, dh, dt, window = shape
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    q = _randn(dev, b, s, h, dh, seed=1).to(dt)
+    k = _randn(dev, b, s, hkv, dh, seed=2).to(dt)
+    v = _randn(dev, b, s, hkv, dh, seed=3).to(dt)
+    by_variant = dict(fa.flash_attention_bhsd.launches_by_variant)
+    got = fa.flash_attention_bhsd(q, k, v, window=window)
+    torch.cuda.synchronize()
+    by_variant[fa.VARIANTS[dt]] += 1
+    assert fa.flash_attention_bhsd.launches_by_variant == by_variant
+    if dt == torch.float32:
+        want = fa.flash_attention_plain(q, k, v, window)
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        ok, ratio, rms_got, rms_plain = fa.bf16_error_check(q, k, v, got,
+                                                            window)
+        assert ok, (ratio, rms_got, rms_plain)
+
+
+def test_flash_attention_window_past_s_is_causal_and_f32_256_raises(dev):
+    q = _randn(dev, 2, 100, 4, 256, seed=1).bfloat16()
+    k = _randn(dev, 2, 100, 1, 256, seed=2).bfloat16()
+    assert torch.equal(fa.flash_attention_bhsd(q, k, k, window=2048),
+                       fa.flash_attention_bhsd(q, k, k))
+    with pytest.raises(ValueError, match="no head_dim 256 instance"):
+        fa.flash_attention_bhsd(q.float(), k.float(), k.float())
+
+
+def test_hybrid_run_alg1_on_card_tracks_cpu(dev):
+    task = transformer_task("recurrentgemma-9b")   # 3 layers, window 16
+    data = task.default_data(n_train=96, n_test=24, seed=0)
+    part = partition.iid(96, 4, seed=0)
+    kw = dict(task=task, batch_size=4, rounds=2, eval_every=1,
+              eval_samples=48, seed=1, tau=2.0, lam=0.0, secure=True,
+              fused=True)
+    tf32x3 = fa.flash_attention_bhsd.launches_by_variant["tf32x3"]
+    p_gpu, h_gpu = runtime.run_alg1(data, part, **kw)
+    # one attention layer x (2 uploads + 2 eval points x 2 forwards)
+    assert fa.flash_attention_bhsd.launches_by_variant["tf32x3"] - tf32x3 \
+        == 2 + 2 * 2
+    p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
+    assert h_gpu.comm == h_cpu.comm
+    np.testing.assert_allclose(h_gpu.train_cost, h_cpu.train_cost, rtol=1e-4)
+    for a, b in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4)
+
+
 def test_flash_attention_vmap_grad_on_card(dev):
     g = torch.Generator().manual_seed(0)
     x = torch.randn(3, 2, 100, 4, 64, generator=g).to(dev)
@@ -778,25 +842,28 @@ def _reduced_lm(arch):
     return model, params
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b",
+                                  "recurrentgemma-9b"])
 def test_reduced_decode_on_card_tracks_cpu(dev, arch):
     """12 decode steps of the reduced model (f32) on the card against the
-    CPU: logits within 1e-4 of the largest |logit| (TF32 off), and no
-    hand-written kernel launched."""
+    CPU (20 for the hybrid, past its window of 16): logits within 1e-4 of
+    the largest |logit| (TF32 off), and no hand-written kernel
+    launched."""
     model, params = _reduced_lm(arch)
-    tok = torch.randint(0, 512, (2, 12),
+    n = 20 if arch == "recurrentgemma-9b" else 12
+    tok = torch.randint(0, 512, (2, n),
                         generator=torch.Generator().manual_seed(1))
-    s_gpu = model.init_decode(2, 12, device=dev)
-    s_cpu = model.init_decode(2, 12, device="cpu")
+    s_gpu = model.init_decode(2, n, device=dev)
+    s_cpu = model.init_decode(2, n, device="cpu")
     p_gpu = tree.map(lambda w: w.to(dev), params)
     launches = (fa.flash_attention_bhsd.launches, rw.rwkv6_wkv_bh.launches,
                 su.ssca_update_2d.launches)
-    for t in range(12):
+    for t in range(n):
         l_gpu, s_gpu = model.decode_step(p_gpu, s_gpu, tok[:, t:t + 1].to(dev))
         l_cpu, s_cpu = model.decode_step(params, s_cpu, tok[:, t:t + 1])
         err = float((l_gpu.cpu() - l_cpu).abs().max())
         assert err <= 1e-4 * float(l_cpu.abs().max()), (t, err)
-    assert int(s_gpu.length) == 12
+    assert int(s_gpu.length) == n
     assert (fa.flash_attention_bhsd.launches, rw.rwkv6_wkv_bh.launches,
             su.ssca_update_2d.launches) == launches
 

@@ -115,7 +115,8 @@ def test_vmap_grad_folds_clients_into_one_call(hkv, monkeypatch):
     calls = []
     plain = fa.flash_attention_plain
     monkeypatch.setattr(fa, "flash_attention_plain",
-                        lambda q, k, v: calls.append(q.shape) or plain(q, k, v))
+                        lambda q, k, v, *window: calls.append(q.shape)
+                        or plain(q, k, v, *window))
 
     def loss(w, xi, ki):
         o = ops.flash_attention(xi @ w, ki, 0.5 * ki)

@@ -200,10 +200,14 @@ def test_loss_sum_and_gradient_match_jax():
 
 
 def test_unported_families_and_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("recurrentgemma-9b"))
+    # the hybrid family and attend(window=) are ported
+    # (tests/test_torch_hybrid.py); the moe, vlm and audio families and
+    # non-causal attention still raise
+    for arch in ("qwen3-moe-235b-a22b", "phi-3-vision-4.2b",
+                 "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(get_config(arch))
     q = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(NotImplementedError):
-        attention.attend(q, q, q, window=2)
+    assert attention.attend(q, q, q, window=2).shape == q.shape
     with pytest.raises(NotImplementedError):
         attention.attend(q, q, q, causal=False)
