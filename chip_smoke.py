@@ -32,10 +32,13 @@ last line):
    before P·V, to ``bf16_error_check``'s bound against the f64 softmax,
    at the LM path's shape (B·I = 8, S = 1024, H = 32, Hkv = 8, Dh = 128)
    and at edge shapes (Dh 16, 32, 64 and 128; S = 1, 65, 77, 128, 129,
-   300 and 1024; G = 1, 4, 8 and 48), with SDPA's error against the
-   same f64 softmax printed for the record; its f32 (3xTF32) kernel
-   within 2e-5 of the plain version (S = 1, 77 and 300, Dh 16, 64 and
-   128, the small LM's shape and llama3-8b's attention in f32); then the
+   160, 300 and 1024; G = 1, 4, 5, 8, 16 and 48), with SDPA's error
+   against the same f64 softmax printed for the record, and at the moe
+   serve forward's grouped heads (``phase_flash_moe_parity``: (4, 160,
+   64, 4, 128), G = 16, and (4, 160, 40, 8, 128), G = 5); its f32
+   (3xTF32) kernel within 2e-5 of the plain version (S = 1, 77 and 300,
+   Dh 16, 64 and 128, the small LM's shape and llama3-8b's attention in
+   f32); then the
    hybrid's instances (``phase_flash_band_parity``): the wgmma kernel at
    head dim 256 on the hybrid path's (4, 1024, 16, 1, 256) at window
    2048 (the path's; it covers S, so the causal instance runs, and its
@@ -152,7 +155,12 @@ last line):
    round, 4 rounds: the wgmma kernel's head-dim-256 instance once a
    forward, the costs after each round and τ printed, the first cost
    within [ln V − 1, ln V + 3], the ledger, the round time, the peak and
-   a profiled round;
+   a profiled round; then the moe family: ``transformer_task(
+   "qwen3-moe-235b-a22b")`` (every layer MoE, top-2 of 4 experts) and
+   ``("llama4-maverick-400b-a17b")`` (a dense block and a MoE block,
+   top-1 and the shared expert), 2 layers of width 64, as the small LM
+   runs, against their CPU runs (``moe_small``,
+   ``moe_small_interleaved``);
    then the launch entry points (``phase_launch``), counters set to 0
    before each part and read after: ``launch.serve.serve_batch`` (no
    kernel launched; logits within 1e-4 of the largest of the CPU's,
@@ -160,7 +168,10 @@ last line):
    ``launch.steps.make_train_step`` (one ``lambda0`` launch; loss and
    parameters within 1e-5 of the CPU's) on the reduced llama3-8b and
    rwkv6-7b, and the reduced recurrentgemma-9b at 3 and 5 layers (16
-   prompt and 16 new tokens: decode past its window of 16);
+   prompt and 16 new tokens: decode past its window of 16), and the
+   reduced qwen3-moe and llama4-maverick (``launch_small_moe``: also a
+   train step resumed from a checkpoint, bit for bit the uninterrupted
+   one, and one on bf16 parameters that must return f32 ones);
    llama3-8b and rwkv6-7b at full width (2 of 32 layers), and
    recurrentgemma-9b (3 of 38),
    serving 8 ``synth_requests`` in batches of 4 (prompt 128, 32 new
@@ -170,6 +181,12 @@ last line):
    within 2e-2 of the largest |logit|, the layer kernel (bf16 flash,
    WKV) once a layer a forward; llama3-8b at ``decode_window=64`` (finite,
    its first 64 positions within the same bound of the full cache's);
+   qwen3-moe (2 of 94 layers) and llama4-maverick (2 of 48) in bf16,
+   whose decode never drops: its checks run the forward and prefill at
+   ``capacity_factor`` E / k (``dropless``: C > S, so they drop nothing;
+   the reference's own check uses 8.0) on the experts decode chose, the
+   forward's own choice differing only within ROUTE_TIE of a tie, and
+   the forward at the config's 1.25 and at 8.0 gives the share it drops;
    the prefill and decode step times, tokens/s, peak memory and the
    decode step's byte floor, and a short batch (32 steps) profiled: a
    step's device time by kind, busy share and host CUDA calls; then
@@ -203,8 +220,11 @@ last line):
    (``flash_attention_hd256``, the causal pairs) and at window 256
    (``flash_attention_hd256_band``, timing only: SDPA takes the band as
    a boolean mask), and the tf32x3 band at hybrid_small's shape
-   (``flash_attention_tf32x3_band``); each flash row counts the
-   launches of its instance's paths (the hybrid's apart); the launch
+   (``flash_attention_tf32x3_band``), the wgmma variant at the moe serve
+   forward's (4, 160, 64, 4, 128) and (4, 160, 40, 8, 128)
+   (``flash_attention_g16``, ``flash_attention_g5``); each flash row
+   counts the launches of its instance's paths (the hybrid's and the
+   moe serves' apart); the launch
    floor, an empty kernel's graph replay, beside ``ssca_update`` (its
    ``beta`` variant; ``ssca_update_lambda0`` has a row of its own, each
    bound by its own bytes), ``masked_sum`` and ``sketch_encode`` at the
@@ -353,13 +373,15 @@ LM_PARAMS = 961_564_672
 # folded into the batch
 FLASH_PATH = (LM_CLIENTS * LM_BATCH, LM_SEQ, 32, 8, 128)
 # bf16 edge shapes (B, S, H, Hkv, Dh): every head dim, S in {1, 65, 77,
-# 128, 129, 300, 1024} (ragged and whole 128-row tiles) and G in {1, 4, 8,
-# 48} (48: granite-34b's grouping)
+# 128, 129, 160, 300, 1024} (ragged and whole 128-row tiles) and G in {1,
+# 4, 5, 8, 16, 48} (48: granite-34b's grouping; 16: qwen3-moe's 64 query
+# heads on 4 kv heads; 5: llama4-maverick's 40 on 8, not a power of two)
 FLASH_BF16_EDGES = [(2, 1, 4, 1, 128), (1, 65, 8, 1, 64), (2, 77, 4, 4, 16),
                     (1, 128, 8, 2, 32), (1, 129, 48, 1, 128),
                     (2, 300, 8, 1, 64), (1, 1024, 48, 1, 128),
                     (1, 300, 4, 4, 32), (1, 1024, 4, 1, 16),
-                    (2, 65, 16, 2, 128)]
+                    (2, 65, 16, 2, 128), (1, 160, 64, 4, 128),
+                    (2, 77, 40, 8, 128)]
 FLASH_F32_EDGES = [(2, 1, 4, 1, 64), (2, 77, 8, 8, 16), (3, 77, 8, 1, 64),
                    (2, 300, 8, 1, 128)]
 # the small LM's (f32) flash shape: 4 clients' 4 sequences of 32 tokens
@@ -401,6 +423,40 @@ FLASH_BAND = 256
 # two edge shapes, (shape, window)
 FLASH_F32_BAND = ((16, 32, 4, 1, 16), 16)
 FLASH_F32_BAND_EDGES = [((4, 32, 4, 1, 16), 16), ((2, 130, 4, 1, 64), 40)]
+
+
+# the moe family: qwen3-moe (every layer MoE, 128 experts top-8, 64 query
+# heads on 4 kv heads) and llama4-maverick (a dense block, then a MoE
+# block: 128 experts top-1 and a shared expert, 40 query heads on 8 kv
+# heads), served at full width in bf16, 2 of their 94 and 48 layers
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_INTERLEAVED_ARCH = "llama4-maverick-400b-a17b"
+# the serve forward's attention (B, S, H, Hkv, Dh), by timing row: a batch
+# of 4 requests of prompt 128 and 32 new tokens
+FLASH_MOE = {"flash_attention_g16": (4, 160, 64, 4, 128),
+             "flash_attention_g5": (4, 160, 40, 8, 128)}
+# the reference's capacity factor for its check of MoE decode against
+# the forward (tests/test_models_smoke.py)
+REFERENCE_DROPLESS = 8.0
+
+
+def dropless(cfg):
+    """The capacity factor E / k, at which C = int(S·k·cf/E) + 1 > S: an
+    expert takes at most one assignment a token, so the forward drops
+    nothing whatever the routing, as decode (one token an example) never
+    does.  The reference's REFERENCE_DROPLESS is above E / k at its
+    reduced configs; at full width E / k is 16 (qwen3-moe) and 128
+    (llama4-maverick), and what the forward drops at 8.0 is printed."""
+    return cfg.num_experts / cfg.experts_per_token
+
+
+# a token whose k-th and (k + 1)-th expert probabilities lie within this
+# share of the k-th may route differently in decode and in the forward:
+# the two round the router's bf16 input at other places (at qwen3-moe's
+# full width 64 of 1,280 token-layers of a batch routed apart, at
+# relative margins of up to 4.26e-2: this script, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+ROUTE_TIE = 2.0 ** -4
 
 
 # the card's name and power limit (nvidia-smi), once main has read them
@@ -1035,6 +1091,39 @@ def phase_flash_band_parity(torch, card):
     return errs, stats
 
 
+def phase_flash_moe_parity(torch):
+    """The wgmma kernel at the moe serve forward's shapes (FLASH_MOE: G =
+    16 and G = 5 at head dim 128), each call counted on its variant and
+    held by ``bf16_error_check`` to the f64 softmax.  Returns the max abs
+    differences from the plain version and the check's numbers, by
+    ``{"kernels": [...]}`` row."""
+    from repro_torch.kernels import flash_attention as fa
+    errs, stats = {}, {}
+    for row, shape in FLASH_MOE.items():
+        q, k, v = flash_inputs(torch, *shape, torch.bfloat16)
+        before = dict(fa.flash_attention_bhsd.launches_by_variant)
+        got = fa.flash_attention_bhsd(q, k, v)
+        torch.cuda.synchronize()
+        before["wgmma"] += 1
+        if fa.flash_attention_bhsd.launches_by_variant != before:
+            raise AssertionError(f"flash_attention at {shape} did not "
+                                 "launch its wgmma kernel once")
+        ok, ratio, rms_got, rms_plain = fa.bf16_error_check(q, k, v, got)
+        errs[row] = float((got.float() - fa.flash_attention_plain(q, k, v)
+                           .float()).abs().max())
+        stats[row] = {"max_error_over_bound": ratio,
+                      "rms_error_vs_f64": rms_got,
+                      "plain_rms_error_vs_f64": rms_plain,
+                      "max_abs_from_plain": errs[row]}
+        log(f"flash_attention (wgmma): at (B, S, H, Hkv, Dh) = {shape}, "
+            f"bf16: {json.dumps(stats[row])}")
+        if not ok:
+            raise AssertionError(f"flash_attention (wgmma) outside its "
+                                 f"tolerance at {shape}: {stats[row]}")
+        del q, k, v, got
+    return errs, stats
+
+
 def wkv_inputs(torch, n, s, h, d, dtype, lw=None, per_seq=False, seed=0):
     """r, k, v (N(0, 1) in ``dtype``), the f32 log-decay and the f32 bonus
     on the card.  The log-decay is ``lw`` everywhere, or drawn as the
@@ -1401,10 +1490,16 @@ DECODE_VS_FORWARD = 2e-2
 SMALL_DECODE = 1e-4
 LAYER_KERNEL = {"llama3-8b": ("flash_attention", "flash_attention_wgmma"),
                 "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma"),
-                HYBRID_ARCH: ("flash_attention", "flash_attention_wgmma")}
+                HYBRID_ARCH: ("flash_attention", "flash_attention_wgmma"),
+                MOE_ARCH: ("flash_attention", "flash_attention_wgmma"),
+                MOE_INTERLEAVED_ARCH: ("flash_attention",
+                                       "flash_attention_wgmma")}
 SMALL_KERNEL = {"llama3-8b": ("flash_attention", "flash_attention_tf32x3"),
                 "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma"),
-                HYBRID_ARCH: ("flash_attention", "flash_attention_tf32x3")}
+                HYBRID_ARCH: ("flash_attention", "flash_attention_tf32x3"),
+                MOE_ARCH: ("flash_attention", "flash_attention_tf32x3"),
+                MOE_INTERLEAVED_ARCH: ("flash_attention",
+                                       "flash_attention_tf32x3")}
 
 
 def kernel_layers(cfg):
@@ -1515,15 +1610,167 @@ def launch_small(torch, kernels, card, arch, dev="cuda", layers=2):
     return serve_counts, train_counts
 
 
-def decode_floor_ms(cfg, params):
-    """The least time of one full-width decode step: the f32 layer
-    weights read, their bf16 cast written and read again, and the f32
-    embedding table read (the lookup and the tied unembedding), over the
-    card's memory rate; the KV cache and activations are left out."""
-    n_layers = sum(w.numel() for key in ("blocks", "tail")
-                   for w in params.get(key, {}).values())
-    nbytes = n_layers * (4 + 2 + 2) + params["embed"].numel() * 4
+def launch_small_moe(torch, kernels, card, arch, dev="cuda"):
+    """The reduced moe ``arch`` (f32, 2 layers of width 256, 4 experts):
+    :func:`launch_small` (``serve_batch`` and one ``make_train_step``
+    against the CPU); then on the card two steps with a checkpoint of the
+    parameters and SSCA's lin after the first, saved and restored in a
+    temporary directory (removed after), the second step run again from
+    it: bit for bit the uninterrupted one, which needs a deterministic
+    forward and backward (the MoE dispatch and combine are one-hot
+    einsums, no float atomics); and one step of the same config with
+    bf16 parameters and activations, whose parameters and lin must come
+    back as f32 leaves, as the reference's do.  Returns the launches of
+    each part."""
+    import dataclasses
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.ckpt import io as ckpt_io
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.core import ssca
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    parts = dict(zip(("serve", "train"),
+                     launch_small(torch, kernels, card, arch, dev)))
+    cfg = reduced(get_config(arch))
+    n_k = kernel_layers(cfg)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    step = steps.make_train_step(model, ssca.SSCAHyperParams(tau=2.0))
+    stream = train.batch_stream(cfg, 8, 32, device=dev)
+    batches = [next(stream) for _ in range(2)]
+    name, variant = SMALL_KERNEL[arch]
+    reset_counts(kernels)
+    p1, s1, _ = step(params, ssca.init(params, with_beta=False), batches[0])
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+    try:
+        ckpt_io.save(root / "step_1", {"params": p1, "ssca_lin": s1.lin},
+                     step=1)
+        p2, s2, m2 = step(p1, s1, batches[1])
+        restored, meta = ckpt_io.restore(ckpt_io.latest(root), device=dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    state = ssca.init(restored["params"], with_beta=False)._replace(
+        step=meta["step"] + 1, lin=restored["ssca_lin"])
+    r2, rs2, rm2 = step(restored["params"], state, batches[1])
+    parts["resume"] = check_counts(
+        kernels, f"train_small resume {arch}", want_counts(
+            kernels, ssca_update=3, ssca_update_lambda0=3,
+            **{name: 3 * n_k, variant: 3 * n_k}))
+    same = float(rm2["loss"]) == float(m2["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(tree.leaves((r2, rs2.lin)),
+                                          tree.leaves((p2, s2.lin))))
+    del p1, s1, p2, s2, r2, rs2, restored, state
+
+    cfg_b = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                activ_dtype="bfloat16")
+    model_b = build_model(cfg_b)
+    params_b = model_b.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    reset_counts(kernels)
+    q, sq, mq = steps.make_train_step(model_b, ssca.SSCAHyperParams(
+        tau=2.0))(params_b, ssca.init(params_b, with_beta=False), batches[0])
+    parts["bf16"] = check_counts(
+        kernels, f"train_small bf16 {arch}", want_counts(
+            kernels, ssca_update=1, ssca_update_lambda0=1,
+            **{name: n_k, "flash_attention_wgmma": n_k}))
+    dtypes_in = sorted({str(w.dtype) for w in tree.leaves(params_b)})
+    dtypes_out = sorted({str(w.dtype) for w in tree.leaves((q, sq.lin))})
+    loss_b = float(mq["loss"])
+    ln_v = math.log(cfg.vocab_size)
+    log(f"train_small {arch}: resumed from a checkpoint after step 1, bit "
+        f"for bit the uninterrupted step 2: {same} (loss {float(m2['loss'])}"
+        f"); bf16 parameters {dtypes_in} → {dtypes_out} after one step, "
+        f"loss {loss_b} (ln V = {ln_v:.4f}), kkt_residual "
+        f"{float(mq['kkt_residual'])}, on {card}")
+    if not same:
+        raise AssertionError(f"train_small {arch}: the resumed step differs "
+                             "from the uninterrupted one")
+    if dtypes_in != ["torch.bfloat16"] or dtypes_out != ["torch.float32"]:
+        raise AssertionError(f"train_small bf16 {arch}: {dtypes_in} in, "
+                             f"{dtypes_out} out")
+    if not ln_v - 1 <= loss_b <= ln_v + 3:
+        raise AssertionError(f"train_small bf16 {arch}: loss {loss_b}")
+    return parts
+
+
+def decode_floor_ms(cfg, params, cache_bytes=0):
+    """The least time of one full-width decode step: each layer weight
+    read in its dtype and, where that is not the activation dtype, its
+    cast written and read again (f32 parameters under bf16 activations:
+    4 + 2 + 2 bytes; bf16 under bf16: 2, no cast); the embedding table
+    read (the lookup and the tied unembedding), and where it is not f32
+    the unembedding's f32 copy written and read (bf16: 2 + 4 + 4); and
+    ``cache_bytes`` of KV cache, over the card's memory rate.  Every
+    weight counts: the MoE's expert einsum reads every expert's weights
+    each step, as the reference's dense buffer einsum does.
+    Activations are left out."""
+    act = cfg.adtype.itemsize
+    nbytes = cache_bytes
+    for key in ("blocks", "tail"):
+        for w in params.get(key, {}).values():
+            nbytes += w.numel() * (w.element_size() + (
+                2 * act if w.dtype != cfg.adtype else 0))
+    emb = params["embed"]
+    nbytes += emb.numel() * (emb.element_size() + (
+        8 if emb.element_size() != 4 else 0))
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+@contextlib.contextmanager
+def moe_routes(torch, on=True, forced=None):
+    """While ``on``: every MoE router call's own expert ids and top-(k +
+    1) probabilities, in call order (``repro_torch.models.moe.route``
+    wrapped).  With ``forced``, one (B, S, k) id tensor a call in order,
+    each call routes to those experts instead, its gates renormalised
+    from its own probabilities there, as ``route`` does."""
+    from repro_torch.models import moe
+    calls = []
+    if not on:
+        yield calls
+        return
+    route, ids = moe.route, iter(forced or ())
+
+    def wrapped(x, w_router, k):
+        gates, idx, probs = route(x, w_router, k)
+        calls.append((idx, torch.topk(probs, k + 1, dim=-1).values))
+        if forced is not None:
+            idx = next(ids)
+            gates = torch.gather(probs, -1, idx)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return gates, idx, probs
+    moe.route = wrapped
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def decode_routes(torch, calls, steps):
+    """The decode steps' router calls (step-major, ids (B, 1, k)) → one
+    (B, steps, k) id tensor a MoE layer."""
+    n = len(calls) // steps
+    return [torch.cat([c[0] for c in calls[layer::n]], dim=1)
+            for layer in range(n)]
+
+
+def route_ties(own, forced, k):
+    """Where a forward's own top-k (``own``: its router calls, ids and
+    top-(k + 1) probabilities) differs from the experts it was forced to
+    (decode's), by MoE layer: the count of such tokens, and the largest
+    relative margin between its k-th and (k + 1)-th probability there (0
+    without one)."""
+    flips, worst = [], 0.0
+    for (idx, top), want in zip(own, forced):
+        flip = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+        margin = (top[..., k - 1] - top[..., k]) / top[..., k - 1]
+        flips.append(int(flip.sum()))
+        if flips[-1]:
+            worst = max(worst, float(margin[flip].max()))
+    return flips, worst
 
 
 def decode_profile(torch, model, params, batch):
@@ -1560,11 +1807,21 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
     DECODE_VS_FORWARD of the largest |logit|, the layer kernel once a
     layer a forward; on llama3-8b a ring buffer of SERVE_WINDOW slots:
     finite, and its first SERVE_WINDOW positions within the same bound
-    of the full cache's.  Returns the launches of each part over its
-    batches: ``decode`` (the decode loops), ``check`` (the forwards and
-    prefill steps) and, on llama3-8b, ``ring``."""
+    of the full cache's.  The moe family's decode (one token an example)
+    never drops an assignment, so its forward and prefill checks run on
+    the same weights at ``capacity_factor`` ``dropless(cfg)``, where the
+    forward drops none either (checked), and route to the experts decode
+    chose (a router in bf16 whose k-th and (k + 1)-th probabilities lie
+    within the two paths' rounding picks either, and a token routed
+    apart perturbs every later layer through attention); where the
+    forward's own choice differs, it must sit within ROUTE_TIE of a tie,
+    and the forward at the config's own capacity factor and at the
+    reference's 8.0 gives the share it drops.  Returns the launches of
+    each part over its batches: ``decode`` (the decode loops), ``check``
+    (the forwards and prefill steps) and, on llama3-8b, ``ring``."""
     import dataclasses
     import numpy as np
+    from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, steps
     from repro_torch.models import build_model
@@ -1574,23 +1831,41 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
         cfg = cut(cfg)
     n_k = kernel_layers(cfg)
     model = build_model(cfg)
+    is_moe = cfg.family == "moe"
+    check = build_model(dataclasses.replace(
+        cfg, capacity_factor=dropless(cfg))) if is_moe else model
+    t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree.leaves(params)
+    n_params = sum(w.numel() for w in leaves)
+    param_bytes = sum(w.numel() * w.element_size() for w in leaves)
+    log(f"serve {arch}: {n_params} parameters, {param_bytes} B in "
+        f"{sorted({str(w.dtype) for w in leaves})}, drawn in {init_s:.2f} s")
+    del leaves
     reqs = serve.synth_requests(SERVE_REQUESTS, cfg, SERVE_PROMPT, SERVE_NEW)
     # warm-up: the first steps at these shapes pick the GEMM kernels
     serve.serve_batch(model, params, [serve.Request(r.prompt[:8], 4)
                                       for r in reqs[:SERVE_BATCH]])
     name, variant = LAYER_KERNEL[arch]
-    prefill = steps.make_prefill_step(model)
+    prefill = steps.make_prefill_step(check)
     by_part = {"decode": want_counts(kernels), "check": want_counts(kernels)}
-    stats = []
+    stats, dropped = [], None
     for i in range(0, SERVE_REQUESTS, SERVE_BATCH):
         batch = reqs[i:i + SERVE_BATCH]
         record = []
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernels)
-        gen, t_prefill, t_decode = serve.serve_batch(model, params, batch,
-                                                     record=record)
+        with moe_routes(torch, is_moe) as calls:
+            gen, t_prefill, t_decode = serve.serve_batch(
+                model, params, batch, record=record)
+        # the experts decode chose, a MoE layer: the checks' forwards
+        # route there, so that they compare the same function
+        forced = decode_routes(torch, calls, len(record)) if is_moe \
+            else None
+        del calls
         check_counts(kernels, f"serve {arch} decode loop",
                      want_counts(kernels))
         peak = torch.cuda.max_memory_allocated()
@@ -1598,21 +1873,55 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
                                  device=dev)
         tokens = torch.cat([prompt, torch.as_tensor(gen, device=dev)], 1)
         reset_counts(kernels)
-        full = model.forward(params, {"tokens": tokens})
-        last = prefill(params, {"tokens": prompt})
+        check_dropped = []
+        with moe_routes(torch, is_moe, forced) as fwd_routes:
+            full = check.forward_with_aux(params, {"tokens": tokens},
+                                          dropped=check_dropped)[0]
+        if any(float(d) for d in check_dropped):
+            raise AssertionError(f"serve {arch}: the check's forward drops "
+                                 f"{[float(d) for d in check_dropped]}")
+        with moe_routes(torch, is_moe, forced and [
+                f[:, :SERVE_PROMPT] for f in forced]) as pre_routes:
+            last = prefill(params, {"tokens": prompt})
+        n_fwd = 2
+        if is_moe and i == 0:
+            # the share the served config's forward drops, a MoE layer,
+            # and the forward at the reference's check capacity
+            dropped = {}
+            for cf in (cfg.capacity_factor, REFERENCE_DROPLESS):
+                got = []
+                build_model(dataclasses.replace(
+                    cfg, capacity_factor=cf)).forward_with_aux(
+                        params, {"tokens": tokens}, dropped=got)
+                dropped[cf] = [float(d) for d in got]
+            n_fwd = 4
         got = check_counts(
             kernels, f"serve {arch} forward and prefill", want_counts(
-                kernels, **{name: 2 * n_k, variant: 2 * n_k}))
+                kernels, **{name: n_fwd * n_k, variant: n_fwd * n_k}))
         by_part["check"] = {k: n + got[k]
                             for k, n in by_part["check"].items()}
         dec = torch.cat(record, dim=1)
         scale = float(full.abs().max())
         err = float((dec - full).abs().max())
         err_pre = float((last - record[SERVE_PROMPT - 1][:, 0]).abs().max())
+        flips = {}
+        if is_moe:
+            # where the forward's own top-k differs from decode's choice,
+            # the two must sit at a near-tie of the router
+            by_layer, worst = route_ties(fwd_routes, forced,
+                                         cfg.experts_per_token)
+            flips = {"tokens_routed_apart_by_moe_layer": by_layer,
+                     "tokens": dec.shape[0] * dec.shape[1],
+                     "largest_margin_routed_apart": worst}
+            if worst > ROUTE_TIE:
+                raise AssertionError(
+                    f"serve {arch}: decode and forward route apart off a "
+                    f"near-tie: {flips}; decode vs forward {err}, prefill "
+                    f"step {err_pre}, scale {scale}")
         stats.append({"prefill_s": t_prefill, "decode_s": t_decode,
                       "peak_bytes": peak, "decode_vs_forward": err,
                       "prefill_step_vs_decode": err_pre,
-                      "largest_logit": scale})
+                      "largest_logit": scale, **flips})
         if not (err <= DECODE_VS_FORWARD * scale
                 and err_pre <= DECODE_VS_FORWARD * scale
                 and bool(torch.isfinite(dec).all())):
@@ -1620,14 +1929,29 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
                                  f"prefill step {err_pre}, scale {scale}")
         if i == 0:
             first = (batch, dec)
-        del full, dec, record
-    floor_ms, floor_bytes = decode_floor_ms(cfg, params)
+        del full, dec, record, forced, fwd_routes, pre_routes
+    # the K and V caches a decode step reads, every slot of every
+    # attention layer
+    cache_bytes = 2 * model._n_attn_layers() * SERVE_BATCH \
+        * (SERVE_PROMPT + SERVE_NEW) * cfg.num_kv_heads * cfg.head_dim \
+        * cfg.adtype.itemsize
+    floor_ms, floor_bytes = decode_floor_ms(cfg, params, cache_bytes)
     profiled = decode_profile(torch, model, params, reqs[:SERVE_BATCH])
     b = SERVE_BATCH
     step_ms = [s["decode_s"] / SERVE_NEW * 1e3 for s in stats]
     log(f"serve {arch} ({cfg.num_layers} of {published.num_layers} layers, "
         f"{SERVE_REQUESTS} requests in batches of {b}, prompt "
         f"{SERVE_PROMPT}, {SERVE_NEW} new tokens) on {card}:", json.dumps({
+            "parameters": n_params, "parameter_bytes": param_bytes,
+            "init_s": init_s,
+            "capacity_factor": cfg.capacity_factor if is_moe else None,
+            "check_capacity_factor": dropless(cfg) if is_moe else None,
+            "forward_dropped_share_by_capacity_and_moe_layer": dropped,
+            "routed_apart": [{k: s[k] for k in (
+                "tokens_routed_apart_by_moe_layer", "tokens",
+                "largest_margin_routed_apart")} for s in stats]
+            if is_moe else None,
+            "decode_step_floor_cache_bytes": cache_bytes,
             "cache_filling_prefill_s": [s["prefill_s"] for s in stats],
             "prefill_tokens_per_s": [b * SERVE_PROMPT / s["prefill_s"]
                                      for s in stats],
@@ -1791,6 +2115,23 @@ def phase_launch(torch, kernels, card):
     by_path["train_llama_full"] = launch_full_train(torch, kernels, card)
     by_path["train_hybrid_full"] = launch_full_train(
         torch, kernels, card, HYBRID_ARCH, cut=hybrid_cut)
+    # the moe family: the reduced models against the CPU (and a resume and
+    # a bf16 step on the card), then serving at full width in bf16, 2 of
+    # 94 and 2 of 48 layers
+    for arch, short in ((MOE_ARCH, "moe"),
+                        (MOE_INTERLEAVED_ARCH, "moe_interleaved")):
+        parts = launch_small_moe(torch, kernels, card, arch)
+        by_path[f"serve_small_{short}"] = parts["serve"]
+        by_path[f"train_small_{short}"] = parts["train"]
+        by_path[f"train_small_{short}_resume"] = parts["resume"]
+        by_path[f"train_small_{short}_bf16"] = parts["bf16"]
+    for arch, short in ((MOE_ARCH, "moe"),
+                        (MOE_INTERLEAVED_ARCH, "moe_interleaved")):
+        t1 = time.perf_counter()
+        parts = launch_full_serve(torch, kernels, card, arch)
+        by_path[f"serve_{short}_full_decode"] = parts["decode"]
+        by_path[f"serve_{short}_full_forward"] = parts["check"]
+        log(f"serve_{short}_full: {time.perf_counter() - t1:.1f} s")
     log(f"launch phase: {time.perf_counter() - t0:.1f} s")
     return by_path
 
@@ -2918,6 +3259,16 @@ def hybrid_path(name):
     return "hybrid" in name
 
 
+# the moe serve paths at full width, whose flash launches run its grouped
+# heads (G = 16, G = 5 at head dim 128): by flash timing row
+def moe_flash_row(name):
+    if name.startswith("serve_moe_interleaved_full"):
+        return "flash_attention_g5"
+    if name.startswith("serve_moe_full"):
+        return "flash_attention_g16"
+    return None
+
+
 def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                  flash_stats, band_stats):
     dev = torch.device("cuda")
@@ -2998,6 +3349,11 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     bx, blib, fbs_bytes, fbs_flops = flash_work(*f32_band_shape,
                                                 torch.float32, 2, f32_band)
     bmask = fa.band_mask(f32_band_shape[1], f32_band, "cuda")
+    # the moe serve forward's grouped heads: G = 16 and G = 5
+    gx, glib, g_bytes, g_flops = {}, {}, {}, {}
+    for row, shape in FLASH_MOE.items():
+        gx[row], glib[row], g_bytes[row], g_flops[row] = flash_work(
+            *shape, torch.bfloat16, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_backends = {"flash_attention_tf32x3": sdpa_backend(torch, slib),
                      "flash_attention_f32_wide": sdpa_backend(torch, wlib)}
@@ -3011,16 +3367,22 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     # path runs in f32, whose launches are 0
     launch_key = {"flash_attention": "flash_attention_wgmma",
                   "flash_attention_hd256": "flash_attention_wgmma",
+                  "flash_attention_g16": "flash_attention_wgmma",
+                  "flash_attention_g5": "flash_attention_wgmma",
                   "flash_attention_tf32x3_band": "flash_attention_tf32x3",
                   "rwkv6_wkv": "rwkv6_wkv_mma",
                   "ssca_update": "ssca_update_beta"}
     timing_only = {"flash_attention_f32_wide", "flash_attention_hd256_band"}
     # the flash rows split their variant's launches by path: the hybrid's
     # instances on its rows, the others' on theirs
-    path_of_row = {"flash_attention": lambda p: not hybrid_path(p),
+    # and the moe serve paths' on theirs
+    path_of_row = {"flash_attention": lambda p: not hybrid_path(p)
+                   and moe_flash_row(p) is None,
                    "flash_attention_tf32x3": lambda p: not hybrid_path(p),
                    "flash_attention_hd256": hybrid_path,
-                   "flash_attention_tf32x3_band": hybrid_path}
+                   "flash_attention_tf32x3_band": hybrid_path,
+                   **{row: (lambda p, r=row: moe_flash_row(p) == r)
+                      for row in FLASH_MOE}}
 
     def row_launches(name):
         if name in timing_only:
@@ -3101,6 +3463,13 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
              lambda: fa.flash_attention_plain(*bx, f32_band),
              lambda: sdpa(*blib, attn_mask=bmask, enable_gqa=True),
              fbs_bytes, f32_route(fbs_flops)),
+            *((row, "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+               "src/repro/kernels/flash_attention.py:78",
+               lambda r=row: fa.flash_attention_bhsd(*gx[r]),
+               lambda r=row: fa.flash_attention_plain(*gx[r]),
+               lambda r=row: sdpa(*glib[r], is_causal=True,
+                                  enable_gqa=True),
+               g_bytes[row], {"bf16": g_flops[row]}) for row in FLASH_MOE),
             ("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_scan_sm90.cu",
              "src/repro/kernels/rwkv6_scan.py:71",
              lambda: rw.rwkv6_wkv_bh(*wkx), lambda: rw.wkv_plain(*wkx),
@@ -3161,8 +3530,8 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                  "flash_attention_tf32x3": FLASH_SMALL,
                  "flash_attention_hd256": FLASH_HYBRID,
                  "flash_attention_hd256_band": FLASH_HYBRID,
-                 "flash_attention_tf32x3_band": f32_band_shape}.get(
-                     name, FLASH_F32_WIDE))
+                 "flash_attention_tf32x3_band": f32_band_shape,
+                 **FLASH_MOE}.get(name, FLASH_F32_WIDE))
             rows[-1]["window"] = {"flash_attention_hd256": HYBRID_WINDOW,
                                   "flash_attention_hd256_band": FLASH_BAND,
                                   "flash_attention_tf32x3_band": f32_band
@@ -3193,6 +3562,8 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
             rows[-1]["bf16_check"] = band_stats[HYBRID_WINDOW]
         if name == "flash_attention_hd256_band":
             rows[-1]["bf16_check"] = band_stats[FLASH_BAND]
+        if name in FLASH_MOE:
+            rows[-1]["bf16_check"] = band_stats[name]
         if name == "rwkv6_wkv":
             rows[-1]["shape"] = list(WKV_PATH)
             rows[-1]["launches_by_variant"] = {
@@ -4300,7 +4671,11 @@ LAMBDA0_PATHS = ("lm_small", "lm_full_width", "rwkv_small",
                  "rwkv_full_width", "train_small_llama", "train_small_rwkv",
                  "train_llama_full", "hybrid_small", "hybrid_small_tail",
                  "hybrid_full_width", "train_small_hybrid",
-                 "train_small_hybrid_tail", "train_hybrid_full")
+                 "train_small_hybrid_tail", "train_hybrid_full",
+                 *(f"{p}{s}" for p in ("moe_small", "train_small_moe")
+                   for s in ("", "_interleaved")),
+                 *(f"train_small_{m}_{s}" for m in ("moe", "moe_interleaved")
+                   for s in ("resume", "bf16")))
 
 
 def check_ssca_variants(by_path):
@@ -4387,6 +4762,9 @@ def main() -> int:
     errs["flash_attention_f32_wide"] = f32_err[FLASH_F32_WIDE]
     band_errs, band_stats = phase_flash_band_parity(torch, card)
     errs.update(band_errs)
+    moe_errs, moe_stats = phase_flash_moe_parity(torch)
+    errs.update(moe_errs)
+    band_stats.update(moe_stats)
     errs["rwkv6_wkv"] = phase_wkv_parity(torch)
 
     t0 = time.perf_counter()
@@ -4467,6 +4845,16 @@ def main() -> int:
                       clients=HYBRID_CLIENTS, tau=HYBRID_TAU, eval_every=1,
                       profile_copies=False)
     log(f"hybrid phase: {time.perf_counter() - t0:.1f} s")
+    # the moe family at small width: every layer MoE (top-2) and the
+    # interleaved super-block (top-1 and the shared expert), f32, the
+    # tf32x3 kernel once a layer a forward
+    t0 = time.perf_counter()
+    for name, arch in (("moe_small", MOE_ARCH),
+                       ("moe_small_interleaved", MOE_INTERLEAVED_ARCH)):
+        by_path[name] = phase_lm_small(
+            torch, kernels, runtime, name, transformer_task(arch),
+            "flash_attention", "flash_attention_tf32x3")
+    log(f"moe small phase: {time.perf_counter() - t0:.1f} s")
     by_path.update(phase_launch(torch, kernels, card))
     check_ssca_variants(by_path)
     total = {k: sum(p.get(k, 0) for p in by_path.values())

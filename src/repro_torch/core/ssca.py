@@ -48,8 +48,16 @@ def init(params: Params, with_beta: bool = True) -> SSCAState:
                      beta=beta)
 
 
+def promoted(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as JAX promotes it against an f32 array: a bf16 leaf to f32,
+    an f32 one unchanged (no copy).  A torch bf16 tensor times a 0-d f32
+    tensor stays bf16, so the updates below cast explicitly."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def ema(old: Params, new: Params, rho) -> Params:
-    return tree.map(lambda o, n: (1.0 - rho) * o + rho * n, old, new)
+    return tree.map(lambda o, n: (1.0 - rho) * promoted(o)
+                    + rho * promoted(n), old, new)
 
 
 def solve_surrogate(state: SSCAState, hp: SSCAHyperParams) -> Params:
@@ -96,8 +104,8 @@ def server_update(state: SSCAState, params: Params, grad_agg: Params,
     new_state = SSCAState(step=state.step + 1, lin=lin, beta=beta)
 
     omega_bar = solve_surrogate(new_state, hp)
-    new_params = tree.map(lambda w, wb: (1.0 - gamma) * w + gamma * wb,
-                          params, omega_bar)
+    new_params = tree.map(lambda w, wb: (1.0 - gamma) * promoted(w)
+                          + gamma * wb, params, omega_bar)
     return new_params, new_state
 
 

@@ -2,10 +2,12 @@
 
 The port of ``repro/fed/tasks/transformer.py``: :class:`LMTask` wraps a
 :class:`repro_torch.configs.base.ModelConfig` of a family the port builds
-(``dense``, ``ssm`` and ``hybrid`` so far) as next-token prediction.
-Each client holds token sequences and uploads the per-sample-weighted
-gradient of the sequence-mean cross-entropy; the server runs the same
-SSCA recursions as for the paper's MLP.
+(``dense``, ``moe``, ``ssm`` and ``hybrid`` so far) as next-token
+prediction.  Each client holds token sequences and uploads the
+per-sample-weighted gradient of the sequence-mean cross-entropy; the
+server runs the same SSCA recursions as for the paper's MLP.  The MoE
+load-balance loss is dropped from the federated objective, as the
+reference's task drops it (its loss goes through ``forward``).
 
 ``batch`` layout: ``x`` and ``y`` both carry the (B, S) int32 token
 matrix (the loss shifts internally), so the engine's (x, y[, w]) triple

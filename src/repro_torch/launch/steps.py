@@ -39,7 +39,10 @@ def make_train_step(model: Model,
     {"loss", "kkt_residual"})``.  ``microbatches > 1`` accumulates the
     message ĝ over that many equal slices of the batch's leading axis
     (the same math: eq. (2) is a sum), in a Python loop where the
-    reference scans, summing from zero in the reference's order."""
+    reference scans, summing from zero in the reference's order.  bf16
+    parameters (the published MoE configs') give bf16 gradients, and the
+    fused update's flat f32 buffer returns f32 parameters and ``lin``, as
+    the reference's f32 ρ and γ promote them."""
     hp = hp or ssca.SSCAHyperParams(tau=0.1, lam=0.0,
                                     rho=PowerLaw(0.9, 0.3),
                                     gamma=PowerLaw(0.9, 0.35))
@@ -71,13 +74,16 @@ def make_train_step(model: Model,
 def make_sgd_train_step(model: Model, lr: Optional[PowerLaw] = None):
     """The FedSGD step, ``(params, step, batch) → (params', step + 1,
     {"loss"})`` with ``step`` a 0-d int32 tensor counted from 1 and the
-    rate ``lr(step)``."""
+    rate ``lr(step)``; bf16 parameters come back f32, as the reference's
+    f32 rate promotes them."""
     lr = lr or PowerLaw(0.1, 0.5)
 
     def train_step(params, step, batch):
         loss, grads = autodiff.value_and_grad(model.loss, params, batch)
         r = lr(step.float()).to(_device(params))
-        new_params = tree.map(lambda w, g: w - r * g, params, grads)
+        new_params = tree.map(
+            lambda w, g: ssca.promoted(w) - r * ssca.promoted(g), params,
+            grads)
         return new_params, step + 1, {"loss": loss}
 
     return train_step

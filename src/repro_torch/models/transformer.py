@@ -1,9 +1,12 @@
-"""The LM model zoo: the ``dense``, ``ssm`` and ``hybrid`` families of the
-reference's.
+"""The LM model zoo: the ``dense``, ``moe``, ``ssm`` and ``hybrid``
+families of the reference's.
 
 The port of ``repro/models/transformer.py``'s llama-style GQA decoder
 (llama3-8b, yi-9b, granite-8b; granite-34b with its GELU MLP), its
-attention-free RWKV-6 stack (rwkv6-7b: time mix and channel mix,
+mixture-of-experts decoder (qwen3-moe: every FFN a top-k MoE,
+:mod:`repro_torch.models.moe`; llama4-maverick: a super-block of one
+dense block and one MoE block with a shared expert, ``moe_every`` = 2),
+its attention-free RWKV-6 stack (rwkv6-7b: time mix and channel mix,
 :mod:`repro_torch.models.rwkv6`) and Griffin's hybrid (recurrentgemma-9b:
 a unit of ``pattern_recurrent`` RG-LRU blocks, :mod:`repro_torch.models.
 rglru`, then ``pattern_attn`` local-attention blocks at
@@ -11,32 +14,38 @@ rglru`, then ``pattern_attn`` local-attention blocks at
 ``build_model(cfg, decode_window=0)`` returns a :class:`Model` with
 
 * ``init(generator, device)`` — the layer-stacked parameter tree
-  ``{"blocks": {...}, "embed", "final_norm"}``, every block leaf
-  ``(num_layers, …)``: ``attn_norm, ffn_norm, wq, wk, wv, wo, <ffn>``
-  (dense) or the time-mix and channel-mix leaves ``bonus, ck, cm_norm,
-  …, wv`` (ssm); the hybrid's leaves are ``(n_units, …)``, the recurrent
-  blocks' prefixed ``r{r}_`` and the attention blocks' ``a{a}_``, beside
-  ``"tail"``, the recurrent leaves ``(L mod unit, …)``, when the unit
-  does not divide L;
+  ``{"blocks": {...}, "embed", "final_norm"}`` in ``cfg.param_dtype``,
+  every block leaf ``(num_layers, …)``: ``attn_norm, ffn_norm, wq, wk,
+  wv, wo, <ffn>`` (dense), the FFN's leaves replaced by ``router, ewg,
+  ewu, ewd`` (and ``swg, swu, swd`` with a shared expert) in a MoE block,
+  or the time-mix and channel-mix leaves ``bonus, ck, cm_norm, …, wv``
+  (ssm); the interleaved MoE's leaves are ``(L // moe_every, …)``, the
+  dense block's prefixed ``d_`` and the MoE block's ``m_``; the hybrid's
+  are ``(n_units, …)``, the recurrent blocks' prefixed ``r{r}_`` and the
+  attention blocks' ``a{a}_``, beside ``"tail"``, the recurrent leaves
+  ``(L mod unit, …)``, when the unit does not divide L;
 * ``forward(params, batch)`` — the (B, S, padded_vocab) f32 logits;
 * ``forward_with_aux(params, batch)`` — the logits and the auxiliary
-  losses (none for these families);
-* ``loss(params, batch)`` — next-token cross-entropy, f32;
+  losses: the MoE load-balance losses summed over the MoE layers (moe),
+  none for the other families;
+* ``loss(params, batch)`` — next-token cross-entropy, f32, plus
+  ``router_aux_weight`` · aux / ``num_layers`` (moe);
 * ``init_decode(batch_size, max_len, device)`` — the decode state: a KV
-  cache a layer (dense; a ring buffer of ``decode_window`` slots when it
-  is > 0), the WKV state and two token shifts a layer (ssm), or a ring
-  of ``min(local_window, max_len)`` slots an attention layer and the
-  RG-LRU state and conv context a recurrent layer (hybrid);
+  cache a layer (dense, moe; a ring buffer of ``decode_window`` slots
+  when it is > 0), the WKV state and two token shifts a layer (ssm), or
+  a ring of ``min(local_window, max_len)`` slots an attention layer and
+  the RG-LRU state and conv context a recurrent layer (hybrid);
 * ``decode_step(params, state, tokens)`` — one token with the cached
   state, the caches written in place.
 
 The reference scans the stacked blocks under ``jax.checkpoint``; the port
-casts the stacked leaves to the activation dtype (``_cast``), runs a
-Python loop over the layers (the hybrid's over its units, each unit its
-blocks in order), and keeps activations for the backward (no
-rematerialisation).  Decode casts them at every step too, as the
-reference's scan body does.  Other families (moe, vlm, audio) raise
-``NotImplementedError``.
+casts the stacked leaves to the activation dtype (``_cast``: no copy of a
+leaf already in it, as bf16 parameters under bf16 activations), runs a
+Python loop over the layers (the hybrid's and the interleaved MoE's over
+their units, each unit its blocks in order), and keeps activations for
+the backward (no rematerialisation).  Decode casts them at every step
+too, as the reference's scan body does.  Other families (vlm, audio)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ import torch.nn.functional as F
 
 from repro_torch import Device, resolve_device, tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, rglru, rwkv6
+from repro_torch.models import attention, layers, moe, rglru, rwkv6
 
 
 def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -68,6 +77,31 @@ def _block_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
             "wo": (qh * hd, d),
             "ffn_norm": (d,),
             **_ffn_shapes(cfg)}
+
+
+def _moe_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """A MoE FFN's shapes: the router, the experts' stacked SwiGLU, and
+    the shared expert's when the config has one."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    s = {"router": (d, e), "ewg": (e, d, f), "ewu": (e, d, f),
+         "ewd": (e, f, d)}
+    if cfg.shared_expert:
+        s.update({"swg": (d, f), "swu": (d, f), "swd": (f, d)})
+    return s
+
+
+def _moe_block_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """One attention + MoE block: the dense block's, its FFN replaced."""
+    ffn = _ffn_shapes(cfg)
+    return {**{k: v for k, v in _block_shapes(cfg).items() if k not in ffn},
+            **_moe_shapes(cfg)}
+
+
+def _moe_unit_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The interleaved super-block's: a dense block's prefixed ``d_``, a
+    MoE block's ``m_``."""
+    return {**{f"d_{k}": v for k, v in _block_shapes(cfg).items()},
+            **{f"m_{k}": v for k, v in _moe_block_shapes(cfg).items()}}
 
 
 def _rwkv_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -156,6 +190,31 @@ def _attn_block(cfg, p, x, positions, *, window: int = 0):
     return x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
 
 
+def _moe_ffn_apply(cfg, p, xn) -> moe.MoEOutput:
+    mp = {"router": p["router"], "wg": p["ewg"], "wu": p["ewu"],
+          "wd": p["ewd"]}
+    if cfg.shared_expert:
+        mp.update({"shared_wg": p["swg"], "shared_wu": p["swu"],
+                   "shared_wd": p["swd"]})
+    return moe.moe_ffn(xn, mp, num_experts=cfg.num_experts,
+                       k=cfg.experts_per_token,
+                       capacity_factor=cfg.capacity_factor)
+
+
+def _moe_block(cfg, p, x, positions):
+    """Attention, then the MoE FFN → (x, the layer's ``MoEOutput``)."""
+    x = _attn_apply(cfg, p, x, positions)
+    out = _moe_ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
+    return x + out.y, out
+
+
+def _moe_unit(cfg, p, x, positions):
+    """The interleaved super-block: its dense block, then its MoE
+    block."""
+    x = _attn_block(cfg, _prefixed(p, "d_"), x, positions)
+    return _moe_block(cfg, _prefixed(p, "m_"), x, positions)
+
+
 def _recurrent_block(cfg, p, x, *, h0=None, conv_state=None,
                      decode: bool = False):
     """Griffin's recurrent block: the branch x·Wx through the temporal
@@ -202,9 +261,10 @@ def _recurrent_seq_block(cfg, p, x, positions):
     return _recurrent_block(cfg, p, x)[0]
 
 
-def _attn_decode(cfg, p, x, k_cache, v_cache, length, *, window: int = 0):
-    """One-token attention block against a layer's cache, x (B, 1, D);
-    the cache's slot ``length % C`` is written in place."""
+def _attn_decode_only(cfg, p, x, k_cache, v_cache, length, *,
+                      window: int = 0):
+    """One token's attention against a layer's cache, x (B, 1, D), with
+    its residual; the cache's slot ``length % C`` is written in place."""
     b = x.shape[0]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = layers.rms_norm(x, p["attn_norm"])
@@ -215,8 +275,22 @@ def _attn_decode(cfg, p, x, k_cache, v_cache, length, *, window: int = 0):
     cache = attention.cache_update(
         attention.KVCache(k_cache, v_cache, length), k, v)
     o = attention.decode_attend(q, cache, window=window)
-    x = x + o.reshape(b, 1, h * hd) @ p["wo"]
+    return x + o.reshape(b, 1, h * hd) @ p["wo"]
+
+
+def _attn_decode(cfg, p, x, k_cache, v_cache, length, *, window: int = 0):
+    """One-token attention block (attention, then the FFN)."""
+    x = _attn_decode_only(cfg, p, x, k_cache, v_cache, length,
+                          window=window)
     return x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
+
+
+def _moe_decode(cfg, p, x, k_cache, v_cache, length, *, window: int = 0):
+    """One-token MoE block (attention, then the MoE FFN over the batch's
+    B tokens, one example each)."""
+    x = _attn_decode_only(cfg, p, x, k_cache, v_cache, length,
+                          window=window)
+    return x + _moe_ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"])).y
 
 
 def _rwkv_block(cfg, p, x, state=None, cm_shift=None, *,
@@ -249,7 +323,15 @@ def _stacks(cfg: ModelConfig):
     """The family's layer stacks in forward order: (parameter key, stack
     depth, per-layer shapes, the sequence forward's layer apply).  One
     stack of L blocks for dense and ssm; the hybrid's units, then its
-    recurrent tail when the unit does not divide L."""
+    recurrent tail when the unit does not divide L; moe's L MoE blocks,
+    or its L // moe_every super-blocks when interleaved (a moe block's
+    apply returns (x, its ``MoEOutput``))."""
+    if cfg.family == "moe":
+        if cfg.moe_every == 1:
+            return [("blocks", cfg.num_layers, _moe_block_shapes(cfg),
+                     _moe_block)]
+        return [("blocks", cfg.num_layers // cfg.moe_every,
+                 _moe_unit_shapes(cfg), _moe_unit)]
     if cfg.family == "hybrid":
         units, tail = _hybrid_counts(cfg)
         stacks = [("blocks", units, _unit_shapes(cfg), _hybrid_unit)]
@@ -264,13 +346,15 @@ def _stacks(cfg: ModelConfig):
 # per family of one stack: (block shapes, block apply)
 _FAMILY = {"dense": (_block_shapes, _attn_block),
            "ssm": (_rwkv_shapes, _rwkv_seq_block)}
-PORTED_FAMILIES = (*_FAMILY, "hybrid")
+PORTED_FAMILIES = (*_FAMILY, "moe", "hybrid")
 
 
 class DecodeState(NamedTuple):
     """Per-family decode state; the fields a family does not use hold an
     empty (0,) f32 tensor.  ``kv_k``/``kv_v``: (L, B, C, Hkv, hd) in the
-    activation dtype (dense; the hybrid's attention layers, unit-major);
+    activation dtype (dense; moe, the interleaved one's layer 2u its
+    unit u's dense block and 2u + 1 its MoE block; the hybrid's attention
+    layers, unit-major);
     ``rec_h``: the WKV states (L, B, H, hd, hd) f32 and ``rec_conv``: the
     time mix's and the channel mix's shifts (L, 2, B, D) in the
     activation dtype (ssm), or the RG-LRU states (n_rec, B, D) f32 and
@@ -330,20 +414,32 @@ class Model:
         """Full-sequence logits (auxiliary losses discarded)."""
         return self.forward_with_aux(params, batch)[0]
 
-    def forward_with_aux(self, params, batch):
+    def forward_with_aux(self, params, batch, dropped: list = None):
         """batch: ``{"tokens": (B, S) ints}`` → ((B, S, padded_vocab) f32
-        logits, [])."""
+        logits, the auxiliary losses): for moe ``[Σ aux_loss]`` over its
+        MoE layers, from an f32 zero in layer order, as the reference's
+        scan carries it; [] for the other families.  ``dropped``, a list,
+        receives each MoE layer's share of dropped assignments."""
         cfg = self.cfg
         x = layers.embed(batch["tokens"], params["embed"]).to(cfg.adtype)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        is_moe = cfg.family == "moe"
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for key, _, _, block in _stacks(cfg):
             for p in self._layers(params[key]):
                 x = block(cfg, p, x, positions)
+                if is_moe:
+                    x, out = x
+                    aux = aux + out.aux_loss
+                    if dropped is not None:
+                        dropped.append(out.dropped_frac)
         x = layers.rms_norm(x, params["final_norm"])
-        return layers.unembed(x, params["embed"]), []
+        return layers.unembed(x, params["embed"]), [aux] if is_moe else []
 
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean next-token cross-entropy over the padded vocabulary, f32."""
+        """Mean next-token cross-entropy over the padded vocabulary, f32;
+        moe adds ``router_aux_weight`` · Σ aux_loss / ``num_layers`` (all
+        layers, not the MoE ones, as in the reference)."""
         logits, aux = self.forward_with_aux(params, batch)
         tokens = batch["tokens"]
         ce = layers.softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
@@ -356,12 +452,12 @@ class Model:
         cfg = self.cfg
         if cfg.family == "hybrid":
             return _hybrid_counts(cfg)[0] * cfg.pattern_attn
-        return cfg.num_layers if cfg.family == "dense" else 0
+        return cfg.num_layers if cfg.family in ("dense", "moe") else 0
 
     def init_decode(self, batch_size: int, max_len: int,
                     device: Device = None) -> DecodeState:
         """Zero caches on ``device`` (``cuda`` unless the caller asks for
-        the CPU).  Dense: a KV cache of ``max_len`` slots a layer, or a
+        the CPU).  Dense, moe: a KV cache of ``max_len`` slots a layer, or a
         ring buffer of ``min(decode_window, max_len)``; ssm: the O(1)
         recurrent state; hybrid: a ring of ``min(local_window, max_len)``
         slots an attention layer (``decode_window`` unused, as in the
@@ -415,7 +511,8 @@ class Model:
         without autograd."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"]).to(cfg.adtype)  # (B, 1, D)
-        x = {"dense": self._dense_decode, "ssm": self._ssm_decode,
+        x = {"dense": self._dense_decode, "moe": self._moe_decode,
+             "ssm": self._ssm_decode,
              "hybrid": self._hybrid_decode}[cfg.family](params, state, x)
         x = layers.rms_norm(x, params["final_norm"])
         logits = layers.unembed(x, params["embed"])
@@ -425,6 +522,23 @@ class Model:
         for i, p in enumerate(self._layers(params["blocks"])):
             x = _attn_decode(self.cfg, p, x, state.kv_k[i], state.kv_v[i],
                              state.length, window=self.decode_window)
+        return x
+
+    def _moe_decode(self, params, state: DecodeState, x):
+        """Each MoE block against its layer's cache; interleaved, each
+        unit's dense block against layer 2u's and its MoE block against
+        layer 2u + 1's."""
+        cfg = self.cfg
+        kw = dict(length=state.length, window=self.decode_window)
+        for i, p in enumerate(self._layers(params["blocks"])):
+            if cfg.moe_every == 1:
+                x = _moe_decode(cfg, p, x, state.kv_k[i], state.kv_v[i], **kw)
+                continue
+            x = _attn_decode(cfg, _prefixed(p, "d_"), x, state.kv_k[2 * i],
+                             state.kv_v[2 * i], **kw)
+            x = _moe_decode(cfg, _prefixed(p, "m_"), x,
+                            state.kv_k[2 * i + 1], state.kv_v[2 * i + 1],
+                            **kw)
         return x
 
     def _ssm_decode(self, params, state: DecodeState, x):
@@ -478,11 +592,13 @@ def build_model(cfg: ModelConfig, *, decode_window: int = 0) -> Model:
 
 def params_from_numpy(arrays: Any, device: Device = None):
     """A tree of arrays (nested dicts, e.g. the reference's parameter
-    pytree as numpy) → the same tree of f32 tensors on ``device``."""
+    pytree as numpy) → the same tree of tensors on ``device``, each leaf
+    in its own dtype: f32 stays f32, bf16 (the published MoE configs'
+    ``param_dtype``) stays bf16 through its 16 bits."""
     dev = resolve_device(device)
     if isinstance(arrays, dict):
         return {k: params_from_numpy(v, dev) for k, v in arrays.items()}
-    return torch.tensor(np.asarray(arrays, np.float32), device=dev)
+    return _to_tensor(arrays, dev)
 
 
 def params_to_numpy(params) -> Dict[str, Any]:

@@ -201,10 +201,10 @@ def test_loss_sum_and_gradient_match_jax():
 
 def test_unported_families_and_options_raise():
     # the hybrid family and attend(window=) are ported
-    # (tests/test_torch_hybrid.py); the moe, vlm and audio families and
-    # non-causal attention still raise
-    for arch in ("qwen3-moe-235b-a22b", "phi-3-vision-4.2b",
-                 "whisper-large-v3"):
+    # (tests/test_torch_hybrid.py), and so is moe (tests/test_torch_moe.py);
+    # the vlm and audio families and non-causal attention still raise
+    assert build_model(get_config("qwen3-moe-235b-a22b")).cfg.family == "moe"
+    for arch in ("phi-3-vision-4.2b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_config(arch))
     q = torch.zeros(1, 4, 2, 16)
