@@ -13,8 +13,8 @@ last line):
    kernel's at each of its instances and the masked sum's, and the masked
    sum's stream loop in SASS by pipe (``cuobjdump``), which must issue no
    fewer operations a stream than the bound below counts (the flash
-   kernels' attributes for the causal and the banded instance of each
-   head dim: 16–256 on wgmma, 16–128 on tf32x3);
+   kernels' attributes for the causal, the banded and the unmasked
+   instance of each head dim: 16, 32, 64, 96, 128 and 256 on both);
 2. hold every kernel against its plain PyTorch version on the card, at
    the paths' shapes and at edge shapes, each launch counted on the
    variant its wrapper's launch plan names: ``ssca_update`` (both
@@ -46,7 +46,18 @@ last line):
    ``bf16_error_check``'s bound against the f64 softmax of its band,
    and the tf32x3 kernel's band within 2e-5 of the plain version at
    hybrid_small's (16, 32, 4, 1, 16) and at (4, 32, 4, 1, 16) (window
-   16) and (2, 130, 4, 1, 64) (window 40);
+   16) and (2, 130, 4, 1, 64) (window 40); then the vlm's and audio's
+   instances (``phase_flash_new_parity``), q (B, Sq, H, Dh) against k, v
+   (B, Sk, Hkv, Dh): head dim 96 on both kernels at phi-3-vision's train
+   forward (4, 1024, 1024, 32, 32, 96) and serve forward with its image
+   (4, 736, 736, 32, 32, 96), causal, and a band on each; the wgmma
+   kernel without causality at whisper's encoder (4, 1500, 1500, 20, 20,
+   64) and cross-attention (4, 160, 1500, 20, 20, 64); the tf32x3 kernel
+   without causality at Sq = Sk = 1,500, Sq 160 against Sk 1,500 and the
+   reduced whisper's (8, 32, 16, 4, 4, 64), and at head dim 256 (causal
+   at (4, 1024, 1024, 16, 1, 256), banded and non-causal); Sq > Sk (200
+   against 64) and Sk = 16 on both, each to its kernel's tolerance
+   against the plain version of the same mask;
    ``rwkv6_wkv`` to a stated tolerance (the kernel sums the plain
    version's chunked form on the tensor cores, each f32 operand split
    into two TF32 parts), each call counted on its variant, at the RWKV
@@ -197,7 +208,24 @@ last line):
    checkpoint of the parameters and SSCA's lin after step 2 saved and
    restored in a temporary directory (removed after; seconds and bytes
    printed), and the resumed steps 3–4 bit for bit the uninterrupted
-   ones;
+   ones; then the vlm and audio families: the reduced phi-3-vision and
+   whisper as the small ones above (``serve_batch`` against the CPU,
+   whisper's over stub frames through ``precompute_cross``: the f32
+   kernel's unmasked instance once an encoder layer, none in decode; one
+   train step on ``batch_stream``'s stub image or frame embeddings),
+   phi-3-vision at full width (2 of 32 layers) served as above, its
+   decode held to the dense model's forward on the same blocks over the
+   text (the reference serves no image) and one forward a batch with 576
+   stub image tokens (head dim 96 at S = 736), its text logits held to
+   the same forward on the plain attention, and its train step at B =
+   4, 1,024 tokens (576 image + 448 text); whisper at full width (2 of 32
+   encoder and 2 of 32 decoder layers) served against (4, 1500, 1280)
+   stub frames (the encoder once a batch, its time printed), its decode
+   held to the teacher-forced forward on the same frames (the encoder
+   non-causal at S = 1,500, the cross-attention at 160 against 1,500),
+   and its train step at B = 8, S = 128 over (8, 1500, 1280) frames; each
+   with a checkpoint after step 2, resumed bit for bit, and the launches
+   of each part by mask (the wrapper's ``launches_by_mask``);
 7. time ``masked_sum`` (I = 4) and both ``ssca_update`` variants
    directly at both full-width LM paths' widths, once those paths have
    freed their memory: the median of 5 eager launches after 2 warm-ups,
@@ -222,9 +250,17 @@ last line):
    a boolean mask), and the tf32x3 band at hybrid_small's shape
    (``flash_attention_tf32x3_band``), the wgmma variant at the moe serve
    forward's (4, 160, 64, 4, 128) and (4, 160, 40, 8, 128)
-   (``flash_attention_g16``, ``flash_attention_g5``); each flash row
-   counts the launches of its instance's paths (the hybrid's and the
-   moe serves' apart); the launch
+   (``flash_attention_g16``, ``flash_attention_g5``), and the vlm's and
+   audio's: the wgmma kernel at head dim 96 at phi-3-vision's train and
+   serve forwards (``flash_attention_hd96``, ``_hd96_serve``), without
+   causality at whisper's encoder and cross-attention
+   (``flash_attention_encoder``, ``flash_attention_cross``), the tf32x3
+   kernel without causality at the reduced whisper's cross-attention
+   (``flash_attention_tf32x3_noncausal``) and, timing only, at head dim
+   96 (``flash_attention_tf32x3_hd96``) and 256
+   (``flash_attention_f32_hd256``); each flash row counts the launches
+   of its instance's paths (the hybrid's, the moe serves', the vlm's and
+   audio's apart, these by instance); the launch
    floor, an empty kernel's graph replay, beside ``ssca_update`` (its
    ``beta`` variant; ``ssca_update_lambda0`` has a row of its own, each
    bound by its own bytes), ``masked_sum`` and ``sketch_encode`` at the
@@ -457,6 +493,63 @@ def dropless(cfg):
 # relative margins of up to 4.26e-2: this script, NVIDIA H100 80GB HBM3,
 # 700.00 W)
 ROUTE_TIE = 2.0 ** -4
+
+# the vlm and audio families at full width: phi-3-vision-4.2b (head dim
+# 96, 32 heads on 32 kv heads, 576 stub image tokens) and whisper-large-v3
+# (an encoder over 1,500 stub frames, 20 heads of 64), 2 of their 32
+# layers (whisper: 2 of 32 encoder and 2 of 32 decoder layers); their
+# train steps: the vlm at B = 4 and 1,024 tokens (576 image + 448 text),
+# whisper at B = 8 and 128 text tokens beside its 1,500 frames
+VLM_ARCH = "phi-3-vision-4.2b"
+AUDIO_ARCH = "whisper-large-v3"
+VLM_TRAIN = (4, 1024)
+AUDIO_TRAIN = (8, 128)
+# the flash kernels' instances these families launch, by timing row:
+# ((B, Sq, Sk, H, Hkv, Dh), causal).  wgmma: phi-3-vision's train forward
+# and its serve forward with the image (576 + 160 tokens); whisper's
+# encoder at serve (non-causal over its 1,500 frames), its
+# cross-attention in the teacher-forced forward (160 queries against
+# 1,500 keys) and its decoder's causal self-attention there (head dim
+# 64).  tf32x3: head dim 96 at the vlm's train shape and 256 at
+# the hybrid path's (no path runs either in f32: timing only), and the
+# reduced whisper's cross-attention at its train step (8 x 32 text tokens
+# against 16 frames, 4 heads of 64), non-causal
+FLASH_NEW_ROWS = {
+    "flash_attention_hd96": ((4, 1024, 1024, 32, 32, 96), True),
+    "flash_attention_hd96_serve": ((4, 736, 736, 32, 32, 96), True),
+    "flash_attention_encoder": ((4, 1500, 1500, 20, 20, 64), False),
+    "flash_attention_cross": ((4, 160, 1500, 20, 20, 64), False),
+    "flash_attention_audio_decoder": ((4, 160, 160, 20, 20, 64), True)}
+FLASH_NEW_F32_ROWS = {
+    "flash_attention_tf32x3_hd96": ((4, 1024, 1024, 32, 32, 96), True),
+    "flash_attention_tf32x3_noncausal": ((8, 32, 16, 4, 4, 64), False),
+    "flash_attention_f32_hd256": ((4, 1024, 1024, 16, 1, 256), True)}
+FLASH_NEW_TIMING_ONLY = ("flash_attention_tf32x3_hd96",
+                         "flash_attention_f32_hd256")
+# edge shapes of the new instances, each against the plain version:
+# (B, Sq, Sk, H, Hkv, Dh, dtype, causal, window).  Head dim 96 on both
+# kernels (a band on each too); non-causal at Sq = Sk = 1,500 (a ragged
+# last tile at every tile width), Sq 160 against Sk 1,500, Sq > Sk (200
+# against 64), Sk 16 (the reduced whisper's frames, below one tile), head
+# dim 96 against 300 keys; the f32 kernel at head dim 256, causal, banded
+# and non-causal
+FLASH_NEW_EDGES = [(2, 77, 77, 4, 2, 96, "bf16", True, 0),
+                   (1, 300, 300, 8, 8, 96, "bf16", True, 0),
+                   (2, 300, 300, 4, 1, 96, "bf16", True, 129),
+                   (2, 77, 77, 4, 2, 96, "f32", True, 0),
+                   (1, 300, 300, 8, 8, 96, "f32", True, 0),
+                   (2, 130, 130, 4, 1, 96, "f32", True, 40),
+                   (2, 1500, 1500, 4, 4, 64, "f32", False, 0),
+                   (2, 160, 1500, 4, 4, 64, "f32", False, 0),
+                   (2, 200, 64, 4, 2, 64, "bf16", False, 0),
+                   (2, 200, 64, 4, 2, 64, "f32", False, 0),
+                   (2, 24, 16, 4, 4, 64, "bf16", False, 0),
+                   (4, 16, 16, 4, 4, 64, "f32", False, 0),
+                   (2, 77, 300, 4, 2, 96, "bf16", False, 0),
+                   (2, 77, 300, 4, 2, 96, "f32", False, 0),
+                   (2, 100, 100, 4, 1, 256, "f32", True, 0),
+                   (2, 300, 300, 4, 2, 256, "f32", True, 40),
+                   (1, 100, 129, 2, 1, 256, "f32", False, 0)]
 
 
 # the card's name and power limit (nvidia-smi), once main has read them
@@ -1091,6 +1184,69 @@ def phase_flash_band_parity(torch, card):
     return errs, stats
 
 
+def flash_inputs_qk(torch, b, sq, sk, h, hkv, dh, dtype, seed=0):
+    """q (B, Sq, H, Dh) and k, v (B, Sk, Hkv, Dh), N(0, 1) in ``dtype`` on
+    the card."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(*shape, generator=g).to("cuda", dtype)
+                 for shape in ((b, sq, h, dh), (b, sk, hkv, dh),
+                               (b, sk, hkv, dh)))
+
+
+def phase_flash_new_parity(torch, card):
+    """The flash kernels' instances of the vlm and audio families on the
+    card, each call counted on its variant: head dim 96 on both kernels,
+    non-causal attention over a key length of its own, and the f32
+    kernel at head dim 256, at the paths' shapes (FLASH_NEW_ROWS,
+    FLASH_NEW_F32_ROWS) and at the edge shapes FLASH_NEW_EDGES.  bf16 (the
+    wgmma kernel) is held by ``bf16_error_check`` to the f64 softmax of
+    the same mask, f32 (tf32x3) within 2e-5 of the plain version.
+    Returns the max abs differences from the plain version and the
+    check's numbers, by ``{"kernels": [...]}`` row."""
+    from repro_torch.kernels import flash_attention as fa
+    errs, stats = {}, {}
+    cases = ([(row, shape, "bf16", causal, 0)
+              for row, (shape, causal) in FLASH_NEW_ROWS.items()]
+             + [(row, shape, "f32", causal, 0)
+                for row, (shape, causal) in FLASH_NEW_F32_ROWS.items()]
+             + [(None, e[:6], e[6], e[7], e[8]) for e in FLASH_NEW_EDGES])
+    for row, shape, dt, causal, window in cases:
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        q, k, v = flash_inputs_qk(torch, *shape, dt)
+        variant = fa.VARIANTS[dt]
+        before = dict(fa.flash_attention_bhsd.launches_by_variant)
+        got = fa.flash_attention_bhsd(q, k, v, window=window, causal=causal)
+        torch.cuda.synchronize()
+        before[variant] += 1
+        name = (f"(B, Sq, Sk, H, Hkv, Dh) = {shape}, "
+                f"{str(dt).replace('torch.', '')}, causal {causal}, window "
+                f"{window}")
+        if fa.flash_attention_bhsd.launches_by_variant != before:
+            raise AssertionError(f"flash_attention at {name} did not launch "
+                                 f"its {variant} kernel once")
+        err = float((got.float() - fa.flash_attention_plain(
+            q, k, v, window, causal).float()).abs().max())
+        info = {"max_abs_from_plain": err}
+        if dt == torch.float32:
+            ok = err <= 2e-5 and bool(torch.isfinite(got).all())
+        else:
+            ok, ratio, rms_got, rms_plain = fa.bf16_error_check(
+                q, k, v, got, window, causal)
+            info.update({"max_error_over_bound": ratio,
+                         "rms_error_vs_f64": rms_got,
+                         "plain_rms_error_vs_f64": rms_plain})
+        log(f"flash_attention ({variant}): at {name}: {json.dumps(info)} "
+            f"on {card}")
+        if not ok:
+            raise AssertionError(f"flash_attention ({variant}) outside its "
+                                 f"tolerance at {name}: {info}")
+        if row is not None:
+            errs[row], stats[row] = err, info
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return errs, stats
+
+
 def phase_flash_moe_parity(torch):
     """The wgmma kernel at the moe serve forward's shapes (FLASH_MOE: G =
     16 and G = 5 at head dim 128), each call counted on its variant and
@@ -1203,19 +1359,39 @@ def card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu):
 
 
 def reset_counts(kernels):
-    """Every launch counter to 0, the per-variant ones too."""
+    """Every launch counter to 0, the per-variant and per-mask ones too."""
     for fn in kernels.values():
         fn.launches = 0
-        for variant in getattr(fn, "launches_by_variant", {}):
-            fn.launches_by_variant[variant] = 0
+        for by in ("launches_by_variant", "launches_by_mask"):
+            for key in getattr(fn, by, {}):
+                getattr(fn, by)[key] = 0
 
 
 def variant_counts(kernels):
     """The launches of each kernel with variants (masked_sum, flash
     attention, the WKV scan), by variant, since the last reset:
-    ``flash_attention_wgmma``, ``masked_sum_rowsplit`` and so on."""
-    return {f"{name}_{k}": n for name, fn in kernels.items()
-            for k, n in getattr(fn, "launches_by_variant", {}).items()}
+    ``flash_attention_wgmma``, ``masked_sum_rowsplit`` and so on; and
+    flash attention's by variant and mask (``launches_by_mask``, counted
+    where the wrapper launches: ``flash_attention_wgmma_causal``,
+    ``flash_attention_tf32x3_cross`` and so on), which must sum to each
+    variant's launches."""
+    out = {f"{name}_{k}": n for name, fn in kernels.items()
+           for k, n in getattr(fn, "launches_by_variant", {}).items()}
+    for name, fn in kernels.items():
+        by_mask = getattr(fn, "launches_by_mask", {})
+        for variant in fn.launches_by_variant if by_mask else ():
+            if sum(n for k, n in by_mask.items() if k.startswith(
+                    f"{variant}_")) != fn.launches_by_variant[variant]:
+                raise AssertionError(f"{name}: launches by mask {by_mask} "
+                                     f"against {fn.launches_by_variant}")
+        out.update({f"{name}_{k}": n for k, n in by_mask.items()})
+    return out
+
+
+def mask_keys(kernels):
+    """The keys of :func:`variant_counts` that count by mask."""
+    return {f"{name}_{k}" for name, fn in kernels.items()
+            for k in getattr(fn, "launches_by_mask", {})}
 
 
 def lm_bf16_forward(torch):
@@ -1265,7 +1441,9 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
     p_gpu, h_gpu = runtime.run_alg1(data, part, device="cuda", **kw)
     launches = {k: fn.launches for k, fn in kernels.items()}
     launches.update(variant_counts(kernels))
-    want = {k: 0 for k in launches}
+    # the counts by mask are left to variant_counts' own check
+    masks = mask_keys(kernels)
+    want = {k: 0 for k in launches if k not in masks}
     # kernel layers x (one upload forward for all clients + 2 eval
     # forwards)
     want.update({layer_kernel: kernel_layers(task.cfg) * 3 * rounds,
@@ -1276,7 +1454,7 @@ def phase_lm_small(torch, kernels, runtime, name, task, layer_kernel,
     want.update(server_variants(torch, tree.numel(p_gpu), 4, rounds,
                                 "lambda0"))
     log(f"{name}: launches over {rounds} rounds: {launches}")
-    if launches != want:
+    if {k: launches[k] for k in want} != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
     p_cpu, h_cpu = runtime.run_alg1(data, part, device="cpu", **kw)
     diffs = card_vs_cpu(h_gpu, h_cpu, p_gpu, p_cpu)
@@ -1369,7 +1547,9 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     launches = {k: fn.launches for k, fn in kernels.items()}
     launches.update(variant_counts(kernels))
     peak = torch.cuda.max_memory_allocated()
-    want = {k: 0 for k in launches}
+    # the counts by mask are left to variant_counts' own check
+    masks = mask_keys(kernels)
+    want = {k: 0 for k in launches if k not in masks}
     n_evals = LM_ROUNDS // eval_every
     want.update({layer_kernel: kernel_layers(task.cfg)
                  * (LM_ROUNDS + 2 * n_evals),
@@ -1378,7 +1558,7 @@ def phase_lm_full(torch, kernels, runtime, card, name, arch, n_params,
     want.update(server_variants(torch, n_params, clients, LM_ROUNDS,
                                 "lambda0"))
     log(f"{name}: launches over {LM_ROUNDS} rounds: {launches}")
-    if launches != want:
+    if {k: launches[k] for k in want} != want:
         raise AssertionError(f"{name}: launches {launches}, want {want}")
     n = tree.numel(params)
     cost = hist.train_cost
@@ -1493,22 +1673,60 @@ LAYER_KERNEL = {"llama3-8b": ("flash_attention", "flash_attention_wgmma"),
                 HYBRID_ARCH: ("flash_attention", "flash_attention_wgmma"),
                 MOE_ARCH: ("flash_attention", "flash_attention_wgmma"),
                 MOE_INTERLEAVED_ARCH: ("flash_attention",
-                                       "flash_attention_wgmma")}
+                                       "flash_attention_wgmma"),
+                VLM_ARCH: ("flash_attention", "flash_attention_wgmma"),
+                AUDIO_ARCH: ("flash_attention", "flash_attention_wgmma")}
 SMALL_KERNEL = {"llama3-8b": ("flash_attention", "flash_attention_tf32x3"),
                 "rwkv6-7b": ("rwkv6_wkv", "rwkv6_wkv_mma"),
                 HYBRID_ARCH: ("flash_attention", "flash_attention_tf32x3"),
                 MOE_ARCH: ("flash_attention", "flash_attention_tf32x3"),
                 MOE_INTERLEAVED_ARCH: ("flash_attention",
-                                       "flash_attention_tf32x3")}
+                                       "flash_attention_tf32x3"),
+                VLM_ARCH: ("flash_attention", "flash_attention_tf32x3"),
+                AUDIO_ARCH: ("flash_attention", "flash_attention_tf32x3")}
 
 
 def kernel_layers(cfg):
-    """The layers of ``cfg`` that launch the layer kernel once a forward:
-    every layer, but for the hybrid only its attention layers."""
+    """The layer kernel's launches in one forward of ``cfg``: one a layer,
+    but for the hybrid only its attention layers, and for audio its
+    encoder layers and two a decoder layer (self- and cross-attention)."""
     if cfg.family == "hybrid":
         unit = cfg.pattern_recurrent + cfg.pattern_attn
         return cfg.num_layers // unit * cfg.pattern_attn
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
     return cfg.num_layers
+
+
+def encoder_counts(cfg, name, variant):
+    """The launches of one ``precompute_cross`` (the encoder's
+    self-attention, one a layer; none for a family without it), by name,
+    variant and mask."""
+    n = cfg.encoder_layers if cfg.family == "audio" else 0
+    return {name: n, variant: n, f"{variant}_self": n} if n else {}
+
+
+def audio_masks(cfg, variant, forwards=1):
+    """An audio config's launches by mask in ``forwards`` forwards: one a
+    layer for the encoder's self-attention, the decoder's causal
+    self-attention and its cross-attention; none for the other
+    families."""
+    if cfg.family != "audio":
+        return {}
+    return {f"{variant}_self": forwards * cfg.encoder_layers,
+            f"{variant}_causal": forwards * cfg.num_layers,
+            f"{variant}_cross": forwards * cfg.num_layers}
+
+
+def stub_frames(torch, cfg, batch, dev):
+    """Stub frame embeddings (batch, encoder_seq, D), f32 N(0, 1) from a
+    generator seeded 2 on ``dev`` (``launch/serve.py``'s), for an audio
+    config; None for the others."""
+    if cfg.family != "audio":
+        return None
+    return torch.randn(batch, cfg.encoder_seq, cfg.d_model,
+                       generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev)
 
 
 def counts(kernels):
@@ -1518,15 +1736,19 @@ def counts(kernels):
 
 
 def want_counts(kernels, **launches):
-    """The counts a path should show: ``launches`` by name, else 0."""
-    want = {k: 0 for k in counts(kernels)}
+    """The counts a path should show: ``launches`` by name, else 0; the
+    counts by mask are left to :func:`variant_counts`'s own check."""
+    masks = mask_keys(kernels)
+    want = {k: 0 for k in counts(kernels) if k not in masks}
     want.update(launches)
     return want
 
 
 def check_counts(kernels, what, want):
+    """All of :func:`counts` (the counts by mask too) where they are
+    ``want``."""
     got = counts(kernels)
-    if got != want:
+    if {k: got.get(k) for k in want} != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
     return got
 
@@ -1550,11 +1772,14 @@ def first_split_near_tie(torch, gen_a, gen_b, record, prompt_len, bound,
 def launch_small(torch, kernels, card, arch, dev="cuda", layers=2):
     """The reduced ``arch`` (f32, ``layers`` layers) on the card against
     the port's CPU run: ``serve_batch`` of 16 prompt and 16 new tokens
-    (no kernel launched; logits within SMALL_DECODE of the largest, the
-    tokens equal but for a near-tie; past the hybrid's window of 16) and
-    one ``make_train_step`` (one ``lambda0`` launch, the layer kernel
-    once a layer that launches it; loss rtol 1e-5, parameters within
-    1e-5 of the CPU's)."""
+    (no kernel launched in decode, audio's encoder once a layer in
+    ``precompute_cross`` over stub frames; logits within SMALL_DECODE of
+    the largest, the tokens equal but for a near-tie; past the hybrid's
+    window of 16) and one ``make_train_step`` (one ``lambda0`` launch,
+    the layer kernel once a layer that launches it, ``kernel_layers``;
+    loss rtol 1e-5, parameters within 1e-5 of the CPU's) on
+    ``batch_stream``'s batch (the vlm's and audio's stub embeddings
+    too)."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
@@ -1567,12 +1792,17 @@ def launch_small(torch, kernels, card, arch, dev="cuda", layers=2):
     p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
     p_dev = tree.map(lambda w: w.to(dev), p_cpu)
     reqs = serve.synth_requests(4, cfg, 16, 16, seed=0)
+    frames = stub_frames(torch, cfg, 4, "cpu")
+    name, variant = SMALL_KERNEL[arch]
     reset_counts(kernels)
     rec_dev, rec_cpu = [], []
-    gen_dev, _, _ = serve.serve_batch(model, p_dev, reqs, record=rec_dev)
-    serve_counts = check_counts(kernels, f"serve_small {what}",
-                                want_counts(kernels))
-    gen_cpu, _, _ = serve.serve_batch(model, p_cpu, reqs, record=rec_cpu)
+    gen_dev, _, _ = serve.serve_batch(
+        model, p_dev, reqs, record=rec_dev,
+        frame_embeds=None if frames is None else frames.to(dev))
+    serve_counts = check_counts(kernels, f"serve_small {what}", want_counts(
+        kernels, **encoder_counts(cfg, name, variant)))
+    gen_cpu, _, _ = serve.serve_batch(model, p_cpu, reqs, record=rec_cpu,
+                                      frame_embeds=frames)
     got = torch.cat(rec_dev, dim=1).cpu()
     want = torch.cat(rec_cpu, dim=1)
     scale = float(want.abs().max())
@@ -1590,12 +1820,11 @@ def launch_small(torch, kernels, card, arch, dev="cuda", layers=2):
     batch = next(train.batch_stream(cfg, 8, 32, device="cpu"))
     reset_counts(kernels)
     q_dev, s_dev, m_dev = step(p_dev, ssca.init(p_dev, with_beta=False),
-                               {"tokens": batch["tokens"].to(dev)})
-    name, variant = SMALL_KERNEL[arch]
+                               {k: v.to(dev) for k, v in batch.items()})
     n_k = kernel_layers(cfg)
     train_counts = check_counts(kernels, f"train_small {what}", want_counts(
         kernels, ssca_update=1, ssca_update_lambda0=1,
-        **{name: n_k, variant: n_k}))
+        **{name: n_k, variant: n_k}, **audio_masks(cfg, variant)))
     q_cpu, _, m_cpu = step(p_cpu, ssca.init(p_cpu, with_beta=False), batch)
     loss_rel = abs(float(m_dev["loss"]) - float(m_cpu["loss"])) \
         / abs(float(m_cpu["loss"]))
@@ -1705,18 +1934,36 @@ def decode_floor_ms(cfg, params, cache_bytes=0):
     the unembedding's f32 copy written and read (bf16: 2 + 4 + 4); and
     ``cache_bytes`` of KV cache, over the card's memory rate.  Every
     weight counts: the MoE's expert einsum reads every expert's weights
-    each step, as the reference's dense buffer einsum does.
-    Activations are left out."""
+    each step, as the reference's dense buffer einsum does; but for
+    whisper's cross-attention K and V projections, which only
+    ``precompute_cross`` reads (its encoder, the vlm's ``img_proj``: not
+    in the stacks counted).  Activations are left out."""
     act = cfg.adtype.itemsize
     nbytes = cache_bytes
     for key in ("blocks", "tail"):
-        for w in params.get(key, {}).values():
+        for k, w in params.get(key, {}).items():
+            if k in ("xwk", "xwv"):
+                continue
             nbytes += w.numel() * (w.element_size() + (
                 2 * act if w.dtype != cfg.adtype else 0))
     emb = params["embed"]
     nbytes += emb.numel() * (emb.element_size() + (
         8 if emb.element_size() != 4 else 0))
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+@contextlib.contextmanager
+def plain_attention(torch):
+    """While open, the flash op computes its plain version (the
+    materialised f32 softmax) where it lies, launching nothing: the
+    reference that a forward through the kernels is held to."""
+    from repro_torch.kernels import flash_attention as fa
+    inner = fa.FlashAttention.forward
+    fa.FlashAttention.forward = staticmethod(fa.flash_attention_plain)
+    try:
+        yield
+    finally:
+        fa.FlashAttention.forward = staticmethod(inner)
 
 
 @contextlib.contextmanager
@@ -1816,9 +2063,21 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
     apart perturbs every later layer through attention); where the
     forward's own choice differs, it must sit within ROUTE_TIE of a tie,
     and the forward at the config's own capacity factor and at the
-    reference's 8.0 gives the share it drops.  Returns the launches of
-    each part over its batches: ``decode`` (the decode loops), ``check``
-    (the forwards and prefill steps) and, on llama3-8b, ``ring``."""
+    reference's 8.0 gives the share it drops.  The vlm serves text alone,
+    as the reference does, so its checks run the dense model on the same
+    blocks (no ``img_proj``), and one forward a batch with 576 stub image
+    tokens before the text runs the head-dim-96 kernel at the served
+    length plus 576, its text logits within DECODE_VS_FORWARD of the
+    largest of the same forward on the plain attention
+    (:func:`plain_attention`).  Audio serves against stub frames
+    (:func:`stub_frames`), which ``serve_batch`` runs through the encoder
+    once a batch (``precompute_cross``: the only launches of the decode
+    part); its checks run the teacher-forced forward and the prefill step
+    on the same frames, and the encoder's time is printed.  Returns the
+    launches of each part over its batches: ``decode`` (the decode loops,
+    and audio's ``precompute_cross``), ``check`` (the forwards and
+    prefill steps) and, on llama3-8b, ``ring``, flash attention's by mask
+    too (:func:`variant_counts`)."""
     import dataclasses
     import numpy as np
     from repro_torch import tree
@@ -1834,6 +2093,10 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
     is_moe = cfg.family == "moe"
     check = build_model(dataclasses.replace(
         cfg, capacity_factor=dropless(cfg))) if is_moe else model
+    if cfg.family == "vlm":
+        check = build_model(dataclasses.replace(cfg, family="dense"))
+    frames = stub_frames(torch, cfg, SERVE_BATCH, dev)
+    extra = {} if frames is None else {"frame_embeds": frames}
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
@@ -1848,7 +2111,8 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
     reqs = serve.synth_requests(SERVE_REQUESTS, cfg, SERVE_PROMPT, SERVE_NEW)
     # warm-up: the first steps at these shapes pick the GEMM kernels
     serve.serve_batch(model, params, [serve.Request(r.prompt[:8], 4)
-                                      for r in reqs[:SERVE_BATCH]])
+                                      for r in reqs[:SERVE_BATCH]],
+                      frame_embeds=frames)
     name, variant = LAYER_KERNEL[arch]
     prefill = steps.make_prefill_step(check)
     by_part = {"decode": want_counts(kernels), "check": want_counts(kernels)}
@@ -1858,16 +2122,18 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
         record = []
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernels)
-        with moe_routes(torch, is_moe) as calls:
+        with moe_routes(torch, is_moe) as routes:
             gen, t_prefill, t_decode = serve.serve_batch(
-                model, params, batch, record=record)
+                model, params, batch, record=record, frame_embeds=frames)
         # the experts decode chose, a MoE layer: the checks' forwards
         # route there, so that they compare the same function
-        forced = decode_routes(torch, calls, len(record)) if is_moe \
+        forced = decode_routes(torch, routes, len(record)) if is_moe \
             else None
-        del calls
-        check_counts(kernels, f"serve {arch} decode loop",
-                     want_counts(kernels))
+        del routes
+        got = check_counts(kernels, f"serve {arch} decode loop", want_counts(
+            kernels, **encoder_counts(cfg, name, variant)))
+        by_part["decode"] = {k: by_part["decode"].get(k, 0) + n
+                             for k, n in got.items()}
         peak = torch.cuda.max_memory_allocated()
         prompt = torch.as_tensor(np.stack([r.prompt for r in batch]),
                                  device=dev)
@@ -1875,15 +2141,39 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
         reset_counts(kernels)
         check_dropped = []
         with moe_routes(torch, is_moe, forced) as fwd_routes:
-            full = check.forward_with_aux(params, {"tokens": tokens},
+            full = check.forward_with_aux(params, {"tokens": tokens, **extra},
                                           dropped=check_dropped)[0]
         if any(float(d) for d in check_dropped):
             raise AssertionError(f"serve {arch}: the check's forward drops "
                                  f"{[float(d) for d in check_dropped]}")
         with moe_routes(torch, is_moe, forced and [
                 f[:, :SERVE_PROMPT] for f in forced]) as pre_routes:
-            last = prefill(params, {"tokens": prompt})
-        n_fwd = 2
+            last = prefill(params, {"tokens": prompt, **extra})
+            if cfg.family == "vlm":
+                # the image forward: 576 stub image tokens before the text
+                img = torch.randn(len(batch), cfg.num_image_tokens,
+                                  cfg.d_model, device=dev,
+                                  generator=torch.Generator(
+                                      device=dev).manual_seed(3))
+                img_batch = {"tokens": tokens, "img_embeds": img}
+                with_img = model.forward(params, img_batch)
+                with plain_attention(torch):
+                    img_plain = model.forward(params, img_batch)
+                img_err = float((with_img - img_plain).abs().max())
+                img_scale = float(img_plain.abs().max())
+                log(f"serve {arch}: the image forward's text logits vs the "
+                    f"same forward on the plain attention: max abs "
+                    f"{img_err:.3e} (largest |logit| {img_scale:.3e}, bound "
+                    f"{DECODE_VS_FORWARD} of it)")
+                if with_img.shape != full.shape \
+                        or not bool(torch.isfinite(with_img).all()) \
+                        or not img_err <= DECODE_VS_FORWARD * img_scale:
+                    raise AssertionError(
+                        f"serve {arch}: the image forward gives "
+                        f"{tuple(with_img.shape)}, {img_err} from the plain "
+                        f"attention's")
+                del img, img_batch, with_img, img_plain
+        n_fwd = 3 if cfg.family == "vlm" else 2
         if is_moe and i == 0:
             # the share the served config's forward drops, a MoE layer,
             # and the forward at the reference's check capacity
@@ -1897,9 +2187,10 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
             n_fwd = 4
         got = check_counts(
             kernels, f"serve {arch} forward and prefill", want_counts(
-                kernels, **{name: n_fwd * n_k, variant: n_fwd * n_k}))
-        by_part["check"] = {k: n + got[k]
-                            for k, n in by_part["check"].items()}
+                kernels, **{name: n_fwd * n_k, variant: n_fwd * n_k},
+                **audio_masks(cfg, variant, n_fwd)))
+        by_part["check"] = {k: by_part["check"].get(k, 0) + n
+                            for k, n in got.items()}
         dec = torch.cat(record, dim=1)
         scale = float(full.abs().max())
         err = float((dec - full).abs().max())
@@ -1933,9 +2224,22 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
     # the K and V caches a decode step reads, every slot of every
     # attention layer
     cache_bytes = 2 * model._n_attn_layers() * SERVE_BATCH \
-        * (SERVE_PROMPT + SERVE_NEW) * cfg.num_kv_heads * cfg.head_dim \
-        * cfg.adtype.itemsize
+        * (SERVE_PROMPT + SERVE_NEW + (cfg.encoder_seq if frames is not None
+                                       else 0)) \
+        * cfg.num_kv_heads * cfg.head_dim * cfg.adtype.itemsize
     floor_ms, floor_bytes = decode_floor_ms(cfg, params, cache_bytes)
+    encoder_s = None
+    if frames is not None:
+        # whisper's encoder and cross K, V once (precompute_cross), timed
+        # alone: serve_batch runs it before the prefill's clock
+        state = model.init_decode(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
+                                  device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.precompute_cross(params, extra, state)
+        torch.cuda.synchronize()
+        encoder_s = time.perf_counter() - t0
+        del state
     profiled = decode_profile(torch, model, params, reqs[:SERVE_BATCH])
     b = SERVE_BATCH
     step_ms = [s["decode_s"] / SERVE_NEW * 1e3 for s in stats]
@@ -1943,7 +2247,8 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
         f"{SERVE_REQUESTS} requests in batches of {b}, prompt "
         f"{SERVE_PROMPT}, {SERVE_NEW} new tokens) on {card}:", json.dumps({
             "parameters": n_params, "parameter_bytes": param_bytes,
-            "init_s": init_s,
+            "init_s": init_s, "encoder_layers": cfg.encoder_layers,
+            "precompute_cross_s": encoder_s,
             "capacity_factor": cfg.capacity_factor if is_moe else None,
             "check_capacity_factor": dropless(cfg) if is_moe else None,
             "forward_dropped_share_by_capacity_and_moe_layer": dropped,
@@ -1987,16 +2292,17 @@ def launch_full_serve(torch, kernels, card, arch, dev="cuda", cut=None):
                 and err <= DECODE_VS_FORWARD * scale):
             raise AssertionError(f"serve {arch} ring buffer: {err}")
         del got, record
-    del params, first
+    del params, first, frames, extra
     torch.cuda.empty_cache()
     return by_part
 
 
 def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
-                      cut=None):
+                      cut=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     """``launch/train.py``'s defaults (batch 8, seq 128, τ = 2, the
-    reference's schedules) at ``arch``'s full width, 2 of its layers (or
-    as ``cut`` cuts its config):
+    reference's schedules; or ``batch`` and ``seq``, the vlm's stub image
+    tokens inside ``seq`` and whisper's frames beside it) at ``arch``'s
+    full width, 2 of its layers (or as ``cut`` cuts its config):
     TRAIN_STEPS steps of ``make_train_step`` (one ``lambda0`` launch a
     step, the layer kernel once a layer), a checkpoint of the parameters
     and SSCA's lin after step TRAIN_CKPT_AT in a temporary directory
@@ -2023,7 +2329,7 @@ def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
                               gamma=PowerLaw(0.9, 0.35))
     step_fn = steps.make_train_step(model, hp)
     state = ssca.init(params, with_beta=False)
-    stream = train.batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    stream = train.batch_stream(cfg, batch, seq, device=dev)
     batches = [next(stream) for _ in range(TRAIN_STEPS)]
     name, variant = LAYER_KERNEL[arch]
     torch.cuda.synchronize()
@@ -2047,7 +2353,8 @@ def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
         launches = check_counts(kernels, f"train {arch}", want_counts(
             kernels, ssca_update=TRAIN_STEPS,
             ssca_update_lambda0=TRAIN_STEPS,
-            **{name: TRAIN_STEPS * n_k, variant: TRAIN_STEPS * n_k}))
+            **{name: TRAIN_STEPS * n_k, variant: TRAIN_STEPS * n_k},
+            **audio_masks(cfg, variant, TRAIN_STEPS)))
         peak = torch.cuda.max_memory_allocated()
         whole = tree.leaves(params)
         t0 = time.perf_counter()
@@ -2070,9 +2377,11 @@ def launch_full_train(torch, kernels, card, arch="llama3-8b", dev="cuda",
         torch.equal(a, b) for a, b in zip(tree.leaves(params), whole))
     ln_v = math.log(cfg.vocab_size)
     log(f"train {arch} ({cfg.num_layers} of {published.num_layers} layers, "
-        f"batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, tau 2) on {card}:",
+        f"batch {batch}, seq {seq}, tau 2) on {card}:",
         json.dumps({
             "losses": losses, "ln_V": ln_v, "step_s": times,
+            "parameters": sum(w.numel() for w in whole),
+            "encoder_layers": cfg.encoder_layers,
             "peak_device_bytes": peak, "checkpoint_bytes": nbytes,
             "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
             "resumed_losses": resumed, "resumed_bit_for_bit": same,
@@ -2132,6 +2441,23 @@ def phase_launch(torch, kernels, card):
         by_path[f"serve_{short}_full_decode"] = parts["decode"]
         by_path[f"serve_{short}_full_forward"] = parts["check"]
         log(f"serve_{short}_full: {time.perf_counter() - t1:.1f} s")
+    # the vlm and audio families: the reduced models against the CPU, then
+    # serving and train steps at full width, 2 of 32 layers (whisper's
+    # encoder 2 of 32 too): head dim 96 and non-causal attention
+    t1 = time.perf_counter()
+    encoder_cut = lambda c: dataclasses.replace(c, encoder_layers=LM_LAYERS)
+    for arch, short, train_shape, cut in (
+            (VLM_ARCH, "vlm", VLM_TRAIN, None),
+            (AUDIO_ARCH, "audio", AUDIO_TRAIN, encoder_cut)):
+        by_path[f"serve_small_{short}"], by_path[f"train_small_{short}"] = \
+            launch_small(torch, kernels, card, arch)
+        parts = launch_full_serve(torch, kernels, card, arch, cut=cut)
+        by_path[f"serve_{short}_full_decode"] = parts["decode"]
+        by_path[f"serve_{short}_full_forward"] = parts["check"]
+        by_path[f"train_{short}_full"] = launch_full_train(
+            torch, kernels, card, arch, cut=cut, batch=train_shape[0],
+            seq=train_shape[1])
+    log(f"vlm and audio launch paths: {time.perf_counter() - t1:.1f} s")
     log(f"launch phase: {time.perf_counter() - t0:.1f} s")
     return by_path
 
@@ -2748,12 +3074,15 @@ def phase_rwkv_sampled(torch, kernels, runtime):
         aggregation=aggregation.sampled(2), device="cuda")
     launches = {k: fn.launches for k, fn in kernels.items()}
     launches.update(variant_counts(kernels))
-    want = {k: 0 for k in launches}
+    # the counts by mask are left to variant_counts' own check
+    masks = mask_keys(kernels)
+    want = {k: 0 for k in launches if k not in masks}
     want.update(rwkv6_wkv=2 * 3 * rounds, rwkv6_wkv_mma=2 * 3 * rounds)
     log(f"rwkv_small_sampled: launches over {rounds} rounds: {launches}; "
         f"train cost {hist.train_cost}, participants "
         f"{hist.comm['participants']}")
-    if launches != want or hist.comm["participants"] != 2 or not all(
+    if {k: launches[k] for k in want} != want \
+            or hist.comm["participants"] != 2 or not all(
             math.isfinite(c) for c in hist.train_cost):
         raise AssertionError(f"rwkv_small_sampled: launches {launches}, "
                              f"want {want}; cost {hist.train_cost}")
@@ -3234,13 +3563,14 @@ def wkv_work(n, s, h, d):
     return nbytes, ops(chunk), chunk
 
 
-def sdpa_backend(torch, lib_inputs, enable_gqa=True):
-    """The backend PyTorch's own selection gives causal
+def sdpa_backend(torch, lib_inputs, enable_gqa=True, causal=True):
+    """The backend PyTorch's own selection gives
     ``scaled_dot_product_attention`` on ``lib_inputs`` (for example
-    ``MATH`` or ``EFFICIENT_ATTENTION``)."""
+    ``MATH`` or ``EFFICIENT_ATTENTION``), causal unless ``causal`` is
+    False."""
     from torch.nn.attention import SDPBackend
     return SDPBackend(torch._fused_sdp_choice(
-        *lib_inputs, is_causal=True, enable_gqa=enable_gqa)).name
+        *lib_inputs, is_causal=causal, enable_gqa=enable_gqa)).name
 
 
 def band_pairs(s, window=0):
@@ -3267,6 +3597,30 @@ def moe_flash_row(name):
     if name.startswith("serve_moe_full"):
         return "flash_attention_g16"
     return None
+
+
+# the vlm paths at full width (head dim 96 on the wgmma kernel: the train
+# forward's row and the serve forwards' row)
+def vlm_flash_row(name):
+    if name == "train_vlm_full":
+        return "flash_attention_hd96"
+    if name.startswith("serve_vlm_full"):
+        return "flash_attention_hd96_serve"
+    return None
+
+
+# the audio paths, whose flash launches the rows count by mask
+# (``launches_by_mask``): the decoder's causal ones, the encoder's
+# self-attention and the cross-attention apart
+def audio_path(name):
+    return "audio" in name
+
+
+def lm_path(name):
+    """A path whose flash launches are the LM rows' (the dense, rwkv and
+    the reduced moe and vlm paths)."""
+    return not (hybrid_path(name) or audio_path(name)
+                or moe_flash_row(name) or vlm_flash_row(name))
 
 
 def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
@@ -3354,9 +3708,31 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     for row, shape in FLASH_MOE.items():
         gx[row], glib[row], g_bytes[row], g_flops[row] = flash_work(
             *shape, torch.bfloat16, 2)
+
+    # the vlm's and audio's: q (B, Sq, H, Dh) against k, v (B, Sk, Hkv,
+    # Dh), the causal pairs or, without causality, all Sq x Sk
+    def flash_work_qk(b, sq, sk, h, hkv, dh, dtype, causal):
+        x = flash_inputs_qk(torch, b, sq, sk, h, hkv, dh, dtype, seed=2)
+        nbytes = x[0].element_size() * (2 * x[0].numel() + 2 * x[1].numel())
+        lib = tuple(t.transpose(1, 2).contiguous() for t in x)
+        pairs = band_pairs(sq) if causal else sq * sk
+        return x, lib, nbytes, 2 * 2 * dh * b * h * pairs
+
+    nx, nlib, n_bytes, n_flops, n_causal = {}, {}, {}, {}, {}
+    for rows_, dtype in ((FLASH_NEW_ROWS, torch.bfloat16),
+                         (FLASH_NEW_F32_ROWS, torch.float32)):
+        for row, (shape, causal) in rows_.items():
+            nx[row], nlib[row], n_bytes[row], n_flops[row] = flash_work_qk(
+                *shape, dtype, causal)
+            n_causal[row] = causal
+    new_ops = {row: ({"bf16": n_flops[row]} if row in FLASH_NEW_ROWS
+                     else f32_route(n_flops[row])) for row in n_flops}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_backends = {"flash_attention_tf32x3": sdpa_backend(torch, slib),
-                     "flash_attention_f32_wide": sdpa_backend(torch, wlib)}
+                     "flash_attention_f32_wide": sdpa_backend(torch, wlib),
+                     **{row: sdpa_backend(torch, nlib[row],
+                                          causal=n_causal[row])
+                        for row in FLASH_NEW_F32_ROWS}}
     # the WKV scan at the RWKV path's shape, model-like decays; no single
     # PyTorch call computes it
     wkx = wkv_inputs(torch, *WKV_PATH, torch.bfloat16, seed=2)
@@ -3365,35 +3741,49 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     # the flash row is the wgmma kernel's; the tf32x3 kernel has a row at
     # the small LM's shape and a timing row at FLASH_F32_WIDE, a width no
     # path runs in f32, whose launches are 0
-    launch_key = {"flash_attention": "flash_attention_wgmma",
-                  "flash_attention_hd256": "flash_attention_wgmma",
-                  "flash_attention_g16": "flash_attention_wgmma",
-                  "flash_attention_g5": "flash_attention_wgmma",
-                  "flash_attention_tf32x3_band": "flash_attention_tf32x3",
-                  "rwkv6_wkv": "rwkv6_wkv_mma",
+    launch_key = {"rwkv6_wkv": "rwkv6_wkv_mma",
                   "ssca_update": "ssca_update_beta"}
-    timing_only = {"flash_attention_f32_wide", "flash_attention_hd256_band"}
-    # the flash rows split their variant's launches by path: the hybrid's
-    # instances on its rows, the others' on theirs
-    # and the moe serve paths' on theirs
-    path_of_row = {"flash_attention": lambda p: not hybrid_path(p)
-                   and moe_flash_row(p) is None,
-                   "flash_attention_tf32x3": lambda p: not hybrid_path(p),
-                   "flash_attention_hd256": hybrid_path,
-                   "flash_attention_tf32x3_band": hybrid_path,
-                   **{row: (lambda p, r=row: moe_flash_row(p) == r)
-                      for row in FLASH_MOE}}
+    timing_only = {"flash_attention_f32_wide", "flash_attention_hd256_band",
+                   *FLASH_NEW_TIMING_ONLY}
+    # each flash row's paths and the counts it reads there: the hybrid's
+    # instances (by variant) on its rows, the moe serve paths' and the
+    # vlm's on theirs, the audio paths' on theirs by mask (the decoder's
+    # causal self-attention, the encoder's, the cross-attention), the
+    # other paths' causal launches on the LM rows
+    wgmma, tf32x3 = "flash_attention_wgmma", "flash_attention_tf32x3"
+    flash_rows = {
+        "flash_attention": (lm_path, (f"{wgmma}_causal",)),
+        "flash_attention_tf32x3": (lambda p: not hybrid_path(p),
+                                   (f"{tf32x3}_causal",)),
+        "flash_attention_hd256": (hybrid_path, (wgmma,)),
+        "flash_attention_tf32x3_band": (hybrid_path, (tf32x3,)),
+        **{row: (lambda p, r=row: moe_flash_row(p) == r, (wgmma,))
+           for row in FLASH_MOE},
+        **{row: (lambda p, r=row: vlm_flash_row(p) == r, (wgmma,))
+           for row in ("flash_attention_hd96", "flash_attention_hd96_serve")},
+        "flash_attention_audio_decoder": (audio_path, (f"{wgmma}_causal",)),
+        "flash_attention_encoder": (audio_path, (f"{wgmma}_self",)),
+        "flash_attention_cross": (audio_path, (f"{wgmma}_cross",)),
+        "flash_attention_tf32x3_noncausal": (
+            audio_path, (f"{tf32x3}_self", f"{tf32x3}_cross"))}
 
     def row_launches(name):
         if name in timing_only:
             return 0, {}
+        if name in flash_rows:
+            paths, keys = flash_rows[name]
+            per = {p: sum(v.get(k, 0) for k in keys)
+                   for p, v in by_path.items() if paths(p)}
+            return sum(per.values()), per
         key = launch_key.get(name, name)
-        if name not in path_of_row:
-            return launches[key], {p: v.get(key, 0)
-                                   for p, v in by_path.items()}
-        per = {p: v.get(key, 0) for p, v in by_path.items()
-               if path_of_row[name](p)}
-        return sum(per.values()), per
+        return launches[key], {p: v.get(key, 0) for p, v in by_path.items()}
+
+    # every flash launch of every path on one row, and on one only
+    credited = sum(row_launches(row)[0] for row in flash_rows)
+    flash_total = sum(v.get("flash_attention", 0) for v in by_path.values())
+    if credited != flash_total:
+        raise AssertionError(f"the flash rows count {credited} launches, "
+                             f"the paths {flash_total}")
     for name, src, replaces, kern, plain, library, nbytes, ops in (
             ("ssca_update", "src/repro_torch/kernels/csrc/ssca_update.cu",
              "src/repro/kernels/ssca_update.py:54",
@@ -3470,6 +3860,17 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                lambda r=row: sdpa(*glib[r], is_causal=True,
                                   enable_gqa=True),
                g_bytes[row], {"bf16": g_flops[row]}) for row in FLASH_MOE),
+            *((row, "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+               if row in FLASH_NEW_ROWS
+               else "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:78",
+               lambda r=row: fa.flash_attention_bhsd(*nx[r],
+                                                     causal=n_causal[r]),
+               lambda r=row: fa.flash_attention_plain(*nx[r],
+                                                      causal=n_causal[r]),
+               lambda r=row: sdpa(*nlib[r], is_causal=n_causal[r],
+                                  enable_gqa=True),
+               n_bytes[row], new_ops[row]) for row in n_flops),
             ("rwkv6_wkv", "src/repro_torch/kernels/csrc/rwkv6_scan_sm90.cu",
              "src/repro/kernels/rwkv6_scan.py:71",
              lambda: rw.rwkv6_wkv_bh(*wkx), lambda: rw.wkv_plain(*wkx),
@@ -3531,7 +3932,13 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                  "flash_attention_hd256": FLASH_HYBRID,
                  "flash_attention_hd256_band": FLASH_HYBRID,
                  "flash_attention_tf32x3_band": f32_band_shape,
-                 **FLASH_MOE}.get(name, FLASH_F32_WIDE))
+                 **FLASH_MOE,
+                 **{r: shape for r, (shape, _) in [
+                     *FLASH_NEW_ROWS.items(), *FLASH_NEW_F32_ROWS.items()]}
+                 }.get(name, FLASH_F32_WIDE))
+            if name in n_causal:
+                rows[-1]["shape_order"] = "B, Sq, Sk, H, Hkv, Dh"
+                rows[-1]["causal"] = n_causal[name]
             rows[-1]["window"] = {"flash_attention_hd256": HYBRID_WINDOW,
                                   "flash_attention_hd256_band": FLASH_BAND,
                                   "flash_attention_tf32x3_band": f32_band
@@ -3562,7 +3969,7 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
             rows[-1]["bf16_check"] = band_stats[HYBRID_WINDOW]
         if name == "flash_attention_hd256_band":
             rows[-1]["bf16_check"] = band_stats[FLASH_BAND]
-        if name in FLASH_MOE:
+        if name in FLASH_MOE or name in FLASH_NEW_ROWS:
             rows[-1]["bf16_check"] = band_stats[name]
         if name == "rwkv6_wkv":
             rows[-1]["shape"] = list(WKV_PATH)
@@ -3574,7 +3981,7 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
     floor = launch_floor_ms(torch)
     small = ("ssca_update", "ssca_update_lambda0", "masked_sum",
              "sketch_encode", "flash_attention_tf32x3",
-             "flash_attention_tf32x3_band")
+             "flash_attention_tf32x3_band", "flash_attention_tf32x3_noncausal")
     for row in rows:
         if row["name"] in small:
             row["launch_floor_ms"] = floor
@@ -4675,7 +5082,9 @@ LAMBDA0_PATHS = ("lm_small", "lm_full_width", "rwkv_small",
                  *(f"{p}{s}" for p in ("moe_small", "train_small_moe")
                    for s in ("", "_interleaved")),
                  *(f"train_small_{m}_{s}" for m in ("moe", "moe_interleaved")
-                   for s in ("resume", "bf16")))
+                   for s in ("resume", "bf16")),
+                 "train_small_vlm", "train_small_audio", "train_vlm_full",
+                 "train_audio_full")
 
 
 def check_ssca_variants(by_path):
@@ -4744,12 +5153,11 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s)")
     log("flash_attention (registers a thread, spill bytes a thread, shared "
-        "bytes a block) by head dim, causal and banded instances:",
-        json.dumps({f"{dh}{' band' if band else ''}":
-                    fa.kernel_attributes(dh, band)
+        "bytes a block) by head dim and mask (causal, band, none):",
+        json.dumps({f"{dh} {mask}": fa.kernel_attributes(dh, mask)
                     for dh in sorted({d for dims in fa.HEAD_DIMS.values()
                                       for d in dims})
-                    for band in (False, True)}))
+                    for mask in fa.MASKS}))
     log("rwkv6_wkv (registers a thread, spill bytes a thread, shared bytes "
         "a block) by instance:", json.dumps(rw.kernel_attributes()))
     log("masked_sum (registers a thread, spill bytes a thread, shared bytes "
@@ -4765,6 +5173,12 @@ def main() -> int:
     moe_errs, moe_stats = phase_flash_moe_parity(torch)
     errs.update(moe_errs)
     band_stats.update(moe_stats)
+    t0 = time.perf_counter()
+    new_errs, new_stats = phase_flash_new_parity(torch, card)
+    errs.update(new_errs)
+    band_stats.update(new_stats)
+    log(f"flash parity of the vlm and audio instances: "
+        f"{time.perf_counter() - t0:.1f} s")
     errs["rwkv6_wkv"] = phase_wkv_parity(torch)
 
     t0 = time.perf_counter()

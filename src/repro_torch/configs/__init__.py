@@ -1,8 +1,7 @@
 """Architecture registry: ``get_config(arch)`` resolves an id here.
 
 The port's copy of ``repro/configs/__init__.py``.  Every configuration is
-copied; :func:`repro_torch.models.build_model` builds the ``dense``
-and ``ssm`` families so far.
+copied, and :func:`repro_torch.models.build_model` builds every family.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """Decoder-only language models as federated tasks.
 
 The port of ``repro/fed/tasks/transformer.py``: :class:`LMTask` wraps a
-:class:`repro_torch.configs.base.ModelConfig` of a family the port builds
-(``dense``, ``moe``, ``ssm`` and ``hybrid`` so far) as next-token
-prediction.  Each client holds token sequences and uploads the
+:class:`repro_torch.configs.base.ModelConfig` of the ``dense``, ``moe``,
+``ssm`` or ``hybrid`` family as next-token prediction.  The ``vlm`` and
+``audio`` families raise ``NotImplementedError``: the task feeds the
+model tokens alone, and their forwards also read stub image or frame
+embeddings (the reference's task raises ``KeyError`` on them there).  Each client holds token sequences and uploads the
 per-sample-weighted gradient of the sequence-mean cross-entropy; the
 server runs the same SSCA recursions as for the paper's MLP.  The MoE
 load-balance loss is dropped from the federated objective, as the
@@ -33,6 +35,14 @@ class LMTask:
     seq_len: int = 32
 
     metric_names = ("train_cost", "test_accuracy")
+
+    def __post_init__(self):
+        if self.cfg.family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"LMTask: the {self.cfg.family!r} family ({self.cfg.name}) "
+                "reads stub image or frame embeddings beside its tokens, "
+                "which a federated LM batch does not carry (nor does the "
+                "reference's task); train it with repro_torch.launch.train")
 
     @property
     def name(self) -> str:

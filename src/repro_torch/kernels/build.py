@@ -118,8 +118,8 @@ def load() -> ctypes.CDLL:
                                           p]
     cdll.sketch_encode_launch.restype = i32
     for fn in (cdll.flash_attention_launch, cdll.flash_attention_sm90_launch):
-        fn.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, ctypes.c_float,
-                       i32, p]
+        fn.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, i32,
+                       ctypes.c_float, i32, i32, p]
         fn.restype = i32
     for fn in (cdll.flash_attention_attributes,
                cdll.flash_attention_sm90_attributes):

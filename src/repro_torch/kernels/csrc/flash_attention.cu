@@ -1,24 +1,27 @@
-// Causal flash attention with grouped-query heads (GQA), f32 q/k/v on the
-// tensor cores: every product a 3xTF32 mma.sync; with an optional
-// sliding window.
+// Flash attention with grouped-query heads (GQA), f32 q/k/v on the
+// tensor cores: every product a 3xTF32 mma.sync; causal, causal with a
+// sliding window, or without a mask over a key length of its own.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_bhsd and the head
 // mapping of its wrapper src/repro/kernels/ops.py::flash_attention; with
 // window > 0, also the band of the reference model's
-// src/repro/models/attention.py::attend(window=), which runs in XLA.  For
-// each batch row b, query head h (kv head hk = h / (H / Hkv)) and query
-// position i, over the visible keys j <= i (and, with window > 0,
-// j > i - window):
+// src/repro/models/attention.py::attend(window=), and without causality
+// its attend(causal=False) (the audio family's encoder and
+// cross-attention), both of which the reference runs in XLA.  For each
+// batch row b, query head h (kv head hk = h / (H / Hkv)) and query
+// position i, over the visible keys j (causal: j <= i and, with
+// window > 0, j > i - window; non-causal: every j < Sk):
 //
 //   out[b, i, h, :] = sum_j softmax_j(scale * q[b,i,h,:] . k[b,j,hk,:])
 //                     * v[b, j, hk, :]
 //
 // with f32 scores, probabilities and accumulators; q/k/v and out are f32,
-// in the model's (B, S, H, Dh) and (B, S, Hkv, Dh) layouts.  k and v are
-// read un-repeated (the reference's wrapper broadcasts them G-fold), and
-// Dh is not padded to 128 (the reference's wrapper pads it).  bf16 inputs
-// go to the wgmma kernel of flash_attention_sm90.cu.
+// in the model's (B, Sq, H, Dh) and (B, Sk, Hkv, Dh) layouts (Sq = Sk
+// unless non-causal).  k and v are read un-repeated (the reference's
+// wrapper broadcasts them G-fold), and Dh is not padded to 128 (the
+// reference's wrapper pads it).  bf16 inputs go to the wgmma kernel of
+// flash_attention_sm90.cu.
 //
 // Bound on the card: operations.  At llama3-8b's attention in f32
 // ((8, 1024, 32, 8, 128)) the causal pairs need 68.79 GFLOP and the
@@ -28,21 +31,22 @@
 // rate, below the 1.027 ms the same FLOPs take as f32 FMAs at 67 TFLOP/s.
 //
 // Design (FlashAttention-2): a block of W warps takes 16 W query rows of
-// one (query head, batch row), W = min(8, ceil(S / 16)), so a 32-token
+// one (query head, batch row), W = min(8, ceil(Sq / 16)), so a 32-token
 // sequence runs 2 warps and no idle rows; the heaviest query tiles are
 // launched first.  The block walks the K/V tiles of 64 keys up to its
-// last row (the TPU's sequential kv grid axis and its pl.when skip),
-// brought into shared memory by cp.async (keys past S zero-filled),
-// double-buffered, two barriers a tile.  Each warp owns 16 query rows and
-// keeps their running max and sum and their output accumulator (mma
-// accumulators) in registers; it skips a tile past its last row.  Per
-// tile and warp:
+// last row (the TPU's sequential kv grid axis and its pl.when skip; all
+// ceil(Sk / 64) of them without causality), brought into shared memory
+// by cp.async (keys past Sk zero-filled), double-buffered, two barriers a
+// tile.  Each warp owns 16 query rows and keeps their running max and sum
+// and their output accumulator (mma accumulators) in registers; it skips
+// a tile past its last row.  Per tile and warp:
 //   S = Q K^T as mma m16n8k8, q the A operand: the two k-steps of each
 //     16-dim group take slots (t4, t4 + 4) as dims (4 t4 + 0, + 1) and
 //     (+ 2, + 3), so K is read as the B operand of both by one
 //     conflict-free LDS.128 (row stride = 16 mod 32 words);
-//   scale (times log2 e), the causal mask on the diagonal tile, the row
-//     max over the quad (two shuffles), the f32 online softmax in exp2;
+//   scale (times log2 e), the causal mask on the diagonal tile (without
+//     causality, keys past Sk on a ragged last tile), the row max over the
+//     quad (two shuffles), the f32 online softmax in exp2;
 //   O += P V: the score accumulators are P's A fragment as they stand,
 //     with slots (t4, t4 + 4) taken as keys (2 t4, 2 t4 + 1), and V is
 //     read as the B operand at those keys (row stride = 4 mod 16 words,
@@ -59,7 +63,12 @@
 // cores' TF32 rate on Hopper, and the splits and the softmax issue beside
 // it; wgmma (m64nNk8, B from shared memory, asynchronous) is the route
 // to the rest.
-// Ragged S: query rows past S load as zero and are not stored; without a
+// Head dim 96 (phi-3-vision) is 6 groups of 16 dims and 12 output tiles.
+// Head dim 256 (recurrentgemma-9b) takes 32-key tiles and at most 4 warps
+// (Layout<256>): its q fragments (64 rows x 256 x 4 B, 64 KB) and two K/V
+// stages of 32 keys (2 x 66.5 KB) fit the 227 KB a block may take, where
+// 64-key stages alone would take 266 KB.
+// Ragged S: query rows past Sq load as zero and are not stored; without a
 // window the first tile holds key 0, which every row sees, so the running
 // max is finite from then on and masked scores add exp2(-inf) = 0.
 // The band (window > 0): the block walks the tiles from the one holding
@@ -67,9 +76,13 @@
 // its first row's band, and masks the tiles that cross its last row's
 // lower edge as it masks the diagonal one.  A row may then see no key of
 // its first tile: its running max stays -inf, and the softmax takes 0 as
-// its base there, so such scores add exp2(-inf) = 0 and not NaN.  The
-// band is a template flag: the causal instance (kBand false) carries none
-// of its code, and keeps its registers.
+// its base there, so such scores add exp2(-inf) = 0 and not NaN.
+// Without causality (the encoder's self-attention, cross-attention) no
+// zero-filled key past Sk may reach the softmax, where it would add
+// exp2(0 - max) to the sum: the last key tile masks keys >= Sk when Sk is
+// not a multiple of the tile.  The mask is a template parameter: the
+// causal instance carries none of the band's or the tail's code, and keeps
+// its registers.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -83,11 +96,14 @@ using tf32x3::mma;
 using tf32x3::split;
 using tf32x3::split_b;
 
-constexpr int kKeys = 64;       // keys a K/V tile
-constexpr int kMaxWarps = 8;
+// the mask: causal, causal banded to a window, or none over Sk keys
+enum Mask : int { kMaskCausal = 0, kMaskBand = 1, kMaskNone = 2 };
 
 template <int D>
 struct Layout {
+  // keys a K/V tile and warps a block (head dim 256: 32 and 4)
+  static constexpr int kKeys = D > 128 ? 32 : 64;
+  static constexpr int kMaxWarps = D > 128 ? 4 : 8;
   static constexpr int kKS = D % 32 == 0 ? D + 16 : D;   // = 16 mod 32
   static constexpr int kVS = D + 4;                      // = 4 mod 16
   static constexpr int kStage = kKeys * (kKS + kVS);     // floats a stage
@@ -97,15 +113,18 @@ struct Layout {
   }
 };
 
-template <int D, bool kBand>
-__global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
+template <int D, int M>
+__global__ void __launch_bounds__(32 * Layout<D>::kMaxWarps,
+                                  D <= 32 ? 2 : 1)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, int seq, int heads,
-                           int kv_heads, float scale, int window) {
+                           float* __restrict__ out, int seq_q, int seq_k,
+                           int heads, int kv_heads, float scale,
+                           int window) {
   using L = Layout<D>;
-  constexpr int kKS = L::kKS, kVS = L::kVS;
+  constexpr bool kBand = M == kMaskBand, kFull = M == kMaskNone;
+  constexpr int kKS = L::kKS, kVS = L::kVS, kKeys = L::kKeys;
   constexpr int kGroups = D / 16;   // 16-dim groups of q and k
   constexpr int kDimTiles = D / 8;  // 8-dim tiles of the output
   constexpr int kKeyTiles = kKeys / 8;
@@ -121,12 +140,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
   const int hk = h / (heads / kv_heads);
   const int64_t q_pos = (int64_t)heads * D;   // elements per position
   const int64_t kv_pos = (int64_t)kv_heads * D;
-  const float* qb = q + (int64_t)b * seq * q_pos + (int64_t)h * D;
-  const float* kb = k + (int64_t)b * seq * kv_pos + (int64_t)hk * D;
-  const float* vb = v + (int64_t)b * seq * kv_pos + (int64_t)hk * D;
-  float* ob = out + (int64_t)b * seq * q_pos + (int64_t)h * D;
+  const float* qb = q + (int64_t)b * seq_q * q_pos + (int64_t)h * D;
+  const float* kb = k + (int64_t)b * seq_k * kv_pos + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * seq_k * kv_pos + (int64_t)hk * D;
+  float* ob = out + (int64_t)b * seq_q * q_pos + (int64_t)h * D;
 
-  const int tiles = (min(q0 + rows_block, seq) - 1) / kKeys + 1;
+  // causal: the tiles up to the block's last row; else all of Sk
+  const int tiles = kFull ? (seq_k + kKeys - 1) / kKeys
+                          : (min(q0 + rows_block, seq_q) - 1) / kKeys + 1;
   // the band's first tile: the one holding key q0 - window + 1
   const int t_first = kBand && q0 >= window ? (q0 - window + 1) / kKeys : 0;
   const int w0 = q0 + 16 * warp;   // the warp's first row
@@ -143,7 +164,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
       const int n0 = t * kKeys;
       for (int i = tid; i < kKeys * (D / 4); i += nthreads) {
         const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-        const bool in = n0 + r < seq;
+        const bool in = n0 + r < seq_k;
         const int64_t off = (int64_t)(n0 + r) * kv_pos + c;
         cp_async16(ks + r * kKS + c, in ? kb + off : kb, in);
         cp_async16(vs + r * kVS + c, in ? vb + off : vb, in);
@@ -165,8 +186,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
   for (int j = 0; j < kGroups; ++j) {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     const float* p0 = qb + (int64_t)r0 * q_pos + 16 * j + 4 * t4;
-    const float4 a = r0 < seq ? *reinterpret_cast<const float4*>(p0) : zero;
-    const float4 c = r1 < seq ? *reinterpret_cast<const float4*>(
+    const float4 a = r0 < seq_q ? *reinterpret_cast<const float4*>(p0)
+                                : zero;
+    const float4 c = r1 < seq_q ? *reinterpret_cast<const float4*>(
                                     p0 + 8 * q_pos)
                               : zero;
     qf[(2 * j) * 32] = make_float4(a.x, c.x, a.y, c.y);
@@ -185,9 +207,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();   // tile t has landed for every thread
     const int n0 = t * kKeys;
-    // the warp's rows see keys up to w_last and, with a window, from
-    // w0 - window + 1
-    if (n0 <= w_last && w0 < seq &&
+    // the warp's rows see keys up to w_last (every key without
+    // causality) and, with a window, from w0 - window + 1
+    if ((kFull || n0 <= w_last) && w0 < seq_q &&
         (!kBand || n0 + kKeys - 1 > w0 - window)) {
       const float* ks = kv0 + (t & 1) * L::kStage;
       const float* vs = ks + kKeys * kKS;
@@ -237,10 +259,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
       }
 
       // scale (times log2 e, for exp2), the causal mask on the diagonal
-      // tile and the band's on a tile across its lower edge, the row max
-      // over the quad
-      const bool diag = n0 + kKeys - 1 > w0;
+      // tile, the band's on a tile across its lower edge, and without
+      // causality keys past Sk on a ragged last tile; the row max over
+      // the quad
+      const bool diag = !kFull && n0 + kKeys - 1 > w0;
       const bool edge = kBand && n0 <= w_last - window;
+      const bool tail = kFull && n0 + kKeys > seq_k;
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < kKeyTiles; ++nt) {
@@ -249,10 +273,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
           const int key = n0 + 8 * nt + 2 * t4 + e;
           const float x0 = s[nt][e] * scale_log2;
           const float x1 = s[nt][2 + e] * scale_log2;
-          s[nt][e] = (diag && key > r0) || (edge && key <= r0 - window)
+          const bool past = tail && key >= seq_k;
+          s[nt][e] = (diag && key > r0) || (edge && key <= r0 - window) ||
+                             past
                          ? -INFINITY
                          : x0;
-          s[nt][2 + e] = (diag && key > r1) || (edge && key <= r1 - window)
+          s[nt][2 + e] = (diag && key > r1) ||
+                                 (edge && key <= r1 - window) || past
                              ? -INFINITY
                              : x1;
           mx0 = fmaxf(mx0, s[nt][e]);
@@ -334,120 +361,135 @@ __global__ void __launch_bounds__(32 * kMaxWarps, D <= 32 ? 2 : 1)
 #pragma unroll
   for (int d = 0; d < kDimTiles; ++d) {
     const int col = 8 * d + 2 * t4;
-    if (r0 < seq)
+    if (r0 < seq_q)
       *reinterpret_cast<float2*>(ob + (int64_t)r0 * q_pos + col) =
           make_float2(o[d][0] / l0, o[d][1] / l0);
-    if (r1 < seq)
+    if (r1 < seq_q)
       *reinterpret_cast<float2*>(ob + (int64_t)r1 * q_pos + col) =
           make_float2(o[d][2] / l1, o[d][3] / l1);
   }
 }
 
-template <int D, bool kBand>
+template <int D, int M>
 cudaError_t launch_instance(const void* q, const void* k, const void* v,
-                            void* out, int batch, int seq, int heads,
-                            int kv_heads, float scale, int window,
+                            void* out, int batch, int seq_q, int seq_k,
+                            int heads, int kv_heads, float scale, int window,
                             cudaStream_t stream) {
-  const int warps = min(kMaxWarps, (seq + 15) / 16);
-  const size_t smem = Layout<D>::smem(warps);
+  using L = Layout<D>;
+  const int warps = min(L::kMaxWarps, (seq_q + 15) / 16);
+  const size_t smem = L::smem(warps);
   // above 48 KB a block's dynamic shared memory must be allowed first;
   // once per instance, so that no attribute call falls inside a CUDA
   // graph capture (callers launch once before capturing)
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<D, kBand>,
+        flash_attention_kernel<D, M>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Layout<D>::smem(kMaxWarps));
+        (int)L::smem(L::kMaxWarps));
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const int rows = 16 * warps;
-  const dim3 grid((seq + rows - 1) / rows, heads, batch);
-  flash_attention_kernel<D, kBand><<<grid, 32 * warps, smem, stream>>>(
+  const dim3 grid((seq_q + rows - 1) / rows, heads, batch);
+  flash_attention_kernel<D, M><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), seq, heads,
-      kv_heads, scale, window);
+      static_cast<const float*>(v), static_cast<float*>(out), seq_q, seq_k,
+      heads, kv_heads, scale, window);
   return cudaGetLastError();
 }
 
-// the causal instance without a window, the banded one with
+// the instance of the mask: none without causality, else the banded one
+// with a window and the causal one without
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int seq, int heads, int kv_heads, float scale,
-                   int window, cudaStream_t stream) {
-  return window > 0 ? launch_instance<D, true>(q, k, v, out, batch, seq,
-                                                heads, kv_heads, scale,
-                                                window, stream)
-                    : launch_instance<D, false>(q, k, v, out, batch, seq,
-                                                 heads, kv_heads, scale, 0,
-                                                 stream);
+                   int batch, int seq_q, int seq_k, int heads, int kv_heads,
+                   float scale, int window, int causal, cudaStream_t stream) {
+  if (!causal)
+    return launch_instance<D, kMaskNone>(q, k, v, out, batch, seq_q, seq_k,
+                                         heads, kv_heads, scale, 0, stream);
+  return window > 0
+             ? launch_instance<D, kMaskBand>(q, k, v, out, batch, seq_q,
+                                             seq_k, heads, kv_heads, scale,
+                                             window, stream)
+             : launch_instance<D, kMaskCausal>(q, k, v, out, batch, seq_q,
+                                               seq_k, heads, kv_heads, scale,
+                                               0, stream);
 }
 
-template <int D, bool kBand>
+template <int D, int M>
 void attributes(int* out) {
   cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, flash_attention_kernel<D, kBand>) !=
+  if (cudaFuncGetAttributes(&a, flash_attention_kernel<D, M>) !=
       cudaSuccess) {
     out[0] = out[1] = out[2] = -1;
     return;
   }
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)Layout<D>::smem(kMaxWarps);
+  out[2] = (int)Layout<D>::smem(Layout<D>::kMaxWarps);
+}
+
+template <int M>
+void attributes_of(int head_dim, int* out) {
+  switch (head_dim) {
+    case 16: return attributes<16, M>(out);
+    case 32: return attributes<32, M>(out);
+    case 64: return attributes<64, M>(out);
+    case 96: return attributes<96, M>(out);
+    case 128: return attributes<128, M>(out);
+    case 256: return attributes<256, M>(out);
+    default: out[0] = out[1] = out[2] = -1;
+  }
 }
 
 }  // namespace
 
-// q/out: device (batch, seq, heads, head_dim), k/v: device (batch, seq,
-// kv_heads, head_dim), contiguous f32 at 16-byte aligned addresses;
-// kv_heads divides heads; head_dim is 16, 32, 64 or 128 (256 has no
-// instance: its two K/V stages alone take 256 KB of shared memory);
-// window >= 0 (0: causal only; else key j is visible to query i iff
-// i - window < j <= i).  Launches on `stream`; returns cudaGetLastError()
-// (cudaErrorInvalidValue for a head_dim, head count or window the kernel
-// does not take).
+// q/out: device (batch, seq_q, heads, head_dim), k/v: device (batch,
+// seq_k, kv_heads, head_dim), contiguous f32 at 16-byte aligned
+// addresses; kv_heads divides heads; head_dim is 16, 32, 64, 96, 128 or
+// 256; causal != 0: seq_q == seq_k and window >= 0 (0: causal only; else
+// key j is visible to query i iff i - window < j <= i); causal == 0:
+// window 0, every one of the seq_k >= 1 keys visible to every query.
+// Launches on `stream`; returns cudaGetLastError()
+// (cudaErrorInvalidValue for a head_dim, head count, length or window the
+// kernel does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
-                                      int seq, int heads, int kv_heads,
-                                      int head_dim, float scale, int window,
-                                      void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads || window < 0)
+                                      int seq_q, int seq_k, int heads,
+                                      int kv_heads, int head_dim, float scale,
+                                      int window, int causal, void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads || window < 0 ||
+      (causal ? seq_q != seq_k : window != 0 || (seq_q > 0 && seq_k <= 0)))
     return (int)cudaErrorInvalidValue;
-  if (batch == 0 || seq == 0 || heads == 0) return (int)cudaGetLastError();
+  if (batch == 0 || seq_q == 0 || heads == 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
+#define FLASH_CASE(D)                                                      \
+  case D:                                                                  \
+    return (int)launch<D>(q, k, v, out, batch, seq_q, seq_k, heads,        \
+                          kv_heads, scale, window, causal, s);
   switch (head_dim) {
-    case 16:
-      return (int)launch<16>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, window, s);
-    case 32:
-      return (int)launch<32>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, window, s);
-    case 64:
-      return (int)launch<64>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, window, s);
-    case 128:
-      return (int)launch<128>(q, k, v, out, batch, seq, heads, kv_heads,
-                              scale, window, s);
+    FLASH_CASE(16)
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(96)
+    FLASH_CASE(128)
+    FLASH_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_CASE
 }
 
 // registers a thread, local (spill) bytes a thread and dynamic shared
-// bytes a block of the instance for head_dim, causal (band 0) or banded
-// (band 1), into out[0..2] (-1 each for a head_dim without an instance)
-extern "C" void flash_attention_attributes(int head_dim, int band,
+// bytes a block of the instance for head_dim and mask (0 causal, 1
+// banded, 2 none), into out[0..2] (-1 each for one without an instance)
+extern "C" void flash_attention_attributes(int head_dim, int mask,
                                            int* out) {
-  switch (head_dim * 2 + (band != 0)) {
-    case 32: return attributes<16, false>(out);
-    case 33: return attributes<16, true>(out);
-    case 64: return attributes<32, false>(out);
-    case 65: return attributes<32, true>(out);
-    case 128: return attributes<64, false>(out);
-    case 129: return attributes<64, true>(out);
-    case 256: return attributes<128, false>(out);
-    case 257: return attributes<128, true>(out);
+  switch (mask) {
+    case kMaskCausal: return attributes_of<kMaskCausal>(head_dim, out);
+    case kMaskBand: return attributes_of<kMaskBand>(head_dim, out);
+    case kMaskNone: return attributes_of<kMaskNone>(head_dim, out);
     default: out[0] = out[1] = out[2] = -1;
   }
 }

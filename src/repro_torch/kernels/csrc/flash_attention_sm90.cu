@@ -1,25 +1,29 @@
-// Causal flash attention with grouped-query heads (GQA), bf16 q/k/v on
-// Hopper's tensor cores, with an optional sliding window.
+// Flash attention with grouped-query heads (GQA), bf16 q/k/v on Hopper's
+// tensor cores: causal, causal with a sliding window, or without a mask
+// over a key length of its own.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py:78 (flash_attention_bhsd) and the
 // head mapping of its wrapper src/repro/kernels/ops.py::flash_attention,
 // for bf16 inputs (f32 inputs go to the 3xTF32 kernel of
 // flash_attention.cu); with window > 0, also the band of the reference
-// model's src/repro/models/attention.py::attend(window=), which runs in
-// XLA.  For each batch row b, query head h (kv head hk = h / (H / Hkv))
-// and query position i, over the visible keys j <= i (and, with
-// window > 0, j > i - window):
+// model's src/repro/models/attention.py::attend(window=), and without
+// causality its attend(causal=False) (the audio family's encoder and
+// cross-attention), both of which the reference runs in XLA.  For each
+// batch row b, query head h (kv head hk = h / (H / Hkv)) and query
+// position i, over the visible keys j (causal: j <= i and, with
+// window > 0, j > i - window; non-causal: every j < Sk):
 //
 //   out[b, i, h, :] = sum_j softmax_j(scale * q[b,i,h,:] . k[b,j,hk,:])
 //                     * v[b, j, hk, :]
 //
 // with f32 scores, softmax statistics and accumulators, in the model's
-// (B, S, H, Dh) and (B, S, Hkv, Dh) layouts (k and v un-repeated, Dh not
-// padded).  The probabilities are rounded to bf16 before P.V, as every
-// tensor-core flash kernel does and as the reference model does before
-// its P.V (src/repro/models/attention.py::_combine_grouped); the running
-// sum l is taken over the unrounded f32 probabilities.
+// (B, Sq, H, Dh) and (B, Sk, Hkv, Dh) layouts (Sq = Sk unless
+// non-causal; k and v un-repeated, Dh not padded).  The probabilities
+// are rounded to bf16 before P.V, as every tensor-core flash kernel does
+// and as the reference model does before its P.V
+// (src/repro/models/attention.py::_combine_grouped); the running sum l
+// is taken over the unrounded f32 probabilities.
 //
 // Bound on the card: operations, on the bf16 tensor cores.  At the main
 // path's shape (B = 8, S = 1024, H = 32, Hkv = 8, Dh = 128) the causal
@@ -41,22 +45,33 @@
 //   arrive on to free the stage).  setmaxnreg moves registers from the
 //   producer (24 a thread) to the consumers (240);
 // * the grid is persistent, one block per SM, each walking the items
-//   longest causal tile first.  A block's fixed costs (its first Q and K
-//   loads, its epilogue) took about a fifth of the time at the path shape
-//   with one block per item: here the producer loads the next item's Q as
-//   soon as both warpgroups have issued their last Q.K^T, and its K and V
-//   tiles as the ring frees, while the consumers finish the current item;
+//   longest causal tile first (without causality every item walks all
+//   of Sk, and the order is only the query tiles', last first).  A
+//   block's fixed costs (its first Q and K loads, its epilogue) took
+//   about a fifth of the time at the path shape with one block per item:
+//   here the producer loads the next item's Q as soon as both warpgroups
+//   have issued their last Q.K^T, and its K and V tiles as the ring
+//   frees, while the consumers finish the current item;
 //   O is staged in a buffer of its own, so its TMA store overlaps the
 //   next item;
 // * TMA boxes of (<= 64 columns, 1 head, 64 or 128 rows, 1 batch row) over
-//   4-D tensor maps of the model's own strides: Dh 128 is two 64-column
-//   boxes at the 128-byte swizzle, Dh 64 / 32 / 16 one box at the 128 /
-//   64 / 32-byte swizzle, and each wgmma descriptor names the same
-//   swizzle.  Rows past S load as zeros and are clipped on the store;
+//   4-D tensor maps of the model's own strides (q and out over Sq, k and v
+//   over Sk): Dh 128 is two 64-column boxes at the 128-byte swizzle,
+//   Dh 64 / 32 / 16 one box at the 128 / 64 / 32-byte swizzle, and Dh 96
+//   (phi-3-vision) three 32-column boxes at the 64-byte swizzle: 96 bf16
+//   columns are 192 bytes, past the 128-byte swizzle's span, and
+//   padding Dh to 128 would move 4/3 of the bytes.  Each wgmma descriptor
+//   names the same swizzle: Q.K^T takes Dh as 6 k-steps of 16, two a
+//   box, and P.V takes N = 96 over 3 swizzle atoms, one a box.  Rows past
+//   S load as zeros and are clipped on the store;
 // * the online softmax runs in registers on the accumulator fragment:
 //   row max and sum over the 4 threads that share a row (shuffles xor 1
 //   and 2), exp2 with scale * log2(e) folded in; only the tile on the
 //   diagonal is masked, and tiles wholly above it are never loaded.
+//   Without causality (the encoder's self-attention, cross-attention) an
+//   item walks all ceil(Sk / kBlockN) key tiles, and only a ragged last
+//   tile is masked, at keys >= Sk: the keys TMA fills with zeros there
+//   would add exp2(0 - max) to the sum, as nothing else hides them.
 //   GQA needs no packing: all of K and V at the path shape (33.5 MB) fits
 //   the 50 MB L2, and consecutive items are heads of one kv group.
 // * the band (window > 0): an item loads only the key tiles from the one
@@ -75,8 +90,9 @@
 //   setmaxnreg): Q 32 KB, O 32 KB, K and V 2 x 2 x 32 KB, 192 KB; four
 //   64-column TMA boxes span Dh at the 128-byte swizzle.  It issues half
 //   the wgmma of the 128-row tiles a block, a simple instance first.
-// The band is a template flag: the causal instances (kBand false) carry
-// none of its code, and keep their registers.
+// The mask (causal, band, none) is a template parameter: the causal
+// instances carry none of the band's or the tail's code, and keep their
+// registers.
 // Not done: FA3's overlap of a warpgroup's softmax with its own next
 // Q.K^T, and its ping-pong turns between the two warpgroups.  Both keep S,
 // O and P live at once, and ptxas allocates one register count for the
@@ -96,10 +112,13 @@ namespace {
 constexpr int kWgRows = 64;      // query rows a consumer warpgroup
 constexpr int kStages = 2;       // K/V ring depth
 
+// the mask: causal, causal banded to a window, or none over Sk keys
+enum Mask : int { kMaskCausal = 0, kMaskBand = 1, kMaskNone = 2 };
+
 // Per head dim: the block's shape, TMA box width, swizzle and the wgmma
 // descriptor fields.  Dh <= 128: two consumer warpgroups, 128 query rows
-// and 128-key tiles; Dh 256: one, 64 and 64.  kBlockM = kBlockN, so an
-// item's last tile is its diagonal one.
+// and 128-key tiles; Dh 256: one, 64 and 64.  kBlockM = kBlockN, so a
+// causal item's last tile is its diagonal one.
 template <int D>
 struct Tile {
   static constexpr int kConsumers = D > 128 ? 1 : 2;  // consumer warpgroups
@@ -107,7 +126,9 @@ struct Tile {
   static constexpr int kBlockN = kBlockM;                // keys a K/V tile
   static constexpr int kThreads = 128 * (1 + kConsumers);
   static constexpr int kConsumerWarps = 4 * kConsumers;
-  static constexpr int kBoxCols = D < 64 ? D : 64;   // columns a TMA box
+  // columns a TMA box: Dh itself up to 64, 64 for a multiple of 64, else
+  // 32 (Dh 96: three boxes)
+  static constexpr int kBoxCols = D <= 64 ? D : D % 64 ? 32 : 64;
   static constexpr int kBoxes = D / kBoxCols;        // boxes across Dh
   static constexpr int kRowBytes = 2 * kBoxCols;     // = the swizzle span
   // swizzle of the 16-byte chunks: Swizzle<kSwzBits, 4, 3>
@@ -250,6 +271,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
       "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
       "%58, %59, %60, %61, %62, %63"
 
+#define R48(d, i) R32(d, i), R16(d, i + 32)
+#define L48                                                              \
+  L32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+      "%45, %46, %47"
+
 #define R128(d, i) R64(d, i), R64(d, i + 64)
 #define L128                                                              \
   L64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, " \
@@ -305,6 +331,7 @@ struct WgmmaPV;
 WGMMA_PV(16, L8, R8(d, 0), "%8, %9, %10, %11", "%12", "%13")
 WGMMA_PV(32, L16, R16(d, 0), "%16, %17, %18, %19", "%20", "%21")
 WGMMA_PV(64, L32, R32(d, 0), "%32, %33, %34, %35", "%36", "%37")
+WGMMA_PV(96, L48, R48(d, 0), "%48, %49, %50, %51", "%52", "%53")
 WGMMA_PV(128, L64, R64(d, 0), "%64, %65, %66, %67", "%68", "%69")
 WGMMA_PV(256, L128, R128(d, 0), "%128, %129, %130, %131", "%132", "%133")
 
@@ -334,23 +361,26 @@ struct Item {
 
 // The first key tile of an item whose rows start at q0: the one holding
 // key q0 - window + 1 (0 without a band).
-template <int D, bool kBand>
+template <int D, int M>
 __device__ __forceinline__ int first_tile(int q0, int window) {
-  return kBand && q0 >= window ? (q0 - window + 1) / Tile<D>::kBlockN : 0;
+  return M == kMaskBand && q0 >= window
+             ? (q0 - window + 1) / Tile<D>::kBlockN
+             : 0;
 }
 
-// q_map / out_map: bf16 (Dh, H, S, B), boxes of (kBoxCols, 1, 64, 1);
-// k_map / v_map: bf16 (Dh, Hkv, S, B), boxes of (kBoxCols, 1, kBlockN, 1).
-// A persistent grid: block i takes items i, i + gridDim.x, ...
-template <int D, bool kBand>
+// q_map / out_map: bf16 (Dh, H, Sq, B), boxes of (kBoxCols, 1, 64, 1);
+// k_map / v_map: bf16 (Dh, Hkv, Sk, B), boxes of (kBoxCols, 1, kBlockN,
+// 1).  A persistent grid: block i takes items i, i + gridDim.x, ...
+template <int D, int M>
 __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
     flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
                                 const __grid_constant__ CUtensorMap out_map,
-                                int seq, int heads, int batch, int group,
-                                float scale, int window) {
+                                int seq_q, int seq_k, int heads, int batch,
+                                int group, float scale, int window) {
   using T = Tile<D>;
+  constexpr bool kBand = M == kMaskBand, kFull = M == kMaskNone;
   constexpr int kBlockM = T::kBlockM, kBlockN = T::kBlockN;
   constexpr int kConsumerWarps = T::kConsumerWarps;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -366,8 +396,12 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
   auto v_full = [&](int st) { return bars + 8 * (2 + kStages + st); };
   auto kv_free = [&](int st) { return bars + 8 * (2 + 2 * kStages + st); };
 
-  const int n_m = (seq + kBlockM - 1) / kBlockM;
+  const int n_m = (seq_q + kBlockM - 1) / kBlockM;
   const int n_items = n_m * heads * batch;
+  // without causality every item walks the key tiles 0 .. n_n - 1, the
+  // last of them ragged when Sk is not a multiple of kBlockN
+  const int n_n = (seq_k + kBlockN - 1) / kBlockN;
+  const bool ragged = seq_k % kBlockN != 0;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -401,8 +435,9 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
             tma_load(q_s + bx * T::kQBox + half * kWgRows * T::kRowBytes,
                      &q_map, q_full, bx * T::kBoxCols, w.h,
                      w.m_tile * kBlockM + half * kWgRows, w.b);
-        for (int it = first_tile<D, kBand>(w.m_tile * kBlockM, window);
-             it <= w.m_tile; ++it, ++ring) {
+        const int last = kFull ? n_n - 1 : w.m_tile;
+        for (int it = first_tile<D, M>(w.m_tile * kBlockM, window);
+             it <= last; ++it, ++ring) {
           const int st = ring % kStages;
           mbar_wait(kv_free(st), ((ring / kStages) & 1) ^ 1);
           mbar_expect_tx(k_full(st), T::kKVBytes);
@@ -435,8 +470,9 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
     for (int idx = blockIdx.x, n = 0; idx < n_items; idx += gridDim.x, ++n) {
       const Item w(idx, n_m, heads, batch);
       const int q0 = w.m_tile * kBlockM;
-      // key tiles from the band's first up to the diagonal
-      const int t0 = first_tile<D, kBand>(q0, window);
+      // key tiles from the band's first up to the diagonal, or all of Sk
+      const int t0 = first_tile<D, M>(q0, window);
+      const int last = kFull ? n_n - 1 : w.m_tile;
       // tiles at or below this one cross the band's lower edge: they
       // hold a key at or below the last row's minus the window
       const int low = q0 + kBlockM - 1 - window;
@@ -448,7 +484,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
       float l[2] = {0.0f, 0.0f};   // this thread's share of the row sums
 
       mbar_wait(q_full, n & 1);
-      for (int it = t0; it <= w.m_tile; ++it, ++ring) {
+      for (int it = t0; it <= last; ++it, ++ring) {
         const int st = ring % kStages;
         const uint32_t ph = (ring / kStages) & 1;
 
@@ -472,15 +508,16 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
         wgmma_wait_all();
         fence_regs(s);
 
-        if (it == w.m_tile) {
+        if (it == last) {
           // the last S of this item is in: Q may take the next item's
           __syncwarp();
           if (lane == 0) mbar_arrive(q_free);
         }
-        if (it == w.m_tile || it <= edge) {
+        if (kFull ? it == last && ragged : it == w.m_tile || it <= edge) {
           // the tile on the diagonal, or across the band's lower edge:
           // keys past the row, past S, or window or more before the row
-          // are out
+          // are out; without causality, the ragged last tile: keys past
+          // Sk are out
           const int n0 = it * kBlockN;
 #pragma unroll
           for (int j = 0; j < kBlockN / 8; ++j)
@@ -490,7 +527,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
               for (int e = 0; e < 2; ++e) {
                 const int key = n0 + 8 * j + 2 * (lane % 4) + e;
                 const int row = q0 + row0 + 8 * i;
-                if (key > row || key >= seq ||
+                if ((!kFull && key > row) || key >= seq_k ||
                     (kBand && key <= row - window))
                   s[4 * j + 2 * i + e] = -INFINITY;
               }
@@ -505,8 +542,9 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
             mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          // without a window key 0 is visible to every row, so mx is
-          // finite from the first tile on; with one, a row may see no key
+          // without a window key 0 is visible to every row (causal or
+          // not), so mx is finite from the first tile on; with one, a row
+          // may see no key
           // of its item's first tiles: the guard keeps such a row at
           // exp2(-inf) = 0 rather than NaN
           const float base = mx == -INFINITY ? 0.0f : mx * sl2;
@@ -584,7 +622,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, 1)
         }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-      if (t == 0 && q0 + c * kWgRows < seq) {
+      if (t == 0 && q0 + c * kWgRows < seq_q) {
         for (int bx = 0; bx < T::kBoxes; ++bx)
           tma_store(&out_map, o_wg + bx * T::kQBox, bx * T::kBoxCols, w.h,
                     q0 + c * kWgRows, w.b);
@@ -648,10 +686,10 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool kBand>
+template <int D, int M>
 cudaError_t launch_instance(const void* q, const void* k, const void* v,
-                            void* out, int batch, int seq, int heads,
-                            int kv_heads, float scale, int window,
+                            void* out, int batch, int seq_q, int seq_k,
+                            int heads, int kv_heads, float scale, int window,
                             cudaStream_t stream) {
   using T = Tile<D>;
   // above 48 KB a block's dynamic shared memory must be allowed first;
@@ -666,7 +704,7 @@ cudaError_t launch_instance(const void* q, const void* k, const void* v,
       e = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount,
                                  dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_attention_kernel_sm90<D, kBand>,
+      e = cudaFuncSetAttribute(flash_attention_kernel_sm90<D, M>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                T::kSmem);
     if (e != cudaSuccess) return e;
@@ -676,37 +714,42 @@ cudaError_t launch_instance(const void* q, const void* k, const void* v,
   if (fn == nullptr) return cudaErrorNotSupported;
   // the encode is host arithmetic only, safe inside a graph capture
   CUtensorMap qm, km, vm, om;
-  if (!encode<D>(fn, &qm, q, batch, seq, heads, kWgRows) ||
-      !encode<D>(fn, &km, k, batch, seq, kv_heads, T::kBlockN) ||
-      !encode<D>(fn, &vm, v, batch, seq, kv_heads, T::kBlockN) ||
-      !encode<D>(fn, &om, out, batch, seq, heads, kWgRows))
+  if (!encode<D>(fn, &qm, q, batch, seq_q, heads, kWgRows) ||
+      !encode<D>(fn, &km, k, batch, seq_k, kv_heads, T::kBlockN) ||
+      !encode<D>(fn, &vm, v, batch, seq_k, kv_heads, T::kBlockN) ||
+      !encode<D>(fn, &om, out, batch, seq_q, heads, kWgRows))
     return cudaErrorInvalidValue;
   // one block per SM (a block fills one), each walking the items
-  const int items = (seq + T::kBlockM - 1) / T::kBlockM * heads * batch;
+  const int items = (seq_q + T::kBlockM - 1) / T::kBlockM * heads * batch;
   const int grid = items < sm_count ? items : sm_count;
-  flash_attention_kernel_sm90<D, kBand>
-      <<<grid, T::kThreads, T::kSmem, stream>>>(
-          qm, km, vm, om, seq, heads, batch, heads / kv_heads, scale, window);
+  flash_attention_kernel_sm90<D, M><<<grid, T::kThreads, T::kSmem, stream>>>(
+      qm, km, vm, om, seq_q, seq_k, heads, batch, heads / kv_heads, scale,
+      window);
   return cudaGetLastError();
 }
 
-// the causal instance without a window, the banded one with
+// the instance of the mask: none without causality, else the banded one
+// with a window and the causal one without
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int seq, int heads, int kv_heads, float scale,
-                   int window, cudaStream_t stream) {
-  return window > 0 ? launch_instance<D, true>(q, k, v, out, batch, seq,
-                                                heads, kv_heads, scale,
-                                                window, stream)
-                    : launch_instance<D, false>(q, k, v, out, batch, seq,
-                                                 heads, kv_heads, scale, 0,
-                                                 stream);
+                   int batch, int seq_q, int seq_k, int heads, int kv_heads,
+                   float scale, int window, int causal, cudaStream_t stream) {
+  if (!causal)
+    return launch_instance<D, kMaskNone>(q, k, v, out, batch, seq_q, seq_k,
+                                         heads, kv_heads, scale, 0, stream);
+  return window > 0
+             ? launch_instance<D, kMaskBand>(q, k, v, out, batch, seq_q,
+                                             seq_k, heads, kv_heads, scale,
+                                             window, stream)
+             : launch_instance<D, kMaskCausal>(q, k, v, out, batch, seq_q,
+                                               seq_k, heads, kv_heads, scale,
+                                               0, stream);
 }
 
-template <int D, bool kBand>
+template <int D, int M>
 void attributes(int* out) {
   cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, flash_attention_kernel_sm90<D, kBand>) !=
+  if (cudaFuncGetAttributes(&a, flash_attention_kernel_sm90<D, M>) !=
       cudaSuccess) {
     out[0] = out[1] = out[2] = -1;
     return;
@@ -716,64 +759,69 @@ void attributes(int* out) {
   out[2] = Tile<D>::kSmem;
 }
 
-}  // namespace
-
-// q/out: device (batch, seq, heads, head_dim), k/v: device (batch, seq,
-// kv_heads, head_dim), contiguous bf16, 16-byte aligned; kv_heads divides
-// heads; head_dim is 16, 32, 64, 128 or 256; window >= 0 (0: causal
-// only; else key j is visible to query i iff i - window < j <= i).
-// Launches on `stream`; returns
-// cudaGetLastError() (cudaErrorInvalidValue for shapes the kernel does
-// not take or maps that cuTensorMapEncodeTiled refuses,
-// cudaErrorNotSupported where libcuda has no cuTensorMapEncodeTiled).
-extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
-                                           const void* v, void* out,
-                                           int batch, int seq, int heads,
-                                           int kv_heads, int head_dim,
-                                           float scale, int window,
-                                           void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads || window < 0 ||
-      (int64_t)((seq + kWgRows - 1) / kWgRows) * heads * batch > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  if (batch == 0 || seq == 0 || heads == 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
+template <int M>
+void attributes_of(int head_dim, int* out) {
   switch (head_dim) {
-    case 16:
-      return (int)launch<16>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, window, s);
-    case 32:
-      return (int)launch<32>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, window, s);
-    case 64:
-      return (int)launch<64>(q, k, v, out, batch, seq, heads, kv_heads,
-                             scale, window, s);
-    case 128:
-      return (int)launch<128>(q, k, v, out, batch, seq, heads, kv_heads,
-                              scale, window, s);
-    case 256:
-      return (int)launch<256>(q, k, v, out, batch, seq, heads, kv_heads,
-                              scale, window, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return attributes<16, M>(out);
+    case 32: return attributes<32, M>(out);
+    case 64: return attributes<64, M>(out);
+    case 96: return attributes<96, M>(out);
+    case 128: return attributes<128, M>(out);
+    case 256: return attributes<256, M>(out);
+    default: out[0] = out[1] = out[2] = -1;
   }
 }
 
+}  // namespace
+
+// q/out: device (batch, seq_q, heads, head_dim), k/v: device (batch,
+// seq_k, kv_heads, head_dim), contiguous bf16, 16-byte aligned; kv_heads
+// divides heads; head_dim is 16, 32, 64, 96, 128 or 256; causal != 0:
+// seq_q == seq_k and window >= 0 (0: causal only; else key j is visible
+// to query i iff i - window < j <= i); causal == 0: window 0, every one of
+// the seq_k >= 1 keys visible to every query.  Launches on `stream`;
+// returns cudaGetLastError() (cudaErrorInvalidValue for shapes the kernel
+// does not take or maps that cuTensorMapEncodeTiled refuses,
+// cudaErrorNotSupported where libcuda has no cuTensorMapEncodeTiled).
+extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
+                                           const void* v, void* out,
+                                           int batch, int seq_q, int seq_k,
+                                           int heads, int kv_heads,
+                                           int head_dim, float scale,
+                                           int window, int causal,
+                                           void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads || window < 0 ||
+      (causal ? seq_q != seq_k : window != 0 || (seq_q > 0 && seq_k <= 0)) ||
+      (int64_t)((seq_q + kWgRows - 1) / kWgRows) * heads * batch > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0 || seq_q == 0 || heads == 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define FLASH_CASE(D)                                                      \
+  case D:                                                                  \
+    return (int)launch<D>(q, k, v, out, batch, seq_q, seq_k, heads,        \
+                          kv_heads, scale, window, causal, s);
+  switch (head_dim) {
+    FLASH_CASE(16)
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(96)
+    FLASH_CASE(128)
+    FLASH_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef FLASH_CASE
+}
+
 // registers a thread, local (spill) bytes a thread and dynamic shared
-// bytes a block of the instance for head_dim, causal (band 0) or banded
-// (band 1), into out[0..2] (-1 each for a head_dim without an instance)
-extern "C" void flash_attention_sm90_attributes(int head_dim, int band,
+// bytes a block of the instance for head_dim and mask (0 causal, 1
+// banded, 2 none), into out[0..2] (-1 each for one without an instance)
+extern "C" void flash_attention_sm90_attributes(int head_dim, int mask,
                                                 int* out) {
-  switch (head_dim * 2 + (band != 0)) {
-    case 32: return attributes<16, false>(out);
-    case 33: return attributes<16, true>(out);
-    case 64: return attributes<32, false>(out);
-    case 65: return attributes<32, true>(out);
-    case 128: return attributes<64, false>(out);
-    case 129: return attributes<64, true>(out);
-    case 256: return attributes<128, false>(out);
-    case 257: return attributes<128, true>(out);
-    case 512: return attributes<256, false>(out);
-    case 513: return attributes<256, true>(out);
+  switch (mask) {
+    case kMaskCausal: return attributes_of<kMaskCausal>(head_dim, out);
+    case kMaskBand: return attributes_of<kMaskBand>(head_dim, out);
+    case kMaskNone: return attributes_of<kMaskNone>(head_dim, out);
     default: out[0] = out[1] = out[2] = -1;
   }
 }

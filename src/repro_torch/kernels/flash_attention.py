@@ -1,5 +1,6 @@
-"""Causal flash attention, with an optional sliding window: the kernel
-wrapper, its plain version and the autograd op.
+"""Flash attention, causal with an optional sliding window or non-causal
+over a key length of its own: the kernel wrapper, its plain version and
+the autograd op.
 
 The port of ``repro/kernels/flash_attention.py::flash_attention_bhsd``
 and of the GQA wrapper ``repro/kernels/ops.py::flash_attention``: causal
@@ -17,6 +18,13 @@ attention, which the reference runs in XLA; its Pallas kernel is causal
 only).  A window of at least S is the causal case, and the wrapper
 passes 0 for it.
 
+``causal=False`` drops the mask: every query sees all Sk keys, and k/v
+may be longer or shorter than q, (B, Sk, Hkv, Dh).  It is the reference
+model's ``attend(causal=False)``, in XLA there, which the audio family's
+encoder (self-attention over its 1,500 frames) and cross-attention (the
+decoder's queries against the encoder's keys) call.  The causal and
+banded cases keep Sq = Sk.
+
 On a CUDA tensor :func:`flash_attention_bhsd` launches a hand-written
 kernel, chosen by dtype (a dispatch, not a fallback: a failed build or
 launch raises):
@@ -31,10 +39,11 @@ launch raises):
   hi + lo and summed in three passes (``csrc/tf32x3.cuh``; one pass would
   break it), within 2e-5 of the plain version.
 
-``HEAD_DIMS`` gives each variant's template instances: head dim 256
-(recurrentgemma-9b) has a wgmma instance only.  The f32 kernel's K and V
-stages at 256 (64 keys × 256 × 4 B, double-buffered: 256 KB) pass the
-227 KB of shared memory a block may take, and no path runs f32 at 256.
+``HEAD_DIMS`` gives each variant's template instances, one for each mask
+(causal, banded, none): head dims 16, 32, 64, 96 (phi-3-vision), 128 and
+256 (recurrentgemma-9b) on both.  At 256 the f32 kernel takes 32-key
+tiles and at most 4 warps: two 64-key K/V stages alone (256 KB) would
+pass the 227 KB of shared memory a block may take.
 
 On a CPU tensor it runs :func:`flash_attention_plain`, the materialised
 f32 softmax.
@@ -43,11 +52,13 @@ f32 softmax.
 
 * its backward is plain PyTorch (the reference has no backward kernel):
   P is recomputed in f32 from the saved q, k, v, and dK, dV are summed
-  over each GQA group (:func:`flash_attention_backward_plain`);
+  over each GQA group (:func:`flash_attention_backward_plain`); it holds
+  (B, Hkv, G, Sq, Sk) f32 a few times over, 1.44 GB each at whisper's
+  encoder at B = 8;
 * its ``vmap`` rule folds the vmapped dim (the engine's client dim under
   ``vmap(grad(upload))``) into the batch, so one launch serves every
   client: a ctypes launch on ``data_ptr()`` could not see a batched
-  tensor.  ``window`` rides along as a plain integer.
+  tensor.  ``window`` and ``causal`` ride along as plain values.
 """
 from __future__ import annotations
 
@@ -58,8 +69,14 @@ import torch
 from repro_torch import Device, on_cuda
 from repro_torch.kernels import build
 
-# each variant's template instances
-HEAD_DIMS = {"wgmma": (16, 32, 64, 128, 256), "tf32x3": (16, 32, 64, 128)}
+# each variant's template instances (one for each mask)
+HEAD_DIMS = {"wgmma": (16, 32, 64, 96, 128, 256),
+             "tf32x3": (16, 32, 64, 96, 128, 256)}
+# the kernels' masks, by the number their launch and attributes take
+MASKS = {"causal": 0, "band": 1, "none": 2}
+# the launch counts by mask: the unmasked instance's launches counted as
+# "self" where k/v are as long as q, "cross" where not
+COUNT_MASKS = ("causal", "band", "self", "cross")
 # the kernel each dtype launches, and its launch entry point
 VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 _ENTRY = {"wgmma": "flash_attention_sm90", "tf32x3": "flash_attention"}
@@ -74,36 +91,45 @@ def band_mask(s, window=0, device=None):
     return mask
 
 
-def _grouped(q, k, v, window=0):
-    """f32 (B, S, Hkv, G, Dh) q and (B, S, Hkv, Dh) k/v, the scale and the
-    mask, for the plain versions."""
+def visible_mask(s, window=0, causal=True, device=None):
+    """The keys each of ``s`` queries sees: :func:`band_mask` when
+    ``causal``; None (every key) without."""
+    return band_mask(s, window, device) if causal else None
+
+
+def _grouped(q, k, v, window=0, causal=True):
+    """f32 (B, Sq, Hkv, G, Dh) q and (B, Sk, Hkv, Dh) k/v, the scale and
+    the mask (None: every key visible), for the plain versions."""
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     qf = q.float().reshape(b, s, hkv, h // hkv, dh)
-    return qf, k.float(), v.float(), dh ** -0.5, band_mask(s, window,
-                                                           q.device)
+    return qf, k.float(), v.float(), dh ** -0.5, visible_mask(
+        s, window, causal, q.device)
 
 
 def _probs(qf, kf, scale, mask):
-    """The causal softmax P, (B, Hkv, G, S, S) f32."""
+    """The softmax P over the visible keys, (B, Hkv, G, Sq, Sk) f32."""
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
-    return torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, float("-inf"))
+    return torch.softmax(scores, dim=-1)
 
 
-def flash_attention_plain(q, k, v, window=0):
-    """The plain PyTorch version: the materialised f32 causal softmax,
-    banded by ``window`` > 0.  q (B, S, H, Dh), k/v (B, S, Hkv, Dh) →
-    (B, S, H, Dh) in q's dtype."""
-    qf, kf, vf, scale, mask = _grouped(q, k, v, window)
+def flash_attention_plain(q, k, v, window=0, causal=True):
+    """The plain PyTorch version: the materialised f32 softmax, causal and
+    banded by ``window`` > 0, or over every key without ``causal``.  q
+    (B, Sq, H, Dh), k/v (B, Sk, Hkv, Dh) → (B, Sq, H, Dh) in q's
+    dtype."""
+    qf, kf, vf, scale, mask = _grouped(q, k, v, window, causal)
     o = torch.einsum("bhgqk,bkhd->bqhgd", _probs(qf, kf, scale, mask), vf)
     return o.reshape(q.shape).to(q.dtype)
 
 
-def flash_attention_backward_plain(q, k, v, do, window=0):
+def flash_attention_backward_plain(q, k, v, do, window=0, causal=True):
     """(dq, dk, dv) of :func:`flash_attention_plain` at ``do``, in f32
     from P recomputed, cast to the inputs' dtypes; dk and dv summed over
     each group of query heads sharing a kv head."""
-    qf, kf, vf, scale, mask = _grouped(q, k, v, window)
+    qf, kf, vf, scale, mask = _grouped(q, k, v, window, causal)
     p = _probs(qf, kf, scale, mask)
     dof = do.float().reshape(qf.shape)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
@@ -114,10 +140,10 @@ def flash_attention_backward_plain(q, k, v, do, window=0):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def bf16_error_check(q, k, v, got, window=0):
+def bf16_error_check(q, k, v, got, window=0, causal=True):
     """Hold a bf16 attention output ``got`` to the f64 softmax of the same
-    bf16 inputs, banded by ``window`` > 0; returns ``(ok, max_ratio,
-    rms_kernel, rms_plain)``.
+    bf16 inputs, banded by ``window`` > 0, or over every key without
+    ``causal``; returns ``(ok, max_ratio, rms_kernel, rms_plain)``.
 
     With o64 and p_j the float64 output and probabilities, computed one
     (batch row, kv head) at a time to bound memory:
@@ -135,8 +161,8 @@ def bf16_error_check(q, k, v, got, window=0):
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     g = h // hkv
-    plain = flash_attention_plain(q, k, v, window)
-    mask = band_mask(s, window, q.device)
+    plain = flash_attention_plain(q, k, v, window, causal)
+    mask = visible_mask(s, window, causal, q.device)
     max_ratio, se_got, se_plain = 0.0, 0.0, 0.0
     for bi in range(b):
         for hk in range(hkv):
@@ -144,7 +170,9 @@ def bf16_error_check(q, k, v, got, window=0):
             kf, vf = k[bi, :, hk].double(), v[bi, :, hk].double()
             scores = torch.einsum("qgd,kd->gqk", q[bi, :, heads].double(),
                                   kf) * dh ** -0.5
-            p = torch.softmax(scores.masked_fill(~mask, float("-inf")), -1)
+            if mask is not None:
+                scores = scores.masked_fill(~mask, float("-inf"))
+            p = torch.softmax(scores, -1)
             o64 = torch.einsum("gqk,kd->qgd", p, vf)
             spread = torch.einsum("gqk,kd->qgd", p, vf.abs())
             ulp = torch.exp2(torch.floor(torch.log2(
@@ -162,18 +190,19 @@ def bf16_error_check(q, k, v, got, window=0):
     return ok, max_ratio, rms_got, rms_plain
 
 
-def kernel_attributes(head_dim: int, band: bool = False) -> dict:
+def kernel_attributes(head_dim: int, mask: str = "causal") -> dict:
     """``(registers a thread, local (spill) bytes a thread, dynamic shared
     bytes a block)`` at ``head_dim`` of each variant with an instance
-    there, from ``cudaFuncGetAttributes``: the causal instance, or with
-    ``band`` the one a window > 0 launches."""
+    there, from ``cudaFuncGetAttributes``: the instance of ``mask``
+    (``MASKS``: ``"causal"``, ``"band"`` for a window > 0, ``"none"``
+    without causality)."""
     lib = build.load()
     out = {}
     for variant, entry in _ENTRY.items():
         if head_dim not in HEAD_DIMS[variant]:
             continue
         vals = (ctypes.c_int * 3)()
-        getattr(lib, f"{entry}_attributes")(head_dim, int(band), vals)
+        getattr(lib, f"{entry}_attributes")(head_dim, MASKS[mask], vals)
         out[variant] = tuple(vals)
     return out
 
@@ -185,46 +214,51 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def flash_attention_bhsd(q, k, v, *, window: int = 0,
+def flash_attention_bhsd(q, k, v, *, window: int = 0, causal: bool = True,
                          device: Device = None):
-    """Causal GQA attention: q (B, S, H, Dh), k/v (B, S, Hkv, Dh), one
-    dtype (f32 or bf16) and device → (B, S, H, Dh) in q's dtype; with
-    ``window`` > 0 a query sees only the ``window`` keys ending at its
-    own position (``window`` >= S is the causal case, and passes 0).
+    """GQA attention: q (B, Sq, H, Dh), k/v (B, Sk, Hkv, Dh), one dtype
+    (f32 or bf16) and device → (B, Sq, H, Dh) in q's dtype.  Causal (Sq =
+    Sk); with ``window`` > 0 a query sees only the ``window`` keys ending
+    at its own position (``window`` >= S is the causal case, and passes
+    0); with ``causal=False`` every query sees all Sk >= 1 keys, and
+    ``window`` must be 0.
 
     A CPU tensor goes to :func:`flash_attention_plain` (only with
     ``device="cpu"``); a CUDA tensor launches the kernel of its dtype's
     variant (``VARIANTS``: bf16 the wgmma kernel, f32 the 3xTF32 one)
-    and adds one to ``flash_attention_bhsd.launches`` and to that
-    variant's count in ``flash_attention_bhsd.launches_by_variant``.  Use
+    and adds one to ``flash_attention_bhsd.launches``, to that variant's
+    count in ``flash_attention_bhsd.launches_by_variant`` and to its
+    count by mask (``COUNT_MASKS``) in ``launches_by_mask``, keyed
+    ``"{variant}_{mask}"``.  Use
     :func:`repro_torch.kernels.ops.flash_attention` in models: it is
     differentiable and vmappable.
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
-            or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
+            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
+            or k.shape[2] == 0 or q.shape[2] % k.shape[2] \
+            or (causal and q.shape[1] != k.shape[1]):
         raise ValueError(
-            f"flash_attention takes q (B, S, H, Dh) and k/v (B, S, Hkv, Dh) "
-            f"with Hkv dividing H, got {tuple(q.shape)}, {tuple(k.shape)}, "
-            f"{tuple(v.shape)}")
-    if window < 0:
-        raise ValueError(f"flash_attention: window must be >= 0, got "
-                         f"{window}")
+            f"flash_attention takes q (B, Sq, H, Dh) and k/v (B, Sk, Hkv, "
+            f"Dh) with Hkv dividing H (and Sk = Sq when causal), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if window < 0 or (not causal and window):
+        raise ValueError(f"flash_attention: window must be >= 0, and 0 "
+                         f"without causality, got {window}")
+    if not causal and q.shape[1] and not k.shape[1]:
+        raise ValueError("flash_attention: non-causal attention needs at "
+                         "least one key")
     b, s, h, dh = q.shape
     window = 0 if window >= s else int(window)
     if not on_cuda(q, device):
-        return flash_attention_plain(q, k, v, window)
+        return flash_attention_plain(q, k, v, window, causal)
     if q.dtype not in VARIANTS:
         raise ValueError(f"flash_attention kernel takes f32 or bf16, got "
                          f"{q.dtype}")
     variant = VARIANTS[q.dtype]
     if dh not in HEAD_DIMS[variant]:
-        detail = (": its K/V stages at 256 (64 keys x 256 x 4 B, "
-                  "double-buffered, 256 KB) pass the 227 KB of shared "
-                  "memory a block may take" if dh == 256 else "")
         raise ValueError(
             f"flash_attention: the {variant} kernel ({q.dtype}) has no "
-            f"head_dim {dh} instance (it has {HEAD_DIMS[variant]}){detail}")
+            f"head_dim {dh} instance (it has {HEAD_DIMS[variant]})")
     for x in (k, v):
         if x.dtype != q.dtype or x.device != q.device:
             raise ValueError("q, k and v must share one dtype and device")
@@ -233,40 +267,48 @@ def flash_attention_bhsd(q, k, v, *, window: int = 0,
     launch = getattr(build.load(), f"{_ENTRY[variant]}_launch")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, s, h, k.shape[2], dh, dh ** -0.5, window, stream)
+                    b, s, k.shape[1], h, k.shape[2], dh, dh ** -0.5, window,
+                    int(causal), stream)
     build.check(status, f"flash_attention ({variant})")
     flash_attention_bhsd.launches += 1
     flash_attention_bhsd.launches_by_variant[variant] += 1
+    mask = ("band" if window else "causal") if causal \
+        else ("self" if s == k.shape[1] else "cross")
+    flash_attention_bhsd.launches_by_mask[f"{variant}_{mask}"] += 1
     return out
 
 
 flash_attention_bhsd.launches = 0
 flash_attention_bhsd.launches_by_variant = dict.fromkeys(_ENTRY, 0)
+flash_attention_bhsd.launches_by_mask = {
+    f"{variant}_{mask}": 0 for variant in _ENTRY for mask in COUNT_MASKS}
 
 
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention_bhsd` with a plain backward and a vmap rule
     that folds the vmapped dim into the batch (one launch for all
-    clients); ``window`` is a plain integer, not a tensor.  Routes by
-    where q lies: the model's device is the caller's choice, made when
-    the parameters were placed."""
+    clients); ``window`` and ``causal`` are plain values, not tensors.
+    Routes by where q lies: the model's device is the caller's choice,
+    made when the parameters were placed."""
 
     @staticmethod
-    def forward(q, k, v, window):
-        return flash_attention_bhsd(q, k, v, window=window, device=q.device)
+    def forward(q, k, v, window, causal):
+        return flash_attention_bhsd(q, k, v, window=window, causal=causal,
+                                    device=q.device)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs[:3])
-        ctx.window = inputs[3]
+        ctx.window, ctx.causal = inputs[3:]
 
     @staticmethod
     def backward(ctx, do):
         return (*flash_attention_backward_plain(*ctx.saved_tensors, do,
-                                                ctx.window), None)
+                                                ctx.window, ctx.causal),
+                None, None)
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, window):
+    def vmap(info, in_dims, q, k, v, window, causal):
         n = info.batch_size
 
         def fold(x, dim):
@@ -274,5 +316,6 @@ class FlashAttention(torch.autograd.Function):
             return x.reshape(n * x.shape[1], *x.shape[2:])
 
         out = FlashAttention.apply(*(fold(x, d) for x, d in
-                                     zip((q, k, v), in_dims[:3])), window)
+                                     zip((q, k, v), in_dims[:3])), window,
+                                   causal)
         return out.reshape(n, -1, *out.shape[1:]), 0

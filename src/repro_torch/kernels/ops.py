@@ -217,18 +217,20 @@ def secure_dequantize(agg_q: Params, scale_bits: int) -> Params:
     return _tree.map(lambda q: _sa.dequantize(q, scale_bits), agg_q)
 
 
-def flash_attention(q, k, v, *, window: int = 0):
-    """Causal GQA flash attention, differentiable and vmappable.
+def flash_attention(q, k, v, *, window: int = 0, causal: bool = True):
+    """GQA flash attention, differentiable and vmappable.
 
-    q: (B, S, H, Dh); k/v: (B, S, Hkv, Dh) with Hkv dividing H.  Returns
-    (B, S, H, Dh) in q's dtype, scaled by the true Dh^-½.  Query head h
+    q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) with Hkv dividing H.  Returns
+    (B, Sq, H, Dh) in q's dtype, scaled by the true Dh^-½.  Query head h
     reads kv head h // (H / Hkv): k/v are not repeated, and Dh is not
-    padded.  ``window`` > 0 bands the mask: query i sees keys
-    i − window < j <= i (the hybrid family's local attention).  Routes by
-    where q lies: the kernel for a CUDA tensor, the plain version for a
-    CPU one (:mod:`repro_torch.kernels.flash_attention`).
+    padded.  Causal by default (Sk = Sq); ``window`` > 0 bands the mask:
+    query i sees keys i − window < j <= i (the hybrid family's local
+    attention).  ``causal=False``: every query sees all Sk keys (the
+    audio family's encoder and cross-attention).  Routes by where q lies:
+    the kernel for a CUDA tensor, the plain version for a CPU one
+    (:mod:`repro_torch.kernels.flash_attention`).
     """
-    return _fa.FlashAttention.apply(q, k, v, int(window))
+    return _fa.FlashAttention.apply(q, k, v, int(window), bool(causal))
 
 
 def rwkv6_wkv(r, k, v, w, u):

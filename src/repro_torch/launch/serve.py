@@ -9,7 +9,12 @@ card otherwise.
 Request model: a queue of (prompt, max_new_tokens) served in batches of
 a fixed size (the tail batch padded with its last request), greedy
 sampling over the true vocabulary; each batch's prefill and decode time,
-and the aggregate tokens/s, are printed.
+and the aggregate tokens/s, are printed.  The audio family (whisper)
+decodes against stub frame embeddings, (batch, encoder_seq, D) drawn
+once from a generator seeded 2 (the reference draws them with
+``jax.random``, which the port does not reproduce), run through the
+encoder once a batch (``Model.precompute_cross``); the vlm family serves
+text alone, as the reference's does.
 """
 from __future__ import annotations
 
@@ -56,18 +61,22 @@ def serve_batch(model, params, requests: List[Request], *, window: int = 0,
     Runs on the device of ``params``.  ``record``, a list, receives every
     step's (B, 1, padded_vocab) f32 logits, prefill steps first.
     ``window`` is unused, as in the reference (the model's
-    ``decode_window`` sets the ring buffer); ``frame_embeds`` belongs to
-    the encoder-decoder family, which the port does not build."""
+    ``decode_window`` sets the ring buffer).  ``frame_embeds`` (B, S_enc,
+    D), for the audio family, go through the encoder once
+    (``Model.precompute_cross``) before the prefill's clock starts, as in
+    the reference; without them an audio model decodes against zero
+    cross-attention K and V, as the reference's does."""
     del window
-    if frame_embeds is not None:
-        raise NotImplementedError("serve_batch: frame_embeds (the audio "
-                                  "family) is not ported")
     cfg = model.cfg
     device = params["embed"].device
     b = len(requests)
     prompt_len = max(len(r.prompt) for r in requests)
     max_new = max(r.max_new for r in requests)
     state = model.init_decode(b, prompt_len + max_new, device=device)
+    if cfg.family == "audio" and frame_embeds is not None:
+        state = model.precompute_cross(
+            params, {"frame_embeds": torch.as_tensor(frame_embeds,
+                                                     device=device)}, state)
     prompts = torch.as_tensor(np.stack([
         np.pad(r.prompt, (0, prompt_len - len(r.prompt)))
         for r in requests]), device=device)
@@ -121,6 +130,11 @@ def main(argv: Optional[List[str]] = None):
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     reqs = synth_requests(args.requests, cfg, args.prompt_len, args.max_new)
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.randn(args.batch, cfg.encoder_seq, cfg.d_model,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(2), device=dev)
 
     results = []
     done = 0
@@ -130,7 +144,8 @@ def main(argv: Optional[List[str]] = None):
         batch = reqs[done:done + args.batch]
         if len(batch) < args.batch:   # pad the tail batch
             batch = batch + [batch[-1]] * (args.batch - len(batch))
-        gen, tp, td = serve_batch(model, params, batch, window=args.window)
+        gen, tp, td = serve_batch(model, params, batch, window=args.window,
+                                  frame_embeds=frames)
         results.append((gen, tp, td))
         done += args.batch
         tput_tokens += gen.size

@@ -39,24 +39,53 @@ from repro_torch.launch import steps
 from repro_torch.models import build_model
 
 
+def min_seq(cfg) -> int:
+    """The least ``--seq`` of ``cfg``: its image tokens (the vlm's; none
+    for the other families) and two text tokens, one next-token
+    target."""
+    return cfg.num_image_tokens + 2
+
+
 def batch_stream(cfg, batch: int, seq: int, seed: int = 0,
                  device: Device = None):
     """An endless stream of ``{"tokens": (batch, seq) int32}`` on
     ``device``: rows of the reference's synthetic token dataset, drawn
     with its numpy generator, so both sides see the same batches.  The
-    stub image and frame embeddings of the ``vlm`` and ``audio`` families
-    (drawn with ``jax.random`` in the reference) are not ported."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"batch_stream: the {cfg.family!r} family's stub embeddings are "
-            "not ported (see ROADMAP.md, queue 1 item 5)")
+    ``vlm`` family's rows are cut to the ``seq − num_image_tokens`` text
+    tokens beside ``"img_embeds"`` (batch, num_image_tokens, D), and the
+    ``audio`` family's come with ``"frame_embeds"`` (batch, encoder_seq,
+    D): f32 N(0, 1) stub embeddings, drawn from a generator on ``device``
+    seeded with ``seed`` (the reference draws them with ``jax.random``,
+    which the port does not reproduce).  A ``seq`` below :func:`min_seq`
+    raises ``ValueError`` here, before any step: the vlm's text would be
+    empty (the reference computes a NaN loss and stops at its first
+    logged step)."""
+    if seq < min_seq(cfg):
+        raise ValueError(
+            f"batch_stream: seq {seq} leaves {cfg.name} no next-token "
+            f"target beside its {cfg.num_image_tokens} image tokens: seq "
+            f"must be at least {min_seq(cfg)}")
     dev = resolve_device(device)
     docs = synthetic.token_dataset(max(64, 4 * batch), seq, cfg.vocab_size,
                                    seed=seed)
     rng = np.random.default_rng(seed)
-    while True:
-        idx = rng.integers(0, docs.shape[0], size=batch)
-        yield {"tokens": torch.as_tensor(docs[idx], device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def stub(rows):
+        return torch.randn(batch, rows, cfg.d_model, generator=gen,
+                           device=dev)
+
+    def stream():
+        while True:
+            idx = rng.integers(0, docs.shape[0], size=batch)
+            out = {"tokens": torch.as_tensor(docs[idx], device=dev)}
+            if cfg.family == "vlm":
+                out["tokens"] = out["tokens"][:, :seq - cfg.num_image_tokens]
+                out["img_embeds"] = stub(cfg.num_image_tokens)
+            if cfg.family == "audio":
+                out["frame_embeds"] = stub(cfg.encoder_seq)
+            yield out
+    return stream()
 
 
 def _restore(ckpt_dir, params, device):
@@ -102,6 +131,9 @@ def main(argv: Optional[List[str]] = None):
     if not args.full:
         cfg = reduced(cfg)
     model = build_model(cfg)
+    # before the weights: a vlm --seq too short for its image tokens
+    # raises here
+    stream = batch_stream(cfg, args.batch, args.seq, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     print(f"arch={cfg.name} params={tree.numel(params) / 1e6:.2f}M "
@@ -124,7 +156,6 @@ def main(argv: Optional[List[str]] = None):
         step_fn = steps.make_sgd_train_step(model, PowerLaw(0.1, 0.5))
         state = torch.tensor(start + 1, dtype=torch.int32, device=dev)
 
-    stream = batch_stream(cfg, args.batch, args.seq, device=dev)
     for _ in range(start):            # the batches the earlier steps took
         next(stream)
     losses = []

@@ -1,6 +1,6 @@
-"""Attention: causal GQA with RoPE applied by the caller, with an
-optional sliding window, for the training forward, and single-token
-decode against a KV cache.
+"""Attention: GQA with RoPE applied by the caller, causal with an
+optional sliding window or non-causal, for the training forward, and
+single-token decode against a KV cache.
 
 The port of ``repro/models/attention.py``.  Two paths:
 
@@ -11,7 +11,10 @@ The port of ``repro/models/attention.py``.  Two paths:
   and never materialises the (S, S) scores on the card.  ``window`` > 0
   is the hybrid family's local attention: query i sees keys
   i − window < j <= i, and the kernels skip the key tiles below the
-  band.
+  band.  ``causal=False`` is the audio family's encoder self-attention
+  and cross-attention: every query sees all Sk keys of k and v, whose
+  length is their own (the decoder's queries against the encoder's
+  1,500 frames), on the kernels' unmasked instances.
 * ``decode_attend`` — one query against a (possibly ring-buffered)
   :class:`KVCache`, in plain PyTorch as the reference's is plain XLA: the
   scores of one token against C cached keys are a (B, H, C) product.
@@ -28,8 +31,8 @@ an f32 result of a bf16 product (``preferred_element_type``); a torch
 bf16 product returns bf16, so ``decode_attend`` upcasts q and k first,
 which is exact.
 
-Shapes: q (B, S, H, Dh); k/v (B, S, Hkv, Dh) with H a multiple of Hkv.
-Non-causal attention (the encoder-decoder family's) is not ported.
+Shapes: q (B, Sq, H, Dh); k/v (B, Sk, Hkv, Dh) with H a multiple of
+Hkv; Sq = Sk when causal.
 """
 from __future__ import annotations
 
@@ -43,14 +46,11 @@ NEG_INF = -3e4  # representable in bf16 too
 
 
 def attend(q, k, v, *, causal: bool = True, window: int = 0):
-    """Causal softmax attention, scaled by Dh^-½, banded to the last
-    ``window`` keys when ``window`` > 0 → (B, S, H, Dh)."""
-    if not causal:
-        raise NotImplementedError(
-            "attend: non-causal attention (the audio family's encoder and "
-            "cross attention) is not ported to repro_torch yet (see "
-            "ROADMAP.md, queue 1)")
-    return ops.flash_attention(q, k, v, window=window)
+    """Softmax attention scaled by Dh^-½ → (B, Sq, H, Dh): causal, banded
+    to the last ``window`` keys when ``window`` > 0; or, with ``causal=
+    False``, over all Sk keys of k and v (``window`` 0: the port does not
+    take a band without causality, which no model asks for)."""
+    return ops.flash_attention(q, k, v, window=window, causal=causal)
 
 
 class KVCache(NamedTuple):

@@ -1,5 +1,5 @@
-"""The LM model zoo: the ``dense``, ``moe``, ``ssm`` and ``hybrid``
-families of the reference's.
+"""The LM model zoo: the six families of the reference's (``dense``,
+``vlm``, ``moe``, ``ssm``, ``hybrid``, ``audio``).
 
 The port of ``repro/models/transformer.py``'s llama-style GQA decoder
 (llama3-8b, yi-9b, granite-8b; granite-34b with its GELU MLP), its
@@ -10,8 +10,15 @@ its attention-free RWKV-6 stack (rwkv6-7b: time mix and channel mix,
 :mod:`repro_torch.models.rwkv6`) and Griffin's hybrid (recurrentgemma-9b:
 a unit of ``pattern_recurrent`` RG-LRU blocks, :mod:`repro_torch.models.
 rglru`, then ``pattern_attn`` local-attention blocks at
-``window=local_window``, repeated; leftover layers a recurrent tail).
-``build_model(cfg, decode_window=0)`` returns a :class:`Model` with
+``window=local_window``, repeated; leftover layers a recurrent tail),
+the vision-language decoder (phi-3-vision: the dense decoder over stub
+image embeddings projected by ``img_proj`` and prepended to the text)
+and whisper's encoder-decoder (whisper-large-v3: an encoder of
+non-causal self-attention and GELU FFNs over stub frame embeddings with
+sinusoidal positions, and a decoder whose blocks add cross-attention to
+the encoder's output; the mel and conv front end is a stub, as in the
+reference).  ``build_model(cfg, decode_window=0)`` returns a
+:class:`Model` with
 
 * ``init(generator, device)`` — the layer-stacked parameter tree
   ``{"blocks": {...}, "embed", "final_norm"}`` in ``cfg.param_dtype``,
@@ -23,8 +30,14 @@ rglru`, then ``pattern_attn`` local-attention blocks at
   dense block's prefixed ``d_`` and the MoE block's ``m_``; the hybrid's
   are ``(n_units, …)``, the recurrent blocks' prefixed ``r{r}_`` and the
   attention blocks' ``a{a}_``, beside ``"tail"``, the recurrent leaves
-  ``(L mod unit, …)``, when the unit does not divide L;
-* ``forward(params, batch)`` — the (B, S, padded_vocab) f32 logits;
+  ``(L mod unit, …)``, when the unit does not divide L; vlm adds
+  ``img_proj`` (D, D); audio's decoder blocks add ``xattn_norm, xwq,
+  xwk, xwv, xwo``, beside ``"encoder"`` (``encoder_layers`` dense blocks
+  with the GELU FFN's ``wi, b_i, wo2, b_o``) and ``enc_final_norm``;
+* ``forward(params, batch)`` — the (B, S, padded_vocab) f32 logits of
+  ``batch["tokens"]`` (vlm: of the text after ``batch["img_embeds"]``,
+  (B, num_image_tokens, D); audio: the encoder reads
+  ``batch["frame_embeds"]``, (B, S_enc, D));
 * ``forward_with_aux(params, batch)`` — the logits and the auxiliary
   losses: the MoE load-balance losses summed over the MoE layers (moe),
   none for the other families;
@@ -34,7 +47,9 @@ rglru`, then ``pattern_attn`` local-attention blocks at
   cache a layer (dense, moe; a ring buffer of ``decode_window`` slots
   when it is > 0), the WKV state and two token shifts a layer (ssm), or
   a ring of ``min(local_window, max_len)`` slots an attention layer and
-  the RG-LRU state and conv context a recurrent layer (hybrid);
+  the RG-LRU state and conv context a recurrent layer (hybrid); audio
+  also the cross-attention's K and V a layer, which
+  ``precompute_cross(params, batch, state)`` fills from one encoder run;
 * ``decode_step(params, state, tokens)`` — one token with the cached
   state, the caches written in place.
 
@@ -44,8 +59,10 @@ leaf already in it, as bf16 parameters under bf16 activations), runs a
 Python loop over the layers (the hybrid's and the interleaved MoE's over
 their units, each unit its blocks in order), and keeps activations for
 the backward (no rematerialisation).  Decode casts them at every step
-too, as the reference's scan body does.  Other families (vlm, audio)
-raise ``NotImplementedError``.
+too, as the reference's scan body does.  No kernel runs in decode: the
+vlm decodes as the dense model does, over text alone (the reference
+serves no image), and audio's cross-attention reads the cached encoder
+K and V through ``decode_attend``.
 """
 from __future__ import annotations
 
@@ -77,6 +94,21 @@ def _block_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
             "wo": (qh * hd, d),
             "ffn_norm": (d,),
             **_ffn_shapes(cfg)}
+
+
+def _audio_block_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """One whisper decoder block: the dense block's, then its
+    cross-attention's norm and projections."""
+    d, hd = cfg.d_model, cfg.head_dim
+    return {**_block_shapes(cfg), "xattn_norm": (d,),
+            "xwq": (d, cfg.num_heads * hd), "xwk": (d, cfg.num_kv_heads * hd),
+            "xwv": (d, cfg.num_kv_heads * hd),
+            "xwo": (cfg.num_heads * hd, d)}
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's blocks take the GELU FFN, whatever the decoder's."""
+    return dataclasses.replace(cfg, ffn="gelu")
 
 
 def _moe_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -172,21 +204,59 @@ def _ffn_apply(cfg, p, x):
     return layers.gelu_mlp(x, p["wi"], p["b_i"], p["wo2"], p["b_o"])
 
 
-def _attn_apply(cfg, p, x, positions, *, window: int = 0):
+def _attn_apply(cfg, p, x, positions, *, window: int = 0,
+                causal: bool = True):
+    """Self-attention with its residual; RoPE at ``positions`` (None:
+    none, as whisper's encoder)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = layers.rms_norm(x, p["attn_norm"])
     q = (xn @ p["wq"]).reshape(b, s, h, hd)
     k = (xn @ p["wk"]).reshape(b, s, kvh, hd)
     v = (xn @ p["wv"]).reshape(b, s, kvh, hd)
-    q = layers.apply_rope(q, positions)
-    k = layers.apply_rope(k, positions)
-    o = attention.attend(q, k, v, causal=True, window=window)
+    if positions is not None:
+        q = layers.apply_rope(q, positions)
+        k = layers.apply_rope(k, positions)
+    o = attention.attend(q, k, v, causal=causal, window=window)
     return x + o.reshape(b, s, h * hd) @ p["wo"]
 
 
-def _attn_block(cfg, p, x, positions, *, window: int = 0):
-    x = _attn_apply(cfg, p, x, positions, window=window)
+def _attn_block(cfg, p, x, positions, *, window: int = 0,
+                causal: bool = True):
+    x = _attn_apply(cfg, p, x, positions, window=window, causal=causal)
+    return x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
+
+
+def _encoder_block(cfg, p, x):
+    """Whisper's encoder block: non-causal self-attention without RoPE,
+    then the GELU FFN."""
+    return _attn_block(_encoder_cfg(cfg), p, x, None, causal=False)
+
+
+def _cross_kv(cfg, p, enc):
+    """The encoder output's K and V for a decoder layer's cross-attention,
+    (B, S_enc, Hkv, hd) each."""
+    b, se, _ = enc.shape
+    shape = (b, se, cfg.num_kv_heads, cfg.head_dim)
+    return (enc @ p["xwk"]).reshape(shape), (enc @ p["xwv"]).reshape(shape)
+
+
+def _cross_attn(cfg, p, x, enc):
+    """The decoder's queries against the encoder's keys and values, all
+    of them (non-causal, S_enc long), with the residual."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    xn = layers.rms_norm(x, p["xattn_norm"])
+    q = (xn @ p["xwq"]).reshape(b, s, h, hd)
+    o = attention.attend(q, *_cross_kv(cfg, p, enc), causal=False)
+    return x + o.reshape(b, s, h * hd) @ p["xwo"]
+
+
+def _audio_block(cfg, p, x, positions, *, enc):
+    """Whisper's decoder block: causal self-attention with RoPE, then
+    cross-attention to the encoder's output ``enc``, then the FFN."""
+    x = _attn_apply(cfg, p, x, positions)
+    x = _cross_attn(cfg, p, x, enc)
     return x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
 
 
@@ -325,7 +395,9 @@ def _stacks(cfg: ModelConfig):
     stack of L blocks for dense and ssm; the hybrid's units, then its
     recurrent tail when the unit does not divide L; moe's L MoE blocks,
     or its L // moe_every super-blocks when interleaved (a moe block's
-    apply returns (x, its ``MoEOutput``))."""
+    apply returns (x, its ``MoEOutput``)); audio's encoder (no apply:
+    ``Model._encode`` runs it over the frames), then its decoder, whose
+    apply takes the encoder's output as ``enc``."""
     if cfg.family == "moe":
         if cfg.moe_every == 1:
             return [("blocks", cfg.num_layers, _moe_block_shapes(cfg),
@@ -339,14 +411,21 @@ def _stacks(cfg: ModelConfig):
             stacks.append(("tail", tail, _recurrent_shapes(cfg),
                            _recurrent_seq_block))
         return stacks
+    if cfg.family == "audio":
+        return [("encoder", cfg.encoder_layers,
+                 _block_shapes(_encoder_cfg(cfg)), None),
+                ("blocks", cfg.num_layers, _audio_block_shapes(cfg),
+                 _audio_block)]
     shapes, apply = _FAMILY[cfg.family]
     return [("blocks", cfg.num_layers, shapes(cfg), apply)]
 
 
-# per family of one stack: (block shapes, block apply)
+# per family of one stack: (block shapes, block apply); the vlm's blocks
+# are the dense ones
 _FAMILY = {"dense": (_block_shapes, _attn_block),
+           "vlm": (_block_shapes, _attn_block),
            "ssm": (_rwkv_shapes, _rwkv_seq_block)}
-PORTED_FAMILIES = (*_FAMILY, "moe", "hybrid")
+PORTED_FAMILIES = (*_FAMILY, "moe", "hybrid", "audio")
 
 
 class DecodeState(NamedTuple):
@@ -360,7 +439,9 @@ class DecodeState(NamedTuple):
     activation dtype (ssm), or the RG-LRU states (n_rec, B, D) f32 and
     conv contexts (n_rec, B, T − 1, D) in the activation dtype of the
     hybrid's recurrent layers, the units' (unit-major) then the tail's;
-    ``cross_k``/``cross_v`` (the encoder-decoder family's) stay empty."""
+    ``cross_k``/``cross_v``: the cross-attention's K and V (L, B, S_enc,
+    Hkv, hd) in the activation dtype (audio; zeros until
+    ``precompute_cross``)."""
     length: torch.Tensor      # () int32: tokens written so far
     kv_k: torch.Tensor
     kv_v: torch.Tensor
@@ -393,6 +474,13 @@ class Model:
         params["embed"] = layers.normal(
             generator, (cfg.padded_vocab, cfg.d_model), 0.02, dt, dev)
         params["final_norm"] = torch.zeros(cfg.d_model, dtype=dt, device=dev)
+        if cfg.family == "audio":
+            params["enc_final_norm"] = torch.zeros(cfg.d_model, dtype=dt,
+                                                   device=dev)
+        if cfg.family == "vlm":
+            # the stub projector of the (already encoded) image patches
+            params["img_proj"] = layers.normal(
+                generator, (cfg.d_model, cfg.d_model), 0.02, dt, dev)
         return params
 
     def _cast(self, p):
@@ -415,26 +503,61 @@ class Model:
         return self.forward_with_aux(params, batch)[0]
 
     def forward_with_aux(self, params, batch, dropped: list = None):
-        """batch: ``{"tokens": (B, S) ints}`` → ((B, S, padded_vocab) f32
-        logits, the auxiliary losses): for moe ``[Σ aux_loss]`` over its
-        MoE layers, from an f32 zero in layer order, as the reference's
-        scan carries it; [] for the other families.  ``dropped``, a list,
-        receives each MoE layer's share of dropped assignments."""
+        """batch: ``{"tokens": (B, S) ints}``, and ``"img_embeds"`` (B,
+        num_image_tokens, D) for vlm, ``"frame_embeds"`` (B, S_enc, D)
+        for audio → ((B, S, padded_vocab) f32 logits of the text, the
+        auxiliary losses): for moe ``[Σ aux_loss]`` over its MoE layers,
+        from an f32 zero in layer order, as the reference's scan carries
+        it; [] for the other families.  ``dropped``, a list, receives each
+        MoE layer's share of dropped assignments.  vlm prepends the
+        projected image embeddings, the positions running over the whole
+        sequence, and drops their logits."""
         cfg = self.cfg
-        x = layers.embed(batch["tokens"], params["embed"]).to(cfg.adtype)
+        ad = cfg.adtype
+        x = layers.embed(batch["tokens"], params["embed"]).to(ad)
+        if cfg.family == "vlm":
+            img = batch["img_embeds"].to(ad) @ params["img_proj"].to(ad)
+            x = torch.cat([img, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         is_moe = cfg.family == "moe"
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        ctx = {"enc": self._encode(params, batch)} \
+            if cfg.family == "audio" else {}
         for key, _, _, block in _stacks(cfg):
+            if block is None:     # audio's encoder, run by _encode
+                continue
             for p in self._layers(params[key]):
-                x = block(cfg, p, x, positions)
+                x = block(cfg, p, x, positions, **ctx)
                 if is_moe:
                     x, out = x
                     aux = aux + out.aux_loss
                     if dropped is not None:
                         dropped.append(out.dropped_frac)
         x = layers.rms_norm(x, params["final_norm"])
-        return layers.unembed(x, params["embed"]), [aux] if is_moe else []
+        logits = layers.unembed(x, params["embed"])
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.num_image_tokens:]
+        return logits, [aux] if is_moe else []
+
+    def _encode(self, params, batch):
+        """Whisper's encoder over ``batch["frame_embeds"]`` (B, S_enc, D):
+        sinusoidal positions (the reference's exp(−i / (D/2) · ln 10⁴)
+        frequencies, in f32, then cast), the encoder blocks, the final
+        norm → (B, S_enc, D) in the activation dtype."""
+        cfg = self.cfg
+        ad = cfg.adtype
+        frames = batch["frame_embeds"].to(ad)
+        dev = frames.device
+        half = cfg.d_model // 2
+        log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+        freqs = torch.exp(-torch.arange(half, dtype=torch.float32) / half
+                          * log_base).to(dev)
+        ang = torch.arange(frames.shape[1], dtype=torch.float32,
+                           device=dev)[:, None] * freqs
+        x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(ad)
+        for p in self._layers(params["encoder"]):
+            x = _encoder_block(cfg, p, x)
+        return layers.rms_norm(x, params["enc_final_norm"])
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy over the padded vocabulary, f32;
@@ -452,7 +575,8 @@ class Model:
         cfg = self.cfg
         if cfg.family == "hybrid":
             return _hybrid_counts(cfg)[0] * cfg.pattern_attn
-        return cfg.num_layers if cfg.family in ("dense", "moe") else 0
+        return cfg.num_layers if cfg.family in ("dense", "vlm", "moe",
+                                                "audio") else 0
 
     def init_decode(self, batch_size: int, max_len: int,
                     device: Device = None) -> DecodeState:
@@ -462,7 +586,9 @@ class Model:
         recurrent state; hybrid: a ring of ``min(local_window, max_len)``
         slots an attention layer (``decode_window`` unused, as in the
         reference) and the RG-LRU state and conv context a recurrent
-        layer."""
+        layer; vlm as dense; audio as dense, and the cross-attention's K
+        and V of ``encoder_seq`` frames a layer, zero until
+        :meth:`precompute_cross`."""
         cfg = self.cfg
         dev = resolve_device(device)
         n_attn = self._n_attn_layers()
@@ -492,10 +618,34 @@ class Model:
                                 dtype=torch.float32, device=dev)
             rec_conv = torch.zeros((n_rec, batch_size, cfg.conv_width - 1,
                                     cfg.d_model), dtype=dt, device=dev)
+        cross_k = cross_v = _empty(dev)
+        if cfg.family == "audio":
+            cshape = (cfg.num_layers, batch_size, cfg.encoder_seq,
+                      cfg.num_kv_heads, cfg.head_dim)
+            cross_k = torch.zeros(cshape, dtype=dt, device=dev)
+            cross_v = torch.zeros(cshape, dtype=dt, device=dev)
         return DecodeState(
             length=torch.zeros((), dtype=torch.int32, device=dev),
             kv_k=kv_k, kv_v=kv_v, rec_h=rec_h, rec_conv=rec_conv,
-            cross_k=_empty(dev), cross_v=_empty(dev))
+            cross_k=cross_k, cross_v=cross_v)
+
+    @torch.no_grad()
+    def precompute_cross(self, params, batch, state: DecodeState):
+        """Whisper: run the encoder once over ``batch["frame_embeds"]``
+        and return ``state`` with each decoder layer's cross-attention K
+        and V, (L, B, S_enc, Hkv, hd) in the activation dtype (new
+        tensors, as the reference's; S_enc is the frames' length).  The
+        encoder's attention runs the flash kernel's unmasked instance on
+        the card; decode then reads these without a kernel."""
+        if self.cfg.family != "audio":
+            raise ValueError(f"precompute_cross: the {self.cfg.family!r} "
+                             "family has no cross-attention")
+        enc = self._encode(params, batch)
+        ks, vs = zip(*(_cross_kv(self.cfg, p, enc)
+                       for p in self._layers(params["blocks"])))
+        ad = self.cfg.adtype
+        return state._replace(cross_k=torch.stack(ks).to(ad),
+                              cross_v=torch.stack(vs).to(ad))
 
     @torch.no_grad()
     def decode_step(self, params, state: DecodeState, tokens):
@@ -511,9 +661,10 @@ class Model:
         without autograd."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"]).to(cfg.adtype)  # (B, 1, D)
-        x = {"dense": self._dense_decode, "moe": self._moe_decode,
-             "ssm": self._ssm_decode,
-             "hybrid": self._hybrid_decode}[cfg.family](params, state, x)
+        x = {"dense": self._dense_decode, "vlm": self._dense_decode,
+             "moe": self._moe_decode, "ssm": self._ssm_decode,
+             "hybrid": self._hybrid_decode,
+             "audio": self._audio_decode}[cfg.family](params, state, x)
         x = layers.rms_norm(x, params["final_norm"])
         logits = layers.unembed(x, params["embed"])
         return logits, state._replace(length=state.length + 1)
@@ -522,6 +673,26 @@ class Model:
         for i, p in enumerate(self._layers(params["blocks"])):
             x = _attn_decode(self.cfg, p, x, state.kv_k[i], state.kv_v[i],
                              state.length, window=self.decode_window)
+        return x
+
+    def _audio_decode(self, params, state: DecodeState, x):
+        """Each decoder layer for one token: causal self-attention with
+        RoPE against its cache (written in place), cross-attention against
+        the whole cached encoder K and V, then the FFN."""
+        cfg = self.cfg
+        b = x.shape[0]
+        h, hd = cfg.num_heads, cfg.head_dim
+        frames = torch.full((), state.cross_k.shape[2], dtype=torch.int32,
+                            device=x.device)
+        for i, p in enumerate(self._layers(params["blocks"])):
+            x = _attn_decode_only(cfg, p, x, state.kv_k[i], state.kv_v[i],
+                                  state.length, window=self.decode_window)
+            q = (layers.rms_norm(x, p["xattn_norm"]) @ p["xwq"]).reshape(
+                b, 1, h, hd)
+            o = attention.decode_attend(q, attention.KVCache(
+                state.cross_k[i], state.cross_v[i], frames))
+            x = x + o.reshape(b, 1, h * hd) @ p["xwo"]
+            x = x + _ffn_apply(cfg, p, layers.rms_norm(x, p["ffn_norm"]))
         return x
 
     def _moe_decode(self, params, state: DecodeState, x):
@@ -585,8 +756,7 @@ class Model:
 def build_model(cfg: ModelConfig, *, decode_window: int = 0) -> Model:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"build_model: the {cfg.family!r} family ({cfg.name}) is not "
-            "ported to repro_torch yet (ROADMAP.md, queue 1 item 5)")
+            f"build_model: unknown family {cfg.family!r} ({cfg.name})")
     return Model(cfg=cfg, decode_window=decode_window)
 
 

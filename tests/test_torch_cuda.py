@@ -30,7 +30,9 @@ the reduced LMs' decode (no hand-written kernel: within 1e-4 of the
 largest |logit|, TF32 off; the hybrid's past its window of 16) and
 ``launch.steps.make_train_step`` (one ``lambda0`` launch a step;
 parameters within 1e-5 of the CPU's).  Both flash kernels take a sliding
-window, held to the same bounds against the banded plain version.
+window, and attention without causality over a key length of its own,
+at head dims 16–256 (96 and the f32 kernel's 256 too), held to the same
+bounds against the plain version of the same mask.
 """
 import numpy as np
 import pytest
@@ -643,12 +645,66 @@ def test_flash_attention_window_kernel_matches_plain(dev, shape):
 
 
 def test_flash_attention_window_past_s_is_causal_and_f32_256_raises(dev):
+    # f32 at head dim 256 has an instance now (FLASH_NEW); a head dim
+    # without one still raises
     q = _randn(dev, 2, 100, 4, 256, seed=1).bfloat16()
     k = _randn(dev, 2, 100, 1, 256, seed=2).bfloat16()
     assert torch.equal(fa.flash_attention_bhsd(q, k, k, window=2048),
                        fa.flash_attention_bhsd(q, k, k))
-    with pytest.raises(ValueError, match="no head_dim 256 instance"):
-        fa.flash_attention_bhsd(q.float(), k.float(), k.float())
+    with pytest.raises(ValueError, match="no head_dim 48 instance"):
+        fa.flash_attention_bhsd(*(x[..., :48].float().contiguous()
+                                  for x in (q, k, k)))
+
+
+# head dim 96 (phi-3-vision) on both kernels, causal and banded; non-causal
+# attention over a key length of its own (whisper's encoder at S = 1,500,
+# a ragged last tile; its cross-attention, Sq 160 against Sk 1,500; Sq >
+# Sk; Sk 16, below one tile); the f32 kernel at head dim 256: (b, sq, sk,
+# h, hkv, dh, dtype, causal, window)
+FLASH_NEW = [(2, 77, 77, 4, 2, 96, "bf16", True, 0),
+             (4, 1024, 1024, 32, 32, 96, "bf16", True, 0),
+             (2, 300, 300, 8, 8, 96, "f32", True, 0),
+             (2, 130, 130, 4, 1, 96, "f32", True, 40),
+             (2, 300, 300, 4, 1, 96, "bf16", True, 129),
+             (2, 1500, 1500, 20, 20, 64, "bf16", False, 0),
+             (4, 160, 1500, 20, 20, 64, "bf16", False, 0),
+             (2, 200, 64, 4, 2, 64, "bf16", False, 0),
+             (2, 24, 16, 4, 4, 64, "bf16", False, 0),
+             (2, 77, 300, 4, 2, 96, "bf16", False, 0),
+             (2, 1500, 1500, 4, 4, 64, "f32", False, 0),
+             (2, 160, 1500, 4, 4, 64, "f32", False, 0),
+             (2, 200, 64, 4, 2, 64, "f32", False, 0),
+             (2, 24, 16, 4, 4, 64, "f32", False, 0),
+             (1, 100, 129, 2, 1, 256, "f32", False, 0),
+             (2, 100, 100, 4, 1, 256, "f32", True, 0),
+             (2, 300, 300, 4, 2, 256, "f32", True, 40)]
+
+
+@pytest.mark.parametrize("shape", FLASH_NEW, ids=[str(s) for s in FLASH_NEW])
+def test_flash_attention_dh96_noncausal_f32_256_match_plain(dev, shape):
+    b, sq, sk, h, hkv, dh, dt, causal, window = shape
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    q = _randn(dev, b, sq, h, dh, seed=1).to(dt)
+    k = _randn(dev, b, sk, hkv, dh, seed=2).to(dt)
+    v = _randn(dev, b, sk, hkv, dh, seed=3).to(dt)
+    by_variant = dict(fa.flash_attention_bhsd.launches_by_variant)
+    by_mask = dict(fa.flash_attention_bhsd.launches_by_mask)
+    got = fa.flash_attention_bhsd(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    by_variant[fa.VARIANTS[dt]] += 1
+    mask = ("band" if window else "causal") if causal \
+        else ("self" if sq == sk else "cross")
+    by_mask[f"{fa.VARIANTS[dt]}_{mask}"] += 1
+    assert fa.flash_attention_bhsd.launches_by_variant == by_variant
+    assert fa.flash_attention_bhsd.launches_by_mask == by_mask
+    assert got.dtype == dt and got.shape == q.shape
+    if dt == torch.float32:
+        want = fa.flash_attention_plain(q, k, v, window, causal)
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        ok, ratio, rms_got, rms_plain = fa.bf16_error_check(
+            q, k, v, got, window, causal)
+        assert ok, (ratio, rms_got, rms_plain)
 
 
 def test_hybrid_run_alg1_on_card_tracks_cpu(dev):
@@ -890,3 +946,44 @@ def test_train_step_on_card_launches_lambda0(dev):
     for a, b in zip(tree.leaves(q_gpu), tree.leaves(q_cpu)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-large-v3"])
+def test_vlm_audio_on_card_track_cpu(dev, arch):
+    """The reduced vlm and audio models (f32) on the card against the
+    CPU: the forward over stub embeddings (the tf32x3 kernel once a
+    layer: the vlm's 2 causal, whisper's 2 encoder, 2 causal and 2 cross
+    launches), logits within 1e-4 of the largest |logit|; then 8 decode
+    steps (whisper after ``precompute_cross``: its 2 encoder launches),
+    no kernel in the loop, within the same bound."""
+    model, params = _reduced_lm(arch)
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 8), generator=g)
+    batch = {"tokens": tok}
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.randn(2, cfg.num_image_tokens,
+                                          cfg.d_model, generator=g)
+    else:
+        batch["frame_embeds"] = torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                            generator=g)
+    p_gpu = tree.map(lambda w: w.to(dev), params)
+    b_gpu = {k: v.to(dev) for k, v in batch.items()}
+    before = fa.flash_attention_bhsd.launches_by_variant["tf32x3"]
+    got = model.forward(p_gpu, b_gpu).cpu()
+    want = model.forward(params, batch)
+    assert fa.flash_attention_bhsd.launches_by_variant["tf32x3"] - before \
+        == (2 if cfg.family == "vlm" else 6)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    s_gpu = model.init_decode(2, 8, device=dev)
+    s_cpu = model.init_decode(2, 8, device="cpu")
+    if cfg.family == "audio":
+        s_gpu = model.precompute_cross(p_gpu, b_gpu, s_gpu)
+        s_cpu = model.precompute_cross(params, batch, s_cpu)
+    before = fa.flash_attention_bhsd.launches
+    for t in range(8):
+        l_gpu, s_gpu = model.decode_step(p_gpu, s_gpu, tok[:, t:t + 1].to(dev))
+        l_cpu, s_cpu = model.decode_step(params, s_cpu, tok[:, t:t + 1])
+        err = float((l_gpu.cpu() - l_cpu).abs().max())
+        assert err <= 1e-4 * float(l_cpu.abs().max()), (t, err)
+    assert fa.flash_attention_bhsd.launches == before

@@ -1,4 +1,6 @@
-"""The port's causal GQA attention against the reference's kernel 5.
+"""The port's GQA attention against the reference's kernel 5 (causal)
+and its model's ``attend`` (head dim 96, non-causal over a key length
+of its own).
 
 Same inputs, made from a seed with numpy, go through
 ``repro.kernels.ops.flash_attention`` (the Pallas kernel in interpret
@@ -140,9 +142,15 @@ def test_shape_checks(bad):
 
 def test_plain_launches_nothing():
     before = fa.flash_attention_bhsd.launches
+    by_mask = dict(fa.flash_attention_bhsd.launches_by_mask)
     q = torch.zeros(1, 3, 2, 16)
     fa.flash_attention_bhsd(q, q, q, device="cpu")
+    fa.flash_attention_bhsd(q, q[:, :2], q[:, :2], causal=False,
+                            device="cpu")
     assert fa.flash_attention_bhsd.launches == before
+    assert fa.flash_attention_bhsd.launches_by_mask == by_mask
+    assert set(by_mask) == {f"{v}_{m}" for v in fa.HEAD_DIMS
+                            for m in fa.COUNT_MASKS}
 
 
 # The card's bf16 kernel rounds P to bf16 before P·V, so it is held to the
@@ -293,3 +301,157 @@ def test_one_tf32_pass_misses_the_card_tolerance():
     one = float((_emulate_tf32x3(q, k, v, passes=1) - plain).abs().max())
     split = float((_emulate_tf32x3(q, k, v) - plain).abs().max())
     assert one > 10 * 2e-5 and split <= 2e-5
+
+
+# Head dim 96 (phi-3-vision) and non-causal attention over a key length
+# of its own (whisper's encoder and cross-attention): the port's op (its
+# plain version on the CPU) against the reference model's ``attend``,
+# which runs them in XLA (its Pallas kernel is causal only), forward and
+# gradients.  Shapes (B, Sq, Sk, H, Hkv, Dh, causal): Dh 96 causal; Sq =
+# Sk = 77 (a ragged last 64- and 128-key tile); Sq 16 against Sk 77; Sq >
+# Sk (40 against 9); Sk 16 below one tile; Dh 256 against a ragged Sk.
+# Tolerances: f32 1e-5 of the largest |entry| (measured 6.1e-7 forward,
+# 6.7e-7 gradients); bf16 2^-6 of it, forward and each gradient
+# (measured 6.5e-3 and 6.6e-3: the reference rounds P to bf16 before P·V
+# and runs its backward in bf16; the port's plain version keeps P and the
+# backward in f32).
+ATTEND = [(2, 33, 33, 4, 2, 96, True), (2, 77, 77, 4, 4, 64, False),
+          (2, 16, 77, 4, 2, 64, False), (1, 40, 9, 4, 1, 96, False),
+          (2, 24, 16, 4, 4, 64, False), (1, 5, 70, 2, 1, 256, False)]
+
+
+def _attend_inputs(b, sq, sk, h, hkv, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, dh)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, dh)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, dh)).astype(np.float32),
+            rng.standard_normal((b, sq, h, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ATTEND, ids=[str(s) for s in ATTEND])
+def test_noncausal_and_dh96_match_reference_attend(shape, dtype):
+    import jax
+    from repro.models import attention as jattention
+    *dims, causal = shape
+    q, k, v, c = _attend_inputs(*dims, seed=sum(dims))
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+
+    @jax.jit
+    def ref(args, cot):
+        out, vjp = jax.vjp(lambda *a: jattention.attend(*a, causal=causal),
+                           *args)
+        return out, vjp(cot)
+
+    want, gwant = ref(tuple(jnp.asarray(a, jdt) for a in (q, k, v)),
+                      jnp.asarray(c, jdt))
+    tq, tk, tv = (torch.tensor(a).to(tdt).requires_grad_()
+                  for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tdt and got.shape == q.shape
+    share = 1e-5 if dtype == "float32" else 2.0 ** -6
+
+    def close(a, w):
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(a.detach().float().numpy(), w, rtol=0,
+                                   atol=share * np.abs(w).max())
+
+    close(got, want)
+    (got.float() * torch.as_tensor(c)).sum().backward()
+    for a, w in zip((tq, tk, tv), gwant):
+        assert a.grad.dtype == tdt
+        close(a.grad, w)
+
+
+def test_noncausal_arguments_and_vmap():
+    """Causal attention needs Sq = Sk, a window needs causality and
+    non-causal attention a key; the vmap rule folds the clients into one
+    call with k/v of their own length, bit for bit a loop."""
+    q = torch.zeros(1, 4, 2, 16)
+    k = torch.zeros(1, 6, 1, 16)
+    with pytest.raises(ValueError, match="Sk = Sq"):
+        fa.flash_attention_bhsd(q, k, k, device="cpu")
+    with pytest.raises(ValueError, match="without causality"):
+        fa.flash_attention_bhsd(q, k, k, causal=False, window=2,
+                                device="cpu")
+    with pytest.raises(ValueError, match="one key"):
+        fa.flash_attention_bhsd(q, k[:, :0], k[:, :0], causal=False,
+                                device="cpu")
+    assert set(fa.MASKS) == {"causal", "band", "none"}
+    assert all(96 in dims and 256 in dims for dims in fa.HEAD_DIMS.values())
+    rng = np.random.default_rng(5)
+    n, b, sq, sk, h, dh = 3, 2, 7, 19, 4, 16
+    w = torch.tensor(rng.standard_normal((dh, dh)).astype(np.float32) * 0.3)
+    x = torch.tensor(rng.standard_normal((n, b, sq, h, dh))
+                     .astype(np.float32))
+    enc = torch.tensor(rng.standard_normal((n, b, sk, 2, dh))
+                       .astype(np.float32))
+
+    def loss(w, xi, ei):
+        o = ops.flash_attention(xi @ w, ei, 0.5 * ei, causal=False)
+        return (o * o).sum()
+
+    got = vmap(grad(loss), in_dims=(None, 0, 0))(w, x, enc)
+    want = torch.stack([grad(loss)(w, x[i], enc[i]) for i in range(n)])
+    assert torch.equal(got, want)
+
+
+# The kernels' arithmetic without causality, emulated as above over their
+# key tiles: a ragged last tile masked at keys >= Sk (wgmma: 128-key tiles;
+# tf32x3: 64, and 32 at Dh 256).  Each holds its card tolerance; and a
+# zero-filled key past Sk left unmasked (exp2(0 - max) in the sum) is
+# caught by the bf16 check.
+NONCAUSAL = [(2, 77, 4, 2, 64, 1500 % 128), (1, 200, 4, 1, 96, 64),
+             (2, 160, 4, 4, 64, 300), (1, 40, 2, 1, 256, 70)]
+
+
+def _emulate_noncausal(q, k, v, tile, kernel):
+    """The kernels' non-causal arithmetic on the CPU: key tiles of
+    ``tile``, the online softmax in exp2 and, for ``kernel`` "wgmma", P
+    rounded to bf16 before P·V (l over the unrounded P); for "tf32x3"
+    both products on split TF32 operands in three passes."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    g = h // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf, vf = (x.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+              for x in (k, v))
+    sl2 = float(np.float32(dh ** -0.5) * np.float32(1.4426950408889634))
+    m = torch.full((b, h, sq, 1), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, sq, dh)
+    for n0 in range(0, sk, tile):
+        kt, vt = kf[:, :, n0:n0 + tile], vf[:, :, n0:n0 + tile]
+        if kernel == "tf32x3":
+            sc = _mm_tf32(qf, kt.transpose(-1, -2), 3) * sl2
+        else:
+            sc = (qf @ kt.transpose(-1, -2)) * sl2
+        mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp2(sc - mx)
+        alpha = torch.exp2(m - mx)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = _mm_tf32(p, vt, 3) if kernel == "tf32x3" else \
+            p.to(torch.bfloat16).float() @ vt
+        acc = acc * alpha + pv
+        m = mx
+    return (acc / l).permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", NONCAUSAL, ids=[str(s) for s in NONCAUSAL])
+def test_noncausal_kernel_arithmetic_holds_the_card_tolerances(shape):
+    b, sq, h, hkv, dh, sk = shape
+    q, k, v, _ = _attend_inputs(b, sq, sk, h, hkv, dh, seed=sk)
+    q, k, v = map(torch.as_tensor, (q, k, v))
+    plain = fa.flash_attention_plain(q, k, v, causal=False)
+    got = _emulate_noncausal(q, k, v, 32 if dh > 128 else 64, "tf32x3")
+    assert float((got - plain).abs().max()) <= 2e-5
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = _emulate_noncausal(qb, kb, vb, 128, "wgmma")
+    ok, ratio, rms_got, rms_plain = fa.bf16_error_check(qb, kb, vb, got,
+                                                        causal=False)
+    assert ok, (ratio, rms_got, rms_plain)
+    # a zero key past Sk that reaches the softmax: the check rejects it
+    pad = torch.zeros_like(kb[:, :1])
+    leak = fa.flash_attention_plain(qb, torch.cat([kb, pad], 1),
+                                    torch.cat([vb, pad], 1), causal=False)
+    assert not fa.bf16_error_check(qb, kb, vb, leak, causal=False)[0]

@@ -267,8 +267,9 @@ def test_attend_window_matches_reference(dh, dtype, window):
 
 def test_flash_window_arguments():
     """A window of S or more is the causal case; a negative one raises;
-    head dim 256 has a wgmma (bf16) instance and no tf32x3 (f32) one;
-    non-causal attention still raises."""
+    head dim 256 has a wgmma (bf16) and a tf32x3 (f32) instance; a window
+    without causality raises (non-causal attention is ported:
+    tests/test_torch_vlm_audio.py, tests/test_torch_flash_attention.py)."""
     rng = np.random.default_rng(0)
     q = torch.as_tensor(rng.standard_normal((1, 9, 2, 16)), dtype=torch.float32)
     k = torch.as_tensor(rng.standard_normal((1, 9, 1, 16)), dtype=torch.float32)
@@ -280,11 +281,11 @@ def test_flash_window_arguments():
                                                    device="cpu"), causal)
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention_bhsd(q, k, k, window=-1, device="cpu")
-    assert 256 in fa.HEAD_DIMS["wgmma"] and 256 not in fa.HEAD_DIMS["tf32x3"]
+    assert 256 in fa.HEAD_DIMS["wgmma"] and 256 in fa.HEAD_DIMS["tf32x3"]
     assert fa.band_mask(4, 2).int().tolist() == [
         [1, 0, 0, 0], [1, 1, 0, 0], [0, 1, 1, 0], [0, 0, 1, 1]]
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        attention.attend(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="without causality"):
+        attention.attend(q, k, k, causal=False, window=3)
 
 
 # --- the model -------------------------------------------------------------------

@@ -200,14 +200,25 @@ def test_loss_sum_and_gradient_match_jax():
 
 
 def test_unported_families_and_options_raise():
-    # the hybrid family and attend(window=) are ported
-    # (tests/test_torch_hybrid.py), and so is moe (tests/test_torch_moe.py);
-    # the vlm and audio families and non-causal attention still raise
-    assert build_model(get_config("qwen3-moe-235b-a22b")).cfg.family == "moe"
+    # every family builds: the hybrid and attend(window=)
+    # (tests/test_torch_hybrid.py), moe (tests/test_torch_moe.py), the vlm
+    # and audio and attend(causal=False) (tests/test_torch_vlm_audio.py);
+    # what still raises: a federated LM task on the vlm and audio (their
+    # forwards read stub embeddings a task's batch does not carry, as in
+    # the reference), a band without causality, and an unknown family
+    for arch in ("qwen3-moe-235b-a22b", "phi-3-vision-4.2b",
+                 "whisper-large-v3"):
+        assert build_model(get_config(arch)).cfg.family == \
+            get_config(arch).family
     for arch in ("phi-3-vision-4.2b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(arch))
+        with pytest.raises(NotImplementedError, match="stub"):
+            transformer_task(arch)
     q = torch.zeros(1, 4, 2, 16)
     assert attention.attend(q, q, q, window=2).shape == q.shape
-    with pytest.raises(NotImplementedError):
-        attention.attend(q, q, q, causal=False)
+    assert attention.attend(q, q[:, :3], q[:, :3], causal=False).shape \
+        == q.shape
+    with pytest.raises(ValueError, match="without causality"):
+        attention.attend(q, q, q, causal=False, window=2)
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        build_model(dataclasses.replace(get_config("llama3-8b"),
+                                        family="conv"))
