@@ -225,7 +225,20 @@ last line):
    non-causal at S = 1,500, the cross-attention at 160 against 1,500),
    and its train step at B = 8, S = 128 over (8, 1500, 1280) frames; each
    with a checkpoint after step 2, resumed bit for bit, and the launches
-   of each part by mask (the wrapper's ``launches_by_mask``);
+   of each part by mask (the wrapper's ``launches_by_mask``); then the
+   production (data, model) mesh (``phase_production_mesh``): on a
+   one-rank NCCL group, ``make_host_mesh()``: llama3-8b at full width
+   (2 layers, batch 8, seq 128, τ = 2), 3 train steps bit for bit
+   ``mesh=None`` (parameters and lin; the same wgmma and ``lambda0``
+   launches), and qwen3-moe (2 of 94 layers, bf16, (4, 160)) through
+   the expert-parallel forward in both weight modes against ``moe_ffn``
+   (equal drops, within 2e-2 of the largest |logit|); then four gloo
+   ranks on ``cuda:0`` at (2, 2): the reduced llama3-8b (both
+   ``act_tp``) and granite-34b (one kv head) train steps and the reduced
+   qwen3-moe forward in both modes, the ranks bit for bit each other and
+   within 1e-5 of the same cases in one process; every run's
+   collectives by axes as predicted, step and forward times and peaks
+   printed;
 7. time ``masked_sum`` (I = 4) and both ``ssca_update`` variants
    directly at both full-width LM paths' widths, once those paths have
    freed their memory: the median of 5 eager launches after 2 warm-ups,
@@ -3594,7 +3607,7 @@ def hybrid_path(name):
 def moe_flash_row(name):
     if name.startswith("serve_moe_interleaved_full"):
         return "flash_attention_g5"
-    if name.startswith("serve_moe_full"):
+    if name.startswith(("serve_moe_full", "mesh_moe_full")):
         return "flash_attention_g16"
     return None
 
@@ -5050,6 +5063,471 @@ def phase_group_mesh_gloo(torch, single, card):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the production (data, model) mesh
+# ---------------------------------------------------------------------------
+
+PM_STEPS = 3
+PM_TAU = 2.0
+PM_LAYOUT = (2, 2)
+PM_AXES = ("data", "model")
+# the four gloo ranks' cases: reduced dense train steps (granite-34b has
+# one kv head: k and v gathered over ``model``), and the reduced moe
+# forward in both weight modes
+PM_DENSE = (("llama3-8b", "model"), ("llama3-8b", None),
+            ("granite-34b", "model"))
+PM_MODES = ("fsdp", "stationary")
+# the reduced cases' bounds against the one-process run (the CPU tests'):
+# every leaf within 1e-5 of its largest |entry|, loss and ‖g‖ within 1e-5
+# relative, the moe logits within 1e-5 of the largest |logit|; the full
+# moe forward on one rank is held bit for bit
+PM_LEAF = 1e-5
+
+
+def pm_predicted():
+    """The collective counts a train step and a moe forward make
+    (``tests/torch_production_mesh_cases.py``'s ``dense_calls`` and
+    ``moe_forward_calls``, the formulas ``PERF.md`` §6 states and the CPU
+    tests hold)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_production_mesh_cases as cases
+    return cases.dense_calls, cases.moe_forward_calls
+
+
+def pm_sync(torch, dev):
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def pm_free(torch, dev):
+    if str(dev).startswith("cuda"):
+        torch.cuda.empty_cache()
+
+
+def pm_peak(torch, dev, reset=False):
+    """The device's peak allocation since the last reset (None off the
+    card); resets it with ``reset``."""
+    if not str(dev).startswith("cuda"):
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated()
+
+
+def pm_held(torch, dev):
+    """The bytes allocated on the device now (None off the card): what a
+    run's peak stands on (the weights, and an earlier run's outputs kept
+    for the comparison)."""
+    return torch.cuda.memory_allocated() if str(dev).startswith("cuda") \
+        else None
+
+
+def pm_reduced(torch, arch, dev):
+    """A reduced case's config, weights (seeded 0 dense, 1 moe, drawn on
+    the CPU) and batch (tests/distributed_check.py's shapes: (4, 32)
+    dense, (4, 16) moe), on ``dev``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import params_from_numpy, \
+        params_to_numpy
+    cfg = reduced(get_config(arch))
+    is_moe = cfg.family == "moe"
+    params = build_model(cfg).init(
+        torch.Generator().manual_seed(1 if is_moe else 0), device="cpu")
+    shape = (4, 16) if is_moe else (4, 32)
+    tok = np.random.default_rng(9 if is_moe else 7).integers(
+        0, cfg.vocab_size, shape)
+    return cfg, params_from_numpy(params_to_numpy(params), dev), {
+        "tokens": torch.as_tensor(tok, dtype=torch.int32, device=dev)}
+
+
+def pm_train(torch, model, params, batches, dev, mesh=None):
+    """``make_train_step`` over ``batches`` (τ = PM_TAU): the last
+    parameters and ``lin``, (loss, ‖g‖) a step, each step's seconds and,
+    on a mesh, its collectives by axes."""
+    from repro_torch.core import ssca
+    from repro_torch.core.schedules import PowerLaw
+    from repro_torch.launch import steps
+    hp = ssca.SSCAHyperParams(tau=PM_TAU, rho=PowerLaw(0.9, 0.3),
+                              gamma=PowerLaw(0.9, 0.35))
+    step = steps.make_train_step(model, hp)
+    state = ssca.init(params, with_beta=False)
+    metrics, secs, calls = [], [], []
+    for b in batches:
+        if mesh is not None:
+            mesh.reset_counts()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        pm_sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+        metrics.append((float(m["loss"]), float(m["kkt_residual"])))
+        if mesh is not None:
+            calls.append(dict(mesh.calls))
+    return params, state.lin, metrics, secs, calls
+
+
+def pm_numpy(tree_):
+    from repro_torch import tree
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in tree.named_leaves(tree_)}
+
+
+def pm_remat_launches(launches):
+    """A train step's launches on a mesh from its launches without one:
+    each layer runs again in the backward (``models.sharded.remat``), so
+    the flash forward twice a layer; the rest once."""
+    return {k: 2 * n if k.startswith("flash_attention") else n
+            for k, n in launches.items()}
+
+
+def pm_forward(torch, model, params, batch, dev, mesh=None):
+    """One forward without autograd: logits, each MoE layer's dropped
+    share, its seconds, its collectives."""
+    dropped = []
+    if mesh is not None:
+        mesh.reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model.forward_with_aux(params, batch, dropped)[0]
+    pm_sync(torch, dev)
+    return (logits, [float(d) for d in dropped], time.perf_counter() - t0,
+            dict(mesh.calls) if mesh is not None else {})
+
+
+def pm_host_dense(torch, kernels, card, mesh, dev):
+    """llama3-8b at full width, LM_LAYERS of 32 layers, ``launch/train.py``'s
+    batches (B = TRAIN_BATCH, S = TRAIN_SEQ), PM_STEPS steps at τ =
+    PM_TAU, without a mesh and on the one-rank ``make_host_mesh()``:
+    parameters and ``lin`` bit for bit, losses and ‖g‖ within 1e-6
+    relative (the mean's last bit), the same kernel launches but the
+    flash forward's, twice a layer on the mesh (:func:`pm_remat_launches`),
+    the predicted collectives."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=LM_LAYERS)
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    stream = train.batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    batches = [next(stream) for _ in range(PM_STEPS)]
+    out = {}
+    runs = {}
+    for name, model in (("none", build_model(cfg)),
+                        ("mesh", build_model(
+                            cfg, mesh=mesh,
+                            layer_pspec_fn=sharding.layer_pspec_fn(mesh)))):
+        p = params if name == "none" else sharding.shard_params(params, mesh)
+        reset_counts(kernels)
+        held = pm_held(torch, dev)
+        pm_peak(torch, dev, reset=True)
+        p, lin, metrics, secs, calls = pm_train(
+            torch, model, p, batches, dev, mesh if name == "mesh" else None)
+        runs[name] = (tree.leaves(p), tree.leaves(lin), metrics)
+        out[name] = {"metrics": metrics, "step_s": secs,
+                     "peak_device_bytes": pm_peak(torch, dev),
+                     "held_bytes": held, "launches": counts(kernels),
+                     "calls": calls}
+    (pa, la, ma), (pb, lb, mb) = runs["none"], runs["mesh"]
+    same = all(torch.equal(a, b) for a, b in zip(pa + la, pb + lb))
+    worst = max(abs(x - y) / abs(x) for u, v in zip(ma, mb)
+                for x, y in zip(u, v))
+    want = pm_predicted()[0](cfg, 1, "model")
+    log(f"production mesh, one {mesh.backend} rank, llama3-8b "
+        f"({LM_LAYERS} of 32 layers, B = {TRAIN_BATCH}, S = {TRAIN_SEQ}, "
+        f"tau {PM_TAU}), make_host_mesh() against mesh=None:",
+        json.dumps({"bit_for_bit": same, "metrics_rel_gap": worst,
+                    "calls_per_step": want, **out}), f"on {card}")
+    if not same or not worst <= 1e-6:
+        raise AssertionError(f"host mesh llama3-8b: bit for bit {same}, "
+                             f"metrics {worst} from mesh=None")
+    if out["mesh"]["launches"] != pm_remat_launches(out["none"]["launches"]) \
+            or not out["mesh"]["launches"]["ssca_update_lambda0"]:
+        raise AssertionError(f"host mesh llama3-8b: launches "
+                             f"{out['mesh']['launches']}, mesh=None "
+                             f"{out['none']['launches']}")
+    if out["mesh"]["calls"] != [want] * PM_STEPS:
+        raise AssertionError(f"host mesh llama3-8b: collectives "
+                             f"{out['mesh']['calls']}, want {want} a step")
+    del params, runs, pa, pb, la, lb
+    pm_free(torch, dev)
+    return ({f"mesh_host_llama_full{s}": out[k]["launches"]
+             for k, s in (("mesh", ""), ("none", "_none"))},
+            {"llama_full": out})
+
+
+def pm_host_moe(torch, kernels, card, mesh, dev):
+    """qwen3-moe at full width (LM_LAYERS of 94 layers, bf16 as published)
+    at serve_moe_full's forward shape (SERVE_BATCH × SERVE_PROMPT +
+    SERVE_NEW): the expert-parallel forward on the one-rank mesh in both
+    weight modes against ``moe_ffn``'s: each layer's dropped share equal,
+    the logits bit for bit (one rank runs ``moe_ffn``'s helpers on all
+    experts, and its collectives move nothing), the predicted
+    collectives, the layer kernel once a layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=LM_LAYERS)
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               3), device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    reset_counts(kernels)
+    pm_peak(torch, dev, reset=True)
+    ref, dropped, secs, _ = pm_forward(torch, build_model(cfg), params,
+                                       batch, dev)
+    by_path = {"mesh_moe_full_single": counts(kernels)}
+    top = float(ref.abs().max())
+    out = {"single": {"dropped": dropped, "forward_s": secs,
+                      "peak_device_bytes": pm_peak(torch, dev)}}
+    for mode in PM_MODES:
+        place = dict(moe_fsdp_dim="f" if mode == "stationary" else "d")
+        model = build_model(cfg, mesh=mesh, moe_weight_mode=mode,
+                            layer_pspec_fn=sharding.layer_pspec_fn(mesh,
+                                                                   **place))
+        p = sharding.shard_params(params, mesh, **place)
+        reset_counts(kernels)
+        pm_peak(torch, dev, reset=True)
+        logits, drops, secs, calls = pm_forward(torch, model, p, batch, dev,
+                                                mesh)
+        gap = float((logits - ref).abs().max()) / top
+        want = pm_predicted()[1](cfg, "model", mode)
+        launches = by_path[f"mesh_moe_full_{mode}"] = counts(kernels)
+        same = bool(torch.equal(logits, ref))
+        out[mode] = {"dropped": drops, "logits_gap": gap,
+                     "bit_for_bit": same, "forward_s": secs, "calls": calls,
+                     "peak_device_bytes": pm_peak(torch, dev)}
+        if drops != dropped or not same or calls != want \
+                or launches != by_path["mesh_moe_full_single"]:
+            raise AssertionError(f"host mesh qwen3-moe {mode}: dropped "
+                                 f"{drops} against {dropped}, bit for bit "
+                                 f"{same} (gap {gap}), "
+                                 f"collectives {calls} (want {want}), "
+                                 f"launches {launches}")
+        del logits
+    log(f"production mesh, one {mesh.backend} rank, qwen3-moe "
+        f"({LM_LAYERS} of 94 layers, bf16, batch ({SERVE_BATCH}, "
+        f"{SERVE_PROMPT + SERVE_NEW})), expert-parallel against moe_ffn:",
+        json.dumps(out), f"on {card}")
+    del params, ref
+    pm_free(torch, dev)
+    return by_path, {"moe_full": out}
+
+
+def pm_single_reduced(torch, kernels, dev):
+    """The gloo ranks' cases in one process on ``dev``: each dense case's
+    steps and the moe forward without a mesh; their launches."""
+    from repro_torch.models import build_model
+    dense, forward = {}, None
+    reset_counts(kernels)
+    for arch in sorted({a for a, _ in PM_DENSE}):
+        cfg, params, batch = pm_reduced(torch, arch, dev)
+        p, lin, metrics, _, _ = pm_train(torch, build_model(cfg), params,
+                                         [batch] * PM_STEPS, dev)
+        dense[arch] = {"params": pm_numpy(p), "lin": pm_numpy(lin),
+                       "metrics": metrics}
+    cfg, params, batch = pm_reduced(torch, MOE_ARCH, dev)
+    logits, dropped, _, _ = pm_forward(torch, build_model(cfg), params,
+                                       batch, dev)
+    forward = (logits.cpu().numpy(), dropped)
+    return dense, forward, counts(kernels)
+
+
+def production_mesh_rank(dev="cuda"):
+    """One rank of the four-rank gloo world on ``cuda:0`` at PM_LAYOUT:
+    every PM_DENSE train case and the reduced moe forward in both modes,
+    the full parameters (``gather_params``) and logits back as numpy,
+    with the metrics, collectives, launches, step seconds and peaks."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssca_update as su
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {"flash_attention": fa.flash_attention_bhsd,
+               "ssca_update": su.ssca_update_2d}
+    mesh = make_mesh(PM_LAYOUT, PM_AXES, device=dev)
+    out = {"coords": mesh.coords, "backend": mesh.backend,
+           "device": str(mesh.device), "dense": {}, "moe": {}}
+    for arch, act in PM_DENSE:
+        cfg, params, batch = pm_reduced(torch, arch, mesh.device)
+        model = build_model(cfg, mesh=mesh, act_tp=act,
+                            layer_pspec_fn=sharding.layer_pspec_fn(mesh))
+        reset_counts(kernels)
+        pm_peak(torch, mesh.device, reset=True)
+        p, lin, metrics, secs, calls = pm_train(
+            torch, model, sharding.shard_params(params, mesh),
+            [sharding.local_batch(batch, mesh)] * PM_STEPS, mesh.device,
+            mesh)
+        out["dense"][(arch, act)] = {
+            "params": pm_numpy(sharding.gather_params(p, mesh)),
+            "lin": pm_numpy(sharding.gather_params(lin, mesh)),
+            "metrics": metrics, "calls": calls, "step_s": secs,
+            "launches": counts(kernels),
+            "peak_device_bytes": pm_peak(torch, mesh.device)}
+    cfg, params, batch = pm_reduced(torch, MOE_ARCH, mesh.device)
+    for mode in PM_MODES:
+        place = dict(moe_fsdp_dim="f" if mode == "stationary" else "d")
+        model = build_model(cfg, mesh=mesh, moe_weight_mode=mode,
+                            layer_pspec_fn=sharding.layer_pspec_fn(mesh,
+                                                                   **place))
+        p = sharding.shard_params(params, mesh, **place)
+        reset_counts(kernels)
+        logits, dropped, secs, calls = pm_forward(
+            torch, model, p, sharding.local_batch(batch, mesh), mesh.device,
+            mesh)
+        full = mesh.all_gather(mesh.all_gather(logits, "model", -1), "data",
+                               0)
+        out["moe"][mode] = {"logits": full.cpu().numpy(), "dropped": dropped,
+                            "calls": calls, "forward_s": secs,
+                            "launches": counts(kernels)}
+    return out
+
+
+def pm_ranks_check(torch, ranks, single, card, dev="cuda",
+                   backend="gloo"):
+    """The four ranks: each on its card (rank modulo the cards: all on
+    ``cuda:0`` with one card), on ``backend``, row-major coordinates, bit
+    for bit each other, within the CPU tests' bounds of the one-process
+    run, the predicted collectives, the layer kernel and ``lambda0``
+    launched."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    dense, (logits, dropped) = single
+    dense_calls, moe_calls = pm_predicted()
+    m = PM_LAYOUT[1]
+    summary = {}
+    for r, res in enumerate(ranks):
+        want_dev = f"cuda:{r % torch.cuda.device_count()}" \
+            if dev == "cuda" else dev
+        if (res["device"], res["backend"], tuple(res["coords"])) \
+                != (want_dev, backend, divmod(r, m)):
+            raise AssertionError(f"gloo rank {r}: {res['device']}, "
+                                 f"{res['backend']}, {res['coords']}")
+    for arch, act in PM_DENSE:
+        cfg = reduced(get_config(arch))
+        want_calls = dense_calls(cfg, m, act)
+        runs = [res["dense"][(arch, act)] for res in ranks]
+        worst = 0.0
+        for r, run in enumerate(runs):
+            for k in ("params", "lin"):
+                for name, w in dense[arch][k].items():
+                    if not np.array_equal(run[k][name], runs[0][k][name]):
+                        raise AssertionError(f"gloo {arch} {act}: rank {r}'s "
+                                             f"{k} {name} differs from 0's")
+                    top = float(np.abs(w).max())
+                    worst = max(worst, float(np.abs(run[k][name] - w).max())
+                                / top)
+            gap = max(abs(x - y) / abs(y) for u, v in zip(
+                run["metrics"], dense[arch]["metrics"]) for x, y in zip(u, v))
+            launches = run["launches"]
+            if run["calls"] != [want_calls] * PM_STEPS or gap > PM_LEAF \
+                    or launches["ssca_update_lambda0"] != PM_STEPS \
+                    or launches["ssca_update"] != PM_STEPS \
+                    or launches["flash_attention_tf32x3"] \
+                    != 2 * PM_STEPS * cfg.num_layers:
+                raise AssertionError(f"gloo {arch} {act} rank {r}: "
+                                     f"collectives {run['calls']} (want "
+                                     f"{want_calls}), metrics gap {gap}, "
+                                     f"launches {launches}")
+        if worst > PM_LEAF:
+            raise AssertionError(f"gloo {arch} {act}: {worst} of the largest "
+                                 "|leaf| from the one-process run")
+        summary[f"{arch} act_tp={act}"] = {
+            "leaf_gap": worst, "metrics": runs[0]["metrics"],
+            "step_s": [run["step_s"] for run in runs],
+            "peak_device_bytes": [run["peak_device_bytes"] for run in runs],
+            "calls_per_step": want_calls}
+    cfg = reduced(get_config(MOE_ARCH))
+    top = float(np.abs(logits).max())
+    for mode in PM_MODES:
+        want_calls = moe_calls(cfg, "model", mode)
+        runs = [res["moe"][mode] for res in ranks]
+        gap = float(np.abs(runs[0]["logits"] - logits).max()) / top
+        for r, run in enumerate(runs):
+            if not np.array_equal(run["logits"], runs[0]["logits"]) \
+                    or run["dropped"] != dropped or gap > PM_LEAF \
+                    or run["calls"] != want_calls \
+                    or run["launches"]["flash_attention_tf32x3"] \
+                    != cfg.num_layers:
+                raise AssertionError(f"gloo moe {mode} rank {r}: dropped "
+                                     f"{run['dropped']} ({dropped}), gap "
+                                     f"{gap}, collectives {run['calls']} "
+                                     f"(want {want_calls}), launches "
+                                     f"{run['launches']}")
+        summary[f"moe {mode}"] = {
+            "logits_gap": gap, "dropped": dropped,
+            "forward_s": [run["forward_s"] for run in runs],
+            "calls": want_calls}
+    log(f"production mesh, four {backend} ranks at {PM_LAYOUT} on "
+        f"{sorted({res['device'] for res in ranks})}: ranks bit for bit, "
+        "within the CPU tests' bounds of one process:", json.dumps(summary),
+        f"on {card}")
+    return summary
+
+
+def phase_production_mesh(torch, kernels, card, dev="cuda",
+                          backend="nccl"):
+    """The production mesh (``launch/mesh.py::make_mesh``, ``models/
+    sharded.py``): on a one-rank ``backend`` group in this process
+    (``init_process_group`` on a FileStore), llama3-8b's train steps on
+    ``make_host_mesh()`` bit for bit ``mesh=None`` and qwen3-moe's
+    expert-parallel forward in both weight modes against ``moe_ffn``;
+    then four gloo ranks on ``cuda:0`` at PM_LAYOUT against the same
+    cases in one process.  Returns each path's launches."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import LocalWorld
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    by_path = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pm_")
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_host_mesh(device=dev)
+        if (mesh.backend, mesh.size, mesh.device.type) \
+                != (backend, 1, torch.device(dev).type):
+            raise AssertionError(f"host mesh: {mesh}")
+        for part in (pm_host_dense, pm_host_moe):
+            paths, _ = part(torch, kernels, card, mesh, dev)
+            by_path.update(paths)
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"production mesh, one {backend} rank: "
+        f"{time.perf_counter() - t0:.1f} s")
+    single = pm_single_reduced(torch, kernels, dev)
+    by_path["mesh_gloo_single"] = single[2]
+    t1 = time.perf_counter()
+    ranks = LocalWorld(production_mesh_rank, 4, backend="gloo",
+                       args=(dev,), timeout_s=MESH_TIMEOUT_S).join()
+    log(f"production mesh, four gloo ranks: {time.perf_counter() - t1:.1f} "
+        "s with start-up")
+    pm_ranks_check(torch, ranks, single[:2], card, dev)
+    total = {}
+    for res in ranks:
+        for case in [*res["dense"].values(), *res["moe"].values()]:
+            for k, v in case["launches"].items():
+                total[k] = total.get(k, 0) + v
+    by_path["mesh_gloo2x2"] = total
+    log(f"production mesh phase: {time.perf_counter() - t0:.1f} s; "
+        "launches by path:", json.dumps(by_path))
+    return by_path
+
+
 def rank_inputs():
     """A spawned rank's data, partitions, initial weights and the four MLP
     kernels' wrappers: the main path's."""
@@ -5084,7 +5562,9 @@ LAMBDA0_PATHS = ("lm_small", "lm_full_width", "rwkv_small",
                  *(f"train_small_{m}_{s}" for m in ("moe", "moe_interleaved")
                    for s in ("resume", "bf16")),
                  "train_small_vlm", "train_small_audio", "train_vlm_full",
-                 "train_audio_full")
+                 "train_audio_full", "mesh_host_llama_full",
+                 "mesh_host_llama_full_none", "mesh_gloo_single",
+                 "mesh_gloo2x2")
 
 
 def check_ssca_variants(by_path):
@@ -5270,6 +5750,7 @@ def main() -> int:
             "flash_attention", "flash_attention_tf32x3")
     log(f"moe small phase: {time.perf_counter() - t0:.1f} s")
     by_path.update(phase_launch(torch, kernels, card))
+    by_path.update(phase_production_mesh(torch, kernels, card))
     check_ssca_variants(by_path)
     total = {k: sum(p.get(k, 0) for p in by_path.values())
              for k in [*kernels, *variant_counts(kernels)]}

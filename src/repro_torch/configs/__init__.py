@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES, InputShape, ModelConfig)
 
 ARCH_IDS = (
     "granite-34b", "yi-9b", "whisper-large-v3", "granite-8b",
@@ -34,3 +35,7 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]

@@ -1,4 +1,4 @@
-"""Architecture configuration.
+"""Architecture and input-shape configuration.
 
 The port's copy of ``repro/configs/base.py``: every architecture gets one
 ``<id>.py`` in this package exporting ``CONFIG`` (the exact published
@@ -67,6 +67,10 @@ class ModelConfig:
         return DTYPES[self.activ_dtype]
 
     @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def padded_vocab(self) -> int:
         """Vocab rounded up to a multiple of 256 so the embedding table
         shards over any (data x model) <= 16x16 mesh (whisper's 51866,
@@ -119,6 +123,25 @@ class ModelConfig:
             total += self.encoder_layers * per_enc + L * per_cross
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k experts + shared)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        hd = self.head_dim
+        per_attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d
+        n_moe = len([i for i in range(L) if i % self.moe_every ==
+                     self.moe_every - 1])
+        n_dense = L - n_moe
+        total = self.vocab_size * d
+        total += n_dense * (per_attn + 3 * d * f + 2 * d)
+        per_moe_active = d * self.num_experts \
+            + self.experts_per_token * 3 * d * f \
+            + (3 * d * f if self.shared_expert else 0)
+        total += n_moe * (per_attn + per_moe_active + 2 * d)
+        return int(total)
+
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,
             d_ff: int = 512, vocab: int = 512, experts: int = 4) -> ModelConfig:
@@ -148,3 +171,19 @@ def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,
         param_dtype="float32",
         activ_dtype="float32",
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -7,7 +7,10 @@ backward intermediate alive to the end of the backward: at the LM's full
 width, under the engine's ``vmap`` over clients, tens of GB.  A ``vjp``
 whose pullback runs with ``create_graph=False`` frees them as it goes.
 Both helpers compose with ``torch.func.vmap`` (the engine's per-client
-uploads, FedAvg's local loop).
+uploads, FedAvg's local loop).  :func:`autograd_value_and_grad` goes
+through ``torch.autograd.grad`` instead, for a loss whose layers run
+under ``torch.utils.checkpoint`` (the production mesh's), whose
+saved-tensor hooks ``torch.func``'s ``vjp`` does not take.
 """
 from __future__ import annotations
 
@@ -31,3 +34,15 @@ def value_and_grad(fn: Loss, params: tree.Tree, batch):
 def grad(fn: Loss, params: tree.Tree, batch) -> tree.Tree:
     """∇_params fn(params, batch)."""
     return value_and_grad(fn, params, batch)[1]
+
+
+def autograd_value_and_grad(fn: Loss, params: tree.Tree, batch):
+    """(fn(params, batch), ∇_params fn(params, batch)) by
+    ``torch.autograd.grad`` on detached copies of the leaves (a leaf the
+    loss does not read gets zeros, as from ``vjp``); no vmap."""
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    val = fn(tree.unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(val, leaves, allow_unused=True)
+    return val.detach(), tree.unflatten(params, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)])

@@ -17,6 +17,16 @@ meshes on ``torch.distributed`` subgroups (a group row, a client column)
 and whose whole-mesh :meth:`GroupMesh.psum` serves the population arena
 and the snapshot ring.
 
+:func:`make_mesh` is the port of the reference's production mesh
+(``make_mesh``, ``make_production_mesh``, ``make_host_mesh``,
+``data_axes``): a :class:`ProductionMesh`, the (data, model) or (pod,
+data, model) grid of ranks with a subgroup for every set of axes, whose
+all-gather, reduce-scatter and all-reduce over a set of axes stand for
+the collectives XLA inserts for the reference's sharded train step
+(:mod:`repro_torch.parallel` gives them their gradients).  The
+reference's ``use_mesh`` and ``shard_map_fn`` are JAX version shims with
+no counterpart here.
+
 :class:`LocalWorld` runs one function on D local processes, one
 rank each, in a process group of its own (a ``FileStore`` in a temporary
 directory): the tests run the sharded engine on the CPU with gloo this
@@ -26,6 +36,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import multiprocessing
 import os
 import queue as queue_mod
@@ -35,10 +47,12 @@ import time
 import traceback
 from typing import Any, Callable, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch import Device, resolve_device, tree
+from repro_torch.parallel import data_axes  # noqa: F401  (the reference's name)
 
 _U32 = 1 << 32
 _I32_MIN = -(1 << 31)
@@ -341,6 +355,218 @@ def make_group_mesh(group_shards: int = 0, client_shards: int = 1,
     clients = make_client_mesh(rows[gi], whole.device)
     return GroupMesh(whole=whole, groups=groups, clients=clients,
                      shape=(g, c))
+
+
+# ---------------------------------------------------------------------------
+# the production (data, model) mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class ProductionMesh:
+    """The (data, model) or (pod, data, model) grid of ranks of the
+    default process group: rank = row-major index of its coordinates
+    (``coords``, one a name of ``axis_names``), as ``jax.make_mesh``
+    orders devices.  ``shape`` maps each axis to its size, as the
+    reference's ``Mesh.shape`` does.
+
+    The collectives run over a set of axes (a name or a tuple of names):
+    the ranks whose coordinates differ only there, in row-major order of
+    those axes, each set a ``torch.distributed`` subgroup made once by
+    :func:`make_mesh`.  ``calls`` counts, keyed ``"{op}:{axes}"`` (axes
+    joined by ``+`` in mesh order), each call since the mesh was made or
+    :meth:`reset_counts`; a call over axes of one rank moves nothing and
+    still counts, so the counts of a step do not depend on the layout."""
+    axis_names: tuple
+    sizes: tuple
+    coords: tuple
+    backend: str
+    device: torch.device
+    groups: dict
+    calls: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    def axes(self, axes) -> tuple:
+        """``axes`` (a name or names) as a tuple in mesh order."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = set(names) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"mesh axes {self.axis_names} have no "
+                             f"{sorted(unknown)}")
+        return tuple(a for a in self.axis_names if a in names)
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self.axes(axes))
+
+    def axis_index(self, axes) -> int:
+        """This rank's position in the group over ``axes`` (row-major)."""
+        idx = 0
+        for a in self.axes(axes):
+            idx = idx * self.shape[a] + self.coords[self.axis_names.index(a)]
+        return idx
+
+    def reset_counts(self) -> None:
+        """Set every counter to 0."""
+        self.calls.clear()
+
+    def _count(self, op: str, axes: tuple) -> None:
+        key = f"{op}:{'+'.join(axes)}"
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0):
+        """The group's tensors concatenated along ``dim`` in rank order
+        (``x`` itself over axes of one rank)."""
+        axes = self.axes(axes)
+        self._count("all_gather", axes)
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        x = x.contiguous()
+        if self.backend == "nccl":
+            buf = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(buf, x, group=self.groups[axes])
+            parts = buf.unbind(0)
+        else:
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=self.groups[axes])
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int = 0):
+        """This rank's block, along ``dim``, of the group's sum (``dim``
+        divided evenly).  gloo sums the whole tensor and keeps the block."""
+        axes = self.axes(axes)
+        self._count("reduce_scatter", axes)
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                             f"does not split over {n} ranks")
+        size = x.shape[dim] // n
+        if self.backend == "nccl":
+            stacked = torch.stack(x.split(size, dim=dim))
+            out = torch.empty_like(stacked[0])
+            dist.reduce_scatter_tensor(out, stacked, group=self.groups[axes])
+            return out
+        total = x.contiguous().clone()
+        dist.all_reduce(total, group=self.groups[axes])
+        return total.narrow(dim, self.axis_index(axes) * size, size)
+
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"):
+        """The group's elementwise ``op`` (``"sum"`` or ``"max"``) on every
+        rank (``x`` itself over axes of one rank)."""
+        axes = self.axes(axes)
+        self._count(f"all_reduce_{op}" if op != "sum" else "all_reduce",
+                    axes)
+        if self.axis_size(axes) == 1:
+            return x
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op],
+                        group=self.groups[axes])
+        return out
+
+
+def make_mesh(shape, axes, device: Device = None) -> ProductionMesh:
+    """A :class:`ProductionMesh` of ``shape`` over ``axes`` on the default
+    process group, which must hold exactly prod(shape) ranks (no
+    shrinking).  For every set of two or more ranks' axes it makes one
+    ``dist.new_group`` a group of ranks, every process all of them in
+    one order (``new_group`` is collective over the default group), on
+    the default group's backend.  ``device`` follows
+    :func:`make_client_mesh`: ``cuda`` (this rank's card) unless the
+    caller asks for the CPU; nccl on a CPU device raises."""
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh: no process group; call "
+            "torch.distributed.init_process_group first (torchrun sets "
+            "its address, rank and world size)")
+    sizes, names = tuple(int(n) for n in shape), tuple(axes)
+    if len(sizes) != len(names) or len(set(names)) != len(names) \
+            or min(sizes, default=0) < 1:
+        raise ValueError(f"make_mesh: shape {shape} and axes {axes}")
+    world = dist.get_world_size()
+    if math.prod(sizes) != world:
+        raise ValueError(f"make_mesh: a {sizes} mesh needs "
+                         f"{math.prod(sizes)} ranks, the process group has "
+                         f"{world}")
+    dev = _rank_card(dev)
+    backend = str(dist.get_backend())
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"the nccl backend reduces CUDA tensors; the rank's "
+                         f"device is {dev}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rank = dist.get_rank()
+    coords = tuple(int(c) for c in np.unravel_index(rank, sizes))
+    groups = {}
+    for k in range(1, len(names) + 1):
+        for subset in itertools.combinations(range(len(names)), k):
+            axes_k = tuple(names[i] for i in subset)
+            if math.prod(sizes[i] for i in subset) == 1:
+                groups[axes_k] = None
+                continue
+            if k == len(names):
+                groups[axes_k] = dist.group.WORLD
+                continue
+            others = [i for i in range(len(names)) if i not in subset]
+            for fixed in itertools.product(*(range(sizes[i])
+                                             for i in others)):
+                members = []
+                for var in itertools.product(*(range(sizes[i])
+                                               for i in subset)):
+                    c = [0] * len(names)
+                    for i, v in zip(others, fixed):
+                        c[i] = v
+                    for i, v in zip(subset, var):
+                        c[i] = v
+                    members.append(int(np.ravel_multi_index(c, sizes)))
+                g = dist.new_group(members, backend=backend)
+                if rank in members:
+                    groups[axes_k] = g
+    return ProductionMesh(axis_names=names, sizes=sizes, coords=coords,
+                          backend=backend, device=dev, groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Device = None) -> ProductionMesh:
+    """The reference's production mesh: (data 16, model 16), or (pod 2,
+    data 16, model 16) with ``multi_pod``: 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_host_mesh(device: Device = None) -> ProductionMesh:
+    """The (1, 1) (data, model) mesh of one rank: the production code path
+    on one device."""
+    return make_mesh((1, 1), ("data", "model"), device)
+
+
+def arena_axes(mesh) -> tuple:
+    """The axes a population-resident (I, …) array's leading client dim
+    homes over: every axis of the mesh, in mesh order (``("clients",)``
+    on a client mesh, ``("groups", "clients")`` on a group mesh, whose
+    arena is homed over the flattened groups-major ranks)."""
+    if isinstance(mesh, ClientMesh):
+        return ("clients",)
+    if isinstance(mesh, GroupMesh):
+        return ("groups", "clients")
+    return tuple(mesh.axis_names)
+
+
+def arena_spec(mesh) -> tuple:
+    """The placement of an array whose leading client dim homes over the
+    whole mesh: that dim over :func:`arena_axes`, the rest whole (the
+    entries of :mod:`repro_torch.launch.sharding`'s tables)."""
+    return (arena_axes(mesh),)
 
 
 # ---------------------------------------------------------------------------

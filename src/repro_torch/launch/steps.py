@@ -11,6 +11,17 @@ move (4)) runs as one launch of the fused kernel
 the FedSGD baseline on the same batch; ``make_prefill_step`` and
 ``make_decode_step`` are the serving path.
 
+``make_train_step`` of a model on a production mesh (the dense family)
+takes this rank's blocks of the parameters and the state and its rows
+of the batch: the loss is the rank's share of the mean, its gradient
+comes from ``torch.autograd.grad`` (the layers run under
+``torch.utils.checkpoint``, which ``torch.func.vjp`` refuses), the
+gradient of each leaf reaches its block through the collectives'
+backwards and one all-reduce a set of axes for what the placements
+leave whole, and the
+fused update runs on the rank's flat blocks (``lin`` placed as the
+parameters).  The metrics are the global mean loss and ‖g‖.
+
 Each step follows its tensors' device: the kernels for CUDA tensors,
 their plain versions for CPU ones, which the caller placed there.  The
 reference jit-compiles each factory's function; the port runs it
@@ -25,6 +36,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import autodiff, ssca
 from repro_torch.core.schedules import PowerLaw
+from repro_torch.models import sharded
 from repro_torch.models.transformer import Model
 
 
@@ -46,10 +58,24 @@ def make_train_step(model: Model,
     hp = hp or ssca.SSCAHyperParams(tau=0.1, lam=0.0,
                                     rho=PowerLaw(0.9, 0.3),
                                     gamma=PowerLaw(0.9, 0.35))
+    mesh = model.mesh
+    if mesh is not None and model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"a train step of the {model.cfg.family!r} family on a "
+            "production mesh is not ported (ROADMAP.md queue 1: the moe "
+            "train step on the mesh)")
+
+    # the mesh's layers run under torch.utils.checkpoint
+    value_and_grad = autodiff.value_and_grad if mesh is None \
+        else autodiff.autograd_value_and_grad
 
     def train_step(params, state: ssca.SSCAState, batch):
+        rows = next(iter(batch.values())).shape[0]
+        if rows % microbatches:
+            raise ValueError(f"{microbatches} microbatches do not divide "
+                             f"the batch of {rows}")
         if microbatches == 1:
-            loss, grads = autodiff.value_and_grad(model.loss, params, batch)
+            loss, grads = value_and_grad(model.loss, params, batch)
         else:
             loss = torch.zeros((), dtype=torch.float32,
                                device=_device(params))
@@ -58,17 +84,37 @@ def make_train_step(model: Model,
                 part = {k: v.narrow(0, i * (v.shape[0] // microbatches),
                                     v.shape[0] // microbatches)
                         for k, v in batch.items()}
-                li, gi = autodiff.value_and_grad(model.loss, params, part)
+                li, gi = value_and_grad(model.loss, params, part)
                 loss = loss + li
                 grads = tree.map(torch.add, grads, gi)
             loss = loss / microbatches
             grads = tree.map(lambda g: g / microbatches, grads)
+        if mesh is None:
+            metrics = {"loss": loss, "kkt_residual": ssca.kkt_residual(grads)}
+        else:
+            grads, metrics = _mesh_grads(model, params, loss, grads)
         new_params, new_state = ssca.server_update(
             state, params, grads, hp, fused=True, device=_device(params))
-        metrics = {"loss": loss, "kkt_residual": ssca.kkt_residual(grads)}
         return new_params, new_state, metrics
 
     return train_step
+
+
+def _mesh_grads(model: Model, params, loss, grads):
+    """On a production mesh: each leaf's gradient summed over the axes its
+    placement leaves whole (``models.sharded.reduce_replicated``), and the
+    metrics by one all-reduce over the whole mesh — the loss shares of
+    model rank 0 (the global mean) and each owned block's Σ g² (the
+    global ‖g‖², replicated leaves counted once)."""
+    mesh = model.mesh
+    pspec = model.mesh_context().pspec
+    specs = sharded.leaf_specs(params, pspec)
+    grads = sharded.reduce_replicated(grads, mesh, specs)
+    share = loss.detach() if mesh.axis_index("model") == 0 \
+        else torch.zeros_like(loss)
+    both = mesh.all_reduce(torch.stack([share.float(), sharded.owned_sq_sum(
+        grads, mesh, specs)]), mesh.axis_names)
+    return grads, {"loss": both[0], "kkt_residual": torch.sqrt(both[1])}
 
 
 def make_sgd_train_step(model: Model, lr: Optional[PowerLaw] = None):

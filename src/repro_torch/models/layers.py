@@ -13,7 +13,10 @@ import torch.nn.functional as F
 def normal(generator: torch.Generator, shape, scale: float, dtype,
            device) -> torch.Tensor:
     """``scale`` · N(0, 1) drawn in f32 from ``generator`` (on its own
-    device), then moved to ``device`` and cast to ``dtype``."""
+    device), then moved to ``device`` and cast to ``dtype``; on the
+    ``meta`` device an empty tensor of the shape, nothing drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (scale * x).to(device=device, dtype=dtype)

@@ -30,8 +30,11 @@ repeated-index gather, which on CUDA sum floats by atomics in an order
 that changes from run to run: forward and backward are deterministic on
 the card.
 
-The expert-parallel ``moe_ffn_sharded`` (``shard_map`` on the
-production mesh) is not ported (ROADMAP.md, queue 1).
+The expert-parallel ``moe_ffn_sharded`` is the reference's
+``shard_map`` path on the port's production mesh: each model rank runs
+its block of experts on its rows of the batch, through the same slots,
+dispatch and combine restricted to its experts, and the partial outputs
+are summed over the model axis (:mod:`repro_torch.parallel`).
 """
 from __future__ import annotations
 
@@ -39,6 +42,12 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import parallel
+from repro_torch.parallel import data_axes
+
+TP = "model"        # the expert (and tensor) parallel axis
+FSDP = "data"       # the axis of the expert weights' FSDP shard
 
 
 class MoEOutput(NamedTuple):
@@ -90,33 +99,153 @@ def load_balance_loss(probs, idx, num_experts: int):
     return num_experts * torch.sum(me * ce)
 
 
+def slots(idx, num_experts: int, cap: int, e_lo: int = 0,
+          e_loc: int = None):
+    """Each assignment's slot in the (e_loc, C) buffer of experts [e_lo,
+    e_lo + e_loc) (all of them by default), in the flat (token, slot)
+    order of ``idx`` (B, S, k) → (slot (B, S·k), kept (B, S·k) bool):
+    (e − e_lo)·C + its :func:`positions` rank where the assignment is to
+    a local expert and within capacity, else e_loc·C (past the end).
+    The rank counts the example's earlier assignments to the same expert
+    over all experts, so it is the reference's ``_slots_for_experts``
+    (``argsort`` + ``searchsorted`` restricted to local experts) integer
+    for integer."""
+    e_loc = num_experts if e_loc is None else e_loc
+    flat_e, pos, keep = positions(idx, num_experts, cap)
+    kept = keep & (flat_e >= e_lo) & (flat_e < e_lo + e_loc)
+    return torch.where(kept, (flat_e - e_lo) * cap + pos, e_loc * cap), kept
+
+
+def _experts(x, gates, slot, e_loc: int, cap: int, wg, wu, wd):
+    """Dispatch x (B, S, D) into the (B, e_loc, C, D) buffer by the
+    one-hot of ``slot``, the experts' SwiGLU, and the gate-weighted
+    combine back to (B, S, D)."""
+    b, s, d = x.shape
+    k = gates.shape[-1]
+    # a kept assignment's one-hot row; a dropped or foreign one's falls in
+    # the column past the end, cut off; summed over the token's k slots
+    hot = _one_hot(slot.reshape(b, s, k), e_loc * cap + 1, x.dtype)[..., :-1]
+    bufs = torch.einsum("bsc,bsd->bcd", hot.sum(2), x).reshape(
+        b, e_loc, cap, d)
+    g = F.silu(torch.einsum("becd,edf->becf", bufs, wg))
+    u = torch.einsum("becd,edf->becf", bufs, wu)
+    y_buf = torch.einsum("becf,efd->becd", g * u, wd)
+    weights = torch.einsum("bskc,bsk->bsc", hot, gates.to(y_buf.dtype))
+    return torch.einsum("bsc,bcd->bsd", weights,
+                        y_buf.reshape(b, e_loc * cap, d))
+
+
+def _shared(x, params):
+    g = F.silu(x @ params["shared_wg"])
+    return (g * (x @ params["shared_wu"])) @ params["shared_wd"]
+
+
 def moe_ffn(x, params, *, num_experts: int, k: int,
             capacity_factor: float = 1.25) -> MoEOutput:
     """x: (B, S, D).  params: router (D, E), wg/wu (E, D, F), wd (E, F,
     D), and shared_wg/shared_wu/shared_wd for a shared expert
     (llama4-style), all in x's dtype but the router."""
-    b, s, d = x.shape
     e = num_experts
-    cap = capacity_for(s, k, e, capacity_factor)
+    cap = capacity_for(x.shape[1], k, e, capacity_factor)
     gates, idx, probs = route(x, params["router"], k)
-    flat_e, pos, keep = positions(idx, e, cap)
-    # the buffer slot of each kept assignment, E·C (past the end) if
-    # dropped; its one-hot rows summed over the token's k slots
-    slot = torch.where(keep, flat_e * cap + pos, e * cap)
-    hot = _one_hot(slot.reshape(b, s, k), e * cap + 1, x.dtype)[..., :-1]
-    bufs = torch.einsum("bsc,bsd->bcd", hot.sum(2), x).reshape(b, e, cap, d)
-
-    g = F.silu(torch.einsum("becd,edf->becf", bufs, params["wg"]))
-    u = torch.einsum("becd,edf->becf", bufs, params["wu"])
-    y_buf = torch.einsum("becf,efd->becd", g * u, params["wd"])
-
-    weights = torch.einsum("bskc,bsk->bsc", hot, gates.to(y_buf.dtype))
-    y = torch.einsum("bsc,bcd->bsd", weights,
-                     y_buf.reshape(b, e * cap, d))
+    slot, keep = slots(idx, e, cap)
+    y = _experts(x, gates, slot, e, cap, params["wg"], params["wu"],
+                 params["wd"])
     if "shared_wg" in params:
-        g = F.silu(x @ params["shared_wg"])
-        y = y + (g * (x @ params["shared_wu"])) @ params["shared_wd"]
-
+        y = y + _shared(x, params)
     aux_loss = load_balance_loss(probs, idx, e)
-    kept = torch.mean(keep.float())
+    kept = keep.float().sum() / keep.numel()
     return MoEOutput(y.to(x.dtype), aux_loss, 1.0 - kept)
+
+
+def moe_ffn_sharded(x, params, *, num_experts: int, k: int,
+                    capacity_factor: float = 1.25, mesh,
+                    weight_mode: str = "fsdp", out_tp=None) -> MoEOutput:
+    """Expert-parallel MoE on a :class:`repro_torch.launch.mesh.
+    ProductionMesh`, the port of the reference's ``shard_map`` path.
+
+    x: (B_loc, S, D), this rank's rows of the batch (split over the
+    mesh's data axes, ``parallel.data_axes``), whole over ``model``.  The
+    rank of model index r owns experts [r·E/m, (r+1)·E/m): params hold
+    its blocks, router (D, E) whole, and shared_wg/shared_wu (D, F/m) and
+    shared_wd (F/m, D) as column- and row-parallel blocks.  It routes its
+    rows over all E experts, fills its local experts' slots
+    (:func:`slots`), runs them, combines its partial output, and sums the
+    partials over ``model`` (the MoE combine collective).  The experts
+    always carry the ``data`` shard (``launch.sharding``'s table keeps it
+    even with ``fsdp_params=False``).  ``weight_mode``:
+
+    * ``"fsdp"`` (train default) — expert weights (E/m, D/f, F) and wd
+      (E/m, F, D/f): their d_model dim is all-gathered over ``data`` each
+      layer (f its size);
+    * ``"stationary"`` (decode) — expert weights (E/m, D, F/f) and wd
+      (E/m, F/f, D) never move: x is all-gathered over the data axes,
+      every rank computes its (expert, d_ff) block of the whole batch,
+      one all-reduce over (``data``, ``model``) combines, and each rank
+      keeps its rows.  A forward (serving) mode.
+
+    ``out_tp=None`` gives y whole (B_loc, S, D); ``"model"`` gives this
+    rank's d_model block (B_loc, S, D/m) by a reduce-scatter instead of
+    the all-reduce (fsdp mode).  ``dropped_frac`` counts the kept
+    assignments over every expert and the whole global batch (an
+    all-reduce over the model and data axes), so it is ``moe_ffn``'s on
+    the global batch exactly.  ``aux_loss`` is this rank's rows'.
+    Raises where m does not divide E."""
+    if weight_mode not in ("fsdp", "stationary"):
+        raise ValueError(f"moe_ffn_sharded: weight_mode {weight_mode!r}")
+    e = num_experts
+    m = mesh.axis_size(TP)
+    if e % m:
+        raise ValueError(f"moe_ffn_sharded: {m} model ranks do not divide "
+                         f"{e} experts")
+    e_loc = e // m
+    wg, wu, wd = params["wg"], params["wu"], params["wd"]
+    if wg.shape[0] != e_loc:
+        raise ValueError(f"moe_ffn_sharded: expert block of {wg.shape[0]}, "
+                         f"want E/m = {e_loc}")
+    e_lo = mesh.axis_index(TP) * e_loc
+    stationary = weight_mode == "stationary"
+    dp = data_axes(mesh)
+    b_loc, s, d = x.shape
+    cap = capacity_for(s, k, e, capacity_factor)
+    xs = x
+    if stationary:
+        xs = parallel.all_gather(x, mesh, dp, 0)
+    else:
+        wg = parallel.all_gather(wg, mesh, FSDP, 1)
+        wu = parallel.all_gather(wu, mesh, FSDP, 1)
+        wd = parallel.all_gather(wd, mesh, FSDP, 2)
+    if wg.shape[1] != d or wd.shape[2] != d:
+        raise ValueError(f"moe_ffn_sharded ({weight_mode}): expert blocks "
+                         f"{tuple(wg.shape)}, {tuple(wd.shape)} for d_model "
+                         f"{d}; shard with moe_fsdp_dim="
+                         f"{'f' if stationary else 'd'}")
+    gates, idx, probs = route(xs, params["router"], k)
+    slot, kept = slots(idx, e, cap, e_lo, e_loc)
+    part = _experts(xs, gates, slot, e_loc, cap, wg, wu, wd)
+    row0 = mesh.axis_index(dp) * b_loc
+    if "shared_wg" in params:
+        shared = _shared(x, params)
+        if stationary:
+            part = torch.cat([part[:row0], part[row0:row0 + b_loc] + shared,
+                              part[row0 + b_loc:]])
+        else:
+            part = part + shared
+    if stationary:
+        y = parallel.reduce_from(part, mesh, (FSDP, TP)).narrow(0, row0,
+                                                                 b_loc)
+        if out_tp is not None:
+            dl = d // m
+            y = y.narrow(-1, mesh.axis_index(TP) * dl, dl)
+    elif out_tp is None:
+        y = parallel.reduce_from(part, mesh, TP)
+    else:
+        y = parallel.reduce_scatter(part, mesh, TP, -1)
+    aux_loss = load_balance_loss(probs, idx, e)
+    with torch.no_grad():
+        kept_n = mesh.all_reduce(kept.float().sum(), TP if stationary
+                                 else (TP, *dp))
+        total = float(kept.numel() * (1 if stationary
+                                      else mesh.axis_size(dp)))
+        dropped = 1.0 - torch.clamp(kept_n / total, max=1.0)
+    return MoEOutput(y.to(x.dtype), aux_loss, dropped)

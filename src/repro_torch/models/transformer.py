@@ -63,11 +63,17 @@ too, as the reference's scan body does.  No kernel runs in decode: the
 vlm decodes as the dense model does, over text alone (the reference
 serves no image), and audio's cross-attention reads the cached encoder
 K and V through ``decode_attend``.
+
+``build_model(cfg, mesh=..., layer_pspec_fn=...)`` runs the dense
+family's forward and loss, and the moe family's forward (expert-parallel),
+on one rank's blocks of a production mesh (:class:`Model`,
+:mod:`repro_torch.models.sharded`); the other families, and decode,
+raise there.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,7 +81,8 @@ import torch.nn.functional as F
 
 from repro_torch import Device, resolve_device, tree
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, moe, rglru, rwkv6
+from repro_torch.models import attention, layers, moe, rglru, rwkv6, sharded
+from repro_torch.parallel import data_axes
 
 
 def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -455,10 +462,140 @@ def _empty(device):
     return torch.zeros((0,), dtype=torch.float32, device=device)
 
 
+# the families a production mesh runs, and the ROADMAP item of the rest
+MESH_FAMILIES = ("dense", "moe")
+MESH_QUEUED = "ROADMAP.md queue 1: the ssm, hybrid, vlm and audio families " \
+    "on the mesh"
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
+    """``mesh`` (a :class:`repro_torch.launch.mesh.ProductionMesh`) runs
+    the forward and the loss on this rank's blocks of the parameters
+    (:func:`repro_torch.launch.sharding.shard_params`) and its rows of the
+    batch (``sharding.local_batch``), as :mod:`repro_torch.models.
+    sharded` lays out: the dense family, and the moe family's forward,
+    whose MoE FFNs run expert-parallel there (:attr:`expert_parallel`).
+    The reference's knobs: ``layer_pspec_fn`` (each layer leaf's
+    placement, which the mesh path needs: ``launch.sharding.
+    layer_pspec_fn(mesh, ...)`` with the options the parameters were
+    sharded with), ``shard_logits`` (``forward`` returns the rank's vocab
+    block of the logits, else the block all-gathered over ``model``, a
+    forward-only path; the loss is vocab-parallel either way), ``act_tp``
+    (``"model"``: the residual stream between layers split over
+    ``model``; None: whole), ``moe_weight_mode`` (``"fsdp"`` or
+    ``"stationary"``, whose expert weights are sharded with
+    ``moe_fsdp_dim="f"``) and ``dp_axes``, taken to match the
+    reference's signature: the batch splits over the mesh's data axes,
+    and any other value raises."""
     cfg: ModelConfig
     decode_window: int = 0    # 0 = full cache; > 0 = ring buffer (long ctx)
+    mesh: Any = None
+    dp_axes: Optional[tuple] = None
+    shard_logits: bool = True
+    layer_pspec_fn: Any = None
+    act_tp: Optional[str] = "model"
+    moe_weight_mode: str = "fsdp"
+
+    @property
+    def expert_parallel(self) -> bool:
+        """The moe family on a mesh runs its MoE FFNs expert-parallel
+        (``moe.moe_ffn_sharded``); the reference's dense dispatch under
+        a mesh is not ported."""
+        return self.mesh is not None and self.cfg.family == "moe"
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if self.moe_weight_mode not in ("fsdp", "stationary"):
+            raise ValueError(f"moe_weight_mode {self.moe_weight_mode!r}")
+        if self.mesh is None:
+            return
+        if cfg.family not in MESH_FAMILIES:
+            raise NotImplementedError(
+                f"the {cfg.family!r} family ({cfg.name}) on a production "
+                f"mesh is not ported ({MESH_QUEUED})")
+        if self.layer_pspec_fn is None:
+            raise ValueError(
+                "a model on a production mesh reads each layer's placement: "
+                "pass layer_pspec_fn=launch.sharding.layer_pspec_fn(mesh, "
+                "...) as the parameters were sharded")
+        if self.act_tp not in ("model", None):
+            raise ValueError(f"act_tp {self.act_tp!r}: 'model' or None")
+        if self.dp_axes is not None \
+                and tuple(self.dp_axes) != data_axes(self.mesh):
+            raise ValueError(f"dp_axes {self.dp_axes}: the batch splits over "
+                             f"the mesh's data axes {data_axes(self.mesh)}")
+        m = self.mesh.axis_size("model")
+        if cfg.num_heads % m or cfg.d_model % m:
+            raise ValueError(f"{m} model ranks do not divide {cfg.name}'s "
+                             f"{cfg.num_heads} heads and width "
+                             f"{cfg.d_model}")
+        if cfg.family == "moe" and cfg.num_experts % m:
+            raise ValueError(f"{m} model ranks do not divide {cfg.name}'s "
+                             f"{cfg.num_experts} experts")
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a production mesh is not ported (ROADMAP.md "
+                "queue 1: decode and ckpt/io.py on the mesh)")
+
+    def mesh_context(self) -> sharded.MeshContext:
+        """What the sharded blocks read of this model's mesh."""
+        return sharded.MeshContext(mesh=self.mesh, dp=data_axes(self.mesh),
+                                   act_tp=self.act_tp,
+                                   pspec=self.layer_pspec_fn,
+                                   adtype=self.cfg.adtype)
+
+    def _mesh_forward(self, ctx, params, batch, dropped=None):
+        """The sharded forward: (this rank's (B_loc, S, V/m) f32 logits
+        block, the auxiliary losses) — see :class:`Model`."""
+        cfg = self.cfg
+        table = ctx.gathered("embed", params["embed"])
+        x = sharded.embed(ctx, batch["tokens"], table).to(cfg.adtype)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for shards in sharded.layer_shards(params["blocks"]):
+            x, out = sharded.remat(self._mesh_layer, ctx, shards, x,
+                                   positions)
+            if out is not None:
+                aux = aux + out.aux_loss
+                if dropped is not None:
+                    dropped.append(out.dropped_frac)
+        x = layers.rms_norm(ctx.enter(x), params["final_norm"])
+        return layers.unembed(x, table), [aux] if cfg.family == "moe" \
+            else []
+
+    def _mesh_layer(self, ctx, shards, x, positions):
+        """One layer on the mesh from this rank's shards of its leaves →
+        (x, the MoE block's ``MoEOutput`` or None)."""
+        cfg = self.cfg
+        p = ctx.layer(shards)
+        if cfg.family == "dense":
+            return sharded.attn_block(ctx, cfg, p, x, positions), None
+        if cfg.moe_every != 1:
+            x = sharded.attn_block(ctx, cfg, _prefixed(p, "d_"), x,
+                                   positions)
+            p = _prefixed(p, "m_")
+        return sharded.moe_block(ctx, cfg, p, x, positions,
+                                 self.moe_weight_mode)
+
+    def _mesh_loss(self, params, batch):
+        """This rank's share of the mean next-token cross-entropy: its
+        tokens' sum over the global token count (its rows times the data
+        axes' ranks)."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"the {self.cfg.family!r} family's loss on a production mesh "
+                "is not ported (ROADMAP.md queue 1: the moe train step on "
+                "the mesh)")
+        ctx = self.mesh_context()
+        logits = self._mesh_forward(ctx, params, batch)[0]
+        tokens = batch["tokens"]
+        n_dp = self.mesh.axis_size(ctx.dp) if ctx.dp else 1
+        count = tokens.shape[0] * (tokens.shape[1] - 1) * n_dp
+        return sharded.cross_entropy_sum(ctx, logits[:, :-1],
+                                         tokens[:, 1:]) / count
 
     def init(self, generator: torch.Generator, device: Device = None):
         """Random parameters drawn from ``generator`` on its own device,
@@ -512,6 +649,12 @@ class Model:
         MoE layer's share of dropped assignments.  vlm prepends the
         projected image embeddings, the positions running over the whole
         sequence, and drops their logits."""
+        if self.mesh is not None:
+            logits, aux = self._mesh_forward(self.mesh_context(), params,
+                                             batch, dropped)
+            if not self.shard_logits:
+                logits = self.mesh.all_gather(logits, "model", -1)
+            return logits, aux
         cfg = self.cfg
         ad = cfg.adtype
         x = layers.embed(batch["tokens"], params["embed"]).to(ad)
@@ -562,7 +705,11 @@ class Model:
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy over the padded vocabulary, f32;
         moe adds ``router_aux_weight`` · Σ aux_loss / ``num_layers`` (all
-        layers, not the MoE ones, as in the reference)."""
+        layers, not the MoE ones, as in the reference).  On a mesh, this
+        rank's share of the mean (its tokens' sum over the global count):
+        the shares sum to the mean over the data axes."""
+        if self.mesh is not None:
+            return self._mesh_loss(params, batch)
         logits, aux = self.forward_with_aux(params, batch)
         tokens = batch["tokens"]
         ce = layers.softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
@@ -589,6 +736,7 @@ class Model:
         layer; vlm as dense; audio as dense, and the cross-attention's K
         and V of ``encoder_seq`` frames a layer, zero until
         :meth:`precompute_cross`."""
+        self._no_mesh("init_decode")
         cfg = self.cfg
         dev = resolve_device(device)
         n_attn = self._n_attn_layers()
@@ -659,6 +807,7 @@ class Model:
         is a new tensor, one device scalar for the batch, so the step
         never syncs with the host.  Clone a state to keep it.  Runs
         without autograd."""
+        self._no_mesh("decode_step")
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"]).to(cfg.adtype)  # (B, 1, D)
         x = {"dense": self._dense_decode, "vlm": self._dense_decode,
@@ -753,11 +902,17 @@ class Model:
         return x
 
 
-def build_model(cfg: ModelConfig, *, decode_window: int = 0) -> Model:
+def build_model(cfg: ModelConfig, *, decode_window: int = 0, mesh=None,
+                dp_axes: Optional[tuple] = None, shard_logits: bool = True,
+                layer_pspec_fn=None, act_tp: Optional[str] = "model",
+                moe_weight_mode: str = "fsdp") -> Model:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"build_model: unknown family {cfg.family!r} ({cfg.name})")
-    return Model(cfg=cfg, decode_window=decode_window)
+    return Model(cfg=cfg, decode_window=decode_window, mesh=mesh,
+                 dp_axes=dp_axes, shard_logits=shard_logits,
+                 layer_pspec_fn=layer_pspec_fn, act_tp=act_tp,
+                 moe_weight_mode=moe_weight_mode)
 
 
 def params_from_numpy(arrays: Any, device: Device = None):

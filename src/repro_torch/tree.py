@@ -82,3 +82,21 @@ def vdot(a: Tree, b: Tree) -> torch.Tensor:
 def sq_norm(a: Tree) -> torch.Tensor:
     """‖a‖² over all leaves, leaf by leaf in leaf order."""
     return sum(torch.sum(x * x) for x in leaves(a))
+
+
+def named_leaves(tree, prefix=""):
+    """(path "a/b", leaf) of a tree of nested dicts, in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def rebuild(tree, values: dict, prefix=""):
+    """``tree``'s structure with the leaf at path p taken from
+    ``values[p]``."""
+    if isinstance(tree, dict):
+        return {k: rebuild(v, values, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    return values[prefix[:-1]]
