@@ -230,15 +230,21 @@ last line):
    one-rank NCCL group, ``make_host_mesh()``: llama3-8b at full width
    (2 layers, batch 8, seq 128, τ = 2), 3 train steps bit for bit
    ``mesh=None`` (parameters and lin; the same wgmma and ``lambda0``
-   launches), and qwen3-moe (2 of 94 layers, bf16, (4, 160)) through
+   launches), qwen3-moe (2 of 94 layers, bf16, (4, 160)) through
    the expert-parallel forward in both weight modes against ``moe_ffn``
-   (equal drops, within 2e-2 of the largest |logit|); then four gloo
-   ranks on ``cuda:0`` at (2, 2): the reduced llama3-8b (both
-   ``act_tp``) and granite-34b (one kv head) train steps and the reduced
-   qwen3-moe forward in both modes, the ranks bit for bit each other and
-   within 1e-5 of the same cases in one process; every run's
-   collectives by axes as predicted, step and forward times and peaks
-   printed;
+   (equal drops, logits bit for bit), and rwkv6-7b, recurrentgemma-9b
+   (3 layers), phi-3-vision (B = 4, 1,024 tokens) and whisper (2 + 2
+   layers, 1,500 frames): 3 train steps and a prefill each, bit for bit
+   ``mesh=None`` in parameters, lin, losses and prefill logits (the twin
+   run's outputs kept on the host); then four gloo ranks on ``cuda:0``
+   at (2, 2): the reduced llama3-8b (both ``act_tp``) and granite-34b
+   (one kv head) train steps, the reduced qwen3-moe forward in both
+   modes, and the reduced qwen3-moe, llama4-maverick, rwkv6-7b,
+   recurrentgemma-9b, phi-3-vision and whisper train and prefill steps,
+   the ranks bit for bit each other and within 1e-5 of the same cases in
+   one process; every run's collectives by axes as predicted, the layer
+   kernels' forwards twice a layer a step (the remat), step and forward
+   times and peaks printed;
 7. time ``masked_sum`` (I = 4) and both ``ssca_update`` variants
    directly at both full-width LM paths' widths, once those paths have
    freed their memory: the median of 5 eager launches after 2 warm-ups,
@@ -3613,9 +3619,10 @@ def moe_flash_row(name):
 
 
 # the vlm paths at full width (head dim 96 on the wgmma kernel: the train
-# forward's row and the serve forwards' row)
+# forward's row, the production mesh's twin steps included, and the serve
+# forwards' row)
 def vlm_flash_row(name):
-    if name == "train_vlm_full":
+    if name == "train_vlm_full" or name.startswith("mesh_host_vlm_full"):
         return "flash_attention_hd96"
     if name.startswith("serve_vlm_full"):
         return "flash_attention_hd96_serve"
@@ -3634,6 +3641,50 @@ def lm_path(name):
     the reduced moe and vlm paths)."""
     return not (hybrid_path(name) or audio_path(name)
                 or moe_flash_row(name) or vlm_flash_row(name))
+
+
+def mixed_path(name):
+    """The production mesh's reduced gloo paths, which run every family's
+    case: their flash launches are credited by instance (mask)."""
+    return name.startswith("mesh_gloo")
+
+
+def flash_row_paths():
+    """Each flash row's (paths, the counts it reads there) pairs: the
+    hybrid's instances (by variant) on its rows, the moe serve paths' and
+    the vlm's on theirs, the audio paths' on theirs by mask (the decoder's
+    causal self-attention, the encoder's, the cross-attention), the other
+    paths' causal launches on the LM rows; the mixed gloo paths' band and
+    unmasked launches on the f32 band and unmasked rows."""
+    wgmma, tf32x3 = "flash_attention_wgmma", "flash_attention_tf32x3"
+    return {
+        "flash_attention": [(lm_path, (f"{wgmma}_causal",))],
+        "flash_attention_tf32x3": [(lambda p: not hybrid_path(p),
+                                    (f"{tf32x3}_causal",))],
+        "flash_attention_hd256": [(hybrid_path, (wgmma,))],
+        "flash_attention_tf32x3_band": [(hybrid_path, (tf32x3,)),
+                                        (mixed_path, (f"{tf32x3}_band",))],
+        **{row: [(lambda p, r=row: moe_flash_row(p) == r, (wgmma,))]
+           for row in FLASH_MOE},
+        **{row: [(lambda p, r=row: vlm_flash_row(p) == r, (wgmma,))]
+           for row in ("flash_attention_hd96", "flash_attention_hd96_serve")},
+        "flash_attention_audio_decoder": [(audio_path, (f"{wgmma}_causal",))],
+        "flash_attention_encoder": [(audio_path, (f"{wgmma}_self",))],
+        "flash_attention_cross": [(audio_path, (f"{wgmma}_cross",))],
+        "flash_attention_tf32x3_noncausal": [
+            (lambda p: audio_path(p) or mixed_path(p),
+             (f"{tf32x3}_self", f"{tf32x3}_cross"))]}
+
+
+def flash_row_launches(pairs, by_path):
+    """A flash row's launches by path, from its :func:`flash_row_paths`
+    pairs."""
+    per = {}
+    for paths, keys in pairs:
+        for p, v in by_path.items():
+            if paths(p):
+                per[p] = per.get(p, 0) + sum(v.get(k, 0) for k in keys)
+    return per
 
 
 def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
@@ -3758,35 +3809,13 @@ def phase_timing(torch, su, sa, kc, ks, fa, rw, launches, by_path, errs,
                   "ssca_update": "ssca_update_beta"}
     timing_only = {"flash_attention_f32_wide", "flash_attention_hd256_band",
                    *FLASH_NEW_TIMING_ONLY}
-    # each flash row's paths and the counts it reads there: the hybrid's
-    # instances (by variant) on its rows, the moe serve paths' and the
-    # vlm's on theirs, the audio paths' on theirs by mask (the decoder's
-    # causal self-attention, the encoder's, the cross-attention), the
-    # other paths' causal launches on the LM rows
-    wgmma, tf32x3 = "flash_attention_wgmma", "flash_attention_tf32x3"
-    flash_rows = {
-        "flash_attention": (lm_path, (f"{wgmma}_causal",)),
-        "flash_attention_tf32x3": (lambda p: not hybrid_path(p),
-                                   (f"{tf32x3}_causal",)),
-        "flash_attention_hd256": (hybrid_path, (wgmma,)),
-        "flash_attention_tf32x3_band": (hybrid_path, (tf32x3,)),
-        **{row: (lambda p, r=row: moe_flash_row(p) == r, (wgmma,))
-           for row in FLASH_MOE},
-        **{row: (lambda p, r=row: vlm_flash_row(p) == r, (wgmma,))
-           for row in ("flash_attention_hd96", "flash_attention_hd96_serve")},
-        "flash_attention_audio_decoder": (audio_path, (f"{wgmma}_causal",)),
-        "flash_attention_encoder": (audio_path, (f"{wgmma}_self",)),
-        "flash_attention_cross": (audio_path, (f"{wgmma}_cross",)),
-        "flash_attention_tf32x3_noncausal": (
-            audio_path, (f"{tf32x3}_self", f"{tf32x3}_cross"))}
+    flash_rows = flash_row_paths()
 
     def row_launches(name):
         if name in timing_only:
             return 0, {}
         if name in flash_rows:
-            paths, keys = flash_rows[name]
-            per = {p: sum(v.get(k, 0) for k in keys)
-                   for p, v in by_path.items() if paths(p)}
+            per = flash_row_launches(flash_rows[name], by_path)
             return sum(per.values()), per
         key = launch_key.get(name, name)
         return launches[key], {p: v.get(key, 0) for p, v in by_path.items()}
@@ -5077,6 +5106,18 @@ PM_AXES = ("data", "model")
 PM_DENSE = (("llama3-8b", "model"), ("llama3-8b", None),
             ("granite-34b", "model"))
 PM_MODES = ("fsdp", "stationary")
+# the families' train and prefill steps at full width on the one-rank
+# mesh, against mesh=None: (arch, short name, the layers' cut, batch, seq),
+# launch/train.py's B = 8 and S = 128, the vlm at train_vlm_full's shape
+PM_FAMILIES = (("llama3-8b", "llama", None, TRAIN_BATCH, TRAIN_SEQ),
+               ("rwkv6-7b", "rwkv", None, TRAIN_BATCH, TRAIN_SEQ),
+               (HYBRID_ARCH, "hybrid", HYBRID_LAYERS, TRAIN_BATCH, TRAIN_SEQ),
+               (VLM_ARCH, "vlm", None, *VLM_TRAIN),
+               (AUDIO_ARCH, "audio", LM_LAYERS, *AUDIO_TRAIN))
+# the four gloo ranks' family cases: the reduced moe train steps and the
+# four families' (tests/torch_production_mesh_family_cases.py's)
+PM_FAMILY_CASES = (MOE_ARCH, MOE_INTERLEAVED_ARCH, "rwkv6-7b", HYBRID_ARCH,
+                   VLM_ARCH, AUDIO_ARCH)
 # the reduced cases' bounds against the one-process run (the CPU tests'):
 # every leaf within 1e-5 of its largest |entry|, loss and ‖g‖ within 1e-5
 # relative, the moe logits within 1e-5 of the largest |logit|; the full
@@ -5084,14 +5125,15 @@ PM_MODES = ("fsdp", "stationary")
 PM_LEAF = 1e-5
 
 
-def pm_predicted():
-    """The collective counts a train step and a moe forward make
-    (``tests/torch_production_mesh_cases.py``'s ``dense_calls`` and
-    ``moe_forward_calls``, the formulas ``PERF.md`` §6 states and the CPU
-    tests hold)."""
+def pm_cases():
+    """``tests/torch_production_mesh_cases.py`` and ``tests/
+    torch_production_mesh_family_cases.py``: the reduced cases' setups
+    and the collective formulas (``family_calls``, ``moe_forward_calls``)
+    that ``PERF.md`` §6 states and the CPU tests hold."""
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_production_mesh_cases as cases
-    return cases.dense_calls, cases.moe_forward_calls
+    import torch_production_mesh_family_cases as family
+    return cases, family
 
 
 def pm_sync(torch, dev):
@@ -5122,25 +5164,14 @@ def pm_held(torch, dev):
         else None
 
 
-def pm_reduced(torch, arch, dev):
-    """A reduced case's config, weights (seeded 0 dense, 1 moe, drawn on
-    the CPU) and batch (tests/distributed_check.py's shapes: (4, 32)
-    dense, (4, 16) moe), on ``dev``."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import reduced
-    from repro_torch.models import build_model
+def pm_reduced(torch, case, dev):
+    """A reduced case's (config, weights, batch), drawn on the CPU by its
+    setup in ``pm_cases()``, on ``dev``."""
     from repro_torch.models.transformer import params_from_numpy, \
         params_to_numpy
-    cfg = reduced(get_config(arch))
-    is_moe = cfg.family == "moe"
-    params = build_model(cfg).init(
-        torch.Generator().manual_seed(1 if is_moe else 0), device="cpu")
-    shape = (4, 16) if is_moe else (4, 32)
-    tok = np.random.default_rng(9 if is_moe else 7).integers(
-        0, cfg.vocab_size, shape)
+    cfg, params, batch = case
     return cfg, params_from_numpy(params_to_numpy(params), dev), {
-        "tokens": torch.as_tensor(tok, dtype=torch.int32, device=dev)}
+        k: v.to(dev) for k, v in batch.items()}
 
 
 def pm_train(torch, model, params, batches, dev, mesh=None):
@@ -5177,9 +5208,19 @@ def pm_numpy(tree_):
 def pm_remat_launches(launches):
     """A train step's launches on a mesh from its launches without one:
     each layer runs again in the backward (``models.sharded.remat``), so
-    the flash forward twice a layer; the rest once."""
-    return {k: 2 * n if k.startswith("flash_attention") else n
-            for k, n in launches.items()}
+    the layer kernels' forwards (flash, WKV; their backwards are plain)
+    twice a layer; the rest once."""
+    return {k: 2 * n if k.startswith(("flash_attention", "rwkv6_wkv"))
+            else n for k, n in launches.items()}
+
+
+def pm_prefill(torch, model, params, batch, dev):
+    """``make_prefill_step`` once: the (B, V) logits, its seconds."""
+    from repro_torch.launch import steps
+    t0 = time.perf_counter()
+    logits = steps.make_prefill_step(model)(params, batch)
+    pm_sync(torch, dev)
+    return logits, time.perf_counter() - t0
 
 
 def pm_forward(torch, model, params, batch, dev, mesh=None):
@@ -5196,67 +5237,103 @@ def pm_forward(torch, model, params, batch, dev, mesh=None):
             dict(mesh.calls) if mesh is not None else {})
 
 
-def pm_host_dense(torch, kernels, card, mesh, dev):
-    """llama3-8b at full width, LM_LAYERS of 32 layers, ``launch/train.py``'s
-    batches (B = TRAIN_BATCH, S = TRAIN_SEQ), PM_STEPS steps at τ =
-    PM_TAU, without a mesh and on the one-rank ``make_host_mesh()``:
-    parameters and ``lin`` bit for bit, losses and ‖g‖ within 1e-6
-    relative (the mean's last bit), the same kernel launches but the
-    flash forward's, twice a layer on the mesh (:func:`pm_remat_launches`),
-    the predicted collectives."""
+def pm_host_family(torch, kernels, card, mesh, dev, arch, short, layers,
+                   batch, seq):
+    """``arch`` at full width, 2 of its layers (``layers``: the hybrid's 3,
+    one unit; whisper's encoder cut to 2 as well), ``launch/train.py``'s
+    batches at (``batch``, ``seq``), PM_STEPS train steps at τ = PM_TAU and
+    one prefill step from the first weights, without a mesh and on the
+    one-rank ``make_host_mesh()``: parameters, ``lin``, the losses and the
+    prefill logits bit for bit, ‖g‖ within 1e-6 relative, the same kernel
+    launches but the layer kernels' forwards, twice a layer in the mesh's
+    train step (:func:`pm_remat_launches`), the predicted collectives.
+    The twin runs one after the other, its outputs copied to the host
+    before the next starts (recurrentgemma's step alone peaks at 54.63
+    GB)."""
     import dataclasses
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.launch import sharding, train
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=LM_LAYERS)
+    cut = {"num_layers": layers or LM_LAYERS}
+    if arch == AUDIO_ARCH:
+        cut["encoder_layers"] = LM_LAYERS
+    cfg = dataclasses.replace(get_config(arch), **cut)
     params = build_model(cfg).init(
         torch.Generator(device=dev).manual_seed(0), device=dev)
-    stream = train.batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    stream = train.batch_stream(cfg, batch, seq, device=dev)
     batches = [next(stream) for _ in range(PM_STEPS)]
-    out = {}
-    runs = {}
+    out, runs = {}, {}
     for name, model in (("none", build_model(cfg)),
                         ("mesh", build_model(
                             cfg, mesh=mesh,
                             layer_pspec_fn=sharding.layer_pspec_fn(mesh)))):
-        p = params if name == "none" else sharding.shard_params(params, mesh)
+        on_mesh = mesh if name == "mesh" else None
+        p0 = params if name == "none" else sharding.shard_params(params,
+                                                                 mesh)
         reset_counts(kernels)
         held = pm_held(torch, dev)
         pm_peak(torch, dev, reset=True)
-        p, lin, metrics, secs, calls = pm_train(
-            torch, model, p, batches, dev, mesh if name == "mesh" else None)
-        runs[name] = (tree.leaves(p), tree.leaves(lin), metrics)
+        p, lin, metrics, secs, calls = pm_train(torch, model, p0, batches,
+                                                dev, on_mesh)
+        launches = counts(kernels)
+        peak = pm_peak(torch, dev)
+        reset_counts(kernels)
+        if on_mesh is not None:
+            mesh.reset_counts()
+        logits, prefill_s = pm_prefill(torch, model, p0, batches[0], dev)
+        runs[name] = ([t.cpu() for t in tree.leaves(p) + tree.leaves(lin)],
+                      metrics, logits.cpu())
         out[name] = {"metrics": metrics, "step_s": secs,
-                     "peak_device_bytes": pm_peak(torch, dev),
-                     "held_bytes": held, "launches": counts(kernels),
-                     "calls": calls}
-    (pa, la, ma), (pb, lb, mb) = runs["none"], runs["mesh"]
-    same = all(torch.equal(a, b) for a, b in zip(pa + la, pb + lb))
-    worst = max(abs(x - y) / abs(x) for u, v in zip(ma, mb)
-                for x, y in zip(u, v))
-    want = pm_predicted()[0](cfg, 1, "model")
-    log(f"production mesh, one {mesh.backend} rank, llama3-8b "
-        f"({LM_LAYERS} of 32 layers, B = {TRAIN_BATCH}, S = {TRAIN_SEQ}, "
-        f"tau {PM_TAU}), make_host_mesh() against mesh=None:",
-        json.dumps({"bit_for_bit": same, "metrics_rel_gap": worst,
-                    "calls_per_step": want, **out}), f"on {card}")
-    if not same or not worst <= 1e-6:
-        raise AssertionError(f"host mesh llama3-8b: bit for bit {same}, "
-                             f"metrics {worst} from mesh=None")
-    if out["mesh"]["launches"] != pm_remat_launches(out["none"]["launches"]) \
-            or not out["mesh"]["launches"]["ssca_update_lambda0"]:
-        raise AssertionError(f"host mesh llama3-8b: launches "
-                             f"{out['mesh']['launches']}, mesh=None "
-                             f"{out['none']['launches']}")
-    if out["mesh"]["calls"] != [want] * PM_STEPS:
-        raise AssertionError(f"host mesh llama3-8b: collectives "
-                             f"{out['mesh']['calls']}, want {want} a step")
-    del params, runs, pa, pb, la, lb
+                     "prefill_s": prefill_s, "peak_device_bytes": peak,
+                     "held_bytes": held, "launches": launches,
+                     "prefill_launches": counts(kernels), "calls": calls,
+                     "prefill_calls": dict(mesh.calls) if on_mesh else {}}
+        del p, lin, logits, p0
+        pm_free(torch, dev)
+    (wa, ma, la), (wb, mb, lb) = runs["none"], runs["mesh"]
+    same = all(torch.equal(a, b) for a, b in zip(wa, wb))
+    same_loss = [u[0] for u in ma] == [v[0] for v in mb]
+    same_logits = bool(torch.equal(la, lb))
+    worst = max(abs(u[1] - v[1]) / abs(u[1]) for u, v in zip(ma, mb))
+    cases = pm_cases()[1]
+    want = cases.family_calls(cfg, 1, "model", train=True)
+    want_prefill = cases.family_calls(cfg, 1, "model", train=False)
+    log(f"production mesh, one {mesh.backend} rank, {arch} "
+        f"({cfg.num_layers} layers, B = {batch}, S = {seq}, tau {PM_TAU}), "
+        "make_host_mesh() against mesh=None:",
+        json.dumps({"bit_for_bit": same, "losses_bit_for_bit": same_loss,
+                    "prefill_bit_for_bit": same_logits,
+                    "kkt_rel_gap": worst, "parameters": sum(
+                        t.numel() for t in tree.leaves(params)),
+                    "calls_per_step": want, "prefill_calls": want_prefill,
+                    **out}), f"on {card}")
+    if not (same and same_loss and same_logits and worst <= 1e-6):
+        raise AssertionError(f"host mesh {arch}: bit for bit {same}, losses "
+                             f"{same_loss}, prefill {same_logits}, ‖g‖ "
+                             f"{worst} from mesh=None")
+    mesh_l, none_l = out["mesh"], out["none"]
+    if mesh_l["launches"] != pm_remat_launches(none_l["launches"]) \
+            or mesh_l["prefill_launches"] != none_l["prefill_launches"] \
+            or mesh_l["launches"]["ssca_update_lambda0"] != PM_STEPS \
+            or not any(mesh_l["prefill_launches"][k] for k in
+                       ("flash_attention", "rwkv6_wkv")):
+        raise AssertionError(f"host mesh {arch}: launches {mesh_l}, "
+                             f"mesh=None {none_l}")
+    if mesh_l["calls"] != [want] * PM_STEPS \
+            or mesh_l["prefill_calls"] != want_prefill:
+        raise AssertionError(f"host mesh {arch}: collectives "
+                             f"{mesh_l['calls']}, prefill "
+                             f"{mesh_l['prefill_calls']}, want {want} a step "
+                             f"and {want_prefill}")
+    del params, runs, wa, wb
     pm_free(torch, dev)
-    return ({f"mesh_host_llama_full{s}": out[k]["launches"]
+    both = {k: {n: run["launches"].get(n, 0) + run["prefill_launches"][n]
+                for n in run["prefill_launches"]}
+            for k, run in out.items()}
+    return ({f"mesh_host_{short}_full{s}": both[k]
              for k, s in (("mesh", ""), ("none", "_none"))},
-            {"llama_full": out})
+            {f"{short}_full": out})
 
 
 def pm_host_moe(torch, kernels, card, mesh, dev):
@@ -5298,7 +5375,7 @@ def pm_host_moe(torch, kernels, card, mesh, dev):
         logits, drops, secs, calls = pm_forward(torch, model, p, batch, dev,
                                                 mesh)
         gap = float((logits - ref).abs().max()) / top
-        want = pm_predicted()[1](cfg, "model", mode)
+        want = pm_cases()[0].moe_forward_calls(cfg, "model", mode)
         launches = by_path[f"mesh_moe_full_{mode}"] = counts(kernels)
         same = bool(torch.equal(logits, ref))
         out[mode] = {"dropped": drops, "logits_gap": gap,
@@ -5321,23 +5398,58 @@ def pm_host_moe(torch, kernels, card, mesh, dev):
     return by_path, {"moe_full": out}
 
 
+def pm_family_train(torch, kernels, model, params, batch, dev, mesh=None):
+    """A reduced family case: PM_STEPS train steps and one prefill step
+    from the first weights, each part's launches (and, on a mesh, its
+    collectives) counted apart."""
+    reset_counts(kernels)
+    pm_peak(torch, dev, reset=True)
+    p, lin, metrics, secs, calls = pm_train(torch, model, params,
+                                            [batch] * PM_STEPS, dev, mesh)
+    launches = counts(kernels)
+    reset_counts(kernels)
+    if mesh is not None:
+        mesh.reset_counts()
+    logits, _ = pm_prefill(torch, model, params, batch, dev)
+    return {"p": p, "lin": lin, "logits": logits, "metrics": metrics,
+            "step_s": secs, "calls": calls, "launches": launches,
+            "prefill_launches": counts(kernels),
+            "prefill_calls": dict(mesh.calls) if mesh is not None else {},
+            "peak_device_bytes": pm_peak(torch, dev)}
+
+
 def pm_single_reduced(torch, kernels, dev):
     """The gloo ranks' cases in one process on ``dev``: each dense case's
-    steps and the moe forward without a mesh; their launches."""
+    steps, the moe forward and each family case's steps and prefill
+    without a mesh; their launches."""
     from repro_torch.models import build_model
-    dense, forward = {}, None
+    cases, family_cases = pm_cases()
+    dense, family = {}, {}
     reset_counts(kernels)
     for arch in sorted({a for a, _ in PM_DENSE}):
-        cfg, params, batch = pm_reduced(torch, arch, dev)
+        cfg, params, batch = pm_reduced(torch, cases.dense_setup(arch), dev)
         p, lin, metrics, _, _ = pm_train(torch, build_model(cfg), params,
                                          [batch] * PM_STEPS, dev)
         dense[arch] = {"params": pm_numpy(p), "lin": pm_numpy(lin),
                        "metrics": metrics}
-    cfg, params, batch = pm_reduced(torch, MOE_ARCH, dev)
+    cfg, params, batch = pm_reduced(torch, cases.moe_setup(MOE_ARCH), dev)
     logits, dropped, _, _ = pm_forward(torch, build_model(cfg), params,
                                        batch, dev)
     forward = (logits.cpu().numpy(), dropped)
-    return dense, forward, counts(kernels)
+    total = counts(kernels)
+    for case in PM_FAMILY_CASES:
+        cfg, params, batch = pm_reduced(torch, family_cases.setup(case), dev)
+        run = pm_family_train(torch, kernels, build_model(cfg), params,
+                              batch, dev)
+        family[case] = {"params": pm_numpy(run["p"]),
+                        "lin": pm_numpy(run["lin"]),
+                        "prefill": run["logits"].cpu().numpy(),
+                        "metrics": run["metrics"],
+                        "launches": run["launches"],
+                        "prefill_launches": run["prefill_launches"]}
+        for part in ("launches", "prefill_launches"):
+            total = {k: total[k] + run[part][k] for k in total}
+    return dense, forward, family, total
 
 
 def production_mesh_rank(dev="cuda"):
@@ -5347,18 +5459,22 @@ def production_mesh_rank(dev="cuda"):
     with the metrics, collectives, launches, step seconds and peaks."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels import ssca_update as su
     from repro_torch.launch import sharding
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = {"flash_attention": fa.flash_attention_bhsd,
-               "ssca_update": su.ssca_update_2d}
+               "ssca_update": su.ssca_update_2d,
+               "rwkv6_wkv": rw.rwkv6_wkv_bh}
     mesh = make_mesh(PM_LAYOUT, PM_AXES, device=dev)
+    cases, family_cases = pm_cases()
     out = {"coords": mesh.coords, "backend": mesh.backend,
-           "device": str(mesh.device), "dense": {}, "moe": {}}
+           "device": str(mesh.device), "dense": {}, "moe": {}, "family": {}}
     for arch, act in PM_DENSE:
-        cfg, params, batch = pm_reduced(torch, arch, mesh.device)
+        cfg, params, batch = pm_reduced(torch, cases.dense_setup(arch),
+                                        mesh.device)
         model = build_model(cfg, mesh=mesh, act_tp=act,
                             layer_pspec_fn=sharding.layer_pspec_fn(mesh))
         reset_counts(kernels)
@@ -5373,7 +5489,8 @@ def production_mesh_rank(dev="cuda"):
             "metrics": metrics, "calls": calls, "step_s": secs,
             "launches": counts(kernels),
             "peak_device_bytes": pm_peak(torch, mesh.device)}
-    cfg, params, batch = pm_reduced(torch, MOE_ARCH, mesh.device)
+    cfg, params, batch = pm_reduced(torch, cases.moe_setup(MOE_ARCH),
+                                    mesh.device)
     for mode in PM_MODES:
         place = dict(moe_fsdp_dim="f" if mode == "stationary" else "d")
         model = build_model(cfg, mesh=mesh, moe_weight_mode=mode,
@@ -5389,6 +5506,20 @@ def production_mesh_rank(dev="cuda"):
         out["moe"][mode] = {"logits": full.cpu().numpy(), "dropped": dropped,
                             "calls": calls, "forward_s": secs,
                             "launches": counts(kernels)}
+    for case in PM_FAMILY_CASES:
+        cfg, params, batch = pm_reduced(torch, family_cases.setup(case),
+                                        mesh.device)
+        model = build_model(cfg, mesh=mesh,
+                            layer_pspec_fn=sharding.layer_pspec_fn(mesh))
+        run = pm_family_train(torch, kernels, model,
+                              sharding.shard_params(params, mesh),
+                              sharding.local_batch(batch, mesh), mesh.device,
+                              mesh)
+        out["family"][case] = {
+            "params": pm_numpy(sharding.gather_params(run.pop("p"), mesh)),
+            "lin": pm_numpy(sharding.gather_params(run.pop("lin"), mesh)),
+            "prefill": mesh.all_gather(run.pop("logits"), "data",
+                                       0).cpu().numpy(), **run}
     return out
 
 
@@ -5402,8 +5533,8 @@ def pm_ranks_check(torch, ranks, single, card, dev="cuda",
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
-    dense, (logits, dropped) = single
-    dense_calls, moe_calls = pm_predicted()
+    dense, (logits, dropped), family = single
+    cases, family_cases = pm_cases()
     m = PM_LAYOUT[1]
     summary = {}
     for r, res in enumerate(ranks):
@@ -5415,7 +5546,7 @@ def pm_ranks_check(torch, ranks, single, card, dev="cuda",
                                  f"{res['backend']}, {res['coords']}")
     for arch, act in PM_DENSE:
         cfg = reduced(get_config(arch))
-        want_calls = dense_calls(cfg, m, act)
+        want_calls = family_cases.family_calls(cfg, m, act, train=True)
         runs = [res["dense"][(arch, act)] for res in ranks]
         worst = 0.0
         for r, run in enumerate(runs):
@@ -5450,7 +5581,7 @@ def pm_ranks_check(torch, ranks, single, card, dev="cuda",
     cfg = reduced(get_config(MOE_ARCH))
     top = float(np.abs(logits).max())
     for mode in PM_MODES:
-        want_calls = moe_calls(cfg, "model", mode)
+        want_calls = cases.moe_forward_calls(cfg, "model", mode)
         runs = [res["moe"][mode] for res in ranks]
         gap = float(np.abs(runs[0]["logits"] - logits).max()) / top
         for r, run in enumerate(runs):
@@ -5468,6 +5599,9 @@ def pm_ranks_check(torch, ranks, single, card, dev="cuda",
             "logits_gap": gap, "dropped": dropped,
             "forward_s": [run["forward_s"] for run in runs],
             "calls": want_calls}
+    for case in PM_FAMILY_CASES:
+        summary[f"{case} train"] = pm_family_check(
+            torch, case, [res["family"][case] for res in ranks], family[case])
     log(f"production mesh, four {backend} ranks at {PM_LAYOUT} on "
         f"{sorted({res['device'] for res in ranks})}: ranks bit for bit, "
         "within the CPU tests' bounds of one process:", json.dumps(summary),
@@ -5475,15 +5609,119 @@ def pm_ranks_check(torch, ranks, single, card, dev="cuda",
     return summary
 
 
+def moe_full_train_rank(layout, dev="cuda"):
+    """One NCCL rank of a ``layout`` (data, model) mesh, one card each:
+    qwen3-moe at full width, LM_LAYERS of its 94 layers in bf16 as
+    published, ``launch/train.py``'s batches (B = TRAIN_BATCH, S =
+    TRAIN_SEQ), each MoE layer's dropped share and expert ids at the
+    first weights, then PM_STEPS train steps at τ = PM_TAU; the weights
+    drawn on every card from one seed and sharded.  Returns the metrics,
+    the collectives, step seconds, peak and launches
+    (``tools/production_mesh_cards.py``: it does not fit one card)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssca_update as su
+    from repro_torch.launch import sharding, train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {"flash_attention": fa.flash_attention_bhsd,
+               "ssca_update": su.ssca_update_2d}
+    mesh = make_mesh(layout, PM_AXES, device=dev)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=LM_LAYERS)
+    full = build_model(cfg).init(
+        torch.Generator(device=mesh.device).manual_seed(0),
+        device=mesh.device)
+    params = sharding.shard_params(full, mesh)
+    del full
+    torch.cuda.empty_cache()
+    model = build_model(cfg, mesh=mesh,
+                        layer_pspec_fn=sharding.layer_pspec_fn(mesh))
+    stream = train.batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                device=mesh.device)
+    batches = [sharding.local_batch(next(stream), mesh)
+               for _ in range(PM_STEPS)]
+    with moe_routes(torch) as routes:
+        _, dropped, _, _ = pm_forward(torch, model, params, batches[0],
+                                      mesh.device, mesh)
+    reset_counts(kernels)
+    held = pm_held(torch, mesh.device)
+    pm_peak(torch, mesh.device, reset=True)
+    _, _, metrics, secs, calls = pm_train(torch, model, params, batches,
+                                          mesh.device, mesh)
+    return {"coords": mesh.coords, "device": str(mesh.device),
+            "dropped": dropped, "metrics": metrics, "step_s": secs,
+            "routes": [idx.cpu().numpy() for idx, _ in routes],
+            "calls": calls, "launches": counts(kernels),
+            "held_bytes": held,
+            "peak_device_bytes": pm_peak(torch, mesh.device)}
+
+
+def pm_family_check(torch, case, runs, want):
+    """The four ranks' runs of a reduced family case: bit for bit each
+    other (parameters, ``lin``, prefill logits), within PM_LEAF of the
+    one-process run (the CPU tests' bounds), the predicted collectives,
+    the one-process launches with the layer kernels' forwards twice (the
+    remat's rerun), ``lambda0`` once a step."""
+    import numpy as np
+    cases = pm_cases()[1]
+    cfg = cases.setup(case)[0]
+    train = cases.family_calls(cfg, PM_LAYOUT[1], "model", train=True)
+    prefill = cases.family_calls(cfg, PM_LAYOUT[1], "model", train=False)
+    # the ranks count their three kernels, the one process every kernel
+    launches = {k: n for k, n in pm_remat_launches(want["launches"]).items()
+                if k in runs[0]["launches"]}
+    prefill_launches = {k: want["prefill_launches"][k]
+                        for k in runs[0]["prefill_launches"]}
+    worst = 0.0
+    for r, run in enumerate(runs):
+        for k in ("params", "lin"):
+            for name, w in want[k].items():
+                if not np.array_equal(run[k][name], runs[0][k][name]):
+                    raise AssertionError(f"gloo {case}: rank {r}'s {k} "
+                                         f"{name} differs from 0's")
+                worst = max(worst, float(np.abs(run[k][name] - w).max())
+                            / float(np.abs(w).max()))
+        gap = max(abs(x - y) / abs(y) for u, v in zip(
+            run["metrics"], want["metrics"]) for x, y in zip(u, v))
+        pre = float(np.abs(run["prefill"] - want["prefill"]).max()) \
+            / float(np.abs(want["prefill"]).max())
+        if run["calls"] != [train] * PM_STEPS \
+                or run["prefill_calls"] != prefill or gap > PM_LEAF \
+                or pre > PM_LEAF \
+                or not np.array_equal(run["prefill"], runs[0]["prefill"]) \
+                or run["launches"] != launches \
+                or run["prefill_launches"] != prefill_launches \
+                or run["launches"]["ssca_update_lambda0"] != PM_STEPS:
+            raise AssertionError(
+                f"gloo {case} rank {r}: collectives {run['calls']} (want "
+                f"{train}), prefill {run['prefill_calls']} (want {prefill}), "
+                f"metrics gap {gap}, prefill gap {pre}, launches "
+                f"{run['launches']} / {run['prefill_launches']} (want "
+                f"{launches} / {prefill_launches})")
+    if worst > PM_LEAF:
+        raise AssertionError(f"gloo {case}: {worst} of the largest |leaf| "
+                             "from the one-process run")
+    return {"leaf_gap": worst, "metrics": runs[0]["metrics"],
+            "step_s": [run["step_s"] for run in runs],
+            "peak_device_bytes": [run["peak_device_bytes"] for run in runs],
+            "calls_per_step": train, "prefill_calls": prefill,
+            "launches": runs[0]["launches"],
+            "prefill_launches": runs[0]["prefill_launches"]}
+
+
 def phase_production_mesh(torch, kernels, card, dev="cuda",
                           backend="nccl"):
     """The production mesh (``launch/mesh.py::make_mesh``, ``models/
     sharded.py``): on a one-rank ``backend`` group in this process
-    (``init_process_group`` on a FileStore), llama3-8b's train steps on
-    ``make_host_mesh()`` bit for bit ``mesh=None`` and qwen3-moe's
-    expert-parallel forward in both weight modes against ``moe_ffn``;
-    then four gloo ranks on ``cuda:0`` at PM_LAYOUT against the same
-    cases in one process.  Returns each path's launches."""
+    (``init_process_group`` on a FileStore), qwen3-moe's expert-parallel
+    forward in both weight modes against ``moe_ffn``, and each of
+    PM_FAMILIES' train and prefill steps on ``make_host_mesh()`` bit for
+    bit ``mesh=None``; then four gloo ranks on ``cuda:0`` at PM_LAYOUT
+    against the same cases in one process.  Returns each path's
+    launches."""
     import datetime
     import tempfile
     import torch.distributed as dist
@@ -5501,27 +5739,34 @@ def phase_production_mesh(torch, kernels, card, dev="cuda",
         if (mesh.backend, mesh.size, mesh.device.type) \
                 != (backend, 1, torch.device(dev).type):
             raise AssertionError(f"host mesh: {mesh}")
-        for part in (pm_host_dense, pm_host_moe):
-            paths, _ = part(torch, kernels, card, mesh, dev)
+        by_path.update(pm_host_moe(torch, kernels, card, mesh, dev)[0])
+        for family in PM_FAMILIES:
+            t1 = time.perf_counter()
+            paths, _ = pm_host_family(torch, kernels, card, mesh, dev,
+                                      *family)
             by_path.update(paths)
+            log(f"production mesh, one {backend} rank, {family[0]}: "
+                f"{time.perf_counter() - t1:.1f} s")
     finally:
         dist.destroy_process_group()
     shutil.rmtree(tmp, ignore_errors=True)
     log(f"production mesh, one {backend} rank: "
         f"{time.perf_counter() - t0:.1f} s")
     single = pm_single_reduced(torch, kernels, dev)
-    by_path["mesh_gloo_single"] = single[2]
+    by_path["mesh_gloo_single"] = single[3]
     t1 = time.perf_counter()
     ranks = LocalWorld(production_mesh_rank, 4, backend="gloo",
                        args=(dev,), timeout_s=MESH_TIMEOUT_S).join()
     log(f"production mesh, four gloo ranks: {time.perf_counter() - t1:.1f} "
         "s with start-up")
-    pm_ranks_check(torch, ranks, single[:2], card, dev)
+    pm_ranks_check(torch, ranks, single[:3], card, dev)
     total = {}
     for res in ranks:
-        for case in [*res["dense"].values(), *res["moe"].values()]:
-            for k, v in case["launches"].items():
-                total[k] = total.get(k, 0) + v
+        for case in [*res["dense"].values(), *res["moe"].values(),
+                     *res["family"].values()]:
+            for part in ("launches", "prefill_launches"):
+                for k, v in case.get(part, {}).items():
+                    total[k] = total.get(k, 0) + v
     by_path["mesh_gloo2x2"] = total
     log(f"production mesh phase: {time.perf_counter() - t0:.1f} s; "
         "launches by path:", json.dumps(by_path))
@@ -5562,9 +5807,10 @@ LAMBDA0_PATHS = ("lm_small", "lm_full_width", "rwkv_small",
                  *(f"train_small_{m}_{s}" for m in ("moe", "moe_interleaved")
                    for s in ("resume", "bf16")),
                  "train_small_vlm", "train_small_audio", "train_vlm_full",
-                 "train_audio_full", "mesh_host_llama_full",
-                 "mesh_host_llama_full_none", "mesh_gloo_single",
-                 "mesh_gloo2x2")
+                 "train_audio_full", "mesh_gloo_single",
+                 "mesh_gloo2x2",
+                 *(f"mesh_host_{f[1]}_full{s}" for f in PM_FAMILIES
+                   for s in ("", "_none")))
 
 
 def check_ssca_variants(by_path):

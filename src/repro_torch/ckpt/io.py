@@ -68,7 +68,9 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 def save(directory, tree: Any, *, step: int = 0, extra: dict = None) -> int:
     """Write ``tree`` (nested dicts and tuples of tensors, arrays or
-    scalars) under ``directory``; returns the archive's size in bytes."""
+    scalars) under ``directory``; returns the archive's size in bytes.
+    The leaves are written as they are: a production mesh's parameters
+    are saved whole, ``launch.sharding.gather_params`` first."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     flat = _flatten(tree)

@@ -11,16 +11,16 @@ move (4)) runs as one launch of the fused kernel
 the FedSGD baseline on the same batch; ``make_prefill_step`` and
 ``make_decode_step`` are the serving path.
 
-``make_train_step`` of a model on a production mesh (the dense family)
-takes this rank's blocks of the parameters and the state and its rows
-of the batch: the loss is the rank's share of the mean, its gradient
-comes from ``torch.autograd.grad`` (the layers run under
-``torch.utils.checkpoint``, which ``torch.func.vjp`` refuses), the
-gradient of each leaf reaches its block through the collectives'
-backwards and one all-reduce a set of axes for what the placements
-leave whole, and the
-fused update runs on the rank's flat blocks (``lin`` placed as the
-parameters).  The metrics are the global mean loss and ‖g‖.
+``make_train_step`` of a model on a production mesh (every family; the
+moe family in ``moe_weight_mode="fsdp"``) takes this rank's blocks of
+the parameters and the state and its rows of the batch: the loss is the
+rank's share of the mean, its gradient comes from ``torch.autograd.grad``
+(the layers run under ``torch.utils.checkpoint``, which
+``torch.func.vjp`` refuses), the gradient of each leaf reaches its block
+through the collectives' backwards and one all-reduce a set of axes for
+what the placements leave whole, and the fused update runs on the rank's
+flat blocks (``lin`` placed as the parameters).  The metrics are the
+global mean loss and ‖g‖.
 
 Each step follows its tensors' device: the kernels for CUDA tensors,
 their plain versions for CPU ones, which the caller placed there.  The
@@ -59,11 +59,14 @@ def make_train_step(model: Model,
                                     rho=PowerLaw(0.9, 0.3),
                                     gamma=PowerLaw(0.9, 0.35))
     mesh = model.mesh
-    if mesh is not None and model.cfg.family != "dense":
-        raise NotImplementedError(
-            f"a train step of the {model.cfg.family!r} family on a "
-            "production mesh is not ported (ROADMAP.md queue 1: the moe "
-            "train step on the mesh)")
+    if mesh is not None and model.expert_parallel \
+            and model.moe_weight_mode == "stationary":
+        raise ValueError(
+            "a train step in moe_weight_mode='stationary': its combine sums "
+            "every rank's whole batch over (data, model), which has no "
+            "adjoint over the data axes that returns each rank its rows' "
+            "gradient; it is a forward (decode) mode, as in the reference. "
+            "Train with moe_weight_mode='fsdp'")
 
     # the mesh's layers run under torch.utils.checkpoint
     value_and_grad = autodiff.value_and_grad if mesh is None \
@@ -137,9 +140,17 @@ def make_sgd_train_step(model: Model, lr: Optional[PowerLaw] = None):
 
 def make_prefill_step(model: Model):
     """``(params, batch) → (B, padded_vocab)`` logits of the last position
-    of ``model.forward`` (the flash or the WKV kernel on the card)."""
+    of ``model.forward`` (the flash or the WKV kernel on the card), without
+    autograd.  On a mesh: the rank's rows, the vocab gathered over
+    ``model``."""
+    mesh = model.mesh
+
+    @torch.no_grad()
     def prefill_step(params, batch):
-        return model.forward(params, batch)[:, -1, :]
+        logits = model.forward(params, batch)[:, -1, :]
+        if mesh is not None and model.shard_logits:
+            logits = mesh.all_gather(logits, "model", -1)
+        return logits
     return prefill_step
 
 

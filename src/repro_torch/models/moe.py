@@ -99,6 +99,23 @@ def load_balance_loss(probs, idx, num_experts: int):
     return num_experts * torch.sum(me * ce)
 
 
+def global_load_balance_loss(probs, idx, num_experts: int, mesh, dp):
+    """:func:`load_balance_loss` of the global batch from this rank's
+    rows: the E per-expert sums of the probabilities and of the top-1
+    counts all-reduced over the data axes ``dp`` (one call, whose
+    backward sums the probabilities' gradient back over them), then
+    divided by the global token count.  A product of means is not the
+    mean of the ranks' products, so each rank's own loss would not
+    do."""
+    rows = probs.shape[0] * probs.shape[1]
+    stats = parallel.all_reduce(torch.stack([
+        probs.sum((0, 1)),
+        _one_hot(idx[..., 0], num_experts, torch.float32).sum((0, 1))]),
+        mesh, dp)
+    n = rows * mesh.axis_size(dp)
+    return num_experts * torch.sum((stats[0] / n) * (stats[1] / n))
+
+
 def slots(idx, num_experts: int, cap: int, e_lo: int = 0,
           e_loc: int = None):
     """Each assignment's slot in the (e_loc, C) buffer of experts [e_lo,
@@ -189,8 +206,10 @@ def moe_ffn_sharded(x, params, *, num_experts: int, k: int,
     the all-reduce (fsdp mode).  ``dropped_frac`` counts the kept
     assignments over every expert and the whole global batch (an
     all-reduce over the model and data axes), so it is ``moe_ffn``'s on
-    the global batch exactly.  ``aux_loss`` is this rank's rows'.
-    Raises where m does not divide E."""
+    the global batch exactly.  ``aux_loss`` is the global batch's too
+    (:func:`global_load_balance_loss`), the same on every rank, its
+    gradient carried once over ``model``.  Raises where m does not
+    divide E."""
     if weight_mode not in ("fsdp", "stationary"):
         raise ValueError(f"moe_ffn_sharded: weight_mode {weight_mode!r}")
     e = num_experts
@@ -241,7 +260,13 @@ def moe_ffn_sharded(x, params, *, num_experts: int, k: int,
         y = parallel.reduce_from(part, mesh, TP)
     else:
         y = parallel.reduce_scatter(part, mesh, TP, -1)
-    aux_loss = load_balance_loss(probs, idx, e)
+    aux_loss = load_balance_loss(probs, idx, e) if stationary \
+        else global_load_balance_loss(probs, idx, e, mesh, dp)
+    # every model rank computes the same aux from the same router
+    # logits: each carries 1/m of its gradient, so that the sum over
+    # ``model`` (the entry's backward, the router's gradient) counts it
+    # once; the value is aux's own
+    aux_loss = aux_loss.detach() + (aux_loss - aux_loss.detach()) / m
     with torch.no_grad():
         kept_n = mesh.all_reduce(kept.float().sum(), TP if stationary
                                  else (TP, *dp))

@@ -1,5 +1,5 @@
-"""The decoder's blocks under a production mesh: explicit Megatron-style
-tensor parallelism over ``model`` and FSDP over ``data``.
+"""The blocks of every model family under a production mesh: explicit
+Megatron-style tensor parallelism over ``model`` and FSDP over ``data``.
 
 The reference runs its sharded train step by pinning placements and
 letting XLA insert the collectives; the port writes them out, on one
@@ -26,12 +26,35 @@ shard_params`) and its rows of the batch:
   (forward only: its backward is local);
 * attention runs the flash op at the rank's H/m heads.  Where m divides
   Hkv the rank's k and v columns are its kv heads; elsewhere (granite-34b
-  has one) k and v are all-gathered over ``model`` after the projection
-  and the rank reads the kv head (r·H/m + j) // G of each local head j.
+  and recurrentgemma have one) k and v are all-gathered over ``model``
+  after the projection and the rank reads the kv head (r·H/m + j) // G
+  of each local head j.  Whisper's encoder runs the same block
+  non-causal without RoPE, its decoder adds the cross-attention (``xwq``
+  column-parallel, ``xwk``/``xwv`` over the encoder's output of the
+  rank's own rows, ``xwo`` row-parallel);
+* RWKV-6 (:func:`rwkv_block`): ``wr/wk/wv/wg`` and ``decay_w2`` give the
+  rank its D/m channels, ``bonus``, ``ln_w``, ``ln_b`` its H/m heads, so
+  the WKV op runs on them; ``decay_base`` (replicated) is sliced to the
+  channels, the token shift acts on the whole entered stream, and ``wo``
+  is row-parallel.  The channel mix's gate ``cr`` is column-parallel
+  while ``k @ cv`` is a model-partial sum over all of D: the sum is
+  reduce-scattered to the rank's channels and gated there;
+* Griffin's recurrent block (:func:`recurrent_block`): ``wx``, ``wgate``
+  and the per-channel ``conv_w`` give the rank D/m channels and the
+  RG-LRU runs on them (``lam`` sliced); ``w_ri``'s placement splits its
+  2D columns, r's and i's side by side, into m blocks that are not the
+  rank's channels, and the product reads the whole branch: the branch is
+  all-gathered over ``model``, ``w_ri`` too, and the rank takes r's and
+  i's columns of its channels;
+* the vlm's ``img_proj`` (``(d@data, model)``) is a column-parallel
+  product whose (B, N_img, D/m) output is the rank's block of the image
+  tokens' stream.
 
-Gradients: the loss of a rank is its tokens' sum over the global token
-count, the same on every rank of its model group.  Each leaf split over
-an axis gets its gradient summed there by the collectives' backwards;
+Gradients: the loss of a rank is its tokens' mean over the count of data
+ranks (moe's load-balance term the global batch's, its gradient carried
+once over ``model``), the same on every rank of its model group.  Each
+leaf split over an axis gets its gradient summed there by the
+collectives' backwards;
 every leaf gets partial gradients on the axes it is whole on (the
 norms' and the biases' through ``enter``'s partial backward; ``b_o`` is
 added on model rank 0 only), so the train step sums each leaf's gradient
@@ -47,7 +70,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch import parallel
-from repro_torch.models import attention, layers, moe
+from repro_torch.kernels import ops
+from repro_torch.models import attention, layers, moe, rglru, rwkv6
 from repro_torch.tree import named_leaves, rebuild
 
 TP = "model"
@@ -85,6 +109,21 @@ class MeshContext:
         if self.act_tp is None:
             return parallel.reduce_from(part, self.mesh, TP)
         return parallel.reduce_scatter(part, self.mesh, TP, -1)
+
+    def block(self, x):
+        """This rank's D/m channels of the last dim of ``x``, whole over
+        ``model`` (a replicated leaf such as ``lam``, whose gradient the
+        step sums over ``model``; or an input without a gradient)."""
+        dl = x.shape[-1] // self.m
+        return x.narrow(-1, self.r * dl, dl)
+
+    def stream(self, y):
+        """The residual stream from this rank's D/m channels ``y`` of it:
+        ``y`` itself with ``act_tp="model"``, all of them gathered (each
+        rank's gradient its own block) with None."""
+        if self.act_tp is None:
+            return parallel.gather_from(y, self.mesh, TP, -1)
+        return y
 
     def gathered(self, name: str, w):
         """A leaf's dims split over ``data`` all-gathered over it (expert
@@ -169,10 +208,11 @@ class _VocabParallelCE(torch.autograd.Function):
         return grad, None, None
 
 
-def cross_entropy_sum(ctx: MeshContext, logits, labels):
-    """Σ over tokens of the cross-entropy of this rank's vocab block of
-    the logits (…, V/m) f32."""
-    return _VocabParallelCE.apply(logits, labels, ctx.mesh)[0].sum()
+def cross_entropy_mean(ctx: MeshContext, logits, labels):
+    """The mean over tokens of the cross-entropy of this rank's vocab block
+    of the logits (…, V/m) f32 (``torch.mean``, as the one-device loss
+    takes it)."""
+    return _VocabParallelCE.apply(logits, labels, ctx.mesh)[0].mean()
 
 
 def _kv_heads(ctx: MeshContext, cfg, k, v):
@@ -188,25 +228,49 @@ def _kv_heads(ctx: MeshContext, cfg, k, v):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def attn_apply(ctx: MeshContext, cfg, p, x, positions):
-    """Self-attention on this rank's heads, with its residual."""
+def _kv(ctx: MeshContext, cfg, k, v):
+    """This rank's columns of the k and v projections (B, Sk, ·) → the
+    (B, Sk, ·, hd) kv heads its query heads read: its own where m
+    divides Hkv, else gathered over ``model`` first."""
+    b, sk, _ = k.shape
+    hd, m = cfg.head_dim, ctx.m
+    if cfg.num_kv_heads % m:
+        k, v = (parallel.all_gather(t, ctx.mesh, TP, -1).reshape(
+            b, sk, cfg.num_kv_heads, hd) for t in (k, v))
+        return _kv_heads(ctx, cfg, k, v)
+    return (k.reshape(b, sk, cfg.num_kv_heads // m, hd),
+            v.reshape(b, sk, cfg.num_kv_heads // m, hd))
+
+
+def attn_apply(ctx: MeshContext, cfg, p, x, positions, *, window: int = 0,
+               causal: bool = True):
+    """Self-attention on this rank's heads, with its residual; RoPE at
+    ``positions`` (None: none, as whisper's encoder)."""
     hd, m = cfg.head_dim, ctx.m
     xn = layers.rms_norm(ctx.enter(x), p["attn_norm"])
     b, s, _ = xn.shape
     hl = cfg.num_heads // m
     q = (xn @ p["wq"]).reshape(b, s, hl, hd)
-    k, v = xn @ p["wk"], xn @ p["wv"]
-    if cfg.num_kv_heads % m:
-        k, v = (parallel.all_gather(t, ctx.mesh, TP, -1).reshape(
-            b, s, cfg.num_kv_heads, hd) for t in (k, v))
-        k, v = _kv_heads(ctx, cfg, k, v)
-    else:
-        k = k.reshape(b, s, cfg.num_kv_heads // m, hd)
-        v = v.reshape(b, s, cfg.num_kv_heads // m, hd)
-    q = layers.apply_rope(q, positions)
-    k = layers.apply_rope(k, positions)
-    o = attention.attend(q, k, v)
+    k, v = _kv(ctx, cfg, xn @ p["wk"], xn @ p["wv"])
+    if positions is not None:
+        q = layers.apply_rope(q, positions)
+        k = layers.apply_rope(k, positions)
+    o = attention.attend(q, k, v, causal=causal, window=window)
     return x + ctx.leave(o.reshape(b, s, hl * hd) @ p["wo"])
+
+
+def cross_attn(ctx: MeshContext, cfg, p, x, enc):
+    """Whisper's cross-attention on this rank's heads against ``enc``, the
+    encoder's output of its rows (whole over ``model``), with the
+    residual."""
+    hd = cfg.head_dim
+    xn = layers.rms_norm(ctx.enter(x), p["xattn_norm"])
+    b, s, _ = xn.shape
+    hl = cfg.num_heads // ctx.m
+    q = (xn @ p["xwq"]).reshape(b, s, hl, hd)
+    k, v = _kv(ctx, cfg, enc @ p["xwk"], enc @ p["xwv"])
+    o = attention.attend(q, k, v, causal=False)
+    return x + ctx.leave(o.reshape(b, s, hl * hd) @ p["xwo"])
 
 
 def ffn(ctx: MeshContext, cfg, p, x):
@@ -222,8 +286,86 @@ def ffn(ctx: MeshContext, cfg, p, x):
     return ctx.leave(part)
 
 
-def attn_block(ctx: MeshContext, cfg, p, x, positions):
+def attn_block(ctx: MeshContext, cfg, p, x, positions, *, window: int = 0,
+               causal: bool = True):
+    x = attn_apply(ctx, cfg, p, x, positions, window=window, causal=causal)
+    return x + ffn(ctx, cfg, p, x)
+
+
+def audio_block(ctx: MeshContext, cfg, p, x, positions, enc):
+    """Whisper's decoder block: causal self-attention with RoPE, the
+    cross-attention to ``enc``, the FFN."""
     x = attn_apply(ctx, cfg, p, x, positions)
+    x = cross_attn(ctx, cfg, p, x, enc)
+    return x + ffn(ctx, cfg, p, x)
+
+
+def _time_mix(ctx: MeshContext, p, xn):
+    """RWKV-6's time mix on this rank's heads (``rwkv6.time_mix``'s
+    sequence path from a zero state): its rank-partial f32 output sum
+    (B, S, D)."""
+    b, s, _ = xn.shape
+    hl, dh = p["bonus"].shape
+    shift = torch.zeros(b, xn.shape[2], dtype=xn.dtype, device=xn.device)
+    xr, xk, xv, xw, xg = (rwkv6._token_shift(xn, p[f"mix_{c}"], shift)
+                          for c in "rkvwg")
+    r = (xr @ p["wr"]).reshape(b, s, hl, dh)
+    k = (xk @ p["wk"]).reshape(b, s, hl, dh)
+    v = (xv @ p["wv"]).reshape(b, s, hl, dh)
+    g = F.silu(xg @ p["wg"])
+    dec = ctx.block(p["decay_base"]) + torch.tanh(
+        xw.float() @ p["decay_w1"].float()) @ p["decay_w2"].float()
+    w = torch.exp(torch.clamp(-torch.exp(dec.float()), rwkv6.LOG_DECAY_FLOOR,
+                              0.0)).reshape(b, s, hl, dh)
+    o = ops.rwkv6_wkv(r, k, v, w, p["bonus"])
+    o = rwkv6._group_norm(o, p["ln_w"], p["ln_b"])
+    return (o.reshape(b, s, hl * dh) * g).float() @ p["wo"].float()
+
+
+def _channel_mix(ctx: MeshContext, p, xn):
+    """RWKV's channel mix: ``sigmoid(xr @ cr)`` on this rank's D/m
+    channels times ``k @ cv``'s sum reduce-scattered to them."""
+    shift = torch.zeros(xn.shape[0], xn.shape[2], dtype=xn.dtype,
+                        device=xn.device)
+    xk = rwkv6._token_shift(xn, p["cmix_k"], shift)
+    xr = rwkv6._token_shift(xn, p["cmix_r"], shift)
+    k = torch.square(F.relu(xk @ p["ck"]))
+    part = parallel.reduce_scatter(k @ p["cv"], ctx.mesh, TP, -1)
+    return ctx.stream(torch.sigmoid(xr @ p["cr"]) * part)
+
+
+def rwkv_block(ctx: MeshContext, p, x):
+    """RWKV-6's time mix then channel mix, each on the RMS-normed entered
+    stream."""
+    xn = layers.rms_norm(ctx.enter(x), p["tm_norm"])
+    x = x + ctx.leave(_time_mix(ctx, p, xn)).to(x.dtype)
+    xn = layers.rms_norm(ctx.enter(x), p["cm_norm"])
+    return x + _channel_mix(ctx, p, xn)
+
+
+def _ri_columns(ctx: MeshContext, w_ri):
+    """This rank's block (D, 2D/m) of ``w_ri`` → (D, 2D/m): r's columns
+    of its D/m channels, then i's, from the leaf gathered over
+    ``model``."""
+    w = parallel.all_gather(w_ri, ctx.mesh, TP, -1)
+    d = w.shape[-1] // 2
+    dl = d // ctx.m
+    return torch.cat([w.narrow(-1, ctx.r * dl, dl),
+                      w.narrow(-1, d + ctx.r * dl, dl)], dim=-1)
+
+
+def recurrent_block(ctx: MeshContext, cfg, p, x):
+    """Griffin's recurrent block on this rank's D/m channels: the branch
+    through the conv and the RG-LRU, gated, projected row-parallel; then
+    the FFN."""
+    xn = layers.rms_norm(ctx.enter(x), p["rec_norm"])
+    branch = xn @ p["wx"]
+    gate = F.gelu(xn @ p["wgate"], approximate="tanh")
+    branch = rglru.temporal_conv(branch, p["conv_w"])[0]
+    whole = parallel.all_gather(branch, ctx.mesh, TP, -1)
+    r, i = torch.sigmoid(whole @ _ri_columns(ctx, p["w_ri"])).chunk(2, -1)
+    y = rglru.rg_lru(branch, r, i, ctx.block(p["lam"]))[0]
+    x = x + ctx.leave((y * gate) @ p["w_out"])
     return x + ffn(ctx, cfg, p, x)
 
 

@@ -64,11 +64,10 @@ vlm decodes as the dense model does, over text alone (the reference
 serves no image), and audio's cross-attention reads the cached encoder
 K and V through ``decode_attend``.
 
-``build_model(cfg, mesh=..., layer_pspec_fn=...)`` runs the dense
-family's forward and loss, and the moe family's forward (expert-parallel),
-on one rank's blocks of a production mesh (:class:`Model`,
-:mod:`repro_torch.models.sharded`); the other families, and decode,
-raise there.
+``build_model(cfg, mesh=..., layer_pspec_fn=...)`` runs every family's
+forward and loss on one rank's blocks of a production mesh
+(:class:`Model`, :mod:`repro_torch.models.sharded`; the moe family's
+FFNs expert-parallel); decode raises there.
 """
 from __future__ import annotations
 
@@ -462,20 +461,15 @@ def _empty(device):
     return torch.zeros((0,), dtype=torch.float32, device=device)
 
 
-# the families a production mesh runs, and the ROADMAP item of the rest
-MESH_FAMILIES = ("dense", "moe")
-MESH_QUEUED = "ROADMAP.md queue 1: the ssm, hybrid, vlm and audio families " \
-    "on the mesh"
-
-
 @dataclasses.dataclass(frozen=True)
 class Model:
     """``mesh`` (a :class:`repro_torch.launch.mesh.ProductionMesh`) runs
     the forward and the loss on this rank's blocks of the parameters
     (:func:`repro_torch.launch.sharding.shard_params`) and its rows of the
-    batch (``sharding.local_batch``), as :mod:`repro_torch.models.
-    sharded` lays out: the dense family, and the moe family's forward,
-    whose MoE FFNs run expert-parallel there (:attr:`expert_parallel`).
+    batch (``sharding.local_batch``: the tokens, the vlm's image and
+    whisper's frame embeddings), as :mod:`repro_torch.models.sharded`
+    lays out, for every family; the moe family's FFNs run expert-parallel
+    there (:attr:`expert_parallel`).
     The reference's knobs: ``layer_pspec_fn`` (each layer leaf's
     placement, which the mesh path needs: ``launch.sharding.
     layer_pspec_fn(mesh, ...)`` with the options the parameters were
@@ -510,10 +504,6 @@ class Model:
             raise ValueError(f"moe_weight_mode {self.moe_weight_mode!r}")
         if self.mesh is None:
             return
-        if cfg.family not in MESH_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family!r} family ({cfg.name}) on a production "
-                f"mesh is not ported ({MESH_QUEUED})")
         if self.layer_pspec_fn is None:
             raise ValueError(
                 "a model on a production mesh reads each layer's placement: "
@@ -533,6 +523,9 @@ class Model:
         if cfg.family == "moe" and cfg.num_experts % m:
             raise ValueError(f"{m} model ranks do not divide {cfg.name}'s "
                              f"{cfg.num_experts} experts")
+        if cfg.family == "ssm" and cfg.rwkv_heads % m:
+            raise ValueError(f"{m} model ranks do not divide {cfg.name}'s "
+                             f"{cfg.rwkv_heads} rwkv_heads")
 
     def _no_mesh(self, what: str) -> None:
         if self.mesh is not None:
@@ -549,30 +542,58 @@ class Model:
 
     def _mesh_forward(self, ctx, params, batch, dropped=None):
         """The sharded forward: (this rank's (B_loc, S, V/m) f32 logits
-        block, the auxiliary losses) — see :class:`Model`."""
+        block, the auxiliary losses) — see :class:`Model`.  Each layer
+        (a hybrid unit, an interleaved moe super-block, an encoder layer)
+        runs under ``sharded.remat``."""
         cfg = self.cfg
         table = ctx.gathered("embed", params["embed"])
         x = sharded.embed(ctx, batch["tokens"], table).to(cfg.adtype)
+        if cfg.family == "vlm":
+            img = batch["img_embeds"].to(cfg.adtype) @ ctx.gathered(
+                "img_proj", params["img_proj"]).to(cfg.adtype)
+            x = torch.cat([ctx.stream(img), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        enc = self._mesh_encode(ctx, params, batch) \
+            if cfg.family == "audio" else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for shards in sharded.layer_shards(params["blocks"]):
-            x, out = sharded.remat(self._mesh_layer, ctx, shards, x,
-                                   positions)
-            if out is not None:
-                aux = aux + out.aux_loss
-                if dropped is not None:
-                    dropped.append(out.dropped_frac)
+        for key, _, _, block in _stacks(cfg):
+            if block is None:     # audio's encoder, run by _mesh_encode
+                continue
+            for shards in sharded.layer_shards(params[key]):
+                x, out = sharded.remat(self._mesh_layer, ctx, key, shards, x,
+                                       positions, enc)
+                if out is not None:
+                    aux = aux + out.aux_loss
+                    if dropped is not None:
+                        dropped.append(out.dropped_frac)
         x = layers.rms_norm(ctx.enter(x), params["final_norm"])
-        return layers.unembed(x, table), [aux] if cfg.family == "moe" \
-            else []
+        logits = layers.unembed(x, table)
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.num_image_tokens:]
+        return logits, [aux] if cfg.family == "moe" else []
 
-    def _mesh_layer(self, ctx, shards, x, positions):
-        """One layer on the mesh from this rank's shards of its leaves →
-        (x, the MoE block's ``MoEOutput`` or None)."""
+    def _mesh_layer(self, ctx, key, shards, x, positions, enc):
+        """One layer of stack ``key`` on the mesh from this rank's shards
+        of its leaves → (x, the MoE block's ``MoEOutput`` or None)."""
         cfg = self.cfg
         p = ctx.layer(shards)
-        if cfg.family == "dense":
+        fam = cfg.family
+        if fam in ("dense", "vlm"):
             return sharded.attn_block(ctx, cfg, p, x, positions), None
+        if fam == "ssm":
+            return sharded.rwkv_block(ctx, p, x), None
+        if fam == "audio":
+            return sharded.audio_block(ctx, cfg, p, x, positions, enc), None
+        if fam == "hybrid":
+            if key == "tail":
+                return sharded.recurrent_block(ctx, cfg, p, x), None
+            for r in range(cfg.pattern_recurrent):
+                x = sharded.recurrent_block(ctx, cfg, _prefixed(p, f"r{r}_"),
+                                            x)
+            for a in range(cfg.pattern_attn):
+                x = sharded.attn_block(ctx, cfg, _prefixed(p, f"a{a}_"), x,
+                                       positions, window=cfg.local_window)
+            return x, None
         if cfg.moe_every != 1:
             x = sharded.attn_block(ctx, cfg, _prefixed(p, "d_"), x,
                                    positions)
@@ -580,22 +601,34 @@ class Model:
         return sharded.moe_block(ctx, cfg, p, x, positions,
                                  self.moe_weight_mode)
 
+    def _mesh_encode(self, ctx, params, batch):
+        """Whisper's encoder on the mesh over this rank's rows of the
+        frames, in the residual stream's layout → its output whole over
+        ``model`` (B_loc, S_enc, D)."""
+        x = self._frames(batch)
+        if ctx.act_tp is not None:     # the frames need no gradient
+            x = ctx.block(x)
+        for shards in sharded.layer_shards(params["encoder"]):
+            x = sharded.remat(self._mesh_encoder_layer, ctx, shards, x)
+        return layers.rms_norm(ctx.enter(x), params["enc_final_norm"])
+
+    def _mesh_encoder_layer(self, ctx, shards, x):
+        return sharded.attn_block(ctx, _encoder_cfg(self.cfg),
+                                  ctx.layer(shards), x, None, causal=False)
+
     def _mesh_loss(self, params, batch):
-        """This rank's share of the mean next-token cross-entropy: its
-        tokens' sum over the global token count (its rows times the data
-        axes' ranks)."""
-        if self.cfg.family != "dense":
-            raise NotImplementedError(
-                f"the {self.cfg.family!r} family's loss on a production mesh "
-                "is not ported (ROADMAP.md queue 1: the moe train step on "
-                "the mesh)")
+        """This rank's share of the mean loss: its tokens' mean
+        cross-entropy (plus moe's aux term, the global batch's) divided by
+        the count of data ranks, which hold equal rows; the shares sum to
+        the loss over the data axes."""
         ctx = self.mesh_context()
-        logits = self._mesh_forward(ctx, params, batch)[0]
+        logits, aux = self._mesh_forward(ctx, params, batch)
         tokens = batch["tokens"]
-        n_dp = self.mesh.axis_size(ctx.dp) if ctx.dp else 1
-        count = tokens.shape[0] * (tokens.shape[1] - 1) * n_dp
-        return sharded.cross_entropy_sum(ctx, logits[:, :-1],
-                                         tokens[:, 1:]) / count
+        ce = sharded.cross_entropy_mean(ctx, logits[:, :-1], tokens[:, 1:])
+        if aux:
+            ce = ce + self.cfg.router_aux_weight * aux[0] \
+                / self.cfg.num_layers
+        return ce / (self.mesh.axis_size(ctx.dp) if ctx.dp else 1)
 
     def init(self, generator: torch.Generator, device: Device = None):
         """Random parameters drawn from ``generator`` on its own device,
@@ -687,27 +720,32 @@ class Model:
         sinusoidal positions (the reference's exp(−i / (D/2) · ln 10⁴)
         frequencies, in f32, then cast), the encoder blocks, the final
         norm → (B, S_enc, D) in the activation dtype."""
-        cfg = self.cfg
-        ad = cfg.adtype
+        x = self._frames(batch)
+        for p in self._layers(params["encoder"]):
+            x = _encoder_block(self.cfg, p, x)
+        return layers.rms_norm(x, params["enc_final_norm"])
+
+    def _frames(self, batch):
+        """The encoder's input: the frames in the activation dtype plus
+        their sinusoidal positions."""
+        ad = self.cfg.adtype
         frames = batch["frame_embeds"].to(ad)
         dev = frames.device
-        half = cfg.d_model // 2
+        half = self.cfg.d_model // 2
         log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
         freqs = torch.exp(-torch.arange(half, dtype=torch.float32) / half
                           * log_base).to(dev)
         ang = torch.arange(frames.shape[1], dtype=torch.float32,
                            device=dev)[:, None] * freqs
-        x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(ad)
-        for p in self._layers(params["encoder"]):
-            x = _encoder_block(cfg, p, x)
-        return layers.rms_norm(x, params["enc_final_norm"])
+        return frames + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(ad)
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy over the padded vocabulary, f32;
         moe adds ``router_aux_weight`` · Σ aux_loss / ``num_layers`` (all
         layers, not the MoE ones, as in the reference).  On a mesh, this
-        rank's share of the mean (its tokens' sum over the global count):
-        the shares sum to the mean over the data axes."""
+        rank's share (:meth:`_mesh_loss`): its tokens' mean, plus moe's
+        aux term of the global batch, over the count of data ranks; the
+        shares sum to the loss over the data axes."""
         if self.mesh is not None:
             return self._mesh_loss(params, batch)
         logits, aux = self.forward_with_aux(params, batch)

@@ -20,7 +20,11 @@ differentiates them; the port's mesh path calls these, each a
   replicated activation enters rank-partial work (a column-parallel
   product), and :func:`reduce_from` (``g``: all-reduce forward, identity
   backward) where rank-partial sums become the replicated activation
-  (after a row-parallel product).
+  (after a row-parallel product);
+* :func:`gather_from` (all-gather forward, this rank's block of the
+  gradient backward) where each rank's block of a replicated activation
+  is put together and read whole by work every rank repeats: each
+  rank's gradient of the whole is then the whole gradient, not a part.
 
 Every call counts on the mesh (``ProductionMesh.calls``), forward and
 backward alike.
@@ -111,6 +115,22 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(x, mesh, axes, dim):
+        return _own(mesh.all_gather(x, axes, dim), x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.axes, ctx.dim = inputs[1:]
+        ctx.size = inputs[0].shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.mesh.axis_index(ctx.axes) * ctx.size,
+                        ctx.size), None, None, None
+
+
 def all_gather(x, mesh, axes, dim: int = 0):
     """The group's ``x`` concatenated along ``dim``; backward the
     reduce-scatter (sum)."""
@@ -136,3 +156,9 @@ def copy_to(x, mesh, axes):
 def reduce_from(x, mesh, axes):
     """Megatron's ``g``: the group's sum; backward the identity."""
     return _ReduceFrom.apply(x, mesh, axes)
+
+
+def gather_from(x, mesh, axes, dim: int = 0):
+    """The group's blocks concatenated along ``dim``, read whole by every
+    rank alike; backward this rank's block of the gradient."""
+    return _GatherFrom.apply(x, mesh, axes, dim)

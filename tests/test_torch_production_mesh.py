@@ -21,8 +21,12 @@ Held:
   (measured at most 4.0e-6); two microbatches of the local batch the
   same first step (``act_tp=None``);
 * each step's collectives on each set of axes as ``PERF.md`` §6 predicts
-  them (:func:`torch_production_mesh_cases.dense_calls`), the layers run
-  again in the backward included;
+  them (:func:`torch_production_mesh_family_cases.family_calls`), the
+  layers run again in the backward included;
+* the prefill step at the first weights: its logits (the vocab gathered
+  over ``model``, the rows over ``data``) within 1e-5 of the largest
+  |logit| of the port's one-device prefill, the ranks bit for bit alike,
+  its collectives as ``family_calls`` predicts them;
 * no layer's gathered weights kept for the backward (each layer under
   ``models.sharded.remat``);
 * the expert-parallel forward of reduced qwen3-moe and llama4-maverick
@@ -39,10 +43,12 @@ Held:
   forward's logits gathered over ``model`` (``shard_logits=False``);
 * the parameters' round trip through ``shard_params`` / ``gather_params``
   bit for bit; the refusals: a grid that is not the world's size, nccl
-  on a CPU device, m ∤ E, the unported families, the moe train step and
-  decode on a mesh, a ``dp_axes`` other than the data axes, a mesh
-  model without its ``layer_pspec_fn``, a mesh without a process group;
-  the moe family expert-parallel on a mesh and not off it.
+  on a CPU device, m ∤ E, m ∤ ``rwkv_heads``, a ``"stationary"`` train
+  step, decode and ``init_decode`` on a mesh, a ``dp_axes`` other than
+  the data axes, a mesh model without its ``layer_pspec_fn``, a mesh
+  without a process group; the moe family expert-parallel on a mesh and
+  not off it.  (The other families' steps on the mesh:
+  ``tests/test_torch_production_mesh_families.py``.)
 """
 import jax
 import jax.numpy as jnp
@@ -57,6 +63,7 @@ from repro.launch import steps as jsteps
 from repro.models import build_model as jbuild_model
 from repro.models import moe as jmoe
 import torch_production_mesh_cases as cases
+import torch_production_mesh_family_cases as family_cases
 from repro_torch.launch import LocalWorld
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models import build_model, moe
@@ -207,10 +214,25 @@ def test_dense_step_matches_reference(world, arch, layout, act_tp):
 def test_dense_collectives_as_predicted(world, arch, layout, act_tp):
     out, _ = world
     cfg = cases.dense_setup(arch)[0]
-    want = cases.dense_calls(cfg, layout[1], act_tp)
+    want = family_cases.family_calls(cfg, layout[1], act_tp, train=True)
     for res in out:
         run = res["runs"][(arch, layout, act_tp)]
         assert run["calls"] == [want] * cases.STEPS
+
+
+@pytest.mark.parametrize("arch,layout,act_tp", DENSE_RUNS)
+def test_dense_prefill_matches_one_device(world, arch, layout, act_tp):
+    out, ref = world
+    want = ref["port"][arch]["prefill"]
+    top = float(np.abs(want).max())
+    cfg = cases.dense_setup(arch)[0]
+    calls = family_cases.family_calls(cfg, layout[1], act_tp, train=False)
+    runs = [res["runs"][(arch, layout, act_tp)] for res in out]
+    for run in runs:
+        assert run["prefill"].shape == want.shape
+        assert np.array_equal(run["prefill"], runs[0]["prefill"])
+        assert float(np.abs(run["prefill"] - want).max()) <= 1e-5 * top
+        assert run["prefill_calls"] == calls
 
 
 @pytest.mark.parametrize("arch,layout,mode", MOE_RUNS)
@@ -273,10 +295,13 @@ def test_refusals_in_the_world(world):
     assert ref["nccl_cpu"][0] == "ValueError" and "nccl" in ref["nccl_cpu"][1]
     for key in ("experts_model", "experts_fn"):
         assert ref[key][0] == "ValueError" and "3 experts" in ref[key][1]
-    for key, item in (("family", "the ssm, hybrid, vlm and audio"),
-                      ("moe_train", "the moe train step"),
-                      ("decode", "decode and ckpt/io.py")):
-        assert ref[key][0] == "NotImplementedError" and item in ref[key][1]
+    assert ref["rwkv_heads"][0] == "ValueError" \
+        and "3 rwkv_heads" in ref["rwkv_heads"][1]
+    assert ref["stationary_train"][0] == "ValueError" \
+        and "moe_weight_mode='fsdp'" in ref["stationary_train"][1]
+    for key in ("decode", "decode_step"):
+        assert ref[key][0] == "NotImplementedError" \
+            and "decode and ckpt/io.py" in ref[key][1]
     assert ref["placement"][0] == "ValueError" \
         and "layer_pspec_fn" in ref["placement"][1]
     assert ref["expert_parallel"] is True

@@ -18,7 +18,6 @@ import dataclasses
 import sys
 from unittest import mock
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -29,6 +28,7 @@ from repro_torch import parallel, tree
 from repro_torch.launch import sharding, steps
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model, moe, sharded
+import torch_production_mesh_family_cases as family_cases
 
 DENSE = ("llama3-8b", "granite-34b")
 MOE = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
@@ -42,19 +42,11 @@ AXES = ("data", "model")
 
 def dense_setup(arch):
     """(config, full parameters, batch) of a dense case."""
-    cfg = reduced(get_config(arch))
-    params = build_model(cfg).init(torch.Generator().manual_seed(0),
-                                   device="cpu")
-    tok = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 32))
-    return cfg, params, {"tokens": torch.as_tensor(tok, dtype=torch.int32)}
+    return family_cases.draw(reduced(get_config(arch)), 0, 7)
 
 
 def moe_setup(arch):
-    cfg = reduced(get_config(arch))
-    params = build_model(cfg).init(torch.Generator().manual_seed(1),
-                                   device="cpu")
-    tok = np.random.default_rng(9).integers(0, cfg.vocab_size, (4, 16))
-    return cfg, params, {"tokens": torch.as_tensor(tok, dtype=torch.int32)}
+    return family_cases.draw(reduced(get_config(arch)), 1, 9, (4, 16))
 
 
 def numpy_tree(params) -> dict:
@@ -64,17 +56,20 @@ def numpy_tree(params) -> dict:
 
 def unsharded_steps(arch):
     """The port's one-device steps: (loss, kkt) a step, the parameters and
-    ``lin`` after the last, the parameters after the first."""
+    ``lin`` after the last, the parameters after the first; the prefill
+    step's logits at the first weights."""
     cfg, p, batch = dense_setup(arch)
     step = steps.make_train_step(build_model(cfg), HP)
     st = ssca.init(p, with_beta=False)
+    prefill = steps.make_prefill_step(build_model(cfg))(p, batch).numpy()
     metrics, first = [], None
     for _ in range(STEPS):
         p, st, m = step(p, st, batch)
         metrics.append((float(m["loss"]), float(m["kkt_residual"])))
         first = first or numpy_tree(p)
     return {"metrics": metrics, "params": numpy_tree(p),
-            "lin": numpy_tree(st.lin), "params_1": first}
+            "lin": numpy_tree(st.lin), "params_1": first,
+            "prefill": prefill}
 
 
 def unsharded_forward(arch):
@@ -87,45 +82,6 @@ def unsharded_forward(arch):
     return logits.numpy(), [float(d) for d in dropped]
 
 
-def dense_calls(cfg, m: int, act_tp) -> dict:
-    """The collectives a train step calls on each set of axes (``PERF.md``
-    §6): forward and backward, each call counted once whatever its
-    axes' size.  L layers of 4 attention projections and the FFN's 3
-    (SwiGLU) or 2 (GELU) data-split leaves, each all-gathered over
-    ``data`` a layer and reduce-scattered in the backward, and the
-    embedding table once; 2L + 1 entries into the model group (each
-    block's two norms, the final norm) and 2L + 1 exits (the attention's
-    and the FFN's row-parallel sums, the embedding's lookup): with
-    ``act_tp="model"`` an entry all-gathers (backward reduce-scatter) and
-    an exit reduce-scatters (backward all-gather), with None an entry is
-    ``f`` (an all-reduce in the backward) and an exit ``g`` (one in the
-    forward); where m ∤ Hkv, k and v are all-gathered over ``model`` a
-    layer (reduce-scattered back); the cross-entropy's max and its sums;
-    the whole-mesh all-reduce of the replicated leaves' gradients and the
-    metrics' one.  Each layer runs again in the backward
-    (``models.sharded.remat``) up to its last saved tensor: its data
-    gathers, its two entries, its k and v gathers and its attention's
-    exit again, not its FFN's exit (``torch.utils.checkpoint`` stops the
-    rerun there)."""
-    n = cfg.num_layers
-    per_layer = 4 + (3 if cfg.ffn == "swiglu" else 2)
-    ends = 2 * n + 1
-    kv = 2 * n if cfg.num_kv_heads % m else 0
-    calls = {"all_gather:data": 2 * per_layer * n + 1,
-             "reduce_scatter:data": per_layer * n + 1,
-             "all_reduce_max:model": 1, "all_reduce:data+model": 2}
-    if act_tp == "model":
-        calls.update({"all_gather:model": 2 * ends + 2 * n + 2 * kv,
-                      "reduce_scatter:model": 2 * ends + n + kv,
-                      "all_reduce:model": 1})
-    else:
-        calls["all_reduce:model"] = 2 * ends + n + 1
-        if kv:
-            calls.update({"all_gather:model": 2 * kv,
-                          "reduce_scatter:model": kv})
-    return calls
-
-
 def moe_forward_calls(cfg, act_tp, mode: str) -> dict:
     """The collectives of one expert-parallel forward (logits kept
     vocab-split): a MoE block all-gathers its 4 attention projections and
@@ -136,7 +92,9 @@ def moe_forward_calls(cfg, act_tp, mode: str) -> dict:
     and leaves it twice, the final norm enters and the lookup leaves once:
     as the dense step's forward, except the MoE combine, which in
     ``"stationary"`` is one all-reduce over (data, model); the kept count
-    is one all-reduce over (data, model) (``"fsdp"``) or ``model``."""
+    is one all-reduce over (data, model) (``"fsdp"``) or ``model``; the
+    load-balance loss's statistics one over ``data`` (``"fsdp"``: the
+    global batch's; ``"stationary"`` routes the whole batch already)."""
     units = cfg.num_layers // cfg.moe_every
     dense = units if cfg.moe_every != 1 else 0
     moe_data = 5 + (3 if cfg.shared_expert else 0) \
@@ -145,6 +103,8 @@ def moe_forward_calls(cfg, act_tp, mode: str) -> dict:
     exits = ends - (units if mode == "stationary" else 0)
     calls = {"all_gather:data": units * moe_data + dense * 7 + 1,
              "all_reduce:data+model": units}
+    if mode == "fsdp":
+        calls["all_reduce:data"] = units
     if act_tp == "model":
         calls.update({"all_gather:model": ends,
                       "reduce_scatter:model": exits})
@@ -157,14 +117,19 @@ def moe_forward_calls(cfg, act_tp, mode: str) -> dict:
 
 def dense_case(mesh, arch, act_tp, fsdp_params=True,
                microbatches=False) -> dict:
+    """The sharded prefill step at the first weights (its logits' rows
+    gathered over ``data``, its collectives), then the train steps."""
     cfg, params, batch = dense_setup(arch)
     place = dict(fsdp_params=fsdp_params)
     model = build_model(cfg, mesh=mesh, act_tp=act_tp,
                         layer_pspec_fn=sharding.layer_pspec_fn(mesh, **place))
     p = sharding.shard_params(params, mesh, **place)
+    b = sharding.local_batch(batch, mesh)
+    mesh.reset_counts()
+    logits = steps.make_prefill_step(model)(p, b)
+    prefill_calls = dict(mesh.calls)
     st = ssca.init(p, with_beta=False)
     step = steps.make_train_step(model, HP)
-    b = sharding.local_batch(batch, mesh)
     metrics, calls = [], []
     for _ in range(STEPS):
         mesh.reset_counts()
@@ -173,7 +138,9 @@ def dense_case(mesh, arch, act_tp, fsdp_params=True,
         metrics.append((float(m["loss"]), float(m["kkt_residual"])))
     out = {"metrics": metrics, "calls": calls,
            "params": numpy_tree(sharding.gather_params(p, mesh, **place)),
-           "lin": numpy_tree(sharding.gather_params(st.lin, mesh, **place))}
+           "lin": numpy_tree(sharding.gather_params(st.lin, mesh, **place)),
+           "prefill": mesh.all_gather(logits, "data", 0).numpy(),
+           "prefill_calls": prefill_calls}
     if microbatches:
         # two microbatches of the local batch: the same first step
         mb = steps.make_train_step(model, HP, microbatches=2)
@@ -288,8 +255,9 @@ def _error(fn) -> tuple:
 
 def refusals(mesh) -> dict:
     """What a mesh refuses: a grid that is not the world's size, nccl on
-    a CPU device, m ∤ E, the unported families and paths, a model without
-    its placement; and that the moe family runs expert-parallel there."""
+    a CPU device, m ∤ E, m ∤ ``rwkv_heads``, a ``"stationary"`` train
+    step, decode, a model without its placement; and that the moe family
+    runs expert-parallel there."""
     pspec = sharding.layer_pspec_fn(mesh)
     out = {"world": _error(lambda: make_mesh((2, 4), AXES, device="cpu"))}
     with mock.patch.object(dist, "get_backend", return_value="nccl"):
@@ -303,17 +271,24 @@ def refusals(mesh) -> dict:
               **{k: torch.zeros((1, 1, 1)) for k in ("wg", "wu", "wd")}}
     out["experts_fn"] = _error(lambda: moe.moe_ffn_sharded(
         x, params, num_experts=3, k=2, mesh=mesh))
-    out["family"] = _error(lambda: build_model(
-        reduced(get_config("rwkv6-7b")), mesh=mesh))
+    cfg_r = dataclasses.replace(reduced(get_config("rwkv6-7b")),
+                                rwkv_heads=3, d_model=192)
+    out["rwkv_heads"] = _error(lambda: build_model(cfg_r, mesh=mesh,
+                                                   layer_pspec_fn=pspec))
     cfg_q = reduced(get_config(MOE[0]))
     out["placement"] = _error(lambda: build_model(cfg_q, mesh=mesh))
     out["expert_parallel"] = build_model(cfg_q, mesh=mesh,
                                          layer_pspec_fn=pspec).expert_parallel
-    out["moe_train"] = _error(lambda: steps.make_train_step(
-        build_model(cfg_q, mesh=mesh, layer_pspec_fn=pspec)))
+    out["stationary_train"] = _error(lambda: steps.make_train_step(
+        build_model(cfg_q, mesh=mesh, moe_weight_mode="stationary",
+                    layer_pspec_fn=sharding.layer_pspec_fn(
+                        mesh, moe_fsdp_dim="f"))))
     cfg, params, _ = dense_setup(DENSE[0])
     out["decode"] = _error(lambda: build_model(
         cfg, mesh=mesh, layer_pspec_fn=pspec).init_decode(2, 8, device="cpu"))
+    out["decode_step"] = _error(lambda: build_model(
+        cfg, mesh=mesh, layer_pspec_fn=pspec).decode_step(
+            params, None, torch.zeros((2, 1), dtype=torch.int32)))
     out["dp_axes"] = _error(lambda: build_model(
         cfg, mesh=mesh, layer_pspec_fn=pspec, dp_axes=("model",)))
     return out
