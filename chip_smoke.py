@@ -5123,6 +5123,10 @@ PM_FAMILY_CASES = (MOE_ARCH, MOE_INTERLEAVED_ARCH, "rwkv6-7b", HYBRID_ARCH,
 # relative, the moe logits within 1e-5 of the largest |logit|; the full
 # moe forward on one rank is held bit for bit
 PM_LEAF = 1e-5
+# decode on the mesh at full width: SERVE_BATCH rows, a prompt fed token
+# by token, then greedy tokens, against mesh=None bit for bit
+PM_DECODE_PROMPT = 16
+PM_DECODE_NEW = 8
 
 
 def pm_cases():
@@ -5134,6 +5138,119 @@ def pm_cases():
     import torch_production_mesh_cases as cases
     import torch_production_mesh_family_cases as family
     return cases, family
+
+
+def pm_decode_cases():
+    """``tests/torch_production_mesh_decode_cases.py``: the reduced decode
+    cases, their run and checkpoint, and ``decode_calls``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_production_mesh_decode_cases as cases
+    return cases
+
+
+def pm_decode(torch, model, params, prompt, frames=None, mesh=None):
+    """``prompt`` (B, P) fed through ``decode_step`` token by token, then
+    PM_DECODE_NEW greedy tokens: every step's logits (on the device), the
+    final state, the greedy tokens, the greedy loop's seconds a step,
+    and on a mesh the collectives of its last step.  One rank: its
+    blocks are the whole state and its rows the whole batch."""
+    b, p = prompt.shape
+    state = model.init_decode(b, p + PM_DECODE_NEW, device=prompt.device)
+    if frames is not None:
+        state = model.precompute_cross(params, {"frame_embeds": frames},
+                                       state)
+    logits = []
+    for t in range(p):
+        out, state = model.decode_step(params, state, prompt[:, t:t + 1])
+        logits.append(out)
+    tok = torch.argmax(out[:, :, :model.cfg.vocab_size], -1)
+    gen = []
+    pm_sync(torch, prompt.device)
+    t0 = time.perf_counter()
+    for t in range(PM_DECODE_NEW):
+        if mesh is not None and t == PM_DECODE_NEW - 1:
+            mesh.reset_counts()
+        gen.append(tok)
+        out, state = model.decode_step(params, state, tok)
+        logits.append(out)
+        tok = torch.argmax(out[:, :, :model.cfg.vocab_size], -1)
+    pm_sync(torch, prompt.device)
+    return {"logits": logits, "state": state, "gen": torch.cat(gen, 1),
+            "step_ms": (time.perf_counter() - t0) / PM_DECODE_NEW * 1e3,
+            "calls": dict(mesh.calls) if mesh is not None else {}}
+
+
+def pm_host_decode(torch, kernels, card, mesh, dev, cfg, params, short,
+                   modes=("fsdp",)):
+    """``cfg`` at full width (the layers as its train case cuts them),
+    SERVE_BATCH rows: PM_DECODE_PROMPT prompt tokens fed one at a time,
+    then PM_DECODE_NEW greedy steps (:func:`pm_decode`; whisper against
+    ``stub_frames`` through ``precompute_cross``), without a mesh and on
+    the one-rank mesh in each weight mode of ``modes``: every step's
+    logits and every decode-state leaf bit for bit, the greedy tokens
+    equal, ``serve_batch`` once on the mesh giving them too, the
+    predicted collectives a step (``decode_calls``), the same launches
+    (none but whisper's encoder, once a layer a ``precompute_cross``).
+    Returns each path's launches and the summary."""
+    import numpy as np
+    from repro_torch.launch import serve, sharding
+    from repro_torch.models import build_model
+    dc = pm_decode_cases()
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (SERVE_BATCH, PM_DECODE_PROMPT),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               4), device=dev, dtype=torch.int32)
+    frames = stub_frames(torch, cfg, SERVE_BATCH, dev)
+    reset_counts(kernels)
+    none = pm_decode(torch, build_model(cfg), params, prompt, frames)
+    by_path = {f"mesh_host_{short}_decode_none": counts(kernels)}
+    out = {"none": {"decode_step_ms": none["step_ms"]}}
+    reqs = [serve.Request(r, PM_DECODE_NEW) for r in prompt.cpu().numpy()]
+    for mode in modes:
+        place = dict(moe_fsdp_dim="f" if mode == "stationary" else "d")
+        model = build_model(cfg, mesh=mesh, moe_weight_mode=mode,
+                            layer_pspec_fn=sharding.layer_pspec_fn(mesh,
+                                                                   **place))
+        p = sharding.shard_params(params, mesh, **place)
+        reset_counts(kernels)
+        run = pm_decode(torch, model, p, prompt, frames, mesh)
+        launches = counts(kernels)
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        gen = serve.serve_batch(model, p, reqs, frame_embeds=frames)[0]
+        serve_s = time.perf_counter() - t0
+        serve_launches = counts(kernels)
+        same = all(torch.equal(a, b) for a, b in zip(run["logits"],
+                                                     none["logits"]))
+        same_state = all(torch.equal(a, b) for a, b in zip(run["state"],
+                                                           none["state"]))
+        same_gen = bool(torch.equal(run["gen"], none["gen"])) \
+            and np.array_equal(gen, none["gen"].cpu().numpy())
+        want = dc.decode_calls(cfg, 1, "model", True, mode)
+        name = f"mesh_host_{short}_decode" + (
+            f"_{mode}" if len(modes) > 1 else "")
+        by_path[name] = {k: launches[k] + serve_launches[k]
+                         for k in launches}
+        out[mode] = {"logits_bit_for_bit": same,
+                     "state_bit_for_bit": same_state,
+                     "greedy_equal": same_gen,
+                     "decode_step_ms": run["step_ms"],
+                     "serve_batch_s": serve_s, "calls_per_step": run["calls"],
+                     "launches": launches}
+        if not (same and same_state and same_gen) or run["calls"] != want \
+                or launches != by_path[f"mesh_host_{short}_decode_none"] \
+                or serve_launches != launches:
+            raise AssertionError(f"host mesh decode {cfg.name} {mode}: "
+                                 f"{out[mode]}, want collectives {want}, "
+                                 f"launches {by_path}")
+        del run, p
+    log(f"production mesh decode, one {mesh.backend} rank, {cfg.name} "
+        f"({cfg.num_layers} layers, B = {SERVE_BATCH}, prompt "
+        f"{PM_DECODE_PROMPT} + {PM_DECODE_NEW} greedy) against mesh=None:",
+        json.dumps(out), f"on {card}")
+    del none, frames
+    pm_free(torch, dev)
+    return by_path, out
 
 
 def pm_sync(torch, dev):
@@ -5326,14 +5443,18 @@ def pm_host_family(torch, kernels, card, mesh, dev, arch, short, layers,
                              f"{mesh_l['calls']}, prefill "
                              f"{mesh_l['prefill_calls']}, want {want} a step "
                              f"and {want_prefill}")
-    del params, runs, wa, wb
+    del runs, wa, wb
+    pm_free(torch, dev)
+    decode_paths, _ = pm_host_decode(torch, kernels, card, mesh, dev, cfg,
+                                     params, short)
+    del params
     pm_free(torch, dev)
     both = {k: {n: run["launches"].get(n, 0) + run["prefill_launches"][n]
                 for n in run["prefill_launches"]}
             for k, run in out.items()}
-    return ({f"mesh_host_{short}_full{s}": both[k]
-             for k, s in (("mesh", ""), ("none", "_none"))},
-            {f"{short}_full": out})
+    return ({**{f"mesh_host_{short}_full{s}": both[k]
+                for k, s in (("mesh", ""), ("none", "_none"))},
+             **decode_paths}, {f"{short}_full": out})
 
 
 def pm_host_moe(torch, kernels, card, mesh, dev):
@@ -5393,7 +5514,19 @@ def pm_host_moe(torch, kernels, card, mesh, dev):
         f"({LM_LAYERS} of 94 layers, bf16, batch ({SERVE_BATCH}, "
         f"{SERVE_PROMPT + SERVE_NEW})), expert-parallel against moe_ffn:",
         json.dumps(out), f"on {card}")
-    del params, ref
+    del ref, p, model
+    pm_free(torch, dev)
+    by_path.update(pm_host_decode(torch, kernels, card, mesh, dev, cfg,
+                                  params, "moe", PM_MODES)[0])
+    del params
+    pm_free(torch, dev)
+    cfg = dataclasses.replace(get_config(MOE_INTERLEAVED_ARCH),
+                              num_layers=LM_LAYERS)
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    by_path.update(pm_host_decode(torch, kernels, card, mesh, dev, cfg,
+                                  params, "moe_interleaved", PM_MODES)[0])
+    del params
     pm_free(torch, dev)
     return by_path, {"moe_full": out}
 
@@ -5420,8 +5553,10 @@ def pm_family_train(torch, kernels, model, params, batch, dev, mesh=None):
 
 def pm_single_reduced(torch, kernels, dev):
     """The gloo ranks' cases in one process on ``dev``: each dense case's
-    steps, the moe forward and each family case's steps and prefill
-    without a mesh; their launches."""
+    steps, the moe forward, each family case's steps and prefill and
+    each decode case's decode and ``serve_batch``
+    (``tests/torch_production_mesh_decode_cases.py``) without a mesh;
+    their launches."""
     from repro_torch.models import build_model
     cases, family_cases = pm_cases()
     dense, family = {}, {}
@@ -5449,14 +5584,22 @@ def pm_single_reduced(torch, kernels, dev):
                         "prefill_launches": run["prefill_launches"]}
         for part in ("launches", "prefill_launches"):
             total = {k: total[k] + run[part][k] for k in total}
-    return dense, forward, family, total
+    dc = pm_decode_cases()
+    reset_counts(kernels)
+    decode = {name: dc.run(name, None, dev) for name in dc.CASES}
+    got = counts(kernels)
+    total = {k: total[k] + got[k] for k in total}
+    return dense, forward, family, total, decode
 
 
-def production_mesh_rank(dev="cuda"):
+def production_mesh_rank(dev="cuda", ckpt_dir=None):
     """One rank of the four-rank gloo world on ``cuda:0`` at PM_LAYOUT:
     every PM_DENSE train case and the reduced moe forward in both modes,
     the full parameters (``gather_params``) and logits back as numpy,
-    with the metrics, collectives, launches, step seconds and peaks."""
+    with the metrics, collectives, launches, step seconds and peaks;
+    every reduced decode case (``tests/torch_production_mesh_decode_
+    cases.py::run``) and, into ``ckpt_dir``, its checkpoint round
+    trip."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as rw
@@ -5520,6 +5663,17 @@ def production_mesh_rank(dev="cuda"):
             "lin": pm_numpy(sharding.gather_params(run.pop("lin"), mesh)),
             "prefill": mesh.all_gather(run.pop("logits"), "data",
                                        0).cpu().numpy(), **run}
+    dc = pm_decode_cases()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    out["decode"] = {name: dc.run(name, mesh, mesh.device)
+                     for name in dc.CASES}
+    out["decode_s"] = time.perf_counter() - t0
+    out["decode_launches"] = counts(kernels)
+    if ckpt_dir is not None:
+        out["ckpt"] = {name: dc.ckpt_case(mesh, dc.ckpt_dir(ckpt_dir, name),
+                                          name, mesh.device)
+                       for name in dc.CKPT_CASES}
     return out
 
 
@@ -5533,7 +5687,7 @@ def pm_ranks_check(torch, ranks, single, card, dev="cuda",
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduced
-    dense, (logits, dropped), family = single
+    dense, (logits, dropped), family, decode = single
     cases, family_cases = pm_cases()
     m = PM_LAYOUT[1]
     summary = {}
@@ -5602,11 +5756,114 @@ def pm_ranks_check(torch, ranks, single, card, dev="cuda",
     for case in PM_FAMILY_CASES:
         summary[f"{case} train"] = pm_family_check(
             torch, case, [res["family"][case] for res in ranks], family[case])
+    summary["decode"] = pm_decode_check(ranks, decode)
     log(f"production mesh, four {backend} ranks at {PM_LAYOUT} on "
         f"{sorted({res['device'] for res in ranks})}: ranks bit for bit, "
         "within the CPU tests' bounds of one process:", json.dumps(summary),
         f"on {card}")
     return summary
+
+
+def pm_decode_rank(layout, names, dev="cuda"):
+    """One rank of a ``layout`` (data, model) mesh: the reduced decode
+    cases ``names`` (``tests/torch_production_mesh_decode_cases.py::
+    run``) on its card."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(layout, PM_AXES, device=dev)
+    dc = pm_decode_cases()
+    t0 = time.perf_counter()
+    out = {"decode": {name: dc.run(name, mesh, mesh.device)
+                      for name in names}}
+    out["decode_s"] = time.perf_counter() - t0
+    return out
+
+
+def pm_decode_check(ranks, decode, layout=PM_LAYOUT):
+    """The ranks' reduced decode cases (those of ``decode``, the
+    one-process runs) on a ``layout`` mesh: each step's logits and every
+    state leaf within the CPU tests' bounds of the one-process run's
+    largest (``dc.gaps``: f32 PM_LEAF; bf16 2e-2 and 2^-6 for the caches,
+    held up to a bf16 route that parts at a near-tie), the ranks bit for
+    bit each other (logits, state, greedy tokens), each step's
+    collectives as ``decode_calls`` predicts, each leaf the table splits
+    held at its block's bytes; the checkpoints restored onto the mesh bit
+    for bit and their refusals where the ranks saved them."""
+    import numpy as np
+    dc = pm_decode_cases()
+    d, m = layout
+    out = {}
+    for name, want in decode.items():
+        case = dc.CASES[name]
+        runs = [res["decode"][name] for res in ranks]
+        got = dc.gaps(name, runs[0], want)
+        gap, state_gap = got["logits"], max(got["state"].values(),
+                                            default=0.0)
+        cfg = dc.config(name)
+        spec = runs[0]["bytes"]["kv_k"][2]
+        calls = dc.decode_calls(cfg, m, case.act_tp,
+                                len(spec) > 2 and spec[2] is not None,
+                                case.mode)
+        for r, run in enumerate(runs):
+            blocks = all(local * math.prod(
+                {"data": d, "model": m}[a] for e in sp if e is not None
+                for a in ((e,) if isinstance(e, str) else e)) == whole
+                for local, whole, sp in run["bytes"].values())
+            if not (np.array_equal(run["logits"], runs[0]["logits"])
+                    and all(np.array_equal(run["state"][f],
+                                           runs[0]["state"][f])
+                            for f in want["state"])
+                    and np.array_equal(run["greedy"], runs[0]["greedy"])
+                    and run["calls"] == calls and blocks and got["held"]):
+                raise AssertionError(
+                    f"gloo decode {name} rank {r}: {got} (bounds "
+                    f"{dc.bounds(name)}), collectives {run['calls']} (want "
+                    f"{calls}), blocks {blocks}")
+        out[name] = {"logits_gap": gap, "state_gap": state_gap,
+                     "bounds": dc.bounds(name),
+                     "routes_alike_until": got["upto"],
+                     "greedy_equal_one_process": bool(np.array_equal(
+                         runs[0]["greedy"], want["greedy"])),
+                     "calls_per_step": calls}
+    for r, res in enumerate(ranks):
+        for name, ck in (res.get("ckpt") or {}).items():
+            if not (ck["restored"] and ck["step"] == 3
+                    and ck["blocks_as_whole"][0] == "ValueError"
+                    and ck["no_like"][0] == "ValueError"):
+                raise AssertionError(f"gloo checkpoint {name} rank {r}: "
+                                     f"{ck}")
+    out["decode_s"] = [res["decode_s"] for res in ranks]
+    return out
+
+
+def pm_ckpt_check(directory):
+    """The mesh checkpoints' archives (one a weight mode's placement)
+    read on one device, and with the reference's format: every leaf bit
+    for bit the whole tree the ranks saved blocks of."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.ckpt import io as ckpt_io
+    dc = pm_decode_cases()
+    out = {}
+    for name in dc.CKPT_CASES:
+        _, params, _, _ = dc.setup(name)
+        want = {k.replace("/.", "/"): v.numpy() for k, v in
+                ckpt_io._flatten(dc.ckpt_tree(params)).items()}
+        got, manifest = ckpt_io.restore(dc.ckpt_dir(directory, name),
+                                        device="cpu")
+        got = {k.replace("/.", "/"): v.numpy()
+               for k, v in tree.named_leaves(got)}
+        same = sorted(got) == sorted(want) and manifest["step"] == 3 \
+            and all(got[k].dtype == w.dtype and np.array_equal(got[k], w)
+                    for k, w in want.items())
+        if not same:
+            raise AssertionError(f"mesh checkpoint {name} in {directory}: "
+                                 "not the whole tree bit for bit on one "
+                                 "device")
+        out[name] = {"leaves": len(want),
+                     "bytes": sum(w.nbytes for w in want.values())}
+    return out
 
 
 def moe_full_train_rank(layout, dev="cuda"):
@@ -5718,9 +5975,12 @@ def phase_production_mesh(torch, kernels, card, dev="cuda",
     sharded.py``): on a one-rank ``backend`` group in this process
     (``init_process_group`` on a FileStore), qwen3-moe's expert-parallel
     forward in both weight modes against ``moe_ffn``, and each of
-    PM_FAMILIES' train and prefill steps on ``make_host_mesh()`` bit for
-    bit ``mesh=None``; then four gloo ranks on ``cuda:0`` at PM_LAYOUT
-    against the same cases in one process.  Returns each path's
+    PM_FAMILIES' train and prefill steps and its decode
+    (:func:`pm_host_decode`; qwen3-moe's and llama4-maverick's in both
+    weight modes) on ``make_host_mesh()`` bit for bit ``mesh=None``;
+    then four gloo ranks on ``cuda:0`` at PM_LAYOUT against the same
+    cases in one process, with the reduced decode cases and a checkpoint
+    saved on the mesh and read back on one device.  Returns each path's
     launches."""
     import datetime
     import tempfile
@@ -5749,17 +6009,20 @@ def phase_production_mesh(torch, kernels, card, dev="cuda",
                 f"{time.perf_counter() - t1:.1f} s")
     finally:
         dist.destroy_process_group()
-    shutil.rmtree(tmp, ignore_errors=True)
     log(f"production mesh, one {backend} rank: "
         f"{time.perf_counter() - t0:.1f} s")
     single = pm_single_reduced(torch, kernels, dev)
     by_path["mesh_gloo_single"] = single[3]
     t1 = time.perf_counter()
+    ckpt_dir = os.path.join(tmp, "ckpt")
     ranks = LocalWorld(production_mesh_rank, 4, backend="gloo",
-                       args=(dev,), timeout_s=MESH_TIMEOUT_S).join()
+                       args=(dev, ckpt_dir), timeout_s=MESH_TIMEOUT_S).join()
     log(f"production mesh, four gloo ranks: {time.perf_counter() - t1:.1f} "
         "s with start-up")
-    pm_ranks_check(torch, ranks, single[:3], card, dev)
+    pm_ranks_check(torch, ranks, (*single[:3], single[4]), card, dev)
+    log("production mesh, the four gloo ranks' checkpoint on one device:",
+        json.dumps(pm_ckpt_check(ckpt_dir)))
+    shutil.rmtree(tmp, ignore_errors=True)
     total = {}
     for res in ranks:
         for case in [*res["dense"].values(), *res["moe"].values(),
@@ -5767,6 +6030,8 @@ def phase_production_mesh(torch, kernels, card, dev="cuda",
             for part in ("launches", "prefill_launches"):
                 for k, v in case.get(part, {}).items():
                     total[k] = total.get(k, 0) + v
+        for k, v in res["decode_launches"].items():
+            total[k] = total.get(k, 0) + v
     by_path["mesh_gloo2x2"] = total
     log(f"production mesh phase: {time.perf_counter() - t0:.1f} s; "
         "launches by path:", json.dumps(by_path))

@@ -473,6 +473,13 @@ class ProductionMesh:
         return out
 
 
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh has called (not counted: it
+        moves no data)."""
+        if self.size > 1:
+            dist.barrier(group=self.groups[self.axis_names])
+
+
 def make_mesh(shape, axes, device: Device = None) -> ProductionMesh:
     """A :class:`ProductionMesh` of ``shape`` over ``axes`` on the default
     process group, which must hold exactly prod(shape) ranks (no

@@ -28,6 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import reduced
+from repro_torch.launch import sharding
 from repro_torch.models import build_model
 
 
@@ -65,21 +66,33 @@ def serve_batch(model, params, requests: List[Request], *, window: int = 0,
     D), for the audio family, go through the encoder once
     (``Model.precompute_cross``) before the prefill's clock starts, as in
     the reference; without them an audio model decodes against zero
-    cross-attention K and V, as the reference's does."""
+    cross-attention K and V, as the reference's does.
+
+    A model on a production mesh: every rank calls with the same
+    requests (and frames) and its blocks of the parameters; each decodes
+    its rows of the batch (``sharding.decode_rows``, the decode state's
+    layout), ``record`` takes those rows' logits, and the greedy tokens
+    are gathered over the data axes, so that every rank returns the
+    whole batch's."""
     del window
     cfg = model.cfg
+    mesh = model.mesh
     device = params["embed"].device
     b = len(requests)
     prompt_len = max(len(r.prompt) for r in requests)
     max_new = max(r.max_new for r in requests)
+
+    def rows(x):
+        x = torch.as_tensor(x, device=device)
+        return x if mesh is None else sharding.decode_rows(x, mesh)
+
     state = model.init_decode(b, prompt_len + max_new, device=device)
     if cfg.family == "audio" and frame_embeds is not None:
         state = model.precompute_cross(
-            params, {"frame_embeds": torch.as_tensor(frame_embeds,
-                                                     device=device)}, state)
-    prompts = torch.as_tensor(np.stack([
+            params, {"frame_embeds": rows(frame_embeds)}, state)
+    prompts = rows(np.stack([
         np.pad(r.prompt, (0, prompt_len - len(r.prompt)))
-        for r in requests]), device=device)
+        for r in requests]))
 
     _sync(device)
     t0 = time.perf_counter()
@@ -103,7 +116,10 @@ def serve_batch(model, params, requests: List[Request], *, window: int = 0,
         tok = torch.argmax(logits[:, :, :cfg.vocab_size], -1)
     _sync(device)
     t_decode = time.perf_counter() - t0
-    gen = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+    gen = torch.cat(out, dim=1)
+    if mesh is not None:
+        gen = sharding.gather_rows(gen, mesh, b)
+    gen = gen.cpu().numpy().astype(np.int32)
     return gen, t_prefill, t_decode
 
 

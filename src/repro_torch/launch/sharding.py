@@ -18,21 +18,23 @@ Rules are name-based over the stacked-parameter tree; unknown leaves
 replicate (``()``), as in the reference.  The reference hands these to
 XLA as ``NamedSharding``s; the port cuts each rank's block out of a
 full tensor (:func:`shard_params`, :func:`local_batch`) and puts the
-blocks back together (:func:`gather_params`).
+blocks back together (:func:`gather_params`).  The blocks' helpers and
+the decode state's table (``decode_state_shardings``) live in
+:mod:`repro_torch.placement`, below the models, which read them there;
+this module exports them.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
-
-import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.ssca import SSCAState
 from repro_torch.parallel import data_axes
+from repro_torch.placement import (  # noqa: F401  (this module's API)
+    Spec, block_shape, decode_rows, decode_shape, decode_state_shardings,
+    gather_block, gather_rows, local_block, whole_shape)
+from repro_torch.placement import batch_spec as _batch_spec
 from repro_torch.tree import named_leaves, rebuild
-
-Spec = tuple
 
 
 def _fsdp(mesh) -> Optional[str]:
@@ -118,29 +120,6 @@ def param_shardings(params, mesh, *, fsdp_params: bool = True,
         for name, leaf in named_leaves(params)})
 
 
-def _entry_axes(entry) -> tuple:
-    return (entry,) if isinstance(entry, str) else tuple(entry)
-
-
-def local_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """This rank's block of the full tensor ``x`` under ``spec``: each
-    split dimension cut into the product of its axes' sizes, the block
-    at this rank's row-major index over them.  ``x`` itself where no
-    dimension is split; raises where a size does not divide."""
-    out = x
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        n = mesh.axis_size(_entry_axes(entry))
-        if x.shape[dim] % n:
-            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
-                             f"split over {entry} ({n} ranks)")
-        size = x.shape[dim] // n
-        out = out.narrow(dim, mesh.axis_index(_entry_axes(entry)) * size,
-                         size)
-    return x if out.shape == x.shape else out.contiguous()
-
-
 def shard_params(params, mesh, *, fsdp_params: bool = True,
                  moe_fsdp_dim: str = "d"):
     """Each leaf's block on this rank (:func:`local_block` of its spec) —
@@ -156,31 +135,17 @@ def gather_params(local, mesh, *, fsdp_params: bool = True,
                   moe_fsdp_dim: str = "d"):
     """The inverse of :func:`shard_params` on every rank: each split
     dimension all-gathered over its axes (counted on the mesh)."""
-    out = {}
-    for name, leaf in named_leaves(local):
-        spec = _param_spec(name, tuple(leaf.shape), mesh,
-                           fsdp_params=fsdp_params, moe_fsdp_dim=moe_fsdp_dim)
-        for dim, entry in enumerate(spec):
-            if entry is not None:
-                leaf = mesh.all_gather(leaf, _entry_axes(entry), dim)
-        out[name] = leaf
-    return rebuild(local, out)
+    return rebuild(local, {
+        name: gather_block(leaf, _param_spec(
+            name, tuple(leaf.shape), mesh, fsdp_params=fsdp_params,
+            moe_fsdp_dim=moe_fsdp_dim), mesh)
+        for name, leaf in named_leaves(local)})
 
 
 def state_shardings(state: SSCAState, params_sh, mesh) -> SSCAState:
     """SSCA state: lin/beta like params; the step replicated."""
     return SSCAState(step=(), lin=params_sh,
                      beta=None if state.beta is None else params_sh)
-
-
-def _batch_spec(shape: InputShape, mesh, dp_override=None):
-    """The batch dim's entry: the data axes (one axis by its name, as a
-    ``PartitionSpec`` normalises it) when they divide the global batch."""
-    dp = tuple(dp_override) if dp_override is not None else data_axes(mesh)
-    ndev = math.prod(mesh.shape[a] for a in dp) if dp else 1
-    if not dp or shape.global_batch % ndev:
-        return None
-    return dp[0] if len(dp) == 1 else dp
 
 
 def batch_shardings(cfg: ModelConfig, shape: InputShape, mesh,
@@ -202,37 +167,6 @@ def local_batch(batch: dict, mesh, dp_axes=None) -> dict:
     dp = data_axes(mesh) if dp_axes is None else tuple(dp_axes)
     return {k: local_block(v, (dp,) if dp else (), mesh)
             for k, v in batch.items()}
-
-
-def decode_state_shardings(cfg: ModelConfig, shape: InputShape, mesh,
-                           state):
-    """Decode caches: batch over data axes; the KV caches' sequence over
-    model; recurrent state heads over model.  ``state`` is a
-    ``DecodeState`` (of tensors or meta tensors); returns one of specs."""
-    b = _batch_spec(shape, mesh)
-    m = "model"
-
-    def spec_for(name, leaf) -> Spec:
-        if leaf.dim() == 0 or leaf.numel() == 0:
-            return ()
-        if name in ("kv_k", "kv_v", "cross_k", "cross_v"):
-            # (n_layers, B, C, Hkv, hd): the cache's sequence over model
-            cap = leaf.shape[2]
-            cspec = m if cap % mesh.shape["model"] == 0 else None
-            return (None, b, cspec, None, None)
-        if name == "rec_h":
-            if leaf.dim() == 5:      # rwkv wkv (L, B, H, dk, dv)
-                return (None, b, m, None, None)
-            return (None, b, m)      # rglru (L, B, D)
-        if name == "rec_conv" and leaf.dim() == 4:
-            # (L, B, W-1, D) or rwkv shifts (L, 2, B, D)
-            if cfg.family == "ssm":
-                return (None, None, b, m)
-            return (None, b, None, m)
-        return ()
-
-    return type(state)(*(spec_for(f, getattr(state, f))
-                         for f in state._fields))
 
 
 def replicated(mesh) -> Spec:

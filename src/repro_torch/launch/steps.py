@@ -156,7 +156,11 @@ def make_prefill_step(model: Model):
 
 def make_decode_step(model: Model):
     """``(params, state, batch) → (logits, state')``: one token of
-    ``batch["tokens"]`` (B, 1) through ``model.decode_step``."""
+    ``batch["tokens"]`` (B, 1) through ``model.decode_step``.  On a mesh,
+    as the reference's is lowered under ``decode_state_shardings``: the
+    rank's blocks of the parameters, its ``MeshDecodeState`` and its rows
+    of the tokens (``launch.sharding.decode_rows``) → its rows' logits,
+    gathered over the vocab."""
     def decode_step(params, state, batch):
         return model.decode_step(params, state, batch["tokens"])
     return decode_step

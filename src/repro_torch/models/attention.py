@@ -119,13 +119,23 @@ def decode_attend(q, cache: KVCache, *, window: int = 0,
     scale = scale if scale is not None else dh ** -0.5
     cap = cache.capacity
     scores = _scores_grouped(q, cache.k, scale)          # (B, Hkv, G, 1, C)
-    length = cache.length
-    newest = length - 1
     slots = torch.arange(cap, device=q.device)
+    scores = torch.where(slot_valid(cache.length, cap, slots, window),
+                         scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _combine_grouped(probs, cache.v, q.dtype)
+
+
+def slot_valid(length, cap: int, slots, window: int = 0):
+    """Which of a cache's ``slots`` (absolute slot indices of a C = ``cap``
+    ring, a block of them on a shard) hold a token a query at ``length``
+    (counted after its own write) sees: slot i holds the absolute
+    position p ≡ i (mod C) with the largest p < length; valid iff p ≥ 0
+    and p ≥ length − C, and, with a sliding window, p > length − 1 −
+    window."""
+    newest = length - 1
     pos = newest - ((newest - slots) % cap)              # absolute position
     valid = (pos >= 0) & (pos >= length - cap)
     if window:
         valid &= pos > newest - window
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    return _combine_grouped(probs, cache.v, q.dtype)
+    return valid

@@ -48,7 +48,17 @@ shard_params`) and its rows of the batch:
   i's columns of its channels;
 * the vlm's ``img_proj`` (``(d@data, model)``) is a column-parallel
   product whose (B, N_img, D/m) output is the rank's block of the image
-  tokens' stream.
+  tokens' stream;
+* decode runs one token against the rank's blocks of the decode state
+  (``placement.decode_state_shardings``): :func:`attn_decode`
+  gathers q, k and v over ``model``, writes the token's k and v only
+  into the slot its rank holds, scores every head against the rank's
+  C/m slots and combines the ranks by a split-K log-sum-exp in f32
+  (:func:`_split_attend`), or, where m does not divide C and every rank
+  holds the whole cache, attends with the rank's heads;
+  :func:`cross_decode` does the same over whisper's cached encoder K and
+  V; :func:`rwkv_block` and :func:`recurrent_block` take a state of the
+  rank's heads or channels and overwrite it.
 
 Gradients: the loss of a rank is its tokens' mean over the count of data
 ranks (moe's load-balance term the global batch's, its gradient carried
@@ -63,7 +73,7 @@ over the axes its placement leaves whole (:func:`reduce_replicated`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -300,13 +310,16 @@ def audio_block(ctx: MeshContext, cfg, p, x, positions, enc):
     return x + ffn(ctx, cfg, p, x)
 
 
-def _time_mix(ctx: MeshContext, p, xn):
-    """RWKV-6's time mix on this rank's heads (``rwkv6.time_mix``'s
-    sequence path from a zero state): its rank-partial f32 output sum
-    (B, S, D)."""
+def _time_mix(ctx: MeshContext, p, xn, state=None):
+    """RWKV-6's time mix on this rank's heads → (its rank-partial f32
+    output sum (B, S, D), the next WKV state or None).  ``state=None``:
+    ``rwkv6.time_mix``'s sequence path from a zero state (the WKV op);
+    else decode's (WKV state (B, H/m, dh, dh) f32 of the rank's heads,
+    the token shift (B, D) whole): one token through ``wkv_step``."""
     b, s, _ = xn.shape
     hl, dh = p["bonus"].shape
-    shift = torch.zeros(b, xn.shape[2], dtype=xn.dtype, device=xn.device)
+    shift = torch.zeros(b, xn.shape[2], dtype=xn.dtype, device=xn.device) \
+        if state is None else state[1]
     xr, xk, xv, xw, xg = (rwkv6._token_shift(xn, p[f"mix_{c}"], shift)
                           for c in "rkvwg")
     r = (xr @ p["wr"]).reshape(b, s, hl, dh)
@@ -317,16 +330,23 @@ def _time_mix(ctx: MeshContext, p, xn):
         xw.float() @ p["decay_w1"].float()) @ p["decay_w2"].float()
     w = torch.exp(torch.clamp(-torch.exp(dec.float()), rwkv6.LOG_DECAY_FLOOR,
                               0.0)).reshape(b, s, hl, dh)
-    o = ops.rwkv6_wkv(r, k, v, w, p["bonus"])
+    if state is None:
+        o, wkv = ops.rwkv6_wkv(r, k, v, w, p["bonus"]), None
+    else:
+        o, wkv = rwkv6.wkv_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                                p["bonus"], state[0])
+        o = o[:, None]
     o = rwkv6._group_norm(o, p["ln_w"], p["ln_b"])
-    return (o.reshape(b, s, hl * dh) * g).float() @ p["wo"].float()
+    return (o.reshape(b, s, hl * dh) * g).float() @ p["wo"].float(), wkv
 
 
-def _channel_mix(ctx: MeshContext, p, xn):
+def _channel_mix(ctx: MeshContext, p, xn, shift=None):
     """RWKV's channel mix: ``sigmoid(xr @ cr)`` on this rank's D/m
-    channels times ``k @ cv``'s sum reduce-scattered to them."""
-    shift = torch.zeros(xn.shape[0], xn.shape[2], dtype=xn.dtype,
-                        device=xn.device)
+    channels times ``k @ cv``'s sum reduce-scattered to them; the token
+    shift from ``shift`` (B, D) (zero when None)."""
+    if shift is None:
+        shift = torch.zeros(xn.shape[0], xn.shape[2], dtype=xn.dtype,
+                            device=xn.device)
     xk = rwkv6._token_shift(xn, p["cmix_k"], shift)
     xr = rwkv6._token_shift(xn, p["cmix_r"], shift)
     k = torch.square(F.relu(xk @ p["ck"]))
@@ -334,13 +354,26 @@ def _channel_mix(ctx: MeshContext, p, xn):
     return ctx.stream(torch.sigmoid(xr @ p["cr"]) * part)
 
 
-def rwkv_block(ctx: MeshContext, p, x):
+def rwkv_block(ctx: MeshContext, p, x, state=None):
     """RWKV-6's time mix then channel mix, each on the RMS-normed entered
-    stream."""
+    stream.  ``state``: decode's (WKV state (B, H/m, dh, dh) f32, shifts
+    (2, B, D/m): the rank's channels of the time mix's and the channel
+    mix's last normed inputs) for one token x, overwritten in place; the
+    shifts are gathered over ``model`` once, where the projections read
+    all of D."""
+    shifts = None if state is None \
+        else ctx.mesh.all_gather(state[1], TP, -1)
     xn = layers.rms_norm(ctx.enter(x), p["tm_norm"])
-    x = x + ctx.leave(_time_mix(ctx, p, xn)).to(x.dtype)
-    xn = layers.rms_norm(ctx.enter(x), p["cm_norm"])
-    return x + _channel_mix(ctx, p, xn)
+    y, wkv = _time_mix(ctx, p, xn, None if state is None
+                       else (state[0], shifts[0]))
+    x = x + ctx.leave(y).to(x.dtype)
+    xn2 = layers.rms_norm(ctx.enter(x), p["cm_norm"])
+    x = x + _channel_mix(ctx, p, xn2, None if state is None else shifts[1])
+    if state is not None:
+        state[0].copy_(wkv)
+        state[1][0].copy_(ctx.block(xn[:, -1]))
+        state[1][1].copy_(ctx.block(xn2[:, -1]))
+    return x
 
 
 def _ri_columns(ctx: MeshContext, w_ri):
@@ -354,17 +387,28 @@ def _ri_columns(ctx: MeshContext, w_ri):
                       w.narrow(-1, d + ctx.r * dl, dl)], dim=-1)
 
 
-def recurrent_block(ctx: MeshContext, cfg, p, x):
+def recurrent_block(ctx: MeshContext, cfg, p, x, state=None):
     """Griffin's recurrent block on this rank's D/m channels: the branch
     through the conv and the RG-LRU, gated, projected row-parallel; then
-    the FFN."""
+    the FFN.  ``state``: decode's (RG-LRU state (B, D/m) f32, conv
+    context (B, T − 1, D/m)) of the rank's channels for one token x,
+    overwritten in place."""
     xn = layers.rms_norm(ctx.enter(x), p["rec_norm"])
     branch = xn @ p["wx"]
     gate = F.gelu(xn @ p["wgate"], approximate="tanh")
-    branch = rglru.temporal_conv(branch, p["conv_w"])[0]
+    branch, conv = rglru.temporal_conv(branch, p["conv_w"],
+                                       None if state is None else state[1])
     whole = parallel.all_gather(branch, ctx.mesh, TP, -1)
     r, i = torch.sigmoid(whole @ _ri_columns(ctx, p["w_ri"])).chunk(2, -1)
-    y = rglru.rg_lru(branch, r, i, ctx.block(p["lam"]))[0]
+    lam = ctx.block(p["lam"])
+    if state is None:
+        y = rglru.rg_lru(branch, r, i, lam)[0]
+    else:
+        y, h = rglru.rg_lru_step(branch[:, 0], r[:, 0], i[:, 0], lam,
+                                 state[0])
+        y = y[:, None]
+        state[0].copy_(h)
+        state[1].copy_(conv)
     x = x + ctx.leave((y * gate) @ p["w_out"])
     return x + ffn(ctx, cfg, p, x)
 
@@ -372,7 +416,13 @@ def recurrent_block(ctx: MeshContext, cfg, p, x):
 def moe_block(ctx: MeshContext, cfg, p, x, positions, weight_mode: str):
     """Attention, then the expert-parallel MoE FFN → (x, its
     ``MoEOutput``)."""
-    x = attn_apply(ctx, cfg, p, x, positions)
+    return moe_ffn_block(ctx, cfg, p, attn_apply(ctx, cfg, p, x, positions),
+                         weight_mode)
+
+
+def moe_ffn_block(ctx: MeshContext, cfg, p, x, weight_mode: str):
+    """The expert-parallel MoE FFN with its residual → (x, its
+    ``MoEOutput``)."""
     xn = layers.rms_norm(ctx.enter(x), p["ffn_norm"])
     mp = {"router": p["router"], "wg": p["ewg"], "wu": p["ewu"],
           "wd": p["ewd"]}
@@ -384,6 +434,148 @@ def moe_block(ctx: MeshContext, cfg, p, x, positions, weight_mode: str):
         capacity_factor=cfg.capacity_factor, mesh=ctx.mesh,
         weight_mode=weight_mode, out_tp=ctx.act_tp)
     return x + out.y, out
+
+
+# ---------------------------------------------------------------------------
+# decode: one token against this rank's blocks of the decode state
+# ---------------------------------------------------------------------------
+
+class Slots(NamedTuple):
+    """A layer's KV cache on this rank for one decode step: ``k``, ``v``
+    (B, C_loc, Hkv, hd), written in place, and the ``length`` tokens
+    written before this one; the whole cache has ``cap`` slots, of which
+    the rank holds the C/m from r·C/m when ``split`` (the table splits
+    the sequence over ``model`` where m divides C), else every slot."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+    cap: int
+    split: bool
+
+
+def _gather_cols(ctx: MeshContext, parts):
+    """This rank's columns (…, w/m) of column-parallel outputs → each
+    whole (…, w), all of them by one all-gather over ``model``."""
+    packed = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+    got = ctx.mesh.all_gather(packed[None], TP, 0)         # (m, …, Σ w/m)
+    out, off = [], 0
+    for t in parts:
+        w = t.shape[-1]
+        out.append(got[..., off:off + w].movedim(0, -2).reshape(
+            *t.shape[:-1], ctx.m * w))
+        off += w
+    return out
+
+
+def _write(ctx: MeshContext, cache: Slots, k, v):
+    """The token's k and v (B, 1, Hkv, hd) into slot ``length % C``, on
+    the device (no host sync): split, a masked local write on every rank
+    (the rank that holds the slot takes the token, the others write back
+    what their clamped slot held); else every rank writes it.  Returns
+    the length after the write."""
+    slot = (cache.length % cache.cap).long()
+    if cache.split:
+        cl = cache.k.shape[1]
+        local = slot - ctx.r * cl
+        own = (local >= 0) & (local < cl)
+        slot = local.clamp(0, cl - 1)
+    for buf, new in ((cache.k, k), (cache.v, v)):
+        new = new.to(buf.dtype)
+        if cache.split:
+            new = torch.where(own, new, buf.index_select(1, slot.reshape(1)))
+        buf.index_copy_(1, slot.reshape(1), new)
+    return cache.length + 1
+
+
+def _split_attend(ctx: MeshContext, q, k, v, length, cap: int, lo: int,
+                  window: int = 0):
+    """Every head of q (B, 1, H, hd) against this rank's slots k, v
+    (B, C_loc, Hkv, hd), the absolute slots lo … lo + C_loc − 1 of a
+    ``cap``-slot cache at ``length`` (:func:`attention.slot_valid`),
+    combined over ``model`` by a split-K log-sum-exp in f32: the
+    global max of the scores (an all-reduce max), each rank's softmax
+    weighted by its share exp(local max − global max) · Σ exp(s − local
+    max) of the global sum (an all-reduce), so that a rank with no valid
+    slot adds zero; the probabilities are rounded to q's dtype, as
+    ``decode_attend`` rounds them, each rank's partial P·V taken in f32
+    and the partials summed in f32 onto this rank's H/m heads (a
+    reduce-scatter), rounded once → (B, 1, H/m, hd) in q's dtype.  One
+    rank: every share 1 and nothing to sum, ``decode_attend``'s
+    arithmetic (P·V in q's dtype)."""
+    scores = attention._scores_grouped(q, k, q.shape[-1] ** -0.5)
+    slots = lo + torch.arange(k.shape[1], device=q.device)
+    scores = torch.where(attention.slot_valid(length, cap, slots, window),
+                         scores, attention.NEG_INF)        # (B, Hkv, G, 1, C)
+    mx = scores.amax(-1, keepdim=True)
+    share = torch.exp(scores - mx).sum(-1, keepdim=True) * torch.exp(
+        mx - ctx.mesh.all_reduce(mx, TP, "max"))
+    probs = torch.softmax(scores, dim=-1) * (
+        share / ctx.mesh.all_reduce(share, TP))
+    if ctx.m == 1:          # nothing to sum: decode_attend's one rounding
+        o = attention._combine_grouped(probs, v, q.dtype)
+    else:
+        o = attention._combine_grouped(probs.to(q.dtype), v, torch.float32)
+    return ctx.mesh.reduce_scatter(o, TP, 2).to(q.dtype)  # (B, 1, H/m, hd)
+
+
+def _head_attend(ctx: MeshContext, cfg, q, k, v, length, window: int = 0):
+    """This rank's H/m heads of q against every slot of a replicated
+    cache k, v (B, C, Hkv, hd): the kv heads they read
+    (:func:`_kv_heads`) through ``decode_attend``."""
+    k, v = _kv_heads(ctx, cfg, k, v)
+    return attention.decode_attend(q, attention.KVCache(k, v, length),
+                                   window=window)
+
+
+def attn_decode(ctx: MeshContext, cfg, p, x, cache: Slots, *,
+                window: int = 0):
+    """One token's self-attention with its residual, x (B, 1, ·) the
+    residual stream: the column-parallel projections gathered over
+    ``model`` (q, k and v by one call where the cache is split, else k
+    and v), RoPE at ``length``, the token's k and v into its slot
+    (:func:`_write`), then every head against the rank's slots combined
+    over ``model`` (:func:`_split_attend`) or, where the cache is whole,
+    the rank's heads against all of it; the rank's heads through the
+    row-parallel ``wo``."""
+    hd, m = cfg.head_dim, ctx.m
+    xn = layers.rms_norm(ctx.enter(x), p["attn_norm"])
+    b = xn.shape[0]
+    q = xn @ p["wq"]
+    if cache.split:
+        q, k, v = _gather_cols(ctx, [q, xn @ p["wk"], xn @ p["wv"]])
+    else:
+        k, v = _gather_cols(ctx, [xn @ p["wk"], xn @ p["wv"]])
+    pos = cache.length[None]              # absolute position of the token
+    q = layers.apply_rope(q.reshape(b, 1, -1, hd), pos)
+    k = layers.apply_rope(k.reshape(b, 1, cfg.num_kv_heads, hd), pos)
+    length = _write(ctx, cache, k, v.reshape(b, 1, cfg.num_kv_heads, hd))
+    if cache.split:
+        o = _split_attend(ctx, q, cache.k, cache.v, length, cache.cap,
+                          ctx.r * cache.k.shape[1], window)
+    else:
+        o = _head_attend(ctx, cfg, q, cache.k, cache.v, length, window)
+    hl = cfg.num_heads // m
+    return x + ctx.leave(o.reshape(b, 1, hl * hd) @ p["wo"])
+
+
+def cross_decode(ctx: MeshContext, cfg, p, x, k, v, split: bool):
+    """Whisper's cross-attention for one token against this rank's block
+    k, v (B, S_enc/m, Hkv, hd) of the cached encoder K and V (all of
+    them where m does not divide S_enc), every slot valid, with the
+    residual: as :func:`attn_decode` without RoPE or a write."""
+    hd, m = cfg.head_dim, ctx.m
+    xn = layers.rms_norm(ctx.enter(x), p["xattn_norm"])
+    b = xn.shape[0]
+    q = xn @ p["xwq"]
+    frames = k.shape[1] * (m if split else 1)
+    length = torch.full((), frames, dtype=torch.int32, device=x.device)
+    if split:
+        q = _gather_cols(ctx, [q])[0].reshape(b, 1, cfg.num_heads, hd)
+        o = _split_attend(ctx, q, k, v, length, frames, ctx.r * k.shape[1])
+    else:
+        o = _head_attend(ctx, cfg, q.reshape(b, 1, -1, hd), k, v, length)
+    hl = cfg.num_heads // m
+    return x + ctx.leave(o.reshape(b, 1, hl * hd) @ p["xwo"])
 
 
 def leaf_specs(params, pspec):

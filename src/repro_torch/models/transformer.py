@@ -65,9 +65,11 @@ serves no image), and audio's cross-attention reads the cached encoder
 K and V through ``decode_attend``.
 
 ``build_model(cfg, mesh=..., layer_pspec_fn=...)`` runs every family's
-forward and loss on one rank's blocks of a production mesh
+forward, loss and decode on one rank's blocks of a production mesh
 (:class:`Model`, :mod:`repro_torch.models.sharded`; the moe family's
-FFNs expert-parallel); decode raises there.
+FFNs expert-parallel); its decode state is the rank's blocks of
+``placement.decode_state_shardings``' specs
+(:class:`MeshDecodeState`).
 """
 from __future__ import annotations
 
@@ -78,7 +80,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import Device, resolve_device, tree
+from repro_torch import Device, placement, resolve_device, tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, moe, rglru, rwkv6, sharded
 from repro_torch.parallel import data_axes
@@ -457,6 +459,22 @@ class DecodeState(NamedTuple):
     cross_v: torch.Tensor
 
 
+class MeshDecodeState(DecodeState):
+    """One rank's blocks of a :class:`DecodeState` on a production mesh,
+    with ``placement``: the state of specs
+    (``placement.decode_state_shardings``) they were cut by, which
+    ``decode_step`` reads (the cache's capacity and whether its sequence
+    is split over ``model``).  ``_replace`` keeps it, and so does
+    ``tree.map`` (``tree.map(torch.clone, state)`` keeps a state); a
+    state made anew from its fields loses it and ``decode_step``
+    raises."""
+
+    def _replace(self, **fields):
+        out = super()._replace(**fields)
+        out.placement = getattr(self, "placement", None)
+        return out
+
+
 def _empty(device):
     return torch.zeros((0,), dtype=torch.float32, device=device)
 
@@ -464,7 +482,7 @@ def _empty(device):
 @dataclasses.dataclass(frozen=True)
 class Model:
     """``mesh`` (a :class:`repro_torch.launch.mesh.ProductionMesh`) runs
-    the forward and the loss on this rank's blocks of the parameters
+    the forward, the loss and decode on this rank's blocks of the parameters
     (:func:`repro_torch.launch.sharding.shard_params`) and its rows of the
     batch (``sharding.local_batch``: the tokens, the vlm's image and
     whisper's frame embeddings), as :mod:`repro_torch.models.sharded`
@@ -526,12 +544,6 @@ class Model:
         if cfg.family == "ssm" and cfg.rwkv_heads % m:
             raise ValueError(f"{m} model ranks do not divide {cfg.name}'s "
                              f"{cfg.rwkv_heads} rwkv_heads")
-
-    def _no_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a production mesh is not ported (ROADMAP.md "
-                "queue 1: decode and ckpt/io.py on the mesh)")
 
     def mesh_context(self) -> sharded.MeshContext:
         """What the sharded blocks read of this model's mesh."""
@@ -773,10 +785,33 @@ class Model:
         reference) and the RG-LRU state and conv context a recurrent
         layer; vlm as dense; audio as dense, and the cross-attention's K
         and V of ``encoder_seq`` frames a layer, zero until
-        :meth:`precompute_cross`."""
-        self._no_mesh("init_decode")
-        cfg = self.cfg
+        :meth:`precompute_cross`.
+
+        On a mesh: this rank's blocks, a :class:`MeshDecodeState`, of
+        ``placement.decode_state_shardings``' specs for
+        ``batch_size`` sequences of ``max_len`` (the batch over the data
+        axes where they divide it, the caches' sequence over ``model``
+        where m divides it, the recurrent states' heads or channels over
+        ``model``), each allocated at its block's shape: the whole state
+        is laid out on the meta device only."""
+        if self.mesh is None:
+            return self._zeros(batch_size, max_len, resolve_device(device))
         dev = resolve_device(device)
+        whole = self._zeros(batch_size, max_len, torch.device("meta"))
+        specs = placement.decode_state_shardings(
+            self.cfg, placement.decode_shape(batch_size, max_len), self.mesh,
+            whole)
+        state = MeshDecodeState(*(
+            torch.zeros(placement.block_shape(t.shape, s, self.mesh),
+                        dtype=t.dtype, device=dev)
+            for t, s in zip(whole, specs)))
+        state.placement = specs
+        return state
+
+    def _zeros(self, batch_size: int, max_len: int, dev) -> DecodeState:
+        """The whole zero decode state on ``dev`` (see :meth:`init_decode`;
+        nothing allocated on the meta device)."""
+        cfg = self.cfg
         n_attn = self._n_attn_layers()
         if cfg.family == "hybrid":
             cap = min(cfg.local_window, max_len)
@@ -815,6 +850,17 @@ class Model:
             kv_k=kv_k, kv_v=kv_v, rec_h=rec_h, rec_conv=rec_conv,
             cross_k=cross_k, cross_v=cross_v)
 
+    def _placement(self, state) -> DecodeState:
+        """The specs a mesh decode state's blocks were cut by."""
+        specs = getattr(state, "placement", None)
+        if specs is None:
+            raise ValueError(
+                "a decode on a production mesh takes the MeshDecodeState "
+                "that Model.init_decode made there: this rank's blocks of "
+                "repro_torch.placement.decode_state_shardings' specs and the "
+                f"specs, not a {type(state).__name__} of whole leaves")
+        return specs
+
     @torch.no_grad()
     def precompute_cross(self, params, batch, state: DecodeState):
         """Whisper: run the encoder once over ``batch["frame_embeds"]``
@@ -822,16 +868,52 @@ class Model:
         and V, (L, B, S_enc, Hkv, hd) in the activation dtype (new
         tensors, as the reference's; S_enc is the frames' length).  The
         encoder's attention runs the flash kernel's unmasked instance on
-        the card; decode then reads these without a kernel."""
-        if self.cfg.family != "audio":
-            raise ValueError(f"precompute_cross: the {self.cfg.family!r} "
+        the card; decode then reads these without a kernel.
+
+        On a mesh: ``params`` this rank's blocks, ``batch`` its rows of
+        the frames (``placement.decode_rows``), ``state`` its
+        :class:`MeshDecodeState`; the sharded encoder
+        (``models.sharded``), each layer's ``xwk`` and ``xwv`` columns
+        gathered over ``model``, and the rank's block of S_enc in the
+        table's layout (the sequence over ``model`` where m divides
+        S_enc)."""
+        cfg = self.cfg
+        if cfg.family != "audio":
+            raise ValueError(f"precompute_cross: the {cfg.family!r} "
                              "family has no cross-attention")
-        enc = self._encode(params, batch)
-        ks, vs = zip(*(_cross_kv(self.cfg, p, enc)
-                       for p in self._layers(params["blocks"])))
-        ad = self.cfg.adtype
-        return state._replace(cross_k=torch.stack(ks).to(ad),
-                              cross_v=torch.stack(vs).to(ad))
+        ad = cfg.adtype
+        if self.mesh is None:
+            enc = self._encode(params, batch)
+            ks, vs = zip(*(_cross_kv(cfg, p, enc)
+                           for p in self._layers(params["blocks"])))
+            return state._replace(cross_k=torch.stack(ks).to(ad),
+                                  cross_v=torch.stack(vs).to(ad))
+        mesh, place = self.mesh, self._placement(state)
+        ctx = self.mesh_context()
+        enc = self._mesh_encode(ctx, params, batch)    # (B_loc, S_enc, D)
+        b, se, _ = enc.shape
+        whole = DecodeState(*(
+            torch.empty(placement.whole_shape(t.shape, s, mesh),
+                        dtype=t.dtype, device="meta")
+            for t, s in zip(state, place)))
+        shape = (cfg.num_layers, whole.kv_k.shape[1], se, cfg.num_kv_heads,
+                 cfg.head_dim)
+        whole = whole._replace(cross_k=torch.empty(shape, device="meta"),
+                               cross_v=torch.empty(shape, device="meta"))
+        spec = placement.decode_state_shardings(
+            cfg, placement.decode_shape(shape[1], 1), mesh, whole).cross_k
+        ks, vs = [], []
+        for shards in sharded.layer_shards(params["blocks"]):
+            p = ctx.layer(shards)
+            for out, t in zip((ks, vs), sharded._gather_cols(
+                    ctx, [enc @ p["xwk"], enc @ p["xwv"]])):
+                t = t.reshape(b, se, cfg.num_kv_heads, cfg.head_dim)
+                # the rows are this rank's already: the sequence's block
+                out.append(placement.local_block(t, (None, *spec[2:]), mesh))
+        out = state._replace(cross_k=torch.stack(ks).to(ad),
+                             cross_v=torch.stack(vs).to(ad))
+        out.placement = place._replace(cross_k=spec, cross_v=spec)
+        return out
 
     @torch.no_grad()
     def decode_step(self, params, state: DecodeState, tokens):
@@ -843,9 +925,17 @@ class Model:
         (``index_copy_``, no copy of the cache), and the WKV and RG-LRU
         states, shifts and conv contexts are overwritten; only ``length``
         is a new tensor, one device scalar for the batch, so the step
-        never syncs with the host.  Clone a state to keep it.  Runs
-        without autograd."""
-        self._no_mesh("decode_step")
+        never syncs with the host.  Clone a state to keep it
+        (``tree.map(torch.clone, state)``, on a mesh too).  Runs
+        without autograd.
+
+        On a mesh (:meth:`_mesh_decode_step`): ``params`` this rank's
+        blocks, ``state`` its :class:`MeshDecodeState`, ``tokens`` its
+        rows (``placement.decode_rows``) → its rows' logits,
+        gathered over the vocab: the same on every rank of its model
+        group."""
+        if self.mesh is not None:
+            return self._mesh_decode_step(params, state, tokens)
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"]).to(cfg.adtype)  # (B, 1, D)
         x = {"dense": self._dense_decode, "vlm": self._dense_decode,
@@ -854,6 +944,74 @@ class Model:
              "audio": self._audio_decode}[cfg.family](params, state, x)
         x = layers.rms_norm(x, params["final_norm"])
         logits = layers.unembed(x, params["embed"])
+        return logits, state._replace(length=state.length + 1)
+
+    def _mesh_decode_step(self, params, state: DecodeState, tokens):
+        """The decode step on the mesh, every family: the vocab-parallel
+        lookup, each layer's one-token blocks (``models.sharded``:
+        ``attn_decode`` against the rank's cache slots, ``cross_decode``,
+        ``rwkv_block`` / ``recurrent_block`` on the rank's heads or
+        channels of their states, the dense and expert-parallel FFNs), the
+        final norm, the rank's vocab block of the logits gathered over
+        ``model``.  Each layer's leaves split over ``data`` are gathered
+        a layer at a time (``MeshContext.layer``)."""
+        cfg = self.cfg
+        place = self._placement(state)
+        ctx = self.mesh_context()
+        table = ctx.gathered("embed", params["embed"])
+        x = sharded.embed(ctx, tokens, table).to(cfg.adtype)
+        split = state.kv_k.dim() > 1 and place.kv_k[2] is not None
+        cap = state.kv_k.shape[2] * ctx.m if split \
+            else state.kv_k.shape[2] if state.kv_k.dim() > 1 else 0
+        caches = [sharded.Slots(k, v, state.length, cap, split)
+                  for k, v in zip(state.kv_k, state.kv_v)] \
+            if state.kv_k.dim() > 1 else []
+        recs = list(zip(state.rec_h, state.rec_conv)) \
+            if state.rec_h.dim() > 1 else []
+        fam = cfg.family
+        window = cfg.local_window if fam == "hybrid" else self.decode_window
+
+        def attn(p, x, cache):
+            x = sharded.attn_decode(ctx, cfg, p, x, cache, window=window)
+            return x + sharded.ffn(ctx, cfg, p, x)
+
+        def moe_layer(p, x, cache):
+            x = sharded.attn_decode(ctx, cfg, p, x, cache, window=window)
+            return sharded.moe_ffn_block(ctx, cfg, p, x,
+                                         self.moe_weight_mode)[0]
+
+        att, rec = iter(caches), iter(recs)
+        for key, _, _, _ in _stacks(cfg):
+            if key == "encoder":          # audio's, run by precompute_cross
+                continue
+            for i, shards in enumerate(sharded.layer_shards(params[key])):
+                p = ctx.layer(shards)
+                if fam in ("dense", "vlm"):
+                    x = attn(p, x, next(att))
+                elif fam == "ssm":
+                    x = sharded.rwkv_block(ctx, p, x, next(rec))
+                elif fam == "audio":
+                    x = sharded.attn_decode(ctx, cfg, p, x, next(att),
+                                            window=window)
+                    x = sharded.cross_decode(
+                        ctx, cfg, p, x, state.cross_k[i], state.cross_v[i],
+                        place.cross_k[2] is not None)
+                    x = x + sharded.ffn(ctx, cfg, p, x)
+                elif key == "tail":
+                    x = sharded.recurrent_block(ctx, cfg, p, x, next(rec))
+                elif fam == "hybrid":
+                    for r in range(cfg.pattern_recurrent):
+                        x = sharded.recurrent_block(
+                            ctx, cfg, _prefixed(p, f"r{r}_"), x, next(rec))
+                    for a in range(cfg.pattern_attn):
+                        x = attn(_prefixed(p, f"a{a}_"), x, next(att))
+                elif cfg.moe_every == 1:
+                    x = moe_layer(p, x, next(att))
+                else:
+                    x = attn(_prefixed(p, "d_"), x, next(att))
+                    x = moe_layer(_prefixed(p, "m_"), x, next(att))
+        x = layers.rms_norm(ctx.enter(x), params["final_norm"])
+        logits = self.mesh.all_gather(layers.unembed(x, table), "model", -1)
         return logits, state._replace(length=state.length + 1)
 
     def _dense_decode(self, params, state: DecodeState, x):

@@ -58,7 +58,8 @@ def _build(node, values, i):
             kid, i = _build(k, values, i)
             kids.append(kid)
         if hasattr(node, "_fields"):                 # a NamedTuple
-            return type(node)(*kids), i
+            # by _replace, so that a subclass keeps what it carries
+            return node._replace(**dict(zip(node._fields, kids))), i
         return tuple(kids), i
     return values[i], i + 1
 

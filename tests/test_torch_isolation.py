@@ -8,6 +8,7 @@
   and training launchers (``launch.serve.main``, ``launch.train.main``),
   ``Model.init_decode`` and ``ckpt.io.restore`` raise unless the caller
   passes ``device="cpu"`` (``--device cpu``).
+* ``models/`` and ``ckpt/`` import nothing of ``launch/``.
 * The cases modules the spawned mesh ranks import
   (``tests/torch_mesh_cases.py``, ``tests/torch_group_mesh_cases.py``)
   load neither.
@@ -71,6 +72,33 @@ def test_sources_import_no_jax_or_reference():
     for f in files:
         hits = _IMPORT.findall(f.read_text())
         assert not hits, (f, hits)
+
+
+_LAUNCH = re.compile(r"^\s*(from\s+repro_torch\.launch\b|from\s+repro_torch\s+"
+                     r"import\s+[^\n]*\blaunch\b|import\s+repro_torch\."
+                     r"launch\b)", re.MULTILINE)
+
+
+def test_models_and_ckpt_import_nothing_of_launch():
+    """The layers stay in order: ``models/`` and ``ckpt/`` read the
+    mesh's placement through ``repro_torch.placement`` and the caller's
+    ``layer_pspec_fn``, never from ``launch/``, which imports them; and
+    importing them loads no ``launch`` module."""
+    files = sorted((PKG / "models").glob("*.py")) \
+        + sorted((PKG / "ckpt").glob("*.py")) + [PKG / "placement.py"]
+    assert {"transformer.py", "sharded.py", "io.py"} \
+        <= {f.name for f in files}
+    for f in files:
+        hits = _LAUNCH.findall(f.read_text())
+        assert not hits, (f, hits)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.models.transformer, repro_torch.ckpt.io;"
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('repro_torch.launch')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 @pytest.fixture

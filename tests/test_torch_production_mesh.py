@@ -44,7 +44,8 @@ Held:
 * the parameters' round trip through ``shard_params`` / ``gather_params``
   bit for bit; the refusals: a grid that is not the world's size, nccl
   on a CPU device, m ∤ E, m ∤ ``rwkv_heads``, a ``"stationary"`` train
-  step, decode and ``init_decode`` on a mesh, a ``dp_axes`` other than
+  step, a mesh decode step without the rank's decode state (and the
+  KV cache block ``init_decode`` gives the rank), a ``dp_axes`` other than
   the data axes, a mesh model without its ``layer_pspec_fn``, a mesh
   without a process group; the moe family expert-parallel on a mesh and
   not off it.  (The other families' steps on the mesh:
@@ -299,9 +300,13 @@ def test_refusals_in_the_world(world):
         and "3 rwkv_heads" in ref["rwkv_heads"][1]
     assert ref["stationary_train"][0] == "ValueError" \
         and "moe_weight_mode='fsdp'" in ref["stationary_train"][1]
-    for key in ("decode", "decode_step"):
-        assert ref[key][0] == "NotImplementedError" \
-            and "decode and ckpt/io.py" in ref[key][1]
+    # decode runs on the mesh: the rank's block of the (L, B, C, Hkv, hd)
+    # cache, B = 2 over data and C = 8 over model; a step from no state
+    # refuses
+    assert ref["decode"] == ((2, 1, 4, 4, 64),
+                             (None, "data", "model", None, None))
+    assert ref["decode_step"][0] == "ValueError" \
+        and "MeshDecodeState" in ref["decode_step"][1]
     assert ref["placement"][0] == "ValueError" \
         and "layer_pspec_fn" in ref["placement"][1]
     assert ref["expert_parallel"] is True

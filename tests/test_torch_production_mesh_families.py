@@ -39,8 +39,8 @@ Held:
   ``models.sharded.remat``), per family;
 * every family's parameters through ``shard_params`` / ``gather_params``
   bit for bit; ``input_specs`` of every family; the refusals: m ∤
-  ``rwkv_heads``, a ``"stationary"`` train step, decode and
-  ``init_decode``, the last two naming the ROADMAP item;
+  ``rwkv_heads``, a ``"stationary"`` train step, a mesh decode step
+  from a whole state (``init_decode`` gives the rank its blocks);
 * the bf16 routes of reduced qwen3-moe against the reference's
   ``moe.route`` from the same inputs (no world).
 """
@@ -254,9 +254,13 @@ def test_refusals_in_the_world(world):
         and "3 rwkv_heads" in ref["rwkv_heads"][1]
     assert ref["stationary"][0] == "ValueError" \
         and "stationary" in ref["stationary"][1]
-    for key in ("decode", "init_decode"):
-        assert ref[key][0] == "NotImplementedError" \
-            and "decode and ckpt/io.py on the mesh" in ref[key][1], key
+    # decode runs on the mesh (tests/test_torch_production_mesh_decode.py):
+    # the vlm's KV caches are the rank's (L, B/2, C/2, Hkv, hd) blocks; a
+    # step from the one-device model's whole state refuses
+    assert ref["init_decode"]["kv_k"] == (2, 1, 4, 4, 64)
+    assert ref["init_decode"]["length"] == ()
+    assert ref["decode"][0] == "ValueError" \
+        and "MeshDecodeState" in ref["decode"][1]
 
 
 def test_moe_bf16_routes_match_reference():

@@ -256,8 +256,10 @@ def _error(fn) -> tuple:
 def refusals(mesh) -> dict:
     """What a mesh refuses: a grid that is not the world's size, nccl on
     a CPU device, m ∤ E, m ∤ ``rwkv_heads``, a ``"stationary"`` train
-    step, decode, a model without its placement; and that the moe family
-    runs expert-parallel there."""
+    step, a decode step from a state that is not the rank's blocks, a
+    model without its placement; that the moe family runs
+    expert-parallel there, and the shape and placement of the KV cache
+    block ``init_decode`` gives the rank."""
     pspec = sharding.layer_pspec_fn(mesh)
     out = {"world": _error(lambda: make_mesh((2, 4), AXES, device="cpu"))}
     with mock.patch.object(dist, "get_backend", return_value="nccl"):
@@ -284,8 +286,9 @@ def refusals(mesh) -> dict:
                     layer_pspec_fn=sharding.layer_pspec_fn(
                         mesh, moe_fsdp_dim="f"))))
     cfg, params, _ = dense_setup(DENSE[0])
-    out["decode"] = _error(lambda: build_model(
-        cfg, mesh=mesh, layer_pspec_fn=pspec).init_decode(2, 8, device="cpu"))
+    state = build_model(cfg, mesh=mesh, layer_pspec_fn=pspec).init_decode(
+        2, 8, device="cpu")
+    out["decode"] = (tuple(state.kv_k.shape), state.placement.kv_k)
     out["decode_step"] = _error(lambda: build_model(
         cfg, mesh=mesh, layer_pspec_fn=pspec).decode_step(
             params, None, torch.zeros((2, 1), dtype=torch.int32)))

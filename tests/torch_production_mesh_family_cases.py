@@ -292,8 +292,9 @@ def _error(fn) -> tuple:
 
 def refusals(mesh) -> dict:
     """What a mesh still refuses: m ∤ ``rwkv_heads``, a ``"stationary"``
-    train step, decode and ``init_decode``; and that every family builds there, and that ``input_specs``
-    gives every family's batch."""
+    train step, a decode step from the one-device model's whole state;
+    that every family builds there, ``init_decode`` gives the vlm its
+    blocks, and ``input_specs`` gives every family's batch."""
     pspec = sharding.layer_pspec_fn(mesh)
     out = {}
     cfg_r = dataclasses.replace(reduced(get_config("rwkv6-7b")),
@@ -311,10 +312,12 @@ def refusals(mesh) -> dict:
     cfg, params, batch = setup("phi-3-vision-4.2b")
     model = models["phi-3-vision-4.2b"]
     p = sharding.shard_params(params, mesh)
-    out["init_decode"] = _error(lambda: model.init_decode(2, 8,
-                                                          device="cpu"))
+    state = model.init_decode(2, 8, device="cpu")
+    out["init_decode"] = {f: tuple(x.shape) for f, x in zip(state._fields,
+                                                            state)}
     out["decode"] = _error(lambda: steps.make_decode_step(model)(
-        p, None, {"tokens": batch["tokens"][:2, :1]}))
+        p, build_model(cfg).init_decode(2, 8, device="cpu"),
+        {"tokens": batch["tokens"][:2, :1]}))
     shape = InputShape("train_small", SEQ + 8, 4, "train")
     out["specs"] = {arch: {k: tuple(v.shape) for k, v in input_specs(
         m.cfg, shape).items()} for arch, m in models.items()}

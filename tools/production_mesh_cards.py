@@ -11,9 +11,16 @@ model) mesh has a card of its own and the collectives run on NCCL
 (``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``):
 the reduced llama3-8b (both ``act_tp``) and granite-34b train steps, the
 reduced qwen3-moe forward in both weight modes, and the reduced moe and
-family train and prefill steps (``chip_smoke.production_mesh_rank``),
-held by ``chip_smoke.pm_ranks_check``: the ranks bit for bit each other,
-within 1e-5 of the one-process run, the predicted collectives.
+family train and prefill steps, every reduced decode case of
+``tests/torch_production_mesh_decode_cases.py`` and a checkpoint saved on
+the mesh in each moe weight mode (``chip_smoke.production_mesh_rank``),
+held by ``chip_smoke.pm_ranks_check``: the ranks bit for bit each
+other, within the CPU tests' bounds of the one-process run (1e-5 in
+f32), the predicted collectives; the checkpoints read back whole on one
+device (``chip_smoke.pm_ckpt_check``).  Then three reduced decode cases
+(qwen3-moe expert-parallel in f32 and in bf16, llama3-8b in bf16) on a
+(1, 4) mesh of NCCL ranks (``chip_smoke.pm_decode_rank``), held the same
+way.
 
 Then qwen3-moe at full width (2 of 94 layers, bf16; one card holds
 neither its train step nor its fused update's f32 buffers) on four NCCL
@@ -39,8 +46,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,17 +80,39 @@ def main() -> int:
     kernels = {"flash_attention": fa.flash_attention_bhsd,
                "ssca_update": su.ssca_update_2d,
                "rwkv6_wkv": rw.rwkv6_wkv_bh}
-    dense, forward, family, _ = cs.pm_single_reduced(torch, kernels, "cuda")
+    dense, forward, family, _, decode = cs.pm_single_reduced(
+        torch, kernels, "cuda")
+    tmp = tempfile.mkdtemp(prefix="production_mesh_cards_")
+    ckpt_dir = os.path.join(tmp, "ckpt")
     t0 = time.perf_counter()
     ranks = LocalWorld(cs.production_mesh_rank, 4, backend="nccl",
-                       args=("cuda",), timeout_s=cs.MESH_TIMEOUT_S).join()
+                       args=("cuda", ckpt_dir),
+                       timeout_s=cs.MESH_TIMEOUT_S).join()
     seconds = time.perf_counter() - t0
-    summary = cs.pm_ranks_check(torch, ranks, (dense, forward, family),
+    summary = cs.pm_ranks_check(torch, ranks, (dense, forward, family,
+                                               decode),
                                 card, backend="nccl")
+    summary["ckpt"] = cs.pm_ckpt_check(ckpt_dir)
+    shutil.rmtree(tmp, ignore_errors=True)
+    layout, names = (1, 4), DECODE_1X4
+    t0 = time.perf_counter()
+    ranks = LocalWorld(cs.pm_decode_rank, 4, backend="nccl",
+                       args=(layout, names),
+                       timeout_s=cs.MESH_TIMEOUT_S).join()
+    decode_1x4 = {"world_seconds": time.perf_counter() - t0,
+                  **cs.pm_decode_check(ranks, {n: decode[n] for n in names},
+                                       layout)}
     moe_full = moe_full_width(torch, card)
     print(json.dumps({"nccl_ranks": 4, "world_seconds": seconds,
-                      "cases": summary, "moe_full_width": moe_full}))
+                      "cases": summary, "decode_1x4": decode_1x4,
+                      "moe_full_width": moe_full}))
     return 0
+
+
+# the reduced decode cases the (1, 4) NCCL mesh runs: expert-parallel in
+# f32 and in bf16, and the dense bf16 one (the split-K combine's f32
+# partials)
+DECODE_1X4 = ("qwen3-moe", "qwen3-moe bf16", "llama3-8b bf16")
 
 
 # the first step on (1, 4) against one card, relative, as measured on
